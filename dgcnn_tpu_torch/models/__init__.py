@@ -1,0 +1,11 @@
+"""Models: DGCNN on the dense layout."""
+
+from dgcnn_tpu_torch.models.dgcnn import (
+    DGCNN,
+    DGCNNNet,
+    apply_dense,
+    init_params,
+    num_params,
+)
+
+__all__ = ["DGCNN", "DGCNNNet", "apply_dense", "init_params", "num_params"]

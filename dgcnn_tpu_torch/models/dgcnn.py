@@ -1,0 +1,239 @@
+"""DGCNN on the dense layout — the port of dgcnn_tpu/models/dgcnn.py
+(`DGCNN` :41, `init_params` :88, the head :134, `_dense_trunk` :260,
+`apply_dense` :344):
+
+    4 × [GCNConv → tanh] with dims (F→32→32→32→1), skip-concat (97)
+    SortPooling k=30
+    Conv1d(1,16,97,97) → ReLU → MaxPool1d(2,2) → Conv1d(16,32,5,1) → ReLU
+    Linear(352,128) → ReLU → Dropout(0.5) → Linear(128,C) → log_softmax
+
+Parameters keep the reference's layout — weights [in, out], conv6 'HIO',
+the readout flattened time-major — so weights carry over by copy
+(parity/convert.py) and activations compare like with like. The
+functional `apply_dense(params, ...)` works on a nested dict of tensors
+shaped like the reference's pytree; `DGCNNNet` is the `nn.Module` that
+owns those tensors as parameters.
+
+fp32 only in this slice: bfloat16 compute is ROADMAP Queue 1 item 10.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from dgcnn_tpu_torch.batching.dense import DenseGraphBatch
+from dgcnn_tpu_torch.kernels.dense_trunk import gcn_trunk
+from dgcnn_tpu_torch.ops.readout import conv1d_readout
+from dgcnn_tpu_torch.ops.sort_pool import sort_pool_dense
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class DGCNN:
+    """Architecture hyperparameters (the reference's defaults)."""
+
+    num_features: int
+    num_classes: int
+    hidden_dims: Tuple[int, ...] = (32, 32, 32, 1)
+    sort_pool_k: int = 30
+    conv1d_channels: Tuple[int, int] = (16, 32)
+    conv1d_kernel: int = 5
+    dense_dim: int = 128
+    dropout_rate: float = 0.5
+
+    @property
+    def concat_dim(self) -> int:
+        return sum(self.hidden_dims)
+
+    @property
+    def flat_dim(self) -> int:
+        t = self.sort_pool_k // 2 - self.conv1d_kernel + 1
+        return t * self.conv1d_channels[1]
+
+
+def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
+    u = torch.rand(shape, generator=gen, dtype=torch.float32)
+    return (u * 2.0 - 1.0) * bound
+
+
+def init_params(gen: torch.Generator, model: DGCNN, device="cpu") -> Params:
+    """Fresh parameters from a CPU `torch.Generator` (so a seed gives the
+    same weights on every device), then moved to `device`. The bounds are
+    the reference's: PyG glorot U(±√(6/(fan_in+fan_out))) for the GCN
+    weights, zero GCN biases, and torch's kaiming-uniform(a=√5)
+    U(±1/√fan_in) for conv5, conv6, lin1 and lin2."""
+    gcn = []
+    in_dim = model.num_features
+    for out_dim in model.hidden_dims:
+        a = math.sqrt(6.0 / (in_dim + out_dim))
+        gcn.append({
+            "w": _uniform(gen, (in_dim, out_dim), a),
+            "b": torch.zeros(out_dim, dtype=torch.float32),
+        })
+        in_dim = out_dim
+
+    c5, c6 = model.conv1d_channels
+    cat = model.concat_dim
+    width = model.conv1d_kernel
+    flat = model.flat_dim
+
+    def kaiming(shape, fan_in):
+        return _uniform(gen, shape, 1.0 / math.sqrt(float(fan_in)))
+
+    params = {
+        "gcn": gcn,
+        "conv5": {"w": kaiming((cat, c5), cat), "b": kaiming((c5,), cat)},
+        "conv6": {
+            "w": kaiming((width, c5, c6), c5 * width),
+            "b": kaiming((c6,), c5 * width),
+        },
+        "lin1": {
+            "w": kaiming((flat, model.dense_dim), flat),
+            "b": kaiming((model.dense_dim,), flat),
+        },
+        "lin2": {
+            "w": kaiming((model.dense_dim, model.num_classes), model.dense_dim),
+            "b": kaiming((model.num_classes,), model.dense_dim),
+        },
+    }
+    return _map(params, lambda t: t.to(device))
+
+
+def _map(params: Params, fn) -> Params:
+    return {
+        "gcn": [{n: fn(t) for n, t in layer.items()} for layer in params["gcn"]],
+        **{
+            name: {n: fn(t) for n, t in params[name].items()}
+            for name in ("conv5", "conv6", "lin1", "lin2")
+        },
+    }
+
+
+def leaves(params: Params):
+    """The parameter tensors in the reference pytree's leaf order (sorted
+    keys: conv5, conv6, gcn, lin1, lin2; b before w)."""
+    out = []
+    for name in ("conv5", "conv6", "gcn", "lin1", "lin2"):
+        groups = params[name] if name == "gcn" else [params[name]]
+        out += [t for g in groups for t in (g["b"], g["w"])]
+    return out
+
+
+def num_params(params: Params) -> int:
+    return sum(t.numel() for t in leaves(params))
+
+
+class DGCNNNet(nn.Module):
+    """The model as an `nn.Module`: owns the parameters (state_dict keys
+    `gcn.<i>.w`, `gcn.<i>.b`, `conv5.w`, … in the reference layout) and
+    runs `apply_dense` in `forward`."""
+
+    def __init__(self, model: DGCNN, params: Params):
+        super().__init__()
+        self.model = model
+
+        def pd(d):
+            return nn.ParameterDict({n: nn.Parameter(t) for n, t in d.items()})
+
+        self.gcn = nn.ModuleList([pd(layer) for layer in params["gcn"]])
+        self.conv5 = pd(params["conv5"])
+        self.conv6 = pd(params["conv6"])
+        self.lin1 = pd(params["lin1"])
+        self.lin2 = pd(params["lin2"])
+
+    def params(self) -> Params:
+        """The parameters as the reference-shaped nested dict."""
+        return {
+            "gcn": [{"w": layer["w"], "b": layer["b"]} for layer in self.gcn],
+            **{
+                name: {"w": getattr(self, name)["w"], "b": getattr(self, name)["b"]}
+                for name in ("conv5", "conv6", "lin1", "lin2")
+            },
+        }
+
+    def forward(self, batch: DenseGraphBatch, *, deterministic: bool = True,
+                dropout_gen: Optional[torch.Generator] = None,
+                return_activations: bool = False):
+        return apply_dense(
+            self.params(), self.model, batch, deterministic=deterministic,
+            dropout_gen=dropout_gen, return_activations=return_activations,
+        )
+
+
+def _pooled_to_log_probs(
+    params: Params,
+    model: DGCNN,
+    pooled: torch.Tensor,  # [B, k, C]
+    deterministic: bool,
+    dropout_gen: Optional[torch.Generator],
+    acts: dict,
+) -> torch.Tensor:
+    """conv1d readout → MLP head → log_softmax."""
+    feats = conv1d_readout(
+        pooled,
+        params["conv5"]["w"], params["conv5"]["b"],
+        params["conv6"]["w"], params["conv6"]["b"],
+    )
+    acts["readout"] = feats
+    h = torch.relu(torch.matmul(feats, params["lin1"]["w"]) + params["lin1"]["b"])
+    if not deterministic:
+        if dropout_gen is None:
+            raise ValueError("dropout_gen required when deterministic=False")
+        keep = 1.0 - model.dropout_rate
+        mask = torch.rand(h.shape, generator=dropout_gen, device=h.device) < keep
+        h = torch.where(mask, h / keep, torch.zeros_like(h))
+    logits = torch.matmul(h, params["lin2"]["w"]) + params["lin2"]["b"]
+    log_probs = torch.log_softmax(logits, dim=-1)
+    acts["log_probs"] = log_probs
+    return log_probs
+
+
+def _dense_trunk(params: Params, model: DGCNN, batch: DenseGraphBatch,
+                 acts: dict) -> torch.Tensor:
+    """GCN stack + SortPooling → pooled [S, k, Σdims]. `x @ W1` is a plain
+    matmul; the adjacency-coupled chain runs in `gcn_trunk` (the CUDA
+    kernel on the card, its plain version on the CPU)."""
+    gcn = params["gcn"]
+    dims = tuple(model.hidden_dims)
+    hw1 = torch.matmul(batch.x, gcn[0]["w"])
+    wsel = torch.zeros(batch.adj.shape[0], dtype=torch.int32,
+                       device=batch.adj.device)
+    ws = tuple(layer["w"].unsqueeze(0) for layer in gcn[1:])
+    bs = tuple(layer["b"].unsqueeze(0) for layer in gcn)
+    cat = gcn_trunk(dims, batch.adj, hw1, batch.node_mask, wsel, ws, bs)
+    off = 0
+    for i, d in enumerate(dims):
+        acts[f"gcn{i + 1}"] = cat[:, :, off : off + d]
+        off += d
+    pooled = sort_pool_dense(cat, batch.node_mask, model.sort_pool_k)
+    acts["sort_pool"] = pooled
+    return pooled
+
+
+def apply_dense(
+    params: Params,
+    model: DGCNN,
+    batch: DenseGraphBatch,
+    *,
+    deterministic: bool = True,
+    dropout_gen: Optional[torch.Generator] = None,
+    return_activations: bool = False,
+):
+    """Forward pass on the dense layout → log-probabilities [S, C].
+    Padded slots give rows that the loss masks with `batch.graph_mask`.
+    With `return_activations=True` also returns the per-stage tensors
+    (`gcn1..L`, `sort_pool`, `readout`, `log_probs`)."""
+    acts: dict = {}
+    pooled = _dense_trunk(params, model, batch, acts)
+    log_probs = _pooled_to_log_probs(
+        params, model, pooled, deterministic, dropout_gen, acts
+    )
+    if return_activations:
+        return log_probs, acts
+    return log_probs
