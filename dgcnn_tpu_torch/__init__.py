@@ -6,10 +6,12 @@ found at the same path; inside, the code is PyTorch idiom: `nn.Module`s,
 plain functions on tensors, an explicit `device`, explicit
 `torch.Generator`s.
 
-This slice trains DGCNN on the dense layout through a hand-written CUDA
-GCN-trunk kernel (kernels/dense_trunk.py, csrc/dense_trunk.cu). Entry
-points run on `cuda` unless the caller passes `device="cpu"`; on a CPU
-tensor every kernel wrapper runs its plain PyTorch version instead.
+The port trains DGCNN on the dense layout through a hand-written CUDA
+GCN-trunk kernel (kernels/dense_trunk.py, csrc/dense_trunk.cu) and on the
+block-sparse layout through two hand-written CUDA block-propagation
+kernels (kernels/block_csr.py, kernels/block_resident.py). Entry points
+run on `cuda` unless the caller passes `device="cpu"`; on a CPU tensor
+every kernel wrapper runs its plain PyTorch version instead.
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,10 @@
 """Command-line interface — the port of dgcnn_tpu/cli.py, with the same
 flags. Runs on the GPU (`cuda`); `--platform cpu` runs the plain PyTorch
-path on the CPU. Flags whose paths this slice does not serve raise
+path on the CPU. Flags whose paths the port does not serve yet raise
 NotImplementedError naming the ROADMAP item that ports them.
 
     python -m dgcnn_tpu_torch.cli --data_type NCI1 --synthetic --layout dense
+    python -m dgcnn_tpu_torch.cli --data_type DD --synthetic   # block layout
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ def get_args(argv=None):
                         help="directory with {train,test}_idx-<k>.txt fold files")
     parser.add_argument("--layout", default="auto",
                         choices=["auto", "coo", "dense", "multi", "block", "halo"],
-                        help="batch layout (this slice serves dense; auto "
-                             "picks as the reference does)")
+                        help="batch layout (the port serves dense and "
+                             "block; auto picks as the reference does)")
     parser.add_argument("--mesh", default="1,1", type=str,
                         help="device mesh 'data,graph' (not ported: 1,1 only)")
     parser.add_argument("--multihost", action="store_true",
@@ -64,7 +65,11 @@ def get_args(argv=None):
                         help="adjacency storage dtype (auto = float32 here)")
     parser.add_argument("--block_impl", default="auto",
                         choices=["auto", "xla", "pallas"],
-                        help="block-sparse propagation (not ported: auto only)")
+                        help="block-sparse propagation kernel on the card: "
+                             "pallas = the CSR kernel, xla = the "
+                             "item-parallel kernel, auto = the faster on "
+                             "the DD main path; on the CPU every value runs "
+                             "the plain PyTorch version")
     parser.add_argument("--dense_trunk", default="auto",
                         choices=["auto", "xla", "fused"],
                         help="accepted for parity: the port always runs its "

@@ -10,6 +10,12 @@ ROADMAP item that ports them. What differs from the reference:
     H100's fp32 path does not do;
   * `dense_trunk` is accepted for flag parity, but the port always runs
     its CUDA trunk kernel on the card (kernels/dense_trunk.py);
+  * `block_impl` names the port's two block-propagation kernels:
+    "pallas" the CSR kernel (kernels/block_csr.py, the port of
+    block_pallas), "xla" the item-parallel kernel
+    (kernels/block_resident.py: per-item products, then a
+    destination-sorted segment sum, as a kernel); "auto" resolves by the
+    port's own H100 measurement (`resolved_block_impl`);
   * `xla_cache_dir`, `max_fused_epochs`, `coo_fuse_bytes` and
     `coo_assembly` are TPU dispatch knobs with no effect here.
 """
@@ -99,6 +105,14 @@ class Config:
         if self.adj_dtype != "auto":
             return self.adj_dtype
         return "float32"
+
+    def resolved_block_impl(self) -> str:
+        """Concrete block propagation kernel: "auto" → "pallas", the CSR
+        kernel, until the port's H100 A/B on the DD main path decides
+        (PERF.md)."""
+        if self.block_impl != "auto":
+            return self.block_impl
+        return "pallas"
 
     def __post_init__(self):
         if self.data_type not in DATASETS:

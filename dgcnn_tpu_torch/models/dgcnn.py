@@ -1,6 +1,6 @@
-"""DGCNN on the dense layout — the port of dgcnn_tpu/models/dgcnn.py
-(`DGCNN` :41, `init_params` :88, the head :134, `_dense_trunk` :260,
-`apply_dense` :344):
+"""DGCNN — the port of dgcnn_tpu/models/dgcnn.py (`DGCNN` :41,
+`init_params` :88, the head :134, `_dense_trunk` :260, `apply_dense` :344,
+`apply_block` :930, the layout dispatch of `apply` :1035):
 
     4 × [GCNConv → tanh] with dims (F→32→32→32→1), skip-concat (97)
     SortPooling k=30
@@ -10,9 +10,10 @@
 Parameters keep the reference's layout — weights [in, out], conv6 'HIO',
 the readout flattened time-major — so weights carry over by copy
 (parity/convert.py) and activations compare like with like. The
-functional `apply_dense(params, ...)` works on a nested dict of tensors
-shaped like the reference's pytree; `DGCNNNet` is the `nn.Module` that
-owns those tensors as parameters.
+functional `apply_dense` / `apply_block(params, ...)` work on a nested
+dict of tensors shaped like the reference's pytree; `DGCNNNet` is the
+`nn.Module` that owns those tensors as parameters and dispatches on the
+batch's layout.
 
 fp32 only in this slice: bfloat16 compute is ROADMAP Queue 1 item 10.
 """
@@ -26,10 +27,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from dgcnn_tpu_torch.batching.block_sparse import BlockBatch
 from dgcnn_tpu_torch.batching.dense import DenseGraphBatch
+from dgcnn_tpu_torch.kernels.block_csr import block_propagate_csr
+from dgcnn_tpu_torch.kernels.block_resident import block_propagate_resident
 from dgcnn_tpu_torch.kernels.dense_trunk import gcn_trunk
 from dgcnn_tpu_torch.ops.readout import conv1d_readout
-from dgcnn_tpu_torch.ops.sort_pool import sort_pool_dense
+from dgcnn_tpu_torch.ops.sort_pool import sort_pool, sort_pool_dense
 
 Params = Dict[str, Any]
 
@@ -132,7 +136,8 @@ def num_params(params: Params) -> int:
 class DGCNNNet(nn.Module):
     """The model as an `nn.Module`: owns the parameters (state_dict keys
     `gcn.<i>.w`, `gcn.<i>.b`, `conv5.w`, … in the reference layout) and
-    runs `apply_dense` in `forward`."""
+    runs `apply_dense` or, for a `BlockBatch`, `apply_block` in
+    `forward`."""
 
     def __init__(self, model: DGCNN, params: Params):
         super().__init__()
@@ -157,13 +162,22 @@ class DGCNNNet(nn.Module):
             },
         }
 
-    def forward(self, batch: DenseGraphBatch, *, deterministic: bool = True,
+    def forward(self, batch, *, deterministic: bool = True,
                 dropout_gen: Optional[torch.Generator] = None,
-                return_activations: bool = False):
-        return apply_dense(
-            self.params(), self.model, batch, deterministic=deterministic,
-            dropout_gen=dropout_gen, return_activations=return_activations,
-        )
+                return_activations: bool = False,
+                pool: Optional[torch.Tensor] = None,
+                block_impl: str = "pallas"):
+        """`batch` is a DenseGraphBatch or a BlockBatch; a BlockBatch also
+        needs the engine's adjacency block `pool` and the `block_impl`
+        that propagates over it."""
+        kw = dict(deterministic=deterministic, dropout_gen=dropout_gen,
+                  return_activations=return_activations)
+        if isinstance(batch, BlockBatch):
+            if pool is None:
+                raise ValueError("a BlockBatch needs the block pool")
+            return apply_block(self.params(), self.model, batch, pool,
+                               block_impl=block_impl, **kw)
+        return apply_dense(self.params(), self.model, batch, **kw)
 
 
 def _pooled_to_log_probs(
@@ -231,6 +245,66 @@ def apply_dense(
     (`gcn1..L`, `sort_pool`, `readout`, `log_probs`)."""
     acts: dict = {}
     pooled = _dense_trunk(params, model, batch, acts)
+    log_probs = _pooled_to_log_probs(
+        params, model, pooled, deterministic, dropout_gen, acts
+    )
+    if return_activations:
+        return log_probs, acts
+    return log_probs
+
+
+# block_impl → propagation: "pallas" is the CSR kernel (the port of
+# block_pallas), "xla" the item-parallel kernel (the reference's "per-item
+# products, then a destination-sorted segment-sum", written as a kernel).
+BLOCK_PROPAGATE = {
+    "pallas": block_propagate_csr,
+    "xla": block_propagate_resident,
+}
+
+
+def apply_block(
+    params: Params,
+    model: DGCNN,
+    batch: BlockBatch,
+    pool: torch.Tensor,
+    *,
+    deterministic: bool = True,
+    dropout_gen: Optional[torch.Generator] = None,
+    return_activations: bool = False,
+    block_impl: str = "pallas",
+):
+    """Forward pass on the block-sparse layout (batching/block_sparse.py)
+    → log-probabilities [slots, C]. Each GCN layer is `hw = h @ W` (a plain
+    matmul, as the reference leaves it to XLA), the block propagation
+    over the batch's work items (`block_impl`: "pallas" the CSR kernel,
+    "xla" the item-parallel kernel; on CPU tensors both run the plain
+    version), then bias, tanh and the node mask. SortPooling is the global
+    lexicographic sort with the row-block prefilter (row_block = bs)."""
+    if block_impl not in BLOCK_PROPAGATE:
+        raise ValueError(f"unknown block_impl {block_impl!r}")
+    propagate = BLOCK_PROPAGATE[block_impl]
+    bs = pool.shape[1]
+    s_nodes = batch.x.shape[0]
+    nb = s_nodes // bs
+    num_slots = batch.y.shape[0]
+    mask = batch.node_mask[:, None]
+
+    acts: dict = {}
+    h = batch.x
+    layer_outs = []
+    for i, layer in enumerate(params["gcn"]):
+        hb = torch.matmul(h, layer["w"]).reshape(nb, bs, -1)
+        agg = propagate(hb, pool, batch.item_pool, batch.item_row,
+                        batch.item_col, batch.item_permT, batch.item_colT,
+                        batch.num_items)
+        h = torch.tanh(agg.reshape(s_nodes, -1) + layer["b"]) * mask
+        layer_outs.append(h)
+        acts[f"gcn{i + 1}"] = h
+
+    cat = torch.cat(layer_outs, dim=-1)
+    pooled = sort_pool(cat, batch.node_graph, num_slots, model.sort_pool_k,
+                       row_block=bs)
+    acts["sort_pool"] = pooled
     log_probs = _pooled_to_log_probs(
         params, model, pooled, deterministic, dropout_gen, acts
     )

@@ -1,6 +1,6 @@
 """Cross-validation driver — the port of dgcnn_tpu/train/cv.py
-(`choose_layout` :141, `DenseEngine` :521, `run_fold` :1130,
-`run_cross_validation` :1301).
+(`choose_layout` :141, `_geom_round` :373, `BlockSparseEngine` :434,
+`DenseEngine` :521, `run_fold` :1130, `run_cross_validation` :1301).
 
 Protocol: for each fold, fresh weights and a fresh Adam, the fold's
 training graphs shuffled each epoch on numpy's
@@ -9,10 +9,10 @@ both packages see the same batches), train then evaluate every epoch,
 and write the per-fold CSV, the `epochs/` bundle, the overall CSV and the
 event log under the reference's file names.
 
-This slice serves the dense layout with folds run one after another.
-`choose_layout` answers as the reference does; every other layout,
-fold-lockstep, meshes, bf16, resume and the other options this slice does
-not serve raise NotImplementedError naming the ROADMAP item that ports
+The port serves the dense and block-sparse layouts with folds run one
+after another. `choose_layout` answers as the reference does; every other
+layout, fold-lockstep, meshes, bf16, resume and the other options not
+ported yet raise NotImplementedError naming the ROADMAP item that ports
 them (`check_supported`).
 
 Randomness: weights come from a CPU `torch.Generator` and dropout from a
@@ -30,11 +30,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dgcnn_tpu_torch.batching.block_sparse import block_graphset_bytes
+from dgcnn_tpu_torch.batching.block_sparse import (
+    block_batch_extents,
+    block_graphset_bytes,
+    block_graphset_to_device,
+    build_block_graphset,
+    gather_block_batch,
+)
 from dgcnn_tpu_torch.batching.dense import (
     build_dense_dataset,
     dense_dataset_bytes,
     dense_tile,
+    gather_dense_batch,
     order_matrix,
 )
 from dgcnn_tpu_torch.batching.multi_dense import multi_dense_bytes, plan_tiles
@@ -88,8 +95,6 @@ def check_supported(cfg: Config) -> None:
         unserved.append("opt_flatten (ROADMAP Queue 1 item 11)")
     if cfg.spmm_impl != "auto":
         unserved.append("spmm_impl, the COO SpMM kernels (ROADMAP Queue 2 items 4-6)")
-    if cfg.block_impl != "auto":
-        unserved.append("block_impl, the block-sparse kernels (ROADMAP Queue 2 items 2-3)")
     if unserved:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(unserved)
@@ -97,7 +102,6 @@ def check_supported(cfg: Config) -> None:
 
 
 _LAYOUT_ITEM = {
-    "block": "ROADMAP Queue 1 item 6",
     "multi": "ROADMAP Queue 1 item 7",
     "coo": "ROADMAP Queue 1 item 8",
     "halo": "ROADMAP Queue 1 item 12",
@@ -213,6 +217,16 @@ def choose_layout(cfg: Config, dataset: GraphSet) -> str:
     return "coo"
 
 
+def _geom_round(x: int, multiple: int, ratio: float = 1.3) -> int:
+    """Round up onto a geometric grid (ratio steps, multiple-aligned), the
+    reference's `DeviceCooEngine._geom_round`: padding waste stays under
+    `ratio` while a run sees few distinct budgets."""
+    v = multiple
+    while v < x:
+        v = _round_up(int(v * ratio) + 1, multiple)
+    return v
+
+
 class DenseEngine:
     """The dense layout's epoch engine: the whole dataset lives on the
     device in dense form; an epoch ships one [steps, slots] index matrix
@@ -238,8 +252,60 @@ class DenseEngine:
         order2d = order_matrix(
             self._train_idx[perm], self.cfg.batch_size, self.slots
         )
-        return run_epoch(net, optimizer, self.data, self._to_device(order2d),
-                         self._test_order, dropout_gen)
+        return run_epoch(net, optimizer,
+                         lambda row: gather_dense_batch(self.data, row),
+                         self._to_device(order2d), self._test_order, dropout_gen)
+
+
+class BlockSparseEngine:
+    """The block-sparse layout's epoch engine (batching/block_sparse.py):
+    the dataset lives on the device as a pool of nonzero 128×128
+    normalized-adjacency blocks plus block-row features, shipped once per
+    run; a batch is assembled on the device from a [slots] graph-id row,
+    and each GCN propagation runs one of the block kernels over its work
+    items (`cfg.resolved_block_impl()`). Budgets (block-rows, work items)
+    grow only, on a geometric grid (floors 8 and 64), sized by
+    `block_batch_extents` over each epoch's order matrix and the fold's
+    test order."""
+
+    def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device):
+        self.cfg = cfg
+        self.device = device
+        self.slots = _round_up(cfg.batch_size, cfg.graph_pad_multiple)
+        host = build_block_graphset(dataset)
+        self._nb = host.nb.astype(np.int64)
+        self._block_counts = host.block_count.astype(np.int64)
+        self.dev = block_graphset_to_device(host, device)
+        self.block_impl = cfg.resolved_block_impl()
+        self.floor_nb = 8
+        self.floor_w = 64
+
+    def budget_for(self, *order_mats: np.ndarray):
+        """Grow-only (nb, W) budgets covering every batch row given."""
+        nb = w = 1
+        for m in order_mats:
+            bn, bw = block_batch_extents(self._nb, self._block_counts, m)
+            nb, w = max(nb, bn), max(w, bw)
+        self.floor_nb = max(self.floor_nb, _geom_round(nb, 8))
+        self.floor_w = max(self.floor_w, _geom_round(w, 64))
+        return self.floor_nb, self.floor_w
+
+    def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
+        self._train_idx = np.asarray(train_idx, dtype=np.int32)
+        self._test_np = order_matrix(test_idx, self.cfg.batch_size, self.slots)
+        self._test_order = torch.from_numpy(self._test_np).to(self.device)
+
+    def run_epoch(self, net, optimizer, dropout_gen, perm: np.ndarray) -> np.ndarray:
+        order2d = order_matrix(
+            self._train_idx[perm], self.cfg.batch_size, self.slots
+        )
+        nb, w = self.budget_for(order2d, self._test_np)
+        return run_epoch(
+            net, optimizer,
+            lambda row: gather_block_batch(self.dev, row, nb, w),
+            torch.from_numpy(order2d).to(self.device), self._test_order,
+            dropout_gen, pool=self.dev.pool, block_impl=self.block_impl,
+        )
 
 
 def _stream_seed(seed: int, fold: int, stream: int) -> int:
@@ -258,7 +324,7 @@ def adam_state(net: DGCNNNet, optimizer: torch.optim.Adam) -> dict:
 
 
 def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
-             train_idx: np.ndarray, test_idx: np.ndarray, engine: DenseEngine,
+             train_idx: np.ndarray, test_idx: np.ndarray, engine,
              events: EventLog) -> FoldMetrics:
     """One fold: fresh weights and optimizer, `cfg.num_epochs` epochs of
     train + eval, then the fold's CSV and `epochs/` bundle."""
@@ -339,13 +405,18 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         cfg, dataset.num_features, dataset.num_classes, dataset.node_counts()
     )
     layout = choose_layout(cfg, dataset)
-    if layout != "dense":
+    if layout not in ("dense", "block"):
         raise NotImplementedError(
             f"the {layout!r} layout (chosen for {cfg.data_type}) is not ported "
-            f"yet ({_LAYOUT_ITEM[layout]}); this slice runs the dense layout"
+            f"yet ({_LAYOUT_ITEM[layout]}); the port runs the dense and block "
+            f"layouts"
         )
-    if _lockstep_would_engage(cfg, dataset, dense_tile(dataset)):
+    if layout == "dense" and _lockstep_would_engage(cfg, dataset,
+                                                     dense_tile(dataset)):
         print("fold-lockstep is not ported yet (ROADMAP Queue 1 item 5): "
+              "folds run sequentially")
+    if layout == "block" and _batched_lockstep_would_engage(cfg):
+        print("block fold-lockstep is not ported yet (ROADMAP Queue 1 item 9): "
               "folds run sequentially")
 
     fold_dir = cfg.fold_index_dir or os.path.join(
@@ -364,10 +435,13 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         num_features=dataset.num_features,
         num_classes=dataset.num_classes,
         layout=layout,
+        **({"block_impl": cfg.resolved_block_impl()} if layout == "block" else {}),
         num_params=num_params(init_params(torch.Generator().manual_seed(0), model)),
         device=str(device),
     )
-    engine = DenseEngine(cfg, dataset, device)
+    engine = (BlockSparseEngine if layout == "block" else DenseEngine)(
+        cfg, dataset, device
+    )
 
     train_accs, test_accs = [], []
     for fold_number, (train_idx, test_idx) in enumerate(folds, start=1):

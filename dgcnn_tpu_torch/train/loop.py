@@ -1,5 +1,6 @@
 """Training and evaluation loops — the port of dgcnn_tpu/train/loop.py
-(`nll_loss_and_correct` :38, the step :58-86, the epoch runners).
+(`nll_loss_and_correct` :38, the step :58-86, the epoch runners over a
+batch function: `_fused_run` and `make_block_run` :270-303).
 
 Contract with the reference:
   * loss per batch = NLL mean over the batch's real graphs; the epoch
@@ -15,12 +16,11 @@ the host once, at the epoch's end: no per-batch `.item()`.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from dgcnn_tpu_torch.batching.dense import DenseDataset, DenseGraphBatch, gather_dense_batch
 from dgcnn_tpu_torch.models.dgcnn import DGCNNNet
 
 
@@ -49,59 +49,67 @@ def make_optimizer(net: DGCNNNet, lr: float = 1e-3, b1: float = 0.9,
 def train_step(
     net: DGCNNNet,
     optimizer: torch.optim.Optimizer,
-    batch: DenseGraphBatch,
+    batch,
     dropout_gen: Optional[torch.Generator],
+    **fwd_kw,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One update: forward with dropout → masked NLL → backward → Adam.
-    Returns the batch's (loss, correct) as device scalars."""
+    `fwd_kw` goes to the forward (the block layout's `pool` and
+    `block_impl`). Returns the batch's (loss, correct) as device scalars."""
     optimizer.zero_grad(set_to_none=True)
-    log_probs = net(batch, deterministic=False, dropout_gen=dropout_gen)
+    log_probs = net(batch, deterministic=False, dropout_gen=dropout_gen, **fwd_kw)
     loss, correct = nll_loss_and_correct(log_probs, batch.y, batch.graph_mask)
     loss.backward()
     optimizer.step()
     return loss.detach(), correct
 
 
-def train_epoch(net, optimizer, data: DenseDataset, order2d: torch.Tensor,
-                dropout_gen) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Train over the rows of an on-device [steps, slots] index matrix;
-    returns (mean batch loss, correct count) as device scalars."""
+BatchFn = Callable[[torch.Tensor], object]
+
+
+def train_epoch(net, optimizer, batch_fn: BatchFn, order2d: torch.Tensor,
+                dropout_gen, **fwd_kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train over the rows of an on-device [steps, slots] index matrix,
+    each row assembled into a batch on the device by `batch_fn`; returns
+    (mean batch loss, correct count) as device scalars."""
     net.train()
     losses, corrects = [], []
     for row in order2d:
-        loss, correct = train_step(
-            net, optimizer, gather_dense_batch(data, row), dropout_gen
-        )
+        loss, correct = train_step(net, optimizer, batch_fn(row), dropout_gen,
+                                   **fwd_kw)
         losses.append(loss)
         corrects.append(correct)
     return torch.stack(losses).mean(), torch.stack(corrects).sum()
 
 
 @torch.no_grad()
-def eval_epoch(net, data: DenseDataset, order2d: torch.Tensor
+def eval_epoch(net, batch_fn: BatchFn, order2d: torch.Tensor, **fwd_kw
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dropout off, no gradients; (mean batch loss, correct count)."""
     net.eval()
     if order2d.shape[0] == 0:
-        zero = torch.zeros((), device=data.adj.device)
+        zero = torch.zeros((), device=order2d.device)
         return zero, zero
     losses, corrects = [], []
     for row in order2d:
-        batch = gather_dense_batch(data, row)
+        batch = batch_fn(row)
         loss, correct = nll_loss_and_correct(
-            net(batch, deterministic=True), batch.y, batch.graph_mask
+            net(batch, deterministic=True, **fwd_kw), batch.y, batch.graph_mask
         )
         losses.append(loss)
         corrects.append(correct)
     return torch.stack(losses).mean(), torch.stack(corrects).sum()
 
 
-def run_epoch(net, optimizer, data: DenseDataset, order2d: torch.Tensor,
-              test_order2d: torch.Tensor, dropout_gen) -> np.ndarray:
-    """One epoch of train + eval. Returns the host row
-    (train_loss, test_loss, train_correct, test_correct) — the epoch's one
-    device-to-host transfer."""
-    tr_loss, tr_correct = train_epoch(net, optimizer, data, order2d, dropout_gen)
-    te_loss, te_correct = eval_epoch(net, data, test_order2d)
+def run_epoch(net, optimizer, batch_fn: BatchFn, order2d: torch.Tensor,
+              test_order2d: torch.Tensor, dropout_gen, **fwd_kw) -> np.ndarray:
+    """One epoch of train + eval over any layout (the counterpart of the
+    reference's `_fused_run(batch_fn, ...)`): `batch_fn(row)` assembles a
+    batch from a [slots] graph-id row on the device, `fwd_kw` goes to the
+    forward. Returns the host row (train_loss, test_loss, train_correct,
+    test_correct) — the epoch's one device-to-host transfer."""
+    tr_loss, tr_correct = train_epoch(net, optimizer, batch_fn, order2d,
+                                      dropout_gen, **fwd_kw)
+    te_loss, te_correct = eval_epoch(net, batch_fn, test_order2d, **fwd_kw)
     row = torch.stack([tr_loss, te_loss, tr_correct, te_correct])
     return row.cpu().double().numpy()
