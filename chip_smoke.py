@@ -21,6 +21,13 @@ CUDA is absent or any phase fails. Phases:
         F ∈ {32, 1}, forward and transposed: against the plain version,
         gradients against autograd of the plain forward, two runs
         bitwise equal, unvisited rows exactly 0;
+     c. the three COO SpMM kernels (row-parallel CSR, edge-block,
+        block-COO) on the DD COO main path's mean and largest batch and an
+        NCI1 COO batch, F ∈ {32, 1}, with random weights on the real
+        edges: forward and dh against the plain version and autograd of
+        it, two runs bitwise equal, rows with no edge exactly 0; on an NCI1
+        batch that fills its bucket, padded edges (weight 0, into the real
+        node N−1) add exactly nothing;
   4. the main paths, each with its launch counts set to 0 just before
      and read just after:
      a. the CLI trains synthetic NCI1 (dense layout, batch 50) for
@@ -30,15 +37,24 @@ CUDA is absent or any phase fails. Phases:
         1 fold × 1 epoch with the other `--block_impl` (CSR kernel =
         pallas, item-parallel kernel = xla); one DD batch on the card
         against the CPU through each kernel;
+     c. the CLI trains synthetic DD with `--layout coo`: `--spmm auto` for
+        2 folds × 2 epochs, then the other device-assembled name and
+        `--spmm pallas` (host-packed, block-pair structures) for 1 fold ×
+        1 epoch each, and synthetic NCI1 `--layout coo --spmm pallas` for
+        1 fold × 1 epoch; launches exactly 4 × (train + eval steps)
+        forward and 4 × train steps backward on the named kernel, 0 on the
+        others; one DD and one NCI1 COO batch on the card against the CPU
+        through each kernel;
   5. device times: each call captured `REPS` times in one CUDA graph,
      the graph replayed and timed with CUDA events, so the host's launch
      rate is out of the number; warm (operands left in L2 by the
      previous call) and after a 64 MB L2-flushing write (the write's own
      time, measured the same way, subtracted). Kernel, plain version,
      bound and the library yardstick (`torch.sparse_bsr_tensor` @ dense
-     for the block kernels);
-  6. one `torch.profiler` table of a single train step for NCI1 dense
-     and DD block (top 10 CUDA kernels) and each step's wall time;
+     for the block kernels, `torch.sparse_csr_tensor` @ dense, cuSPARSE,
+     for the SpMM kernels at the DD COO mean and largest batch);
+  6. one `torch.profiler` table of a single train step for NCI1 dense,
+     DD block and DD COO (top 10 CUDA kernels) and each step's wall time;
   7. one JSON line describing every kernel, the card line again, and
      the final `{"ok": true, ...}` line.
 """
@@ -487,6 +503,314 @@ def time_block(ctx, r, flush, device):
     return rows
 
 
+# -- phase 3c: the SpMM kernels -------------------------------------------
+
+
+SPMM_KERNELS = ("spmm_rows", "spmm_edge_block", "spmm_block_coo")
+SPMM_KERNEL_OF = {"xla": "spmm_rows", "onehot": "spmm_edge_block",
+                  "pallas": "spmm_block_coo"}
+
+
+def spmm_counters():
+    """name → the kernel's launch counts."""
+    from dgcnn_tpu_torch.kernels import spmm_block_coo as sbc
+    from dgcnn_tpu_torch.kernels import spmm_pallas as sp
+
+    return {"spmm_rows": sp.rows_launches, "spmm_edge_block": sp.edge_block_launches,
+            "spmm_block_coo": sbc.launches}
+
+
+class CooContext:
+    """Synthetic `name` in the COO layout on the card (DeviceCooEngine),
+    and the batches of the main path's first fold-epoch (CLI defaults:
+    seed 324, batch 50, 2 folds)."""
+
+    def __init__(self, name, device, gs=None):
+        from dgcnn_tpu_torch.batching.dense import order_matrix
+        from dgcnn_tpu_torch.config import Config
+        from dgcnn_tpu_torch.data.folds import get_folds
+        from dgcnn_tpu_torch.data.synthetic import synthesize_tu_dataset
+        from dgcnn_tpu_torch.train.cv import DeviceCooEngine
+
+        self.name, self.device = name, device
+        self.gs = gs if gs is not None else synthesize_tu_dataset(name)
+        cfg = Config(data_type=name, batch_size=50, layout="coo")
+        t0 = time.perf_counter()
+        self.engine = DeviceCooEngine(cfg, self.gs, device)
+        torch.cuda.synchronize()
+        self.build_s = time.perf_counter() - t0
+        tr, te = get_folds(self.gs.y, "", 2, cfg.seed, data_type=name)[0]
+        self.engine.begin_fold(tr, te)
+        rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, 1]))
+        self.order = order_matrix(np.asarray(tr, np.int32)[rng.permutation(len(tr))],
+                                  50, self.engine.slots)
+        self.test = self.engine._test_np
+        self.bucket = self.engine.bucket_for(self.order, self.test)
+        self.rows = np.concatenate([self.order, self.test])
+        valid = self.rows >= 0
+        safe = np.maximum(self.rows, 0)
+        self.row_nodes = (self.engine._node_counts[safe] * valid).sum(1)
+        self.row_edges = (self.engine._edge_counts[safe] * valid).sum(1)
+        train_e = self.row_edges[: len(self.order)]
+        self.mean_row = int(np.argmin(np.abs(train_e - train_e.mean())))
+        self.max_row = int(np.argmax(self.row_edges))
+        log(f"synthetic {name} COO: {self.gs.num_graphs} graphs; graphset on the "
+            f"card in {self.build_s:.1f} s; fold 1 epoch 1: {len(self.order)} train + "
+            f"{len(self.test)} test batches, nodes per batch mean "
+            f"{self.row_nodes[:len(self.order)].mean():.0f} max {self.row_nodes.max()}, "
+            f"edges mean {train_e.mean():.0f} max {self.row_edges.max()}; bucket "
+            f"{self.bucket.num_nodes} nodes, {self.bucket.num_edges} edges")
+
+    def host_batch(self, r):
+        from dgcnn_tpu_torch.batching.packer import pack_batch
+
+        ids = self.rows[r]
+        return pack_batch(self.gs, ids[ids >= 0], self.bucket)
+
+    def batch(self, r):
+        from dgcnn_tpu_torch.batching.device_coo import gather_coo_batch
+
+        row = torch.from_numpy(self.rows[r]).to(self.device)
+        return gather_coo_batch(self.engine.dev, row, self.bucket)
+
+
+class SpmmCase:
+    """One COO batch on the card as the SpMM kernels take it: random
+    weights on the real edges (0 on padding), the batch's `EdgeOrder`
+    (padding left out) and the block-pair structure built on the host from
+    the real edges, with `item_headroom` sentinel items past the real ones."""
+
+    def __init__(self, b, seed, device, item_headroom=16):
+        from dgcnn_tpu_torch.kernels.spmm_block_coo import (
+            build_block_coo, pad_structure, pad_weights, pad_weights_t)
+        from dgcnn_tpu_torch.ops.spmm import edge_order
+
+        self.n = b.x.shape[0]
+        self.src, self.dst = b.edge_src, b.edge_dst
+        gen = torch.Generator(device=device).manual_seed(seed)
+        self.w = (torch.rand(b.edge_mask.shape, generator=gen, device=device)
+                  + 0.5) * b.edge_mask
+        self.order = edge_order(self.src, self.dst, self.n, edge_mask=b.edge_mask,
+                                dst_sorted=True)
+        self.e_real = int(self.order.row_ptr[-1])
+        real = b.edge_mask.cpu().numpy() > 0
+        w_r = self.w.cpu().numpy()[real]
+        s = build_block_coo(self.src.cpu().numpy()[real], self.dst.cpu().numpy()[real],
+                            self.n)
+        self.items = (s.ls.shape[0], s.lsT.shape[0])
+        s = pad_structure(s, max(self.items) + item_headroom)
+        self.structure = s.map(lambda a: torch.from_numpy(
+            np.ascontiguousarray(a, np.int32)).to(device))
+        self.w_pad = torch.from_numpy(pad_weights(s, w_r)).to(device)
+        self.w_padT = torch.from_numpy(pad_weights_t(s, w_r)).to(device)
+
+    def fns(self, order=None):
+        """name → autograd entry h ↦ out."""
+        from dgcnn_tpu_torch.kernels.spmm_block_coo import spmm_block_coo
+        from dgcnn_tpu_torch.kernels.spmm_pallas import spmm_pallas, spmm_pallas_mxu
+
+        o = self.order if order is None else order
+        return {
+            "spmm_rows": lambda h: spmm_pallas(self.src, self.dst, self.w, h, o),
+            "spmm_edge_block": lambda h: spmm_pallas_mxu(self.src, self.dst, self.w, h, o),
+            "spmm_block_coo": lambda h: spmm_block_coo(self.structure, self.w_pad,
+                                                      self.w_padT, h),
+        }
+
+    def plain(self, h):
+        from dgcnn_tpu_torch.ops.spmm import spmm_plain
+
+        return spmm_plain(self.src, self.dst, self.w, h, self.n)
+
+
+def _run_twice(fn, h, g):
+    outs, grads = [], []
+    for _ in range(2):
+        x = h.clone().requires_grad_()
+        out = fn(x)
+        out.backward(g)
+        outs.append(out.detach())
+        grads.append(x.grad)
+    return outs, grads
+
+
+def compare_spmm(name, case, device, stats):
+    """Every SpMM kernel vs the plain version on one batch, F ∈ {32, 1}:
+    forward; dh against autograd of the plain forward; two runs bitwise
+    equal; rows with no edge (padding nodes included) exactly 0 both ways."""
+    o = case.order
+    empty = o.row_ptr[1:] == o.row_ptr[:-1]
+    emptyT = o.row_ptrT[1:] == o.row_ptrT[:-1]
+    gen = torch.Generator(device=device).manual_seed(case.n)
+    for f in (32, 1):
+        h = torch.randn((case.n, f), generator=gen, device=device)
+        g = torch.randn((case.n, f), generator=gen, device=device)
+        with torch.no_grad():
+            want = case.plain(h)
+        hr = h.clone().requires_grad_()
+        want_g, = torch.autograd.grad(case.plain(hr), hr, g)
+        for kname, fn in case.fns().items():
+            outs, grads = _run_twice(fn, h, g)
+            err, rel, ok = rel_err(outs[0], want)
+            gerr, grel, gok = rel_err(grads[0], want_g)
+            if not ok or not gok:
+                raise AssertionError(
+                    f"{name} F={f} {kname}: disagrees with the plain version "
+                    f"(fwd abs {err:.3e} rel {rel:.3e}; bwd abs {gerr:.3e} rel {grel:.3e})")
+            if not (torch.equal(outs[0], outs[1]) and torch.equal(grads[0], grads[1])):
+                raise AssertionError(f"{name} F={f} {kname}: two runs differ")
+            if bool((outs[0][empty] != 0).any()) or bool((grads[0][emptyT] != 0).any()):
+                raise AssertionError(f"{name} F={f} {kname}: a row with no edge is not 0")
+            stats[f"{kname}_fwd"] = max(stats[f"{kname}_fwd"], err)
+            stats[f"{kname}_bwd"] = max(stats[f"{kname}_bwd"], gerr)
+            log(f"  {name} F={f} {kname}: fwd max abs {err:.3e} rel {rel:.3e}; dh vs "
+                f"autograd of plain max abs {gerr:.3e} rel {grel:.3e}; two runs bitwise "
+                f"equal; {int(empty.sum())} empty rows fwd, {int(emptyT.sum())} bwd, "
+                f"exactly 0")
+
+
+def filled_batch(gs, device, slots=S):
+    """A batch whose real nodes fill its bucket exactly (node count a
+    multiple of 128, so node N−1 is real), with padded edges after the
+    real ones."""
+    from dgcnn_tpu_torch.batching.packer import BucketSpec, batch_to_device, pack_batch
+
+    rng = np.random.default_rng(0)
+    nc = gs.node_counts()
+    for _ in range(100000):
+        idx = rng.choice(gs.num_graphs, 50, replace=False)
+        n = int(nc[idx].sum())
+        if n % BS == 0:
+            break
+    else:
+        raise AssertionError("no 50-graph subset fills a multiple of 128 nodes")
+    e = int(gs.edge_counts()[idx].sum())
+    host = pack_batch(gs, idx, BucketSpec(n, (e // 1024 + 2) * 1024, slots))
+    if host.node_mask[-1] != 1 or host.edge_mask[-1] != 0:
+        raise AssertionError("the filled batch must have a real node N-1 and padded edges")
+    return batch_to_device(host, device)
+
+
+def check_filled(name, b, device, stats):
+    """On a bucket-filling batch: with the padded edges in the stream
+    (weight 0, `edge_order` without a mask) each edge-stream kernel's
+    forward gives the same bits as without them (they sit at the tail of
+    the destination order, in row N−1, a real node); so does the row
+    kernel's dh. The edge-block kernel's dh is held to the tolerance: the
+    padded edges enter the source order in row 0 and shift every later
+    position, so other rows straddle other 256-edge blocks and their
+    partial sums group differently. All three agree with the plain version."""
+    from dgcnn_tpu_torch.ops.spmm import edge_order
+
+    case = SpmmCase(b, seed=3, device=device)
+    compare_spmm(name, case, device, stats)
+    unmasked = edge_order(case.src, case.dst, case.n)
+    gen = torch.Generator(device=device).manual_seed(9)
+    h = torch.randn((case.n, 32), generator=gen, device=device)
+    g = torch.randn((case.n, 32), generator=gen, device=device)
+    with_pad = case.fns(unmasked)
+    for kname in ("spmm_rows", "spmm_edge_block"):
+        a_out, a_grad = _run_twice(case.fns()[kname], h, g)
+        b_out, b_grad = _run_twice(with_pad[kname], h, g)
+        grad_same = torch.equal(a_grad[0], b_grad[0])
+        _, _, grad_ok = rel_err(b_grad[0], a_grad[0])
+        if not torch.equal(a_out[0], b_out[0]) or not grad_ok or (
+                kname == "spmm_rows" and not grad_same):
+            raise AssertionError(f"{name} {kname}: the padded edges changed the result")
+        log(f"  {name} {kname}: {case.n} nodes, node N-1 real; "
+            f"{case.src.shape[0] - case.e_real} padded edges in the stream: forward "
+            f"bitwise equal, dh {'bitwise equal' if grad_same else 'within tolerance'}")
+
+
+def spmm_bound(e_real, n, f):
+    """(least ms, by): each real edge's index, weight and permutation read
+    once (12 bytes), h read and out written once; 2 operations per edge
+    and column."""
+    return bound(e_real * 12 + 2 * n * f * 4, 2.0 * e_real * f)
+
+
+def library_csr(case, f, x, transpose):
+    """The yardstick: the batch's adjacency as one `torch.sparse_csr_tensor`
+    (cuSPARSE) times x; built outside the timed call."""
+    o, m = case.order, case.e_real
+    if transpose:
+        perm, rp, col = o.permT.long()[:m], o.row_ptrT, case.dst
+    else:
+        perm = (torch.arange(case.src.shape[0], device=x.device) if o.perm is None
+                else o.perm.long())[:m]
+        rp, col = o.row_ptr, case.src
+    a = torch.sparse_csr_tensor(rp.long(), col.long()[perm], case.w[perm],
+                                size=(case.n, case.n))
+    return lambda: a @ x
+
+
+def time_spmm(case, flush, device):
+    """Per kernel, direction and F: warm and flushed device ms, the plain
+    version's and the library call's ms, and the bound."""
+    from dgcnn_tpu_torch.kernels.spmm_block_coo import _cuda_spmm
+    from dgcnn_tpu_torch.kernels.spmm_pallas import cuda_edge_block, cuda_rows
+    from dgcnn_tpu_torch.ops.spmm import spmm_plain
+
+    o, s = case.order, case.structure
+    gen = torch.Generator(device=device).manual_seed(11)
+    rows = {}
+    for f in (32, 1):
+        h = torch.randn((case.n, f), generator=gen, device=device)
+        g = torch.randn((case.n, f), generator=gen, device=device)
+        bnd = spmm_bound(case.e_real, case.n, f)
+        calls = {}
+        for kname, launch in (("spmm_rows", cuda_rows), ("spmm_edge_block", cuda_edge_block)):
+            calls[kname] = (
+                lambda launch=launch: launch(o.row_ptr, o.perm, case.dst, case.src,
+                                             case.w, h, False),
+                lambda launch=launch: launch(o.row_ptrT, o.permT, case.src, case.dst,
+                                             case.w, g, True))
+        calls["spmm_block_coo"] = (
+            lambda: _cuda_spmm(s.row_ptr, s.item_c, s.ls, s.ld, case.w_pad, h, False),
+            lambda: _cuda_spmm(s.row_ptrT, s.item_cT, s.lsT, s.ldT, case.w_padT, g, True))
+        plain = {
+            "fwd": device_ms(lambda: spmm_plain(case.src, case.dst, case.w, h, case.n)),
+            "bwd": device_ms(lambda: spmm_plain(case.dst, case.src, case.w, g, case.n)),
+        }
+        lib = {}
+        for d, tr, x in (("fwd", False, h), ("bwd", True, g)):
+            try:
+                call = library_csr(case, f, x, tr)
+                want = (spmm_plain(case.dst, case.src, case.w, g, case.n) if tr
+                        else spmm_plain(case.src, case.dst, case.w, h, case.n))
+                err, _, ok = rel_err(call(), want)
+                if not ok:
+                    raise AssertionError(f"CSR product disagrees ({err:.3e})")
+                lib[d] = events_ms(call)
+            except (RuntimeError, AssertionError, NotImplementedError) as e:
+                log(f"  library CSR {d} F={f}: {type(e).__name__}: {str(e)[:200]} → null")
+                lib[d] = None
+        for kname, (fwd, bwd) in calls.items():
+            for d, fn in (("fwd", fwd), ("bwd", bwd)):
+                row = {
+                    "ms": device_ms(fn), "ms_l2_flushed": device_ms(fn, flush),
+                    "plain_ms": plain[d], "library_ms": lib[d],
+                    "bound_ms": bnd[0], "bound_by": bnd[1],
+                    "edges": case.e_real, "n": case.n, "f": f,
+                    "items": case.items[0 if d == "fwd" else 1],
+                }
+                rows[(kname, d, f)] = row
+                log(f"  {kname} {d} F={f} edges {case.e_real} N {case.n}"
+                    + (f" items {row['items']}" if kname == "spmm_block_coo" else "")
+                    + f": kernel warm {row['ms']:.4f} ms, L2-flushed "
+                    f"{row['ms_l2_flushed']:.4f} ms; plain {row['plain_ms']:.4f} ms; "
+                    f"library {'null' if lib[d] is None else f'{lib[d]:.4f} ms'}; "
+                    f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+    return rows
+
+
+def spmm_step_ms(rows, kname):
+    """A COO train step's SpMM time on one kernel: three F=32 and one F=1
+    SpMM, forward and backward."""
+    return sum(3 * rows[(kname, d, 32)]["ms"] + rows[(kname, d, 1)]["ms"]
+               for d in ("fwd", "bwd"))
+
+
 # -- phase 4: main paths ----------------------------------------------------
 
 
@@ -633,9 +957,8 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  {src}: {line.strip()}")
 
-    stats = {k: 0.0 for k in ("gcn_trunk_fwd", "gcn_trunk_bwd", "block_csr_fwd",
-                              "block_csr_bwd", "block_resident_fwd",
-                              "block_resident_bwd")}
+    stats = {f"{k}_{d}": 0.0 for k in ("gcn_trunk", *BLOCK_KERNELS, *SPMM_KERNELS)
+             for d in ("fwd", "bwd")}
 
     log("== phase 3a: trunk kernel vs plain version on the card")
     datasets = {n: synthesize_tu_dataset(n) for n in ("MUTAG", "NCI1", "PROTEINS")}
@@ -667,6 +990,18 @@ def main() -> int:
     for label, r in checked.items():
         compare_block(f"DD {label} batch (row {r}, {ctx.row_items[r]} items)",
                       ctx, r, device, stats)
+
+    log("== phase 3c: SpMM kernels vs plain version on the card")
+    dd_coo = CooContext("DD", device, gs=ctx.gs)
+    nci1_coo = CooContext("NCI1", device, gs=datasets["NCI1"])
+    for label, c, r in (("DD mean", dd_coo, dd_coo.mean_row),
+                        ("DD largest", dd_coo, dd_coo.max_row),
+                        ("NCI1", nci1_coo, nci1_coo.mean_row)):
+        case = SpmmCase(c.batch(r), seed=r, device=device)
+        compare_spmm(f"{label} COO batch (row {r}, {case.e_real} edges, N {case.n}, "
+                     f"block-COO items {case.items})", case, device, stats)
+    check_filled("NCI1 bucket-filling batch", filled_batch(datasets["NCI1"], device),
+                 device, stats)
 
     log("== phase 4a: main path, synthetic NCI1, dense, 2 folds x 2 epochs")
     with tempfile.TemporaryDirectory() as tmp:
@@ -751,6 +1086,63 @@ def main() -> int:
         card_vs_cpu(f"DD block batch (block_impl {impl})", dd_batch(impl), dd_model)
     del dd_cpu
 
+    spmm_auto = Config().resolved_spmm_impl()
+    spmm_other = {"xla": "onehot", "onehot": "xla"}[spmm_auto]
+    log(f"== phase 4c: main path, synthetic DD, --layout coo: --spmm auto "
+        f"(= {spmm_auto}) 2 folds x 2 epochs, then --spmm {spmm_other} and "
+        f"--spmm pallas 1 fold x 1 epoch; synthetic NCI1 --layout coo --spmm "
+        f"pallas 1 fold x 1 epoch")
+    counters = spmm_counters()
+    coo_launches, coo_epoch_s = {}, {}
+    for data_type, impl, name, folds_n, epochs in (
+        ("DD", spmm_auto, "auto", 2, 2),
+        ("DD", spmm_other, spmm_other, 1, 1),
+        ("DD", "pallas", "pallas", 1, 1),
+        ("NCI1", "pallas", "pallas", 1, 1),
+    ):
+        extra = ["--layout", "coo", "--spmm", name]
+        with tempfile.TemporaryDirectory() as tmp:
+            for c in counters.values():
+                c.reset()
+            _, wall = run_cli(data_type, extra, folds_n, epochs, tmp)
+            counts = {k: (c.fwd_launches, c.bwd_launches) for k, c in counters.items()}
+            gs = ctx.gs if data_type == "DD" else nci1
+            tr_n, ev_n = count_steps(data_type, gs.y, folds_n, epochs, 50,
+                                     os.path.join(tmp, "data", data_type, "10fold_idx"))
+            used = SPMM_KERNEL_OF[impl]
+            log(f"{data_type} {' '.join(extra)}: {wall:.1f} s; train steps {tr_n}, "
+                f"eval steps {ev_n}; launches (fwd, bwd) {counts}")
+            want = {k: (4 * (tr_n + ev_n), 4 * tr_n) if k == used else (0, 0)
+                    for k in SPMM_KERNELS}
+            if counts != want:
+                raise AssertionError(f"SpMM launch counts {counts}, expected {want}")
+            if data_type == "DD" and used not in coo_launches:
+                coo_launches[used] = counts[used]
+            events = check_artifacts(tmp, data_type, folds_n, epochs)
+            start = events[0]
+            if (start["kind"] != "run_start" or start["layout"] != "coo"
+                    or start["spmm_impl"] != impl):
+                raise AssertionError(f"run_start says {start}")
+            log(f"  run_start: layout {start['layout']}, spmm_impl {start['spmm_impl']}")
+            coo_epoch_s[(data_type, name)] = [
+                e["epoch_seconds"] for e in events if e["kind"] == "epoch"]
+
+    from dgcnn_tpu_torch.batching.packer import add_blockcoo
+    from dgcnn_tpu_torch.batching.packer import batch_to_device as coo_to_device
+
+    def coo_batch(c, r, impl):
+        def make(dev):
+            host = c.host_batch(r)
+            if impl == "pallas":
+                host = add_blockcoo(host)
+            return coo_to_device(host, dev), {"spmm_impl": impl}
+        return make
+
+    for c, model in ((dd_coo, dd_model), (nci1_coo, nci1_model)):
+        for impl in ("xla", "onehot", "pallas"):
+            card_vs_cpu(f"{c.name} COO batch (row {c.mean_row}, spmm_impl {impl})",
+                        coo_batch(c, c.mean_row, impl), model)
+
     log("== phase 5: device times (CUDA-graph replay, CUDA events)")
     log(card)
     flush = Flush(device)
@@ -782,6 +1174,15 @@ def main() -> int:
     for label, r in (("mean", ctx.mean_row), ("max", ctx.max_row)):
         log(f"  DD {label} batch (row {r}):")
         block_times[label] = time_block(ctx, r, flush, device)
+    spmm_times = {}
+    for label, r in (("mean", dd_coo.mean_row), ("max", dd_coo.max_row)):
+        log(f"  DD COO {label} batch (row {r}):")
+        spmm_times[label] = time_spmm(SpmmCase(dd_coo.batch(r), seed=r, device=device),
+                                      flush, device)
+    for label, rows in spmm_times.items():
+        log(f"  DD COO {label} batch, one train step's SpMMs (3 x F=32 + F=1, fwd + "
+            f"bwd): " + ", ".join(f"{k} {spmm_step_ms(rows, k):.4f} ms"
+                                  for k in SPMM_KERNELS))
     del flush
 
     log("== phase 6: one profiled train step (torch.profiler)")
@@ -795,6 +1196,9 @@ def main() -> int:
     net = DGCNNNet(dd_model, init_params(torch.Generator().manual_seed(0), dd_model, device))
     profile_step(f"DD block ({impl}, mean batch)", net, make_optimizer(net),
                  ctx.batch(ctx.mean_row), {"pool": ctx.pool, "block_impl": impl})
+    net = DGCNNNet(dd_model, init_params(torch.Generator().manual_seed(0), dd_model, device))
+    profile_step(f"DD COO ({spmm_auto}, mean batch)", net, make_optimizer(net),
+                 dd_coo.batch(dd_coo.mean_row), {"spmm_impl": spmm_auto})
 
     log(f"== phase 7: summary ({time.perf_counter() - t_start:.0f} s)")
     (fb, fby), (bb, bby) = trunk_bounds(S, t_main, 1)
@@ -830,7 +1234,27 @@ def main() -> int:
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "shape": f"DD mean batch: {row['n_items']} items, nb {row['nb']}, F 32",
             })
+    spmm_replaces = {
+        "spmm_rows": "dgcnn_tpu/kernels/spmm_pallas.py:102",
+        "spmm_edge_block": "dgcnn_tpu/kernels/spmm_pallas.py:170",
+        "spmm_block_coo": "dgcnn_tpu/kernels/spmm_block_coo.py:399",
+    }
+    for kname in SPMM_KERNELS:
+        for i, d in enumerate(("fwd", "bwd")):
+            row = spmm_times["mean"][(kname, d, 32)]
+            kernels.append({
+                "name": f"{kname}_{d}", "route": "cuda",
+                "source": f"dgcnn_tpu_torch/csrc/{kname}.cu",
+                "replaces": spmm_replaces[kname],
+                "launches": coo_launches[kname][i],
+                "max_abs_err": stats[f"{kname}_{d}"],
+                "ms": row["ms"], "ms_l2_flushed": row["ms_l2_flushed"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "shape": f"DD COO mean batch: {row['edges']} edges, N {row['n']}, F 32",
+            })
     log(f"DD epoch seconds (main path, block_impl {auto_impl}): {dd_epoch_s}")
+    log(f"COO epoch seconds: {coo_epoch_s}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

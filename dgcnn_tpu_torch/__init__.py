@@ -9,7 +9,9 @@ plain functions on tensors, an explicit `device`, explicit
 The port trains DGCNN on the dense layout through a hand-written CUDA
 GCN-trunk kernel (kernels/dense_trunk.py, csrc/dense_trunk.cu) and on the
 block-sparse layout through two hand-written CUDA block-propagation
-kernels (kernels/block_csr.py, kernels/block_resident.py). Entry points
+kernels (kernels/block_csr.py, kernels/block_resident.py), and on the COO
+layout through three hand-written CUDA SpMM kernels
+(kernels/spmm_pallas.py, kernels/spmm_block_coo.py). Entry points
 run on `cuda` unless the caller passes `device="cpu"`; on a CPU tensor
 every kernel wrapper runs its plain PyTorch version instead.
 """

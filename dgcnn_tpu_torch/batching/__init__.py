@@ -1,6 +1,7 @@
 """Batching: the dataset in a device layout and the on-device assembly
-of a batch from graph ids (dense and block-sparse layouts; the multi-tile
-module holds only the sizing functions the layout choice reads)."""
+of a batch from graph ids (dense, block-sparse and COO layouts; the COO
+layout also packs on the host, packer.py; the multi-tile module holds
+only the sizing functions the layout choice reads)."""
 
 from dgcnn_tpu_torch.batching.block_sparse import (
     BlockBatch,

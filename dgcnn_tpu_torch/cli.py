@@ -5,6 +5,8 @@ NotImplementedError naming the ROADMAP item that ports them.
 
     python -m dgcnn_tpu_torch.cli --data_type NCI1 --synthetic --layout dense
     python -m dgcnn_tpu_torch.cli --data_type DD --synthetic   # block layout
+    python -m dgcnn_tpu_torch.cli --data_type DD --synthetic --layout coo \
+        [--spmm xla|onehot|pallas]
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ def get_args(argv=None):
                         help="directory with {train,test}_idx-<k>.txt fold files")
     parser.add_argument("--layout", default="auto",
                         choices=["auto", "coo", "dense", "multi", "block", "halo"],
-                        help="batch layout (the port serves dense and "
-                             "block; auto picks as the reference does)")
+                        help="batch layout (the port serves dense, block "
+                             "and coo; auto picks as the reference does)")
     parser.add_argument("--mesh", default="1,1", type=str,
                         help="device mesh 'data,graph' (not ported: 1,1 only)")
     parser.add_argument("--multihost", action="store_true",
@@ -54,7 +56,12 @@ def get_args(argv=None):
                         help="cross-validation fold count")
     parser.add_argument("--spmm", default="auto",
                         choices=["auto", "xla", "onehot", "pallas"],
-                        help="COO SpMM kernel (not ported: auto only)")
+                        help="COO SpMM kernel on the card: xla = the "
+                             "row-parallel CSR kernel, onehot = the "
+                             "edge-block kernel, pallas = the block-COO "
+                             "kernel on host-packed batches, auto = the "
+                             "faster on the DD COO main path; on the CPU "
+                             "every value runs the plain PyTorch version")
     parser.add_argument("--sortpool_percentile", default=None, type=float,
                         help="pick SortPooling k as this quantile of graph sizes")
     parser.add_argument("--dtype", default="float32",

@@ -16,8 +16,17 @@ ROADMAP item that ports them. What differs from the reference:
     (kernels/block_resident.py: per-item products, then a
     destination-sorted segment sum, as a kernel); "auto" resolves by the
     port's own H100 measurement (`resolved_block_impl`);
-  * `xla_cache_dir`, `max_fused_epochs`, `coo_fuse_bytes` and
-    `coo_assembly` are TPU dispatch knobs with no effect here.
+  * `spmm_impl` names one COO SpMM kernel each (ops/spmm.py): "xla" the
+    row-parallel CSR kernel, "onehot" the edge-block kernel, "pallas" the
+    block-COO kernel on host-packed batches that carry block-pair
+    structures; "auto" resolves by the port's H100 measurement
+    (`resolved_spmm_impl`), where the reference chose by TPU VMEM gates;
+  * `coo_assembly` picks the COO engine as in the reference: "device"
+    assembles batches on the card (`DeviceCooEngine`), "host" packs them
+    with NumPy and ships one epoch at a time (`CooEngine`); `--spmm
+    pallas` always packs on the host, where the structures are built;
+  * `xla_cache_dir`, `max_fused_epochs` and `coo_fuse_bytes` are TPU
+    dispatch knobs with no effect here.
 """
 
 from __future__ import annotations
@@ -108,11 +117,21 @@ class Config:
 
     def resolved_block_impl(self) -> str:
         """Concrete block propagation kernel: "auto" → "pallas", the CSR
-        kernel, until the port's H100 A/B on the DD main path decides
-        (PERF.md)."""
+        kernel, which beat the item-parallel kernel on the DD main path at
+        both the mean and the largest batch on the H100 (PERF.md, PR 2)."""
         if self.block_impl != "auto":
             return self.block_impl
         return "pallas"
+
+    def resolved_spmm_impl(self) -> str:
+        """Concrete COO SpMM kernel: "auto" → "xla", the row-parallel CSR
+        kernel, the faster of the two kernels that run on device-assembled
+        batches over a DD COO train step on the H100 (PERF.md, PR 3). Like
+        the reference's engines, "auto" never attaches block-pair
+        structures."""
+        if self.spmm_impl != "auto":
+            return self.spmm_impl
+        return "xla"
 
     def __post_init__(self):
         if self.data_type not in DATASETS:

@@ -1,0 +1,206 @@
+"""Edge-stream SpMM kernels — the ports of dgcnn_tpu/kernels/spmm_pallas.py:
+
+  * `spmm_pallas` (:220; `pallas_call` :102; backward `_bwd` :230): the
+    per-edge gather-scale-scatter, here the row-parallel CSR kernel of
+    csrc/spmm_rows.cu (a warp per destination row walks the row's edges
+    in order and writes the row once);
+  * `spmm_pallas_mxu` (:191; `pallas_call` :170; backward `_mxu_bwd`
+    :201): the one-hot selector kernel over 256-edge blocks, here the
+    edge-block kernel of csrc/spmm_edge_block.cu (a segmented reduction
+    per 256 ordered edges, rows that straddle blocks finished by a second
+    pass in block order).
+
+Both compute `out[i] = Σ_{dst_e=i} w_e·h[src_e]` for any edge order, as
+the reference's kernels do: they walk an `EdgeOrder` (ops/spmm.py), taken
+from the caller (the model builds one per batch) or built here by stable
+device sorts. The backward runs the same kernel over the source order
+with src and dst swapped for dh, and the plain SDDMM for dw only when the
+weights need a gradient (the GCN's weights are the edge mask and never
+do). On CPU tensors both run `spmm_plain`; on CUDA tensors the kernel or
+an exception. Design and bound are in each source's header. No float
+atomics: two runs give the same bits.
+
+`rows_launches` and `edge_block_launches` count one per forward /
+backward SpMM that ran on each kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from dgcnn_tpu_torch.kernels.dense_trunk import LaunchCounts
+from dgcnn_tpu_torch.ops.spmm import EdgeOrder, edge_order, sddmm_plain, spmm_plain
+
+rows_launches = LaunchCounts()
+edge_block_launches = LaunchCounts()
+EDGE_BLOCK = 256  # positions per block of the edge-block kernel
+
+
+def _bind(name: str, n_ptr: int, n_int: int):
+    from dgcnn_tpu_torch.kernels import _build
+
+    lib = _build.load(name)
+    if not getattr(lib, "_dgcnn_bound", False):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn = getattr(lib, f"{name}_f32")
+        fn.argtypes = [P] * n_ptr + [I] * n_int + [P]
+        fn.restype = I
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [I]
+        err.restype = ctypes.c_char_p
+        lib._dgcnn_bound = True
+    return lib
+
+
+def _raise_on(lib, name: str, rc: int, transpose: bool) -> None:
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} {'backward' if transpose else 'forward'}: "
+                           f"CUDA error {rc} ({msg})")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def cuda_rows(row_ptr, perm, row, col, w, h, transpose: bool) -> torch.Tensor:
+    """One launch of csrc/spmm_rows.cu (`row` is unused: the row pointers
+    give each row's range)."""
+    del row
+    lib = _bind("spmm_rows", 6, 2)
+    n, f = row_ptr.shape[0] - 1, h.shape[1]
+    with torch.cuda.device(h.device):
+        out = torch.empty((n, f), dtype=torch.float32, device=h.device)
+        rc = lib.spmm_rows_f32(row_ptr.data_ptr(), _ptr(perm), col.data_ptr(),
+                               w.data_ptr(), h.data_ptr(), out.data_ptr(), n, f,
+                               torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, "spmm_rows", rc, transpose)
+    if transpose:
+        rows_launches.bwd_launches += 1
+    else:
+        rows_launches.fwd_launches += 1
+    return out
+
+
+def cuda_edge_block(row_ptr, perm, row, col, w, h, transpose: bool) -> torch.Tensor:
+    """Both passes of csrc/spmm_edge_block.cu, with their scratch."""
+    lib = _bind("spmm_edge_block", 8, 3)
+    n, f, n_pos = row_ptr.shape[0] - 1, h.shape[1], row.shape[0]
+    blocks = -(-n_pos // EDGE_BLOCK)
+    with torch.cuda.device(h.device):
+        out = torch.empty((n, f), dtype=torch.float32, device=h.device)
+        partial = torch.empty((max(2 * blocks, 1), f), dtype=torch.float32,
+                              device=h.device)
+        rc = lib.spmm_edge_block_f32(
+            row_ptr.data_ptr(), _ptr(perm), row.data_ptr(), col.data_ptr(),
+            w.data_ptr(), h.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            n, n_pos, f, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, "spmm_edge_block", rc, transpose)
+    if transpose:
+        edge_block_launches.bwd_launches += 1
+    else:
+        edge_block_launches.fwd_launches += 1
+    return out
+
+
+def check_inputs(edge_src, edge_dst, edge_weight, h,
+                 order: Optional[EdgeOrder]) -> None:
+    """Validate what the kernels rely on."""
+    if h.dim() != 2 or h.shape[1] < 1:
+        raise ValueError(f"h must be [N, F] with F ≥ 1, got {tuple(h.shape)}")
+    if h.dtype != torch.float32 or edge_weight.dtype != torch.float32:
+        raise TypeError("h and the edge weights must be float32")
+    e = edge_src.shape[0]
+    for t in (edge_src, edge_dst):
+        if t.dtype != torch.int32:
+            raise TypeError(f"edge indices must be int32, got {t.dtype}")
+    tensors = [edge_src, edge_dst, edge_weight, h]
+    if order is not None:
+        n = h.shape[0]
+        for name in ("perm", "row_ptr", "permT", "row_ptrT"):
+            t = getattr(order, name)
+            if t is None and name == "perm":
+                continue
+            if t.dtype != torch.int32:
+                raise TypeError(f"EdgeOrder.{name} must be int32")
+            want = (n + 1,) if name.startswith("row_ptr") else (e,)
+            if tuple(t.shape) != want:
+                raise ValueError(f"EdgeOrder.{name} must be {want}, got {tuple(t.shape)}")
+            tensors.append(t)
+    for t in (edge_src, edge_dst, edge_weight):
+        if t.dim() != 1 or t.shape[0] != e:
+            raise ValueError(f"edge arrays must all be [E={e}], got {tuple(t.shape)}")
+    dev = h.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the SpMM runs on cpu or cuda, got {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"all inputs must be on {dev}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("the SpMM's inputs must be contiguous")
+
+
+def make_spmm_fn(name: str, launch) -> type:
+    """An autograd Function around one edge-stream kernel. `launch(row_ptr,
+    perm, row, col, w, h, transpose)` runs it on CUDA tensors; CPU tensors
+    run `spmm_plain`."""
+
+    def forward(edge_src, edge_dst, edge_weight, h, order):
+        if h.is_cuda:
+            return launch(order.row_ptr, order.perm, edge_dst, edge_src,
+                          edge_weight, h, False)
+        return spmm_plain(edge_src, edge_dst, edge_weight, h, h.shape[0])
+
+    def setup_context(ctx, inputs, output):
+        edge_src, edge_dst, edge_weight, h, order = inputs
+        ctx.order = order
+        ctx.save_for_backward(edge_src, edge_dst, edge_weight, h)
+
+    def backward(ctx, g):
+        edge_src, edge_dst, edge_weight, h = ctx.saved_tensors
+        g = g.contiguous()
+        dw = dh = None
+        if ctx.needs_input_grad[3]:
+            if g.is_cuda:
+                o = ctx.order
+                dh = launch(o.row_ptrT, o.permT, edge_src, edge_dst, edge_weight,
+                            g, True)
+            else:
+                dh = spmm_plain(edge_dst, edge_src, edge_weight, g, g.shape[0])
+        if ctx.needs_input_grad[2]:
+            dw = sddmm_plain(edge_src, edge_dst, h, g)
+        return None, None, dw, dh, None
+
+    return type(name, (torch.autograd.Function,), {
+        "forward": staticmethod(forward),
+        "setup_context": staticmethod(setup_context),
+        "backward": staticmethod(backward),
+    })
+
+
+SpmmRowsFn = make_spmm_fn("SpmmRowsFn", cuda_rows)
+SpmmEdgeBlockFn = make_spmm_fn("SpmmEdgeBlockFn", cuda_edge_block)
+
+
+def _apply(fn, edge_src, edge_dst, edge_weight, h, order):
+    check_inputs(edge_src, edge_dst, edge_weight, h, order)
+    if h.is_cuda and order is None:
+        order = edge_order(edge_src, edge_dst, h.shape[0])
+    return fn.apply(edge_src, edge_dst, edge_weight, h, order)
+
+
+def spmm_pallas(edge_src, edge_dst, edge_weight, h,
+                order: Optional[EdgeOrder] = None) -> torch.Tensor:
+    """out [N, F] through the row-parallel CSR kernel (CUDA) or the plain
+    version (CPU). `order` defaults to stable sorts of this stream."""
+    return _apply(SpmmRowsFn, edge_src, edge_dst, edge_weight, h, order)
+
+
+def spmm_pallas_mxu(edge_src, edge_dst, edge_weight, h,
+                    order: Optional[EdgeOrder] = None) -> torch.Tensor:
+    """The same function through the edge-block kernel (CUDA) or the plain
+    version (CPU)."""
+    return _apply(SpmmEdgeBlockFn, edge_src, edge_dst, edge_weight, h, order)

@@ -1,6 +1,7 @@
 """DGCNN — the port of dgcnn_tpu/models/dgcnn.py (`DGCNN` :41,
-`init_params` :88, the head :134, `_dense_trunk` :260, `apply_dense` :344,
-`apply_block` :930, the layout dispatch of `apply` :1035):
+`init_params` :88, the head :134, `apply_coo` :178, `_dense_trunk` :260,
+`apply_dense` :344, `apply_block` :930, the layout dispatch of `apply`
+:1035):
 
     4 × [GCNConv → tanh] with dims (F→32→32→32→1), skip-concat (97)
     SortPooling k=30
@@ -10,12 +11,12 @@
 Parameters keep the reference's layout — weights [in, out], conv6 'HIO',
 the readout flattened time-major — so weights carry over by copy
 (parity/convert.py) and activations compare like with like. The
-functional `apply_dense` / `apply_block(params, ...)` work on a nested
-dict of tensors shaped like the reference's pytree; `DGCNNNet` is the
-`nn.Module` that owns those tensors as parameters and dispatches on the
-batch's layout.
+functional `apply_dense` / `apply_block` / `apply_coo(params, ...)` work
+on a nested dict of tensors shaped like the reference's pytree;
+`DGCNNNet` is the `nn.Module` that owns those tensors as parameters and
+dispatches on the batch's layout.
 
-fp32 only in this slice: bfloat16 compute is ROADMAP Queue 1 item 10.
+fp32 only: bfloat16 compute is ROADMAP Queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -29,10 +30,13 @@ from torch import nn
 
 from dgcnn_tpu_torch.batching.block_sparse import BlockBatch
 from dgcnn_tpu_torch.batching.dense import DenseGraphBatch
+from dgcnn_tpu_torch.batching.packer import GraphBatch
 from dgcnn_tpu_torch.kernels.block_csr import block_propagate_csr
 from dgcnn_tpu_torch.kernels.block_resident import block_propagate_resident
 from dgcnn_tpu_torch.kernels.dense_trunk import gcn_trunk
+from dgcnn_tpu_torch.ops.gcn import gcn_conv, gcn_degree
 from dgcnn_tpu_torch.ops.readout import conv1d_readout
+from dgcnn_tpu_torch.ops.spmm import edge_order
 from dgcnn_tpu_torch.ops.sort_pool import sort_pool, sort_pool_dense
 
 Params = Dict[str, Any]
@@ -136,8 +140,8 @@ def num_params(params: Params) -> int:
 class DGCNNNet(nn.Module):
     """The model as an `nn.Module`: owns the parameters (state_dict keys
     `gcn.<i>.w`, `gcn.<i>.b`, `conv5.w`, … in the reference layout) and
-    runs `apply_dense` or, for a `BlockBatch`, `apply_block` in
-    `forward`."""
+    runs `apply_dense`, `apply_block` for a `BlockBatch` or `apply_coo`
+    for a `GraphBatch` in `forward`."""
 
     def __init__(self, model: DGCNN, params: Params):
         super().__init__()
@@ -166,12 +170,16 @@ class DGCNNNet(nn.Module):
                 dropout_gen: Optional[torch.Generator] = None,
                 return_activations: bool = False,
                 pool: Optional[torch.Tensor] = None,
-                block_impl: str = "pallas"):
-        """`batch` is a DenseGraphBatch or a BlockBatch; a BlockBatch also
-        needs the engine's adjacency block `pool` and the `block_impl`
-        that propagates over it."""
+                block_impl: str = "pallas", spmm_impl: str = "xla"):
+        """`batch` is a DenseGraphBatch, a BlockBatch or a GraphBatch; a
+        BlockBatch also needs the engine's adjacency block `pool` and the
+        `block_impl` that propagates over it, a GraphBatch the `spmm_impl`
+        that aggregates its edges."""
         kw = dict(deterministic=deterministic, dropout_gen=dropout_gen,
                   return_activations=return_activations)
+        if isinstance(batch, GraphBatch):
+            return apply_coo(self.params(), self.model, batch,
+                             spmm_impl=spmm_impl, **kw)
         if isinstance(batch, BlockBatch):
             if pool is None:
                 raise ValueError("a BlockBatch needs the block pool")
@@ -304,6 +312,60 @@ def apply_block(
     cat = torch.cat(layer_outs, dim=-1)
     pooled = sort_pool(cat, batch.node_graph, num_slots, model.sort_pool_k,
                        row_block=bs)
+    acts["sort_pool"] = pooled
+    log_probs = _pooled_to_log_probs(
+        params, model, pooled, deterministic, dropout_gen, acts
+    )
+    if return_activations:
+        return log_probs, acts
+    return log_probs
+
+
+def apply_coo(
+    params: Params,
+    model: DGCNN,
+    batch: GraphBatch,
+    *,
+    deterministic: bool = True,
+    dropout_gen: Optional[torch.Generator] = None,
+    return_activations: bool = False,
+    spmm_impl: str = "xla",
+):
+    """Forward pass on the COO layout (batching/packer.py,
+    batching/device_coo.py) → log-probabilities [slots, C]. Degrees and
+    d̂^{-1/2} are computed once; each layer is `gcn_conv` in its node-scale
+    form (the SpMM weighted by the edge mask) → tanh → node mask. The SpMM
+    runs the kernel `spmm_impl` names (ops/spmm.py); one `EdgeOrder` of
+    the batch (padded edges left out) serves the four layers' SpMMs,
+    forward and backward, and a block-pair structure the packer attached
+    serves "pallas". SortPooling is the global lexicographic sort."""
+    num_nodes = batch.x.shape[0]
+    num_slots = batch.y.shape[0]
+    deg_hat = gcn_degree(batch.edge_dst, batch.edge_mask, num_nodes)
+    dinv_sqrt = torch.rsqrt(deg_hat)
+    structure = w_pad = w_padT = None
+    if batch.blockcoo is not None and spmm_impl == "pallas":
+        structure, w_pad, w_padT = batch.blockcoo
+    order = None
+    if batch.x.is_cuda and structure is None:
+        order = edge_order(batch.edge_src, batch.edge_dst, num_nodes,
+                           edge_mask=batch.edge_mask, dst_sorted=True)
+    mask = batch.node_mask[:, None]
+
+    acts: dict = {}
+    x = batch.x
+    layer_outs = []
+    for i, layer in enumerate(params["gcn"]):
+        x = torch.tanh(gcn_conv(
+            x, layer["w"], layer["b"], batch.edge_src, batch.edge_dst,
+            batch.edge_mask, deg_hat, impl=spmm_impl, node_scale=dinv_sqrt,
+            structure=structure, w_pad=w_pad, w_padT=w_padT, order=order,
+        )) * mask
+        layer_outs.append(x)
+        acts[f"gcn{i + 1}"] = x
+
+    cat = torch.cat(layer_outs, dim=-1)
+    pooled = sort_pool(cat, batch.node_graph, num_slots, model.sort_pool_k)
     acts["sort_pool"] = pooled
     log_probs = _pooled_to_log_probs(
         params, model, pooled, deterministic, dropout_gen, acts

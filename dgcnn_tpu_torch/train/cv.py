@@ -1,6 +1,8 @@
 """Cross-validation driver — the port of dgcnn_tpu/train/cv.py
-(`choose_layout` :141, `_geom_round` :373, `BlockSparseEngine` :434,
-`DenseEngine` :521, `run_fold` :1130, `run_cross_validation` :1301).
+(`choose_layout` :141, `CooEngine` :249, `DeviceCooEngine` :339,
+`_geom_round` :373, `BlockSparseEngine` :434, `DenseEngine` :521, the
+engine choice of `make_engine` :1067, `run_fold` :1130,
+`run_cross_validation` :1301).
 
 Protocol: for each fold, fresh weights and a fresh Adam, the fold's
 training graphs shuffled each epoch on numpy's
@@ -9,11 +11,11 @@ both packages see the same batches), train then evaluate every epoch,
 and write the per-fold CSV, the `epochs/` bundle, the overall CSV and the
 event log under the reference's file names.
 
-The port serves the dense and block-sparse layouts with folds run one
-after another. `choose_layout` answers as the reference does; every other
-layout, fold-lockstep, meshes, bf16, resume and the other options not
-ported yet raise NotImplementedError naming the ROADMAP item that ports
-them (`check_supported`).
+The port serves the dense, block-sparse and COO layouts with folds run
+one after another. `choose_layout` answers as the reference does; the
+multi-tile and halo layouts, fold-lockstep, meshes, bf16, resume and the
+other options not ported yet raise NotImplementedError naming the ROADMAP
+item that ports them (`check_supported`).
 
 Randomness: weights come from a CPU `torch.Generator` and dropout from a
 generator on the run's device, each seeded from
@@ -44,7 +46,22 @@ from dgcnn_tpu_torch.batching.dense import (
     gather_dense_batch,
     order_matrix,
 )
+from dgcnn_tpu_torch.batching.device_coo import (
+    batch_extents,
+    build_device_graphset,
+    device_graphset_to,
+    gather_coo_batch,
+)
 from dgcnn_tpu_torch.batching.multi_dense import multi_dense_bytes, plan_tiles
+from dgcnn_tpu_torch.batching.packer import (
+    BucketSpec,
+    add_blockcoo,
+    batch_step,
+    batch_to_device,
+    blockcoo_item_bound,
+    compute_bucket,
+    pack_epoch,
+)
 from dgcnn_tpu_torch.config import Config
 from dgcnn_tpu_torch.data.datasets import load_dataset
 from dgcnn_tpu_torch.data.folds import get_folds
@@ -93,8 +110,6 @@ def check_supported(cfg: Config) -> None:
         unserved.append("TensorBoard export (ROADMAP Queue 1 item 11)")
     if cfg.opt_flatten:
         unserved.append("opt_flatten (ROADMAP Queue 1 item 11)")
-    if cfg.spmm_impl != "auto":
-        unserved.append("spmm_impl, the COO SpMM kernels (ROADMAP Queue 2 items 4-6)")
     if unserved:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(unserved)
@@ -103,7 +118,6 @@ def check_supported(cfg: Config) -> None:
 
 _LAYOUT_ITEM = {
     "multi": "ROADMAP Queue 1 item 7",
-    "coo": "ROADMAP Queue 1 item 8",
     "halo": "ROADMAP Queue 1 item 12",
 }
 
@@ -308,6 +322,118 @@ class BlockSparseEngine:
         )
 
 
+class DeviceCooEngine:
+    """The COO layout with batches assembled on the device
+    (batching/device_coo.py): the flattened dataset is shipped once, an
+    epoch ships its int32 order matrix, and each batch is gathered on the
+    device from a [slots] graph-id row. Buckets grow only, on the
+    reference's geometric grid (`_geom_round`, multiples of the node and
+    edge pad), sized by `batch_extents` over each epoch's order and the
+    fold's test order. Each GCN aggregation runs the SpMM kernel
+    `cfg.resolved_spmm_impl()` names."""
+
+    def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device):
+        self.cfg = cfg
+        self.device = device
+        self.slots = _round_up(cfg.batch_size, cfg.graph_pad_multiple)
+        self._node_counts = dataset.node_counts().astype(np.int64)
+        self._edge_counts = dataset.edge_counts().astype(np.int64)
+        self.dev = device_graphset_to(build_device_graphset(dataset), device)
+        self.spmm_impl = cfg.resolved_spmm_impl()
+        self.floor_nodes = cfg.node_pad_multiple
+        self.floor_edges = cfg.edge_pad_multiple
+
+    def bucket_for(self, *order_mats: np.ndarray) -> BucketSpec:
+        """Grow-only bucket covering every batch row given."""
+        n = e = 1
+        for m in order_mats:
+            bn, be = batch_extents(self._node_counts, self._edge_counts, m)
+            n, e = max(n, bn), max(e, be)
+        self.floor_nodes = max(self.floor_nodes,
+                               _geom_round(n, self.cfg.node_pad_multiple))
+        self.floor_edges = max(self.floor_edges,
+                               _geom_round(e, self.cfg.edge_pad_multiple))
+        return BucketSpec(num_nodes=self.floor_nodes,
+                          num_edges=self.floor_edges, num_graphs=self.slots)
+
+    def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
+        self._train_idx = np.asarray(train_idx, dtype=np.int32)
+        self._test_np = order_matrix(test_idx, self.cfg.batch_size, self.slots)
+        self._test_order = torch.from_numpy(self._test_np).to(self.device)
+
+    def run_epoch(self, net, optimizer, dropout_gen, perm: np.ndarray) -> np.ndarray:
+        order2d = order_matrix(
+            self._train_idx[perm], self.cfg.batch_size, self.slots
+        )
+        bucket = self.bucket_for(order2d, self._test_np)
+        return run_epoch(
+            net, optimizer, lambda row: gather_coo_batch(self.dev, row, bucket),
+            torch.from_numpy(order2d).to(self.device), self._test_order,
+            dropout_gen, spmm_impl=self.spmm_impl,
+        )
+
+
+class CooEngine:
+    """The COO layout packed on the host (batching/packer.py): every epoch
+    is packed with NumPy into the worst-case bucket (`compute_bucket`) and
+    shipped to the device as one stacked epoch; the fold's test batches are
+    packed and shipped once. Under `--spmm pallas` each batch also carries
+    its block-pair structure (`add_blockcoo`, item axis padded to
+    `blockcoo_item_bound`) for the block-COO kernel."""
+
+    def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device):
+        self.cfg = cfg
+        self.device = device
+        self.dataset = dataset
+        self.bucket = compute_bucket(
+            dataset, cfg.batch_size, cfg.node_pad_multiple,
+            cfg.edge_pad_multiple, cfg.graph_pad_multiple,
+        )
+        self.spmm_impl = cfg.resolved_spmm_impl()
+        self._w_bound = (blockcoo_item_bound(dataset, cfg.batch_size)
+                         if self.spmm_impl == "pallas" else 0)
+
+    def _pack(self, ds: GraphSet, order: np.ndarray):
+        epoch = pack_epoch(ds, order, self.cfg.batch_size, self.bucket)
+        if self.spmm_impl == "pallas":
+            epoch = add_blockcoo(epoch, pad_items_to=self._w_bound)
+        return batch_to_device(epoch, self.device)
+
+    @staticmethod
+    def _rows(which: int, steps: int) -> torch.Tensor:
+        """[steps, 2] host rows (stack, step) for `run_epoch`'s batch_fn."""
+        return torch.stack([torch.full((steps,), which), torch.arange(steps)], 1)
+
+    def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
+        self._train_set = self.dataset.subset(train_idx)
+        test_set = self.dataset.subset(test_idx)
+        self._test = self._pack(test_set, np.arange(test_set.num_graphs))
+
+    def run_epoch(self, net, optimizer, dropout_gen, perm: np.ndarray) -> np.ndarray:
+        train = self._pack(self._train_set, perm)
+        stacks = (train, self._test)
+        return run_epoch(
+            net, optimizer,
+            lambda row: batch_step(stacks[int(row[0])], int(row[1])),
+            self._rows(0, train.y.shape[0]), self._rows(1, self._test.y.shape[0]),
+            dropout_gen, spmm_impl=self.spmm_impl,
+        )
+
+
+PORTED_LAYOUTS = ("dense", "block", "coo")
+
+
+def make_engine(cfg: Config, dataset: GraphSet, device: torch.device, layout: str):
+    """The layout's engine; COO picks as the reference's `make_engine`:
+    `--spmm pallas` needs host-built structures (CooEngine), otherwise
+    `coo_assembly` decides."""
+    if layout == "coo":
+        host = cfg.resolved_spmm_impl() == "pallas" or cfg.coo_assembly == "host"
+        return (CooEngine if host else DeviceCooEngine)(cfg, dataset, device)
+    return (BlockSparseEngine if layout == "block" else DenseEngine)(
+        cfg, dataset, device)
+
+
 def _stream_seed(seed: int, fold: int, stream: int) -> int:
     state = np.random.SeedSequence([seed, fold, stream]).generate_state(2)
     return int(state[0]) << 31 ^ int(state[1])
@@ -405,11 +531,11 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         cfg, dataset.num_features, dataset.num_classes, dataset.node_counts()
     )
     layout = choose_layout(cfg, dataset)
-    if layout not in ("dense", "block"):
+    if layout not in PORTED_LAYOUTS:
         raise NotImplementedError(
             f"the {layout!r} layout (chosen for {cfg.data_type}) is not ported "
-            f"yet ({_LAYOUT_ITEM[layout]}); the port runs the dense and block "
-            f"layouts"
+            f"yet ({_LAYOUT_ITEM[layout]}); the port runs the dense, block "
+            f"and coo layouts"
         )
     if layout == "dense" and _lockstep_would_engage(cfg, dataset,
                                                      dense_tile(dataset)):
@@ -436,12 +562,11 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         num_classes=dataset.num_classes,
         layout=layout,
         **({"block_impl": cfg.resolved_block_impl()} if layout == "block" else {}),
+        **({"spmm_impl": cfg.resolved_spmm_impl()} if layout == "coo" else {}),
         num_params=num_params(init_params(torch.Generator().manual_seed(0), model)),
         device=str(device),
     )
-    engine = (BlockSparseEngine if layout == "block" else DenseEngine)(
-        cfg, dataset, device
-    )
+    engine = make_engine(cfg, dataset, device, layout)
 
     train_accs, test_accs = [], []
     for fold_number, (train_idx, test_idx) in enumerate(folds, start=1):

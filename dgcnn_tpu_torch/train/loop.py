@@ -55,7 +55,8 @@ def train_step(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One update: forward with dropout → masked NLL → backward → Adam.
     `fwd_kw` goes to the forward (the block layout's `pool` and
-    `block_impl`). Returns the batch's (loss, correct) as device scalars."""
+    `block_impl`, the COO layout's `spmm_impl`). Returns the batch's
+    (loss, correct) as device scalars."""
     optimizer.zero_grad(set_to_none=True)
     log_probs = net(batch, deterministic=False, dropout_gen=dropout_gen, **fwd_kw)
     loss, correct = nll_loss_and_correct(log_probs, batch.y, batch.graph_mask)
@@ -88,7 +89,7 @@ def eval_epoch(net, batch_fn: BatchFn, order2d: torch.Tensor, **fwd_kw
     """Dropout off, no gradients; (mean batch loss, correct count)."""
     net.eval()
     if order2d.shape[0] == 0:
-        zero = torch.zeros((), device=order2d.device)
+        zero = torch.zeros((), device=next(net.parameters()).device)
         return zero, zero
     losses, corrects = [], []
     for row in order2d:

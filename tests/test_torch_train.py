@@ -126,7 +126,7 @@ def test_cv_run_writes_reference_artifacts(tmp_path):
     {"cv_parallel": "folds"}, {"mesh_shape": (2, 1)},
     {"checkpoint_resume": True}, {"checkpoint_every": 5},
     {"tensorboard_dir": "tb"}, {"opt_flatten": True},
-    {"spmm_impl": "pallas"}, {"layout": "multi"},
+    {"layout": "multi"},
 ], ids=lambda kw: next(iter(kw)))
 def test_unserved_options_raise(tmp_path, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -134,7 +134,7 @@ def test_unserved_options_raise(tmp_path, kw):
                                 device="cpu")
 
 
-@pytest.mark.parametrize("layout", ["multi", "coo", "halo"])
+@pytest.mark.parametrize("layout", ["multi", "halo"])
 def test_unported_layouts_raise(tmp_path, layout):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         cv.run_cross_validation(_cfg(tmp_path, layout=layout),
