@@ -23,11 +23,16 @@ CUDA is absent or any phase fails. Phases:
         bitwise equal, unvisited rows exactly 0;
      c. the three COO SpMM kernels (row-parallel CSR, edge-block,
         block-COO) on the DD COO main path's mean and largest batch and an
-        NCI1 COO batch, F ∈ {32, 1}, with random weights on the real
-        edges: forward and dh against the plain version and autograd of
-        it, two runs bitwise equal, rows with no edge exactly 0; on an NCI1
-        batch that fills its bucket, padded edges (weight 0, into the real
-        node N−1) add exactly nothing;
+        NCI1 COO batch (device-assembled buckets, block-COO structures
+        with 16 sentinel items past the real ones), and on the batches
+        `--spmm pallas` trains on: fold 1's first epoch packed by
+        `CooEngine` (worst-case bucket, structures padded to the epoch's
+        largest batch), its DD mean and largest batch and its NCI1 mean
+        batch; F ∈ {32, 1}, random weights on the real edges: forward and
+        dh against the plain version and autograd of it, two runs bitwise
+        equal, rows with no edge exactly 0; on an NCI1 batch that fills
+        its bucket, padded edges (weight 0, into the real node N−1) add
+        exactly nothing;
   4. the main paths, each with its launch counts set to 0 just before
      and read just after:
      a. the CLI trains synthetic NCI1 (dense layout, batch 50) for
@@ -44,7 +49,7 @@ CUDA is absent or any phase fails. Phases:
         1 fold × 1 epoch; launches exactly 4 × (train + eval steps)
         forward and 4 × train steps backward on the named kernel, 0 on the
         others; one DD and one NCI1 COO batch on the card against the CPU
-        through each kernel;
+        through each kernel (the block-COO kernel on a `CooEngine` batch);
   5. device times: each call captured `REPS` times in one CUDA graph,
      the graph replayed and timed with CUDA events, so the host's launch
      rate is out of the number; warm (operands left in L2 by the
@@ -52,7 +57,8 @@ CUDA is absent or any phase fails. Phases:
      time, measured the same way, subtracted). Kernel, plain version,
      bound and the library yardstick (`torch.sparse_bsr_tensor` @ dense
      for the block kernels, `torch.sparse_csr_tensor` @ dense, cuSPARSE,
-     for the SpMM kernels at the DD COO mean and largest batch);
+     for the SpMM kernels at the DD COO mean and largest batch, both the
+     device-assembled and the `CooEngine` ones);
   6. one `torch.profiler` table of a single train step for NCI1 dense,
      DD block and DD COO (top 10 CUDA kernels) and each step's wall time;
   7. one JSON line describing every kernel, the card line again, and
@@ -574,13 +580,62 @@ class CooContext:
         return gather_coo_batch(self.engine.dev, row, self.bucket)
 
 
+class HostCooContext:
+    """Synthetic `name` as `--spmm pallas` trains on it: `CooEngine` packs
+    the main path's first fold-epoch (the same graphs in the same order as
+    `CooContext`) into the worst-case bucket with block-pair structures
+    attached, exactly as it ships them; kept on the host, one batch at a
+    time to the card."""
+
+    def __init__(self, name, gs, device):
+        from dgcnn_tpu_torch.config import Config
+        from dgcnn_tpu_torch.data.folds import get_folds
+        from dgcnn_tpu_torch.train.cv import CooEngine
+
+        self.name, self.device = name, device
+        cfg = Config(data_type=name, batch_size=50, layout="coo", spmm_impl="pallas")
+        engine = CooEngine(cfg, gs, device)
+        tr, _ = get_folds(gs.y, "", 2, cfg.seed, data_type=name)[0]
+        perm = np.random.default_rng(np.random.SeedSequence([cfg.seed, 1])).permutation(len(tr))
+        t0 = time.perf_counter()
+        self.stack = engine.pack_host(gs.subset(tr), perm)
+        pack_s = time.perf_counter() - t0
+        edges = self.stack.edge_mask.sum(1)
+        self.mean_row = int(np.argmin(np.abs(edges - edges.mean())))
+        self.max_row = int(np.argmax(edges))
+        s = self.stack.blockcoo[0]
+        items = s.row_ptr[:, -1]
+        log(f"synthetic {name} CooEngine (--spmm pallas): bucket "
+            f"{engine.bucket.num_nodes} nodes, {engine.bucket.num_edges} edges; fold 1 "
+            f"epoch 1 packed with structures in {pack_s:.1f} s: {edges.shape[0]} "
+            f"batches, real edges mean {edges.mean():.0f} max {edges.max():.0f}; "
+            f"block-COO items per batch mean {items.mean():.0f} max {items.max()}, "
+            f"item axes padded to {s.ls.shape[1]}")
+
+    def host(self, r):
+        from dgcnn_tpu_torch.batching.packer import batch_step
+
+        return batch_step(self.stack, r)
+
+    def batch(self, r, device=None):
+        from dgcnn_tpu_torch.batching.packer import batch_to_device
+
+        return batch_to_device(self.host(r), device or self.device)
+
+    def case(self, r):
+        return SpmmCase(self.batch(r), seed=r, device=self.device,
+                        structure=self.host(r).blockcoo[0])
+
+
 class SpmmCase:
     """One COO batch on the card as the SpMM kernels take it: random
     weights on the real edges (0 on padding), the batch's `EdgeOrder`
-    (padding left out) and the block-pair structure built on the host from
-    the real edges, with `item_headroom` sentinel items past the real ones."""
+    (padding left out) and a block-pair structure: `structure` when given
+    (the one `add_blockcoo` attached on the main path), else one built on
+    the host from the real edges with `item_headroom` sentinel items past
+    the real ones."""
 
-    def __init__(self, b, seed, device, item_headroom=16):
+    def __init__(self, b, seed, device, item_headroom=16, structure=None):
         from dgcnn_tpu_torch.kernels.spmm_block_coo import (
             build_block_coo, pad_structure, pad_weights, pad_weights_t)
         from dgcnn_tpu_torch.ops.spmm import edge_order
@@ -595,10 +650,17 @@ class SpmmCase:
         self.e_real = int(self.order.row_ptr[-1])
         real = b.edge_mask.cpu().numpy() > 0
         w_r = self.w.cpu().numpy()[real]
-        s = build_block_coo(self.src.cpu().numpy()[real], self.dst.cpu().numpy()[real],
-                            self.n)
-        self.items = (s.ls.shape[0], s.lsT.shape[0])
-        s = pad_structure(s, max(self.items) + item_headroom)
+        src_r, dst_r = self.src.cpu().numpy()[real], self.dst.cpu().numpy()[real]
+        # rows of the input each direction reads: h at the sources, g at
+        # the destinations
+        self.rows_read = (len(np.unique(src_r)), len(np.unique(dst_r)))
+        if structure is None:
+            s = build_block_coo(src_r, dst_r, self.n)
+            s = pad_structure(s, max(s.ls.shape[0], s.lsT.shape[0]) + item_headroom)
+        else:
+            s = structure
+        self.items = (int(s.row_ptr[-1]), int(s.row_ptrT[-1]))
+        self.slots = s.ls.shape[0]
         self.structure = s.map(lambda a: torch.from_numpy(
             np.ascontiguousarray(a, np.int32)).to(device))
         self.w_pad = torch.from_numpy(pad_weights(s, w_r)).to(device)
@@ -722,11 +784,14 @@ def check_filled(name, b, device, stats):
             f"bitwise equal, dh {'bitwise equal' if grad_same else 'within tolerance'}")
 
 
-def spmm_bound(e_real, n, f):
-    """(least ms, by): each real edge's index, weight and permutation read
-    once (12 bytes), h read and out written once; 2 operations per edge
-    and column."""
-    return bound(e_real * 12 + 2 * n * f * 4, 2.0 * e_real * f)
+def spmm_bound(e_real, n, rows_read, f):
+    """(least ms, by) of one SpMM, out [n, F] = A·x with A's real edges in
+    CSR form: each edge's index and weight read once (8 bytes), the n + 1
+    row pointers, the `rows_read` rows of x that some edge references
+    (the padding rows no edge touches are never read), and all n rows of
+    out written once; 2 operations per edge and column."""
+    nbytes = e_real * 8 + (n + 1) * 4 + rows_read * f * 4 + n * f * 4
+    return bound(nbytes, 2.0 * e_real * f)
 
 
 def library_csr(case, f, x, transpose):
@@ -757,7 +822,9 @@ def time_spmm(case, flush, device):
     for f in (32, 1):
         h = torch.randn((case.n, f), generator=gen, device=device)
         g = torch.randn((case.n, f), generator=gen, device=device)
-        bnd = spmm_bound(case.e_real, case.n, f)
+        # forward reads h at the sources, the backward g at the destinations
+        bnds = {d: spmm_bound(case.e_real, case.n, case.rows_read[i], f)
+                for i, d in enumerate(("fwd", "bwd"))}
         calls = {}
         for kname, launch in (("spmm_rows", cuda_rows), ("spmm_edge_block", cuda_edge_block)):
             calls[kname] = (
@@ -787,16 +854,18 @@ def time_spmm(case, flush, device):
                 lib[d] = None
         for kname, (fwd, bwd) in calls.items():
             for d, fn in (("fwd", fwd), ("bwd", bwd)):
+                bnd = bnds[d]
                 row = {
                     "ms": device_ms(fn), "ms_l2_flushed": device_ms(fn, flush),
                     "plain_ms": plain[d], "library_ms": lib[d],
                     "bound_ms": bnd[0], "bound_by": bnd[1],
                     "edges": case.e_real, "n": case.n, "f": f,
-                    "items": case.items[0 if d == "fwd" else 1],
+                    "items": case.items[0 if d == "fwd" else 1], "slots": case.slots,
                 }
                 rows[(kname, d, f)] = row
                 log(f"  {kname} {d} F={f} edges {case.e_real} N {case.n}"
-                    + (f" items {row['items']}" if kname == "spmm_block_coo" else "")
+                    + (f" items {row['items']} of {case.slots}"
+                       if kname == "spmm_block_coo" else "")
                     + f": kernel warm {row['ms']:.4f} ms, L2-flushed "
                     f"{row['ms_l2_flushed']:.4f} ms; plain {row['plain_ms']:.4f} ms; "
                     f"library {'null' if lib[d] is None else f'{lib[d]:.4f} ms'}; "
@@ -999,7 +1068,16 @@ def main() -> int:
                         ("NCI1", nci1_coo, nci1_coo.mean_row)):
         case = SpmmCase(c.batch(r), seed=r, device=device)
         compare_spmm(f"{label} COO batch (row {r}, {case.e_real} edges, N {case.n}, "
-                     f"block-COO items {case.items})", case, device, stats)
+                     f"block-COO items {case.items} of {case.slots})", case, device, stats)
+    dd_host = HostCooContext("DD", ctx.gs, device)
+    nci1_host_coo = HostCooContext("NCI1", datasets["NCI1"], device)
+    for label, c, r in (("DD mean", dd_host, dd_host.mean_row),
+                        ("DD largest", dd_host, dd_host.max_row),
+                        ("NCI1 mean", nci1_host_coo, nci1_host_coo.mean_row)):
+        case = c.case(r)
+        compare_spmm(f"{label} CooEngine batch (row {r}, {case.e_real} edges, N "
+                     f"{case.n}, block-COO items {case.items} of {case.slots})",
+                     case, device, stats)
     check_filled("NCI1 bucket-filling batch", filled_batch(datasets["NCI1"], device),
                  device, stats)
 
@@ -1127,21 +1205,23 @@ def main() -> int:
             coo_epoch_s[(data_type, name)] = [
                 e["epoch_seconds"] for e in events if e["kind"] == "epoch"]
 
-    from dgcnn_tpu_torch.batching.packer import add_blockcoo
     from dgcnn_tpu_torch.batching.packer import batch_to_device as coo_to_device
 
     def coo_batch(c, r, impl):
         def make(dev):
-            host = c.host_batch(r)
-            if impl == "pallas":
-                host = add_blockcoo(host)
-            return coo_to_device(host, dev), {"spmm_impl": impl}
+            return coo_to_device(c.host_batch(r), dev), {"spmm_impl": impl}
         return make
 
-    for c, model in ((dd_coo, dd_model), (nci1_coo, nci1_model)):
-        for impl in ("xla", "onehot", "pallas"):
+    def host_coo_batch(hc, r):
+        return lambda dev: (hc.batch(r, dev), {"spmm_impl": "pallas"})
+
+    for c, hc, model in ((dd_coo, dd_host, dd_model),
+                         (nci1_coo, nci1_host_coo, nci1_model)):
+        for impl in ("xla", "onehot"):
             card_vs_cpu(f"{c.name} COO batch (row {c.mean_row}, spmm_impl {impl})",
                         coo_batch(c, c.mean_row, impl), model)
+        card_vs_cpu(f"{c.name} CooEngine batch (row {hc.mean_row}, spmm_impl pallas)",
+                    host_coo_batch(hc, hc.mean_row), model)
 
     log("== phase 5: device times (CUDA-graph replay, CUDA events)")
     log(card)
@@ -1179,6 +1259,9 @@ def main() -> int:
         log(f"  DD COO {label} batch (row {r}):")
         spmm_times[label] = time_spmm(SpmmCase(dd_coo.batch(r), seed=r, device=device),
                                       flush, device)
+    for label, r in (("host mean", dd_host.mean_row), ("host max", dd_host.max_row)):
+        log(f"  DD CooEngine {label[5:]} batch (row {r}, what --spmm pallas trains on):")
+        spmm_times[label] = time_spmm(dd_host.case(r), flush, device)
     for label, rows in spmm_times.items():
         log(f"  DD COO {label} batch, one train step's SpMMs (3 x F=32 + F=1, fwd + "
             f"bwd): " + ", ".join(f"{k} {spmm_step_ms(rows, k):.4f} ms"
@@ -1240,8 +1323,11 @@ def main() -> int:
         "spmm_block_coo": "dgcnn_tpu/kernels/spmm_block_coo.py:399",
     }
     for kname in SPMM_KERNELS:
+        # each kernel at the mean batch of the engine its name trains on
+        where = "host mean" if kname == "spmm_block_coo" else "mean"
+        engine = "CooEngine" if where == "host mean" else "DeviceCooEngine"
         for i, d in enumerate(("fwd", "bwd")):
-            row = spmm_times["mean"][(kname, d, 32)]
+            row = spmm_times[where][(kname, d, 32)]
             kernels.append({
                 "name": f"{kname}_{d}", "route": "cuda",
                 "source": f"dgcnn_tpu_torch/csrc/{kname}.cu",
@@ -1251,7 +1337,10 @@ def main() -> int:
                 "ms": row["ms"], "ms_l2_flushed": row["ms_l2_flushed"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                "shape": f"DD COO mean batch: {row['edges']} edges, N {row['n']}, F 32",
+                "shape": (f"DD COO mean batch ({engine}): {row['edges']} edges, "
+                          f"N {row['n']}, F 32"
+                          + (f", {row['items']} items of {row['slots']}"
+                             if kname == "spmm_block_coo" else "")),
             })
     log(f"DD epoch seconds (main path, block_impl {auto_impl}): {dd_epoch_s}")
     log(f"COO epoch seconds: {coo_epoch_s}")

@@ -20,8 +20,10 @@ nothing on the card:
   * "onehot": the edge-block kernel (`spmm_pallas_mxu`, the port of the
     one-hot selector kernel);
   * "pallas": the block-COO kernel (kernels/spmm_block_coo.py) on batches
-    that carry a block-pair structure, else the CSR kernel;
-  * "auto": `Config.resolved_spmm_impl()`, the port's H100 choice.
+    that carry a block-pair structure, else the CSR kernel.
+
+"auto" is resolved above this layer (`Config.resolved_spmm_impl()`, the
+port's H100 choice); the dispatcher takes the concrete names only.
 
 On CPU tensors every name runs the plain version; on CUDA tensors the
 kernel, or it raises.
@@ -34,7 +36,7 @@ from typing import Optional
 
 import torch
 
-IMPLS = ("auto", "xla", "onehot", "pallas")
+IMPLS = ("xla", "onehot", "pallas")
 
 
 def spmm_plain(edge_src, edge_dst, edge_weight, h, num_nodes: int) -> torch.Tensor:
@@ -97,16 +99,6 @@ def edge_order(edge_src, edge_dst, num_nodes: int, edge_mask=None,
                      permT=permT.to(i32), row_ptrT=_ranges(src_s, num_nodes))
 
 
-def resolve_impl(impl: str) -> str:
-    if impl not in IMPLS:
-        raise ValueError(f"unknown spmm impl {impl!r}")
-    if impl == "auto":
-        from dgcnn_tpu_torch.config import Config
-
-        return Config(spmm_impl="auto").resolved_spmm_impl()
-    return impl
-
-
 def spmm(edge_src, edge_dst, edge_weight, h, num_nodes: int, impl: str = "xla",
          structure=None, w_pad=None, w_padT=None,
          order: Optional[EdgeOrder] = None) -> torch.Tensor:
@@ -118,7 +110,8 @@ def spmm(edge_src, edge_dst, edge_weight, h, num_nodes: int, impl: str = "xla",
     from dgcnn_tpu_torch.kernels.spmm_block_coo import spmm_block_coo
     from dgcnn_tpu_torch.kernels.spmm_pallas import spmm_pallas, spmm_pallas_mxu
 
-    impl = resolve_impl(impl)
+    if impl not in IMPLS:
+        raise ValueError(f"unknown spmm impl {impl!r} (one of {IMPLS})")
     if h.shape[0] != num_nodes:
         raise ValueError(f"h has {h.shape[0]} rows, num_nodes is {num_nodes}")
     if impl == "pallas" and structure is not None:

@@ -58,7 +58,6 @@ from dgcnn_tpu_torch.batching.packer import (
     add_blockcoo,
     batch_step,
     batch_to_device,
-    blockcoo_item_bound,
     compute_bucket,
     pack_epoch,
 )
@@ -378,8 +377,11 @@ class CooEngine:
     is packed with NumPy into the worst-case bucket (`compute_bucket`) and
     shipped to the device as one stacked epoch; the fold's test batches are
     packed and shipped once. Under `--spmm pallas` each batch also carries
-    its block-pair structure (`add_blockcoo`, item axis padded to
-    `blockcoo_item_bound`) for the block-COO kernel."""
+    its block-pair structure (`add_blockcoo`, item axes padded to the
+    stack's largest batch) for the block-COO kernel. (The reference pads
+    them to `blockcoo_item_bound` so that XLA compiles one shape; nothing
+    here recompiles, so the port ships no sentinel items past the stack's
+    own.)"""
 
     def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device):
         self.cfg = cfg
@@ -390,14 +392,15 @@ class CooEngine:
             cfg.edge_pad_multiple, cfg.graph_pad_multiple,
         )
         self.spmm_impl = cfg.resolved_spmm_impl()
-        self._w_bound = (blockcoo_item_bound(dataset, cfg.batch_size)
-                         if self.spmm_impl == "pallas" else 0)
+
+    def pack_host(self, ds: GraphSet, order: np.ndarray):
+        """`ds` in `order` as one stacked epoch of NumPy arrays, exactly as
+        the engine ships it."""
+        epoch = pack_epoch(ds, order, self.cfg.batch_size, self.bucket)
+        return add_blockcoo(epoch) if self.spmm_impl == "pallas" else epoch
 
     def _pack(self, ds: GraphSet, order: np.ndarray):
-        epoch = pack_epoch(ds, order, self.cfg.batch_size, self.bucket)
-        if self.spmm_impl == "pallas":
-            epoch = add_blockcoo(epoch, pad_items_to=self._w_bound)
-        return batch_to_device(epoch, self.device)
+        return batch_to_device(self.pack_host(ds, order), self.device)
 
     @staticmethod
     def _rows(which: int, steps: int) -> torch.Tensor:

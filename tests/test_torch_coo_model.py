@@ -87,8 +87,10 @@ def test_activations_match_jax_apply_coo(name, jimpl, impl):
     gs = _batches(name)[0]
     _, tm, _, state = _models(gs)
     want = _jax_acts(name, jimpl)
+    # "auto" is resolved above the model, as the engines do
     _, got = apply_coo(state_to_params(state), tm, _port_batch(name, impl),
-                       spmm_impl=impl, return_activations=True)
+                       spmm_impl=Config(spmm_impl=impl).resolved_spmm_impl(),
+                       return_activations=True)
     for key in ACTS:
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                    rtol=1e-5, atol=1e-6, err_msg=f"{name} {key}")
@@ -265,6 +267,38 @@ def test_engine_choice_follows_reference():
         assert cls is want, (impl, asm)
     assert Config().resolved_spmm_impl() in ("xla", "onehot")
     assert Config(spmm_impl="onehot").resolved_spmm_impl() == "onehot"
+
+
+def test_coo_engine_pads_structures_to_the_epochs_largest_batch():
+    """Under pallas, CooEngine pads an epoch's block-pair structures to that
+    epoch's largest batch; the reference's padding to `blockcoo_item_bound`
+    (one XLA shape per run) only appends sentinel items and null slots to
+    the same arrays."""
+    gs = synthesize_tu_dataset("MUTAG", num_graphs=30, seed=4)
+    eng = cv.CooEngine(Config(data_type="MUTAG", batch_size=8, spmm_impl="pallas"),
+                       gs, "cpu")
+    order = np.random.default_rng(0).permutation(30)
+    s, w_pad, w_padT = eng.pack_host(gs, order).blockcoo
+    real = np.stack([s.row_ptr[:, -1], s.row_ptrT[:, -1]])
+    w = s.ls.shape[1]
+    assert w == real.max() and (real < w).any()
+    bound = tpk.blockcoo_item_bound(gs, 8)
+    assert bound > w
+    ref_s, ref_w, ref_wT = tpk.add_blockcoo(
+        tpk.pack_epoch(gs, order, 8, eng.bucket), pad_items_to=bound).blockcoo
+    nb = eng.bucket.num_nodes // 128
+    for f in type(s).ARRAYS:
+        got, want = getattr(s, f), getattr(ref_s, f)
+        if f in ("row_ptr", "row_ptrT"):
+            np.testing.assert_array_equal(got, want)
+            continue
+        np.testing.assert_array_equal(got, want[:, :w], err_msg=f)
+        tail = want[:, w:]
+        sentinel = {"item_r": nb, "perm": -1, "permT": -1}.get(f, 0)
+        assert (tail == sentinel).all(), f
+    for got, want in ((w_pad, ref_w), (w_padT, ref_wT)):
+        np.testing.assert_array_equal(got, want[:, :w])
+        assert not want[:, w:].any()
 
 
 @pytest.mark.parametrize("spmm_impl,assembly", [("auto", "device"), ("pallas", "device"),

@@ -193,13 +193,16 @@ def test_edge_order_of_a_sorted_stream_skips_the_sort():
 
 
 def test_dispatcher_names():
-    """Every name computes the same function on the CPU; "auto" resolves
-    through Config; "pallas" takes the structure when one is given."""
+    """Every name computes the same function on the CPU; "auto" is not a
+    dispatcher name (Config resolves it to one that is); "pallas" takes the
+    structure when one is given."""
     src, dst, w = _stream("duplicates")
     h, _ = _hg(8)
     args = [torch.from_numpy(a) for a in (src, dst, w, h)]
     want = tspmm.spmm_plain(*args, N)
-    assert tspmm.resolve_impl("auto") == Config().resolved_spmm_impl()
+    assert Config().resolved_spmm_impl() in tspmm.IMPLS
+    with pytest.raises(ValueError, match="unknown"):
+        tspmm.spmm(*args, N, impl="auto")
     for impl in tspmm.IMPLS:
         torch.testing.assert_close(tspmm.spmm(*args, N, impl=impl), want)
     real = w > 0
