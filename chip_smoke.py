@@ -28,11 +28,16 @@ CUDA is absent or any phase fails. Phases:
         `--spmm pallas` trains on: fold 1's first epoch packed by
         `CooEngine` (worst-case bucket, structures padded to the epoch's
         largest batch), its DD mean and largest batch and its NCI1 mean
-        batch; F ∈ {32, 1}, random weights on the real edges: forward and
-        dh against the plain version and autograd of it, two runs bitwise
-        equal, rows with no edge exactly 0; on an NCI1 batch that fills
-        its bucket, padded edges (weight 0, into the real node N−1) add
-        exactly nothing;
+        batch; the probe's standard shape and its long-row variant
+        (1,022 padding edges into one row), every edge real and weighted;
+        F ∈ {32, 1, 97, 160},
+        random weights on the real edges: forward and dh against the
+        plain version and autograd of it (the block-COO kernel also
+        against `block_coo_plain`), two runs bitwise equal, rows with no
+        edge exactly 0; the earlier A-build design of the block-COO kernel
+        (the probe's `abuild`) forward and transposed against the same; on
+        an NCI1 batch that fills its bucket, padded edges (weight 0, into
+        the real node N−1) add exactly nothing;
   4. the main paths, each with its launch counts set to 0 just before
      and read just after:
      a. the CLI trains synthetic NCI1 (dense layout, batch 50) for
@@ -50,18 +55,25 @@ CUDA is absent or any phase fails. Phases:
         forward and 4 × train steps backward on the named kernel, 0 on the
         others; one DD and one NCI1 COO batch on the card against the CPU
         through each kernel (the block-COO kernel on a `CooEngine` batch);
-  5. device times: each call captured `REPS` times in one CUDA graph,
-     the graph replayed and timed with CUDA events, so the host's launch
-     rate is out of the number; warm (operands left in L2 by the
-     previous call) and after a 64 MB L2-flushing write (the write's own
-     time, measured the same way, subtracted). Kernel, plain version,
-     bound and the library yardstick (`torch.sparse_bsr_tensor` @ dense
-     for the block kernels, `torch.sparse_csr_tensor` @ dense, cuSPARSE,
-     for the SpMM kernels at the DD COO mean and largest batch, both the
-     device-assembled and the `CooEngine` ones);
+  5. device times (utils/profiling.py `device_ms`): each call captured
+     10 times in one CUDA graph, the graph replayed and timed with CUDA
+     events, so the host's launch rate is out of the number; warm
+     (operands left in L2 by the previous call) and after a 64 MB
+     L2-flushing write (the write's own time, measured the same way,
+     subtracted). Kernel, plain version, bound and the library yardstick
+     (`torch.sparse_bsr_tensor` @ dense for the block kernels,
+     `torch.sparse_csr_tensor` @ dense, cuSPARSE, for the SpMM kernels at
+     the DD COO mean and largest batch, both the device-assembled and the
+     `CooEngine` ones); the block-COO kernel, its earlier A-build design
+     and its slot order's build also at every other batch of phase 3c;
   6. one `torch.profiler` table of a single train step for NCI1 dense,
-     DD block and DD COO (top 10 CUDA kernels) and each step's wall time;
-  7. one JSON line describing every kernel, the card line again, and
+     DD block, DD COO and DD COO `--spmm pallas` (top 10 CUDA kernels)
+     and each step's wall time;
+  7. the block-COO cost-split probe (dgcnn_tpu_torch/tools/
+     probe_kernel_anatomy.py) at its standard shape, its long-row variant
+     and DD's `CooEngine` mean batch, its launch count set to 0 after its checks and read
+     after its timing; its JSON line;
+  8. one JSON line describing every kernel, the card line again, and
      the final `{"ok": true, ...}` line.
 """
 
@@ -70,7 +82,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -78,116 +89,17 @@ import time
 import numpy as np
 import torch
 
+from dgcnn_tpu_torch.utils.profiling import (
+    FLUSH_BYTES, Flush, bound, card_line, device_ms, events_ms, rel_err, spmm_bound,
+)
+
 S = 56  # graph slots: batch 50 rounded up to graph_pad_multiple 8
 DIMS = (32, 32, 32, 1)
-# fp32 kernel vs fp32 plain version, same inputs: the two sum the same
-# products in different orders, so they differ by rounding only — about
-# sqrt(n)·2^-24 relative for sums of n ≤ 56·2048 terms, far under 1e-4
-# of the largest value. A wrong index or a missed tile is off by O(1).
-RTOL, ATOL = 1e-4, 1e-6
-# published H100 SXM peaks: fp32 outside the
-# tensor cores, and HBM bandwidth
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 BS = 128
-REPS = 10  # calls per captured graph
-FLUSH_BYTES = 64 << 20  # over the H100's 50 MB L2
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    return out[0]
-
-
-def rel_err(got: torch.Tensor, want: torch.Tensor):
-    err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
-    scale = want.double().abs().max().item() if want.numel() else 0.0
-    return err, err / max(scale, ATOL), err <= ATOL + RTOL * scale
-
-
-def bound(nbytes: float, flops: float):
-    """(least ms, "bytes" or "operations"): max(bytes / HBM rate, fp32
-    operations / fp32 peak)."""
-    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-
-
-# -- device time ---------------------------------------------------------
-
-
-def _graph_ms(body, reps: int, replays: int) -> float:
-    """ms per replay of a CUDA graph holding `reps` calls of `body`."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        body()  # warm-up outside capture (first-use set-up, allocator)
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            body()
-    graph.replay()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(replays):
-        graph.replay()
-    e1.record()
-    torch.cuda.synchronize()
-    ms = e0.elapsed_time(e1) / replays
-    del graph
-    return ms
-
-
-class Flush:
-    """A 64 MB write that evicts the 50 MB L2, and its own device time."""
-
-    def __init__(self, device):
-        self.buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
-        self.k = 0
-        self.ms = _graph_ms(self, REPS, 5) / REPS
-
-    def __call__(self):
-        self.k += 1
-        self.buf.fill_(float(self.k % 7))
-
-
-def device_ms(fn, flush: Flush = None, replays: int = 5) -> float:
-    """Device time of one call of `fn` (see phase 5 in the docstring):
-    warm when `flush` is None, else after an L2 flush, net of it."""
-    if flush is None:
-        return _graph_ms(fn, REPS, replays) / REPS
-
-    def body():
-        flush()
-        fn()
-
-    return _graph_ms(body, REPS, replays) / REPS - flush.ms
-
-
-def events_ms(fn, reps: int = 20) -> float:
-    """Back-to-back calls timed with CUDA events (an upper bound on the
-    device time where the host issues slower than the card runs)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
 
 
 # -- phase 3a: the dense trunk --------------------------------------------
@@ -588,20 +500,12 @@ class HostCooContext:
     time to the card."""
 
     def __init__(self, name, gs, device):
-        from dgcnn_tpu_torch.config import Config
-        from dgcnn_tpu_torch.data.folds import get_folds
-        from dgcnn_tpu_torch.train.cv import CooEngine
+        from dgcnn_tpu_torch.tools.probe_kernel_anatomy import coo_engine_epoch, mean_row
 
         self.name, self.device = name, device
-        cfg = Config(data_type=name, batch_size=50, layout="coo", spmm_impl="pallas")
-        engine = CooEngine(cfg, gs, device)
-        tr, _ = get_folds(gs.y, "", 2, cfg.seed, data_type=name)[0]
-        perm = np.random.default_rng(np.random.SeedSequence([cfg.seed, 1])).permutation(len(tr))
-        t0 = time.perf_counter()
-        self.stack = engine.pack_host(gs.subset(tr), perm)
-        pack_s = time.perf_counter() - t0
+        engine, self.stack, pack_s = coo_engine_epoch(name, gs, device)
         edges = self.stack.edge_mask.sum(1)
-        self.mean_row = int(np.argmin(np.abs(edges - edges.mean())))
+        self.mean_row = mean_row(self.stack)
         self.max_row = int(np.argmax(edges))
         s = self.stack.blockcoo[0]
         items = s.row_ptr[:, -1]
@@ -637,7 +541,8 @@ class SpmmCase:
 
     def __init__(self, b, seed, device, item_headroom=16, structure=None):
         from dgcnn_tpu_torch.kernels.spmm_block_coo import (
-            build_block_coo, pad_structure, pad_weights, pad_weights_t)
+            block_coo_order, build_block_coo, pad_structure, pad_weights,
+            pad_weights_t)
         from dgcnn_tpu_torch.ops.spmm import edge_order
 
         self.n = b.x.shape[0]
@@ -665,9 +570,13 @@ class SpmmCase:
             np.ascontiguousarray(a, np.int32)).to(device))
         self.w_pad = torch.from_numpy(pad_weights(s, w_r)).to(device)
         self.w_padT = torch.from_numpy(pad_weights_t(s, w_r)).to(device)
+        self.bc_order = block_coo_order(self.structure, self.n)
+        rp = self.bc_order.row_ptr
+        self.longest_row = int((rp[1:] - rp[:-1]).max())
 
     def fns(self, order=None):
-        """name → autograd entry h ↦ out."""
+        """name → autograd entry h ↦ out (the block-COO wrapper builds its
+        slot order itself)."""
         from dgcnn_tpu_torch.kernels.spmm_block_coo import spmm_block_coo
         from dgcnn_tpu_torch.kernels.spmm_pallas import spmm_pallas, spmm_pallas_mxu
 
@@ -678,6 +587,25 @@ class SpmmCase:
             "spmm_block_coo": lambda h: spmm_block_coo(self.structure, self.w_pad,
                                                       self.w_padT, h),
         }
+
+    def block_plain(self, x, transpose: bool):
+        """`block_coo_plain` over one orientation of the structure."""
+        from dgcnn_tpu_torch.kernels.spmm_block_coo import block_coo_plain
+
+        s = self.structure
+        if transpose:
+            return block_coo_plain(s.row_ptrT, s.item_cT, s.lsT, s.ldT, self.w_padT, x)
+        return block_coo_plain(s.row_ptr, s.item_c, s.ls, s.ld, self.w_pad, x)
+
+    def abuild(self, x, transpose: bool):
+        """The earlier A-build design (the probe's `abuild` variant) over
+        one orientation."""
+        from dgcnn_tpu_torch.tools.probe_kernel_anatomy import abuild
+
+        s = self.structure
+        if transpose:
+            return abuild(s.row_ptrT, s.item_cT, s.lsT, s.ldT, self.w_padT, x)
+        return abuild(s.row_ptr, s.item_c, s.ls, s.ld, self.w_pad, x)
 
     def plain(self, h):
         from dgcnn_tpu_torch.ops.spmm import spmm_plain
@@ -696,25 +624,34 @@ def _run_twice(fn, h, g):
     return outs, grads
 
 
+SPMM_WIDTHS = (32, 1, 97, 160)
+
+
 def compare_spmm(name, case, device, stats):
-    """Every SpMM kernel vs the plain version on one batch, F ∈ {32, 1}:
+    """Every SpMM kernel vs the plain version on one batch, F ∈ SPMM_WIDTHS:
     forward; dh against autograd of the plain forward; two runs bitwise
-    equal; rows with no edge (padding nodes included) exactly 0 both ways."""
+    equal; rows with no edge (padding nodes included) exactly 0 both ways.
+    The block-COO kernel, and the earlier A-build design (the probe's
+    `abuild`, forward and transposed), also against `block_coo_plain`."""
     o = case.order
     empty = o.row_ptr[1:] == o.row_ptr[:-1]
     emptyT = o.row_ptrT[1:] == o.row_ptrT[:-1]
     gen = torch.Generator(device=device).manual_seed(case.n)
-    for f in (32, 1):
+    for f in SPMM_WIDTHS:
         h = torch.randn((case.n, f), generator=gen, device=device)
         g = torch.randn((case.n, f), generator=gen, device=device)
         with torch.no_grad():
             want = case.plain(h)
+            want_bc = (case.block_plain(h, False), case.block_plain(g, True))
         hr = h.clone().requires_grad_()
         want_g, = torch.autograd.grad(case.plain(hr), hr, g)
         for kname, fn in case.fns().items():
             outs, grads = _run_twice(fn, h, g)
             err, rel, ok = rel_err(outs[0], want)
             gerr, grel, gok = rel_err(grads[0], want_g)
+            if kname == "spmm_block_coo":
+                ok = ok and rel_err(outs[0], want_bc[0])[2]
+                gok = gok and rel_err(grads[0], want_bc[1])[2]
             if not ok or not gok:
                 raise AssertionError(
                     f"{name} F={f} {kname}: disagrees with the plain version "
@@ -729,6 +666,19 @@ def compare_spmm(name, case, device, stats):
                 f"autograd of plain max abs {gerr:.3e} rel {grel:.3e}; two runs bitwise "
                 f"equal; {int(empty.sum())} empty rows fwd, {int(emptyT.sum())} bwd, "
                 f"exactly 0")
+        with torch.no_grad():
+            got = [case.abuild(h, False), case.abuild(g, True)]
+            again = [case.abuild(h, False), case.abuild(g, True)]
+        for d, a, b, bc, plain in zip(("fwd", "bwd"), got, again, want_bc, (want, want_g)):
+            err, rel, ok = rel_err(a, plain)
+            if not ok or not rel_err(a, bc)[2] or not torch.equal(a, b):
+                raise AssertionError(f"{name} F={f} spmm_block_coo_abuild {d}: disagrees "
+                                     f"with the plain version or between two runs "
+                                     f"(abs {err:.3e} rel {rel:.3e})")
+            stats[f"spmm_block_coo_abuild_{d}"] = max(
+                stats[f"spmm_block_coo_abuild_{d}"], err)
+        log(f"  {name} F={f} spmm_block_coo_abuild (the earlier design): fwd and "
+            f"transposed agree with the plain version, two runs bitwise equal")
 
 
 def filled_batch(gs, device, slots=S):
@@ -782,16 +732,7 @@ def check_filled(name, b, device, stats):
         log(f"  {name} {kname}: {case.n} nodes, node N-1 real; "
             f"{case.src.shape[0] - case.e_real} padded edges in the stream: forward "
             f"bitwise equal, dh {'bitwise equal' if grad_same else 'within tolerance'}")
-
-
-def spmm_bound(e_real, n, rows_read, f):
-    """(least ms, by) of one SpMM, out [n, F] = A·x with A's real edges in
-    CSR form: each edge's index and weight read once (8 bytes), the n + 1
-    row pointers, the `rows_read` rows of x that some edge references
-    (the padding rows no edge touches are never read), and all n rows of
-    out written once; 2 operations per edge and column."""
-    nbytes = e_real * 8 + (n + 1) * 4 + rows_read * f * 4 + n * f * 4
-    return bound(nbytes, 2.0 * e_real * f)
+    return case
 
 
 def library_csr(case, f, x, transpose):
@@ -809,16 +750,40 @@ def library_csr(case, f, x, transpose):
     return lambda: a @ x
 
 
-def time_spmm(case, flush, device):
-    """Per kernel, direction and F: warm and flushed device ms, the plain
-    version's and the library call's ms, and the bound."""
-    from dgcnn_tpu_torch.kernels.spmm_block_coo import _cuda_spmm
+def probe_case(device, num_edges):
+    """A probe shape (`_batch_edges(rng(0), 2048, num_edges)`) as a batch
+    whose every edge is real, the w=0 padding edges into node 2,047 too
+    (the long row, when it has padding), with random nonzero weights on
+    all of them, so a slot dropped from the long row would show."""
+    import types
+
+    from dgcnn_tpu_torch.tools.probe_kernel_anatomy import STANDARD
+    from dgcnn_tpu_torch.utils.profiling import _batch_edges
+
+    n = STANDARD[0]
+    src, dst, _ = _batch_edges(np.random.default_rng(0), n, num_edges)
+    b = types.SimpleNamespace(
+        x=torch.zeros((n, 1), device=device), edge_src=torch.from_numpy(src).to(device),
+        edge_dst=torch.from_numpy(dst).to(device),
+        edge_mask=torch.ones(len(src), device=device))
+    return SpmmCase(b, seed=5, device=device)
+
+
+BLOCK_COO_TIMED = ("spmm_block_coo", "spmm_block_coo_abuild")
+
+
+def time_spmm(case, flush, device, kernels=SPMM_KERNELS + ("spmm_block_coo_abuild",)):
+    """Per kernel of `kernels`, direction and F: warm and flushed device
+    ms, the plain version's and the library call's ms, and the bound; the
+    block-COO slot order's build time."""
+    from dgcnn_tpu_torch.kernels.spmm_block_coo import _cuda_spmm, block_coo_order
     from dgcnn_tpu_torch.kernels.spmm_pallas import cuda_edge_block, cuda_rows
     from dgcnn_tpu_torch.ops.spmm import spmm_plain
 
-    o, s = case.order, case.structure
+    o, s, bo = case.order, case.structure, case.bc_order
     gen = torch.Generator(device=device).manual_seed(11)
-    rows = {}
+    rows = {"order_ms": device_ms(lambda: block_coo_order(s, case.n))}
+    log(f"  block-COO slot order (both orientations): {rows['order_ms']:.4f} ms")
     for f in (32, 1):
         h = torch.randn((case.n, f), generator=gen, device=device)
         g = torch.randn((case.n, f), generator=gen, device=device)
@@ -833,8 +798,12 @@ def time_spmm(case, flush, device):
                 lambda launch=launch: launch(o.row_ptrT, o.permT, case.src, case.dst,
                                              case.w, g, True))
         calls["spmm_block_coo"] = (
-            lambda: _cuda_spmm(s.row_ptr, s.item_c, s.ls, s.ld, case.w_pad, h, False),
-            lambda: _cuda_spmm(s.row_ptrT, s.item_cT, s.lsT, s.ldT, case.w_padT, g, True))
+            lambda: _cuda_spmm(bo.row_ptr, bo.perm, s.item_c, s.ls, case.w_pad, h, False),
+            lambda: _cuda_spmm(bo.row_ptrT, bo.permT, s.item_cT, s.lsT, case.w_padT, g,
+                               True))
+        calls["spmm_block_coo_abuild"] = (lambda: case.abuild(h, False),
+                                          lambda: case.abuild(g, True))
+        calls = {k: v for k, v in calls.items() if k in kernels}
         plain = {
             "fwd": device_ms(lambda: spmm_plain(case.src, case.dst, case.w, h, case.n)),
             "bwd": device_ms(lambda: spmm_plain(case.dst, case.src, case.w, g, case.n)),
@@ -864,8 +833,8 @@ def time_spmm(case, flush, device):
                 }
                 rows[(kname, d, f)] = row
                 log(f"  {kname} {d} F={f} edges {case.e_real} N {case.n}"
-                    + (f" items {row['items']} of {case.slots}"
-                       if kname == "spmm_block_coo" else "")
+                    + (f" items {row['items']} of {case.slots}, longest row "
+                       f"{case.longest_row} slots" if kname in BLOCK_COO_TIMED else "")
                     + f": kernel warm {row['ms']:.4f} ms, L2-flushed "
                     f"{row['ms_l2_flushed']:.4f} ms; plain {row['plain_ms']:.4f} ms; "
                     f"library {'null' if lib[d] is None else f'{lib[d]:.4f} ms'}; "
@@ -875,7 +844,8 @@ def time_spmm(case, flush, device):
 
 def spmm_step_ms(rows, kname):
     """A COO train step's SpMM time on one kernel: three F=32 and one F=1
-    SpMM, forward and backward."""
+    SpMM, forward and backward (the block-COO kernel's slot order not
+    included)."""
     return sum(3 * rows[(kname, d, 32)]["ms"] + rows[(kname, d, 1)]["ms"]
                for d in ("fwd", "bwd"))
 
@@ -1026,7 +996,8 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  {src}: {line.strip()}")
 
-    stats = {f"{k}_{d}": 0.0 for k in ("gcn_trunk", *BLOCK_KERNELS, *SPMM_KERNELS)
+    stats = {f"{k}_{d}": 0.0 for k in ("gcn_trunk", *BLOCK_KERNELS, *SPMM_KERNELS,
+                                        "spmm_block_coo_abuild")
              for d in ("fwd", "bwd")}
 
     log("== phase 3a: trunk kernel vs plain version on the card")
@@ -1063,23 +1034,32 @@ def main() -> int:
     log("== phase 3c: SpMM kernels vs plain version on the card")
     dd_coo = CooContext("DD", device, gs=ctx.gs)
     nci1_coo = CooContext("NCI1", device, gs=datasets["NCI1"])
-    for label, c, r in (("DD mean", dd_coo, dd_coo.mean_row),
-                        ("DD largest", dd_coo, dd_coo.max_row),
-                        ("NCI1", nci1_coo, nci1_coo.mean_row)):
-        case = SpmmCase(c.batch(r), seed=r, device=device)
+    spmm_cases = {}  # the batches phase 5 times, by label
+    for label, key, c, r in (("DD mean", "mean", dd_coo, dd_coo.mean_row),
+                             ("DD largest", "max", dd_coo, dd_coo.max_row),
+                             ("NCI1", "NCI1 dev", nci1_coo, nci1_coo.mean_row)):
+        case = spmm_cases[key] = SpmmCase(c.batch(r), seed=r, device=device)
         compare_spmm(f"{label} COO batch (row {r}, {case.e_real} edges, N {case.n}, "
                      f"block-COO items {case.items} of {case.slots})", case, device, stats)
     dd_host = HostCooContext("DD", ctx.gs, device)
     nci1_host_coo = HostCooContext("NCI1", datasets["NCI1"], device)
-    for label, c, r in (("DD mean", dd_host, dd_host.mean_row),
-                        ("DD largest", dd_host, dd_host.max_row),
-                        ("NCI1 mean", nci1_host_coo, nci1_host_coo.mean_row)):
-        case = c.case(r)
+    for label, key, c, r in (
+            ("DD mean", "host mean", dd_host, dd_host.mean_row),
+            ("DD largest", "host max", dd_host, dd_host.max_row),
+            ("NCI1 mean", "NCI1 host mean", nci1_host_coo, nci1_host_coo.mean_row)):
+        case = spmm_cases[key] = c.case(r)
         compare_spmm(f"{label} CooEngine batch (row {r}, {case.e_real} edges, N "
                      f"{case.n}, block-COO items {case.items} of {case.slots})",
                      case, device, stats)
-    check_filled("NCI1 bucket-filling batch", filled_batch(datasets["NCI1"], device),
-                 device, stats)
+    spmm_cases["NCI1 filled"] = check_filled(
+        "NCI1 bucket-filling batch", filled_batch(datasets["NCI1"], device), device, stats)
+    from dgcnn_tpu_torch.tools.probe_kernel_anatomy import LONG_ROW_EDGES, STANDARD
+
+    for key, e in (("probe standard", STANDARD[1]), ("probe long row", LONG_ROW_EDGES)):
+        case = spmm_cases[key] = probe_case(device, e)
+        compare_spmm(f"{key} shape ({case.e_real} edges, N {case.n}, every edge real, "
+                     f"longest row {case.longest_row} slots, block-COO items "
+                     f"{case.items} of {case.slots})", case, device, stats)
 
     log("== phase 4a: main path, synthetic NCI1, dense, 2 folds x 2 epochs")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1255,17 +1235,28 @@ def main() -> int:
         log(f"  DD {label} batch (row {r}):")
         block_times[label] = time_block(ctx, r, flush, device)
     spmm_times = {}
-    for label, r in (("mean", dd_coo.mean_row), ("max", dd_coo.max_row)):
-        log(f"  DD COO {label} batch (row {r}):")
-        spmm_times[label] = time_spmm(SpmmCase(dd_coo.batch(r), seed=r, device=device),
-                                      flush, device)
-    for label, r in (("host mean", dd_host.mean_row), ("host max", dd_host.max_row)):
-        log(f"  DD CooEngine {label[5:]} batch (row {r}, what --spmm pallas trains on):")
-        spmm_times[label] = time_spmm(dd_host.case(r), flush, device)
-    for label, rows in spmm_times.items():
+    for label, what in (("mean", "DD COO mean batch"), ("max", "DD COO largest batch"),
+                        ("host mean", "DD CooEngine mean batch (what --spmm pallas "
+                                      "trains on)"),
+                        ("host max", "DD CooEngine largest batch")):
+        log(f"  {what}:")
+        spmm_times[label] = time_spmm(spmm_cases[label], flush, device)
+    for label in ("NCI1 dev", "NCI1 host mean", "NCI1 filled", "probe standard",
+                  "probe long row"):
+        log(f"  {label} batch (block-COO only):")
+        spmm_times[label] = time_spmm(spmm_cases[label], flush, device,
+                                      kernels=BLOCK_COO_TIMED)
+    for label in ("mean", "max", "host mean", "host max"):
+        rows = spmm_times[label]
         log(f"  DD COO {label} batch, one train step's SpMMs (3 x F=32 + F=1, fwd + "
             f"bwd): " + ", ".join(f"{k} {spmm_step_ms(rows, k):.4f} ms"
-                                  for k in SPMM_KERNELS))
+                                  for k in SPMM_KERNELS + ("spmm_block_coo_abuild",)))
+    for label, rows in spmm_times.items():
+        beats = all(rows[("spmm_block_coo", d, 32)]["library_ms"] is not None
+                    and rows[("spmm_block_coo", d, 32)]["ms"]
+                    < rows[("spmm_block_coo", d, 32)]["library_ms"] for d in ("fwd", "bwd"))
+        log(f"  {label}: block-COO F=32 fwd and bwd below cuSPARSE: "
+            f"{'yes' if beats else 'no'}")
     del flush
 
     log("== phase 6: one profiled train step (torch.profiler)")
@@ -1282,8 +1273,25 @@ def main() -> int:
     net = DGCNNNet(dd_model, init_params(torch.Generator().manual_seed(0), dd_model, device))
     profile_step(f"DD COO ({spmm_auto}, mean batch)", net, make_optimizer(net),
                  dd_coo.batch(dd_coo.mean_row), {"spmm_impl": spmm_auto})
+    net = DGCNNNet(dd_model, init_params(torch.Generator().manual_seed(0), dd_model, device))
+    profile_step("DD COO (pallas, CooEngine mean batch; the slot order's sorts included)",
+                 net, make_optimizer(net), dd_host.batch(dd_host.mean_row),
+                 {"spmm_impl": "pallas"})
 
-    log(f"== phase 7: summary ({time.perf_counter() - t_start:.0f} s)")
+    log("== phase 7: the block-COO cost-split probe "
+        "(dgcnn_tpu_torch.tools.probe_kernel_anatomy)")
+    from dgcnn_tpu_torch.tools import probe_kernel_anatomy as probe
+
+    probe_shapes = [probe.standard_shape(device),
+                    probe.standard_shape(device, probe.LONG_ROW_EDGES),
+                    probe.stack_shape(f"DD CooEngine mean batch (row {dd_host.mean_row})",
+                                      dd_host.stack, dd_host.mean_row, device)]
+    probe_result = probe.run(probe_shapes, device)  # checks, then counts 0, then times
+    if probe_result["launches"] == 0 or probe_result["launches"] != probe.launches.fwd_launches:
+        raise AssertionError(f"probe launches {probe_result['launches']}")
+    log("probe: " + json.dumps(probe_result))
+
+    log(f"== phase 8: summary ({time.perf_counter() - t_start:.0f} s)")
     (fb, fby), (bb, bby) = trunk_bounds(S, t_main, 1)
     trunk_src = "dgcnn_tpu_torch/csrc/dense_trunk.cu"
     tm = trunk_times[t_main]
@@ -1342,6 +1350,24 @@ def main() -> int:
                           + (f", {row['items']} items of {row['slots']}"
                              if kname == "spmm_block_coo" else "")),
             })
+            if kname == "spmm_block_coo":
+                kernels[-1]["abuild_ms"] = spmm_times[where][
+                    ("spmm_block_coo_abuild", d, 32)]["ms"]
+                kernels[-1]["slot_order_ms"] = spmm_times[where]["order_ms"]
+    std = probe_result["shapes"][probe_shapes[0].label]
+    kernels.append({
+        "name": "probe_kernel_anatomy", "route": "cuda",
+        "source": "dgcnn_tpu_torch/csrc/spmm_block_coo_probe.cu",
+        "replaces": "tools/probe_kernel_anatomy.py:199",
+        "launches": probe_result["launches"],
+        "max_abs_err": max(std["max_abs_err"].values()),
+        "ms": std["variants"]["abuild"]["ms"],
+        "ms_l2_flushed": std["variants"]["abuild"]["ms_l2_flushed"],
+        "plain_ms": std["plain_ms"], "bound_ms": std["bound_ms"],
+        "bound_by": std["bound_by"], "library_ms": std["library_ms"],
+        "shape": f"the abuild variant at the {probe_shapes[0].label}",
+        "variants_ms": {v: t["ms"] for v, t in std["variants"].items()},
+    })
     log(f"DD epoch seconds (main path, block_impl {auto_impl}): {dd_epoch_s}")
     log(f"COO epoch seconds: {coo_epoch_s}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,216 +3,62 @@
 // Replaces dgcnn_tpu/kernels/spmm_block_coo.py:spmm_block_coo (pallas_call
 // at :399; kernel _kernel :317; backward _bwd :441). Contract:
 //
-//   for each output block-row r < nb, items j in [row_ptr[r], row_ptr[r+1]):
-//     A_j[d, s] = sum_{slots q, in order} w[j, q] * 1[ld[j, q] = d] * 1[ls[j, q] = s]
-//     out[r*128 : r*128+128, :] = sum_j A_j @ h[item_c[j]*128 : +128, :]
-//   h [nb*128, f] fp32, out [nb*128, f] fp32, f = 1..128 (the wrapper splits
-//   wider h into column chunks); ls, ld int32 and w fp32 [W, eb], eb slots
-//   per item (256 on the path).
+//   for each output block-row r < nb, items j in [row_ptr[r], row_ptr[r+1]),
+//   and every slot q of item j:
+//     out[r*128 + ld[j, q], :] += w[j, q] * h[item_c[j]*128 + ls[j, q], :]
+//   h [nb*128, f] fp32, out [nb*128, f] fp32, any f >= 1; ls, ld int32 and
+//   w fp32 [W, eb].
 //
 // Items outside every row_ptr range (the padding's sentinel items) are
-// never read; block-rows with no items come out as exact zeros. Null
-// slots hold w = 0 and add 0. The backward is this kernel over the
-// structure's transpose orientation (row_ptrT, item_cT, lsT, ldT, w_padT)
-// with h = the output gradient; kernels/spmm_block_coo.py prepares both.
+// never read; rows with no slot come out as exact zeros. Null slots hold
+// w = 0 and add 0. The backward is this kernel over the structure's
+// transpose orientation (row_ptrT, item_cT, lsT, ldT, w_padT) with h = the
+// output gradient; kernels/spmm_block_coo.py prepares both.
 //
-// Design. One block of 256 threads per output block-row r walks its item
-// run, as csr_tile in block_csr.cu does; block_coo is block_csr with the
-// 128 x 128 block built on chip instead of read from a pool. Per item:
-//   - h[c] (128 x f) is copied into shared memory with cp.async, while
-//   - the item's slots (ls, ld, w) are loaded into shared memory, A
-//     (128 x 132 floats, 66 KB) is zeroed, and thread d < 128 builds row d
-//     of A by scanning the slots in slot order and adding w into
-//     A[d, ls] where ld = d. Duplicate (d, s) pairs add in slot order, and
-//     the transpose orientation's unsorted local rows need no order: two
-//     runs give the same bits, with no shared-memory atomics;
-//   - A @ h[c] accumulates in registers with block_tile.cuh's tile product
-//     (widths 2..128 compiled for 32/64/128 columns), and the 128 x f tile
-//     is written once. f = 1 has its own path: thread d adds the dot of
-//     A's row d with h[c], in k order; nothing is padded to 32 columns.
+// Design. The TPU kernel builds each item's 128 x 128 block A as a one-hot
+// product on its matrix unit and multiplies it into h[c]: 2 * 128^2 * f
+// operations for one item's 256 slots, 64x the 2 * 256 * f the slots need,
+// the trade a chip whose only fast unit is the matrix unit makes. The
+// port's first version of this kernel (kept as the probe's `abuild`
+// variant in spmm_block_coo_probe.cu) carried that over: one block per output
+// block-row, an A build in shared memory and a block_tile.cuh product per
+// item, one item after another. It ran 53x its bound and 5.5x slower than
+// cuSPARSE on the batches `--spmm pallas` trains on, and its time followed
+// the longest item run. Here each slot's w * h[src] is added straight into
+// its row (spmm_slots.cuh): the wrapper sorts the slots once per batch by
+// destination row (`block_coo_order`), and a warp per row (a thread at
+// f = 1) walks its slots in that order, the lanes loading 32 slots' indices
+// and weights at once, then reading one coalesced h row per slot. The work
+// is 2 * f operations per slot, the parallelism one warp per node row
+// instead of one block per block-row, and no shared memory or barrier.
+// The order gives each row its items in run order and, within an item,
+// its slots in slot order: the sum the TPU kernel forms, taken in one fixed
+// order, so two runs give the same bits.
 //
-// What bounds it on the H100. The function is the same as spmm_rows.cu's,
-// so its bound is too: bytes = E*12 + 2*N*f*4, operations = 2*E*f. This
-// kernel does far more work than the bound counts: 2*128*128*f operations
-// per item on A @ h (the TPU's trade of a dense 128 x 128 block for its
-// matrix unit) and a 256-slot scan per row of A. On DD's mean COO batch
-// (~72k edges in ~1k items, f = 32) that is ~1 GFLOP of fp32 FMAs, ~15 us
-// at 67 TFLOP/s, against a ~1.3 us byte bound: bound by operations, and
-// by the A build before them. Tensor cores, and adding each slot's
-// w * h[ls] straight into its row instead of building A (256 * f
-// operations per item instead of 2 * 128 * 128 * f), are later work.
+// What bounds it on the H100. The function is spmm_rows.cu's: with E slots
+// that carry an edge, over rows that read R rows of h,
+//   bytes      = E * 8 + (n + 1) * 4 + R * f * 4 + n * f * 4
+//   operations = 2 * E * f
+// DD's mean batch (~70k edges, f = 32) is bound by bytes at ~1.5-3 us. The
+// walk is a chain of dependent reads per row (row pointers, the order, the
+// slot, then h), so the kernel is bound by the latency of that chain and
+// the number of warps in flight, as the row kernel is; a row the padding
+// makes long (the probe's 1,023 w = 0 slots into node n - 1) is walked by
+// one warp. The probe's variants split the time (PERF.md).
 //
 // Every entry returns cudaGetLastError() of its launch.
 
-#include "block_tile.cuh"
+#include "spmm_slots.cuh"
 
-namespace {
-
-using namespace blk;
-
-// cp.async copies of the 128 x f rows at `b` into sB (row stride FP).
-template <int FP>
-__device__ __forceinline__ void stage_h(float* sB, const float* __restrict__ b,
-                                        int f) {
-  if ((f & 3) == 0) {
-    const int q = f >> 2;
-    for (int e = threadIdx.x; e < BS * q; e += NT) {
-      const int r = e / q, c4 = e - r * q;
-      cp_async16(sB + r * FP + c4 * 4, b + r * f + c4 * 4);
-    }
-  } else {
-    for (int e = threadIdx.x; e < BS * f; e += NT) {
-      const int r = e / f, c = e - r * f;
-      cp_async4(sB + r * FP + c, b + e);
-    }
-  }
-}
-
-// Load item j's slots, zero A, then (after the barrier inside) build A:
-// thread d < 128 owns row d and scans the slots in slot order, adding w
-// into A[d, ls] where ld = d. Eight slots' (ld, ls, w) are read as
-// vectors before their eight updates, so the reads do not wait behind
-// the updates' shared-memory stores. Duplicate (d, s) pairs add in slot
-// order by one thread, with no atomics.
-__device__ __forceinline__ void build_a(float* sA, int* sls, int* sld,
-                                        float* sw, const int* __restrict__ ls,
-                                        const int* __restrict__ ld,
-                                        const float* __restrict__ w, int j,
-                                        int eb) {
-  const size_t off = (size_t)j * eb;
-  for (int q = threadIdx.x; q < eb; q += NT) {
-    sls[q] = ls[off + q];
-    sld[q] = ld[off + q];
-    sw[q] = w[off + q];
-  }
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int e = threadIdx.x; e < BS * LDA / 4; e += NT)
-    reinterpret_cast<float4*>(sA)[e] = zero;
-  __syncthreads();
-  if (threadIdx.x < BS) {
-    const int d = threadIdx.x;
-    float* row = sA + d * LDA;
-    const int4* ld4 = reinterpret_cast<const int4*>(sld);
-    const int4* ls4 = reinterpret_cast<const int4*>(sls);
-    const float4* w4 = reinterpret_cast<const float4*>(sw);
-    for (int q = 0; q < eb / 4; q += 2) {
-      const int4 da = ld4[q], db = ld4[q + 1];
-      const int4 sa = ls4[q], sb = ls4[q + 1];
-      const float4 wa = w4[q], wb = w4[q + 1];
-      if (da.x == d) row[sa.x] += wa.x;
-      if (da.y == d) row[sa.y] += wa.y;
-      if (da.z == d) row[sa.z] += wa.z;
-      if (da.w == d) row[sa.w] += wa.w;
-      if (db.x == d) row[sb.x] += wb.x;
-      if (db.y == d) row[sb.y] += wb.y;
-      if (db.z == d) row[sb.z] += wb.z;
-      if (db.w == d) row[sb.w] += wb.w;
-    }
-  }
-}
-
-template <int FP>
-__global__ void __launch_bounds__(NT, 1) bcoo_tile(
-    const int* __restrict__ row_ptr, const int* __restrict__ item_c,
-    const int* __restrict__ ls, const int* __restrict__ ld,
-    const float* __restrict__ w, const float* __restrict__ h,
-    float* __restrict__ out, int f, int eb) {
-  extern __shared__ __align__(16) float smem[];
-  float* sB = smem + TileShape<FP>::A_FLOATS;
-  int* sls = reinterpret_cast<int*>(sB + TileShape<FP>::B_FLOATS);
-  int* sld = sls + eb;
-  float* sw = reinterpret_cast<float*>(sld + eb);
-  const int r = blockIdx.x;
-  const int start = row_ptr[r], n = row_ptr[r + 1] - start;
-  const size_t hb_blk = (size_t)BS * f;
-
-  float acc[4][FP / 8];
-  tile_zero<FP>(acc);
-  for (int k = 0; k < n; ++k) {
-    const int j = start + k;
-    stage_h<FP>(sB, h + item_c[j] * hb_blk, f);
-    cp_async_commit();
-    build_a(smem, sls, sld, sw, ls, ld, w, j, eb);
-    cp_async_wait<0>();
-    __syncthreads();
-    tile_mac<FP, false>(smem, acc);
-    __syncthreads();
-  }
-  tile_store<FP>(acc, out + (size_t)r * hb_blk, f);
-}
-
-__global__ void __launch_bounds__(NT, 1) bcoo_f1(
-    const int* __restrict__ row_ptr, const int* __restrict__ item_c,
-    const int* __restrict__ ls, const int* __restrict__ ld,
-    const float* __restrict__ w, const float* __restrict__ h,
-    float* __restrict__ out, int eb) {
-  extern __shared__ __align__(16) float smem[];
-  float* hc = smem + BS * LDA;
-  int* sls = reinterpret_cast<int*>(hc + BS);
-  int* sld = sls + eb;
-  float* sw = reinterpret_cast<float*>(sld + eb);
-  const int r = blockIdx.x;
-  const int start = row_ptr[r], n = row_ptr[r + 1] - start;
-  float acc = 0.f;
-  for (int k = 0; k < n; ++k) {
-    const int j = start + k;
-    if (threadIdx.x < BS) hc[threadIdx.x] = h[(size_t)item_c[j] * BS + threadIdx.x];
-    build_a(smem, sls, sld, sw, ls, ld, w, j, eb);
-    __syncthreads();
-    if (threadIdx.x < BS) {
-      const float* row = smem + threadIdx.x * LDA;
-      for (int q = 0; q < BS; ++q) acc = fmaf(row[q], hc[q], acc);
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x < BS) out[(size_t)r * BS + threadIdx.x] = acc;
-}
-
-size_t slot_bytes(int eb) { return (size_t)eb * 3 * 4; }
-
-// Raise a kernel's dynamic shared-memory limit when a launch needs more
-// than it was last given (the slot count sets part of the size).
-template <typename K>
-cudaError_t ensure_smem(K kernel, size_t bytes, size_t& granted) {
-  if (bytes <= granted) return cudaSuccess;
-  const cudaError_t e = allow_smem(kernel, bytes);
-  if (e == cudaSuccess) granted = bytes;
-  return e;
-}
-
-template <int FP>
-cudaError_t launch_tile(const int* row_ptr, const int* item_c, const int* ls,
-                        const int* ld, const float* w, const float* h,
-                        float* out, int nb, int f, int eb, cudaStream_t s) {
-  const size_t smem = TileShape<FP>::STAGE * sizeof(float) + slot_bytes(eb);
-  static size_t granted = 48 * 1024;
-  const cudaError_t attr = ensure_smem(bcoo_tile<FP>, smem, granted);
-  if (attr != cudaSuccess) return attr;
-  bcoo_tile<FP><<<nb, NT, smem, s>>>(row_ptr, item_c, ls, ld, w, h, out, f, eb);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// out [nb*128, f] (f <= 128) = the block-COO SpMM of h (see the header).
-extern "C" int spmm_block_coo_f32(const int* row_ptr, const int* item_c,
-                                  const int* ls, const int* ld, const float* w,
-                                  const float* h, float* out, int nb, int f,
-                                  int eb, void* stream) {
-  if (nb <= 0) return cudaSuccess;
-  if (f < 1 || f > 128 || eb < 8 || (eb & 7)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f == 1) {
-    const size_t smem = (size_t)(BS * LDA + BS) * sizeof(float) + slot_bytes(eb);
-    static size_t granted = 48 * 1024;
-    const cudaError_t attr = ensure_smem(bcoo_f1, smem, granted);
-    if (attr != cudaSuccess) return attr;
-    bcoo_f1<<<nb, NT, smem, s>>>(row_ptr, item_c, ls, ld, w, h, out, eb);
-    return cudaGetLastError();
-  }
-  if (f <= 32) return launch_tile<32>(row_ptr, item_c, ls, ld, w, h, out, nb, f, eb, s);
-  if (f <= 64) return launch_tile<64>(row_ptr, item_c, ls, ld, w, h, out, nb, f, eb, s);
-  return launch_tile<128>(row_ptr, item_c, ls, ld, w, h, out, nb, f, eb, s);
+// out [n_rows, f] = the block-COO SpMM of h over one orientation and its
+// slot order (perm [W*eb], row_ptr [n_rows+1]).
+extern "C" int spmm_block_coo_f32(const int* row_ptr, const int* perm,
+                                  const int* item_c, const int* ls,
+                                  const float* w, const float* h, float* out,
+                                  int n_rows, int f, int eb, void* stream) {
+  return slots::launch_slots<slots::FULL>(row_ptr, perm, item_c, ls, w, h, out,
+                                          n_rows, f, eb,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* spmm_block_coo_error_string(int e) {

@@ -15,15 +15,18 @@ backward's dh. Padded items (`pad_structure`) carry item_r = nb and lie
 outside every `row_ptr` range.
 
 The host builders are NumPy copies of the reference's and give its arrays
-field for field. `spmm_block_coo(structure, w_pad, w_padT, h)` is the
-entry: on CPU tensors it runs `block_coo_plain`, the kernel's function in
-plain PyTorch; on CUDA tensors the kernel of csrc/spmm_block_coo.cu (one
-block per output block-row builds each item's 128×128 block A in shared
-memory and adds A @ h[c]; design and bound in its header), or it raises.
-The backward runs the same kernel over the transpose orientation for dh,
-and, only when `w_pad` needs a gradient, the plain SDDMM for dw (null slots
-exactly 0), as the reference leaves its SDDMM to XLA. `block_coo_fits`
-(the TPU's VMEM gate) is not ported: the card reads h through L2.
+field for field. `spmm_block_coo(structure, w_pad, w_padT, h, order)` is
+the entry: on CPU tensors it runs `block_coo_plain`, the kernel's function
+in plain PyTorch; on CUDA tensors the kernel of csrc/spmm_block_coo.cu, or
+it raises. The kernel adds each slot's w·h[src] straight into its row: a
+warp per row (a thread at F=1) walks the row's slots in the order
+`block_coo_order` builds once per batch (an `EdgeOrder` over the flat
+slots: sorted stably by destination row, null slots and sentinel items
+left out; design and bound in the source's header). The backward runs the
+same kernel over the transpose orientation for dh, and, only when `w_pad`
+needs a gradient, the plain SDDMM for dw (null slots exactly 0), as the
+reference leaves its SDDMM to XLA. `block_coo_fits` (the TPU's VMEM gate)
+is not ported: the card reads h through L2.
 
 `launches.fwd_launches` / `launches.bwd_launches` count one per forward /
 backward SpMM that ran on the kernel.
@@ -33,17 +36,17 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dgcnn_tpu_torch.kernels.dense_trunk import LaunchCounts
+from dgcnn_tpu_torch.ops.spmm import EdgeOrder
 
 BS = 128
 DEFAULT_EB = 256
 _LANES = 128
-MAX_KERNEL_F = 128  # wider h runs in column chunks of 128
 
 launches = LaunchCounts()
 
@@ -208,10 +211,11 @@ def pad_weights_t(structure: BlockCOO, w) -> np.ndarray:
 
 
 def _item_rows(row_ptr: torch.Tensor, w: int) -> torch.Tensor:
-    """Output block-row of each item as the kernel sees it: item j lies in
-    row r when row_ptr[r] ≤ j < row_ptr[r+1]; items past row_ptr[nb] get nb."""
+    """Output block-row of each item as the kernel sees it, int32: item j
+    lies in row r when row_ptr[r] ≤ j < row_ptr[r+1]; items past
+    row_ptr[nb] get nb."""
     j = torch.arange(w, dtype=row_ptr.dtype, device=row_ptr.device)
-    return torch.searchsorted(row_ptr, j, right=True) - 1
+    return torch.searchsorted(row_ptr, j, right=True, out_int32=True) - 1
 
 
 def block_coo_plain(row_ptr, item_c, ls, ld, w_pad, h) -> torch.Tensor:
@@ -237,6 +241,41 @@ def slot_sddmm(structure: BlockCOO, h, g) -> torch.Tensor:
     return torch.where(structure.perm < 0, torch.zeros_like(dots), dots)
 
 
+# -- the slot order the kernel walks -------------------------------------
+
+
+def _slot_keys(row_ptr, ld, perm, num_nodes: int) -> torch.Tensor:
+    """Destination row (item row · BS + ld) of each flat slot j·EB + q of
+    one orientation, int32; null slots (perm < 0) and items outside every
+    row run (sentinel items) get `num_nodes`: they add 0 or are never read."""
+    nb = num_nodes // BS
+    rows = _item_rows(row_ptr, ld.shape[0])[:, None]
+    left_out = (perm < 0) | (rows < 0) | (rows >= nb)
+    return torch.where(left_out, num_nodes, rows * BS + ld).reshape(-1)
+
+
+def block_coo_order(structure: BlockCOO, num_nodes: int) -> EdgeOrder:
+    """The slot orders of both orientations, built once per batch and
+    shared by every SpMM over it, forward and backward: the flat slots
+    sorted stably by destination row, so each row's slots come in
+    item-run order and, within an item, in slot order; left-out slots past
+    row_ptr[N]. `perm`/`row_ptr` over the forward slots, `permT`/`row_ptrT`
+    over the transpose slots. Plain PyTorch on the structure's device: one
+    stable sort of both orientations' int32 keys (the transpose's offset
+    past the forward's) and one search for both row-pointer arrays;
+    deterministic."""
+    n = num_nodes
+    key = _slot_keys(structure.row_ptr, structure.ld, structure.perm, n)
+    keyT = _slot_keys(structure.row_ptrT, structure.ldT, structure.permT, n) + (n + 1)
+    m = key.numel()
+    key_s, order = torch.sort(torch.cat([key, keyT]), stable=True)
+    bounds = torch.arange(2 * n + 2, dtype=key_s.dtype, device=key_s.device)
+    ptr = torch.searchsorted(key_s, bounds, out_int32=True)
+    order = order.to(torch.int32)
+    return EdgeOrder(perm=order[:m], row_ptr=ptr[: n + 1],
+                     permT=order[m:] - m, row_ptrT=ptr[n + 1:] - m)
+
+
 # -- the kernel -----------------------------------------------------------
 
 
@@ -254,36 +293,31 @@ def _lib():
     return lib
 
 
-def _cuda_spmm(row_ptr, item_c, ls, ld, w_pad, h, transpose: bool) -> torch.Tensor:
-    """One SpMM on csrc/spmm_block_coo.cu (column chunks of 128 for wider h)."""
+def _cuda_spmm(row_ptr, perm, item_c, ls, w_pad, h, transpose: bool) -> torch.Tensor:
+    """One launch of csrc/spmm_block_coo.cu over one orientation and its
+    slot order (any F)."""
     lib = _lib()
     n, f = h.shape
-    nb, eb = n // BS, ls.shape[1]
     with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        outs = []
-        for c0 in range(0, f, MAX_KERNEL_F):
-            hc = h if f <= MAX_KERNEL_F else h[:, c0 : c0 + MAX_KERNEL_F].contiguous()
-            fc = hc.shape[1]
-            out = torch.empty((n, fc), dtype=torch.float32, device=h.device)
-            rc = lib.spmm_block_coo_f32(
-                row_ptr.data_ptr(), item_c.data_ptr(), ls.data_ptr(),
-                ld.data_ptr(), w_pad.data_ptr(), hc.data_ptr(), out.data_ptr(),
-                nb, fc, eb, stream)
-            if rc != 0:
-                msg = lib.spmm_block_coo_error_string(rc).decode()
-                raise RuntimeError(
-                    f"spmm_block_coo {'backward' if transpose else 'forward'}: "
-                    f"CUDA error {rc} ({msg})")
-            outs.append(out)
+        out = torch.empty((n, f), dtype=torch.float32, device=h.device)
+        rc = lib.spmm_block_coo_f32(
+            row_ptr.data_ptr(), perm.data_ptr(), item_c.data_ptr(), ls.data_ptr(),
+            w_pad.data_ptr(), h.data_ptr(), out.data_ptr(), n, f, ls.shape[1],
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        msg = lib.spmm_block_coo_error_string(rc).decode()
+        raise RuntimeError(
+            f"spmm_block_coo {'backward' if transpose else 'forward'}: "
+            f"CUDA error {rc} ({msg})")
     if transpose:
         launches.bwd_launches += 1
     else:
         launches.fwd_launches += 1
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out
 
 
-def check_inputs(structure: BlockCOO, w_pad, w_padT, h) -> Tuple[int, int]:
+def check_inputs(structure: BlockCOO, w_pad, w_padT, h,
+                 order: Optional[EdgeOrder] = None) -> Tuple[int, int]:
     """Validate what the kernel relies on; returns (N, F)."""
     if h.dim() != 2 or h.shape[0] % BS or h.shape[0] == 0 or h.shape[1] < 1:
         raise ValueError(f"h must be [N, F] with N a positive multiple of {BS}, "
@@ -315,10 +349,23 @@ def check_inputs(structure: BlockCOO, w_pad, w_padT, h) -> Tuple[int, int]:
                  (structure.ldT, structure.lsT), (structure.permT, structure.lsT)):
         if a.shape != b.shape:
             raise ValueError("ls, ld and perm must share one [W, EB] shape")
+    tensors = [*arrays, w_pad, w_padT]
+    if order is not None:
+        for name, slots in (("perm", structure.ls), ("row_ptr", None),
+                            ("permT", structure.lsT), ("row_ptrT", None)):
+            t = getattr(order, name)
+            if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+                raise TypeError(f"the slot order's {name} must be an int32 tensor "
+                                f"(block_coo_order)")
+            want = (h.shape[0] + 1,) if slots is None else (slots.numel(),)
+            if tuple(t.shape) != want:
+                raise ValueError(f"the slot order's {name} must be {want}, "
+                                 f"got {tuple(t.shape)}")
+            tensors.append(t)
     dev = h.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"the block-COO SpMM runs on cpu or cuda, got {dev}")
-    for t in (*arrays, w_pad, w_padT):
+    for t in tensors:
         if t.device != dev:
             raise ValueError(f"all inputs must be on {dev}, got {t.device}")
         if not t.is_contiguous():
@@ -329,40 +376,48 @@ def check_inputs(structure: BlockCOO, w_pad, w_padT, h) -> Tuple[int, int]:
 
 
 class SpmmBlockCooFn(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or `block_coo_plain` (CPU). Backward: the
-    same over the transpose orientation for dh; dw only when w_pad needs a
-    gradient. The structure and w_padT get none."""
+    """Forward: the kernel over the slot order (CUDA) or `block_coo_plain`
+    (CPU). Backward: the same over the transpose orientation for dh; dw
+    only when w_pad needs a gradient. The structure, w_padT and the order
+    get none."""
 
     @staticmethod
-    def forward(structure, w_pad, w_padT, h):
-        check_inputs(structure, w_pad, w_padT, h)
-        args = (structure.row_ptr, structure.item_c, structure.ls, structure.ld,
-                w_pad)
+    def forward(structure, w_pad, w_padT, h, order):
         if h.is_cuda:
-            return _cuda_spmm(*args, h, False)
-        return block_coo_plain(*args, h)
+            return _cuda_spmm(order.row_ptr, order.perm, structure.item_c,
+                              structure.ls, w_pad, h, False)
+        return block_coo_plain(structure.row_ptr, structure.item_c, structure.ls,
+                               structure.ld, w_pad, h)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        structure, _w, w_padT, h = inputs
+        structure, _w, w_padT, h, order = inputs
         ctx.structure = structure
+        ctx.order = order
         ctx.save_for_backward(w_padT, h)
 
     @staticmethod
     def backward(ctx, g):
         w_padT, h = ctx.saved_tensors
-        s = ctx.structure
+        s, o = ctx.structure, ctx.order
         g = g.contiguous()
         dh = dw = None
         if ctx.needs_input_grad[3]:
-            args = (s.row_ptrT, s.item_cT, s.lsT, s.ldT, w_padT, g)
-            dh = _cuda_spmm(*args, True) if g.is_cuda else block_coo_plain(*args)
+            if g.is_cuda:
+                dh = _cuda_spmm(o.row_ptrT, o.permT, s.item_cT, s.lsT, w_padT, g, True)
+            else:
+                dh = block_coo_plain(s.row_ptrT, s.item_cT, s.lsT, s.ldT, w_padT, g)
         if ctx.needs_input_grad[1]:
             dw = slot_sddmm(s, h, g)
-        return None, dw, None, dh
+        return None, dw, None, dh, None
 
 
-def spmm_block_coo(structure: BlockCOO, w_pad, w_padT, h) -> torch.Tensor:
+def spmm_block_coo(structure: BlockCOO, w_pad, w_padT, h,
+                   order: Optional[EdgeOrder] = None) -> torch.Tensor:
     """out [N, F] = Σ over the structure's slots of w·h[src] into dst. CPU
-    tensors run the plain version; CUDA tensors the kernel, or raise."""
-    return SpmmBlockCooFn.apply(structure, w_pad, w_padT, h)
+    tensors run the plain version; CUDA tensors the kernel, or raise.
+    `order` is the structure's `block_coo_order`, built here when None."""
+    check_inputs(structure, w_pad, w_padT, h, order)
+    if h.is_cuda and order is None:
+        order = block_coo_order(structure, h.shape[0])
+    return SpmmBlockCooFn.apply(structure, w_pad, w_padT, h, order)

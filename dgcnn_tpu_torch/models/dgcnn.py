@@ -34,6 +34,7 @@ from dgcnn_tpu_torch.batching.packer import GraphBatch
 from dgcnn_tpu_torch.kernels.block_csr import block_propagate_csr
 from dgcnn_tpu_torch.kernels.block_resident import block_propagate_resident
 from dgcnn_tpu_torch.kernels.dense_trunk import gcn_trunk
+from dgcnn_tpu_torch.kernels.spmm_block_coo import block_coo_order
 from dgcnn_tpu_torch.ops.gcn import gcn_conv, gcn_degree
 from dgcnn_tpu_torch.ops.readout import conv1d_readout
 from dgcnn_tpu_torch.ops.spmm import edge_order
@@ -338,7 +339,8 @@ def apply_coo(
     runs the kernel `spmm_impl` names (ops/spmm.py); one `EdgeOrder` of
     the batch (padded edges left out) serves the four layers' SpMMs,
     forward and backward, and a block-pair structure the packer attached
-    serves "pallas". SortPooling is the global lexicographic sort."""
+    serves "pallas", with its slot order (`block_coo_order`) built once
+    here. SortPooling is the global lexicographic sort."""
     num_nodes = batch.x.shape[0]
     num_slots = batch.y.shape[0]
     deg_hat = gcn_degree(batch.edge_dst, batch.edge_mask, num_nodes)
@@ -347,9 +349,10 @@ def apply_coo(
     if batch.blockcoo is not None and spmm_impl == "pallas":
         structure, w_pad, w_padT = batch.blockcoo
     order = None
-    if batch.x.is_cuda and structure is None:
-        order = edge_order(batch.edge_src, batch.edge_dst, num_nodes,
-                           edge_mask=batch.edge_mask, dst_sorted=True)
+    if batch.x.is_cuda:
+        order = (edge_order(batch.edge_src, batch.edge_dst, num_nodes,
+                            edge_mask=batch.edge_mask, dst_sorted=True)
+                 if structure is None else block_coo_order(structure, num_nodes))
     mask = batch.node_mask[:, None]
 
     acts: dict = {}

@@ -7,7 +7,9 @@
 plain version the three SpMM kernels are held against; `sddmm_plain` is
 the edge-weight cotangent ⟨a[src_e], b[dst_e]⟩. `EdgeOrder` is the pair of
 orderings the two edge-stream kernels walk, built once per batch by
-`edge_order` and shared by the four GCN layers, forward and backward.
+`edge_order` and shared by the four GCN layers, forward and backward; the
+block-COO kernel walks one over a block-pair structure's slots
+(kernels/spmm_block_coo.py `block_coo_order`).
 
 The dispatcher chooses by name, one hand-written kernel each, where the
 reference chose by TPU VMEM gates (`block_coo_fits`,
@@ -105,8 +107,9 @@ def spmm(edge_src, edge_dst, edge_weight, h, num_nodes: int, impl: str = "xla",
     """`out[i] = Σ_{dst_e=i} w_e·h[src_e]` through the kernel `impl` names
     (module docstring). `structure`/`w_pad`/`w_padT` (the packer's
     `add_blockcoo`) serve "pallas" and must encode `edge_weight`; `order`
-    (`edge_order`) serves the edge-stream kernels, which build one when it
-    is None."""
+    serves the kernel that runs: `edge_order`'s for the edge-stream
+    kernels, `block_coo_order`'s for the block-COO kernel when a structure
+    is given. Each kernel builds its own when it is None."""
     from dgcnn_tpu_torch.kernels.spmm_block_coo import spmm_block_coo
     from dgcnn_tpu_torch.kernels.spmm_pallas import spmm_pallas, spmm_pallas_mxu
 
@@ -117,7 +120,7 @@ def spmm(edge_src, edge_dst, edge_weight, h, num_nodes: int, impl: str = "xla",
     if impl == "pallas" and structure is not None:
         if w_pad is None or w_padT is None:
             raise ValueError("a block-COO structure needs w_pad and w_padT")
-        return spmm_block_coo(structure, w_pad, w_padT, h)
+        return spmm_block_coo(structure, w_pad, w_padT, h, order)
     if impl == "onehot":
         return spmm_pallas_mxu(edge_src, edge_dst, edge_weight, h, order)
     return spmm_pallas(edge_src, edge_dst, edge_weight, h, order)

@@ -1,1 +1,1 @@
-"""Utilities: checkpoint bundles."""
+"""Utilities: checkpoint bundles and measurement helpers (profiling)."""

@@ -40,6 +40,13 @@ def test_forbidden_import_scan_catches_what_it_should():
     assert _forbidden_imports(src) == ["2: dgcnn_tpu.data", "3: optax", "5: jax.numpy"]
 
 
+def test_the_scan_covers_the_probe_and_measurement_modules():
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    assert {"dgcnn_tpu_torch/tools/probe_kernel_anatomy.py",
+            "dgcnn_tpu_torch/tools/__init__.py",
+            "dgcnn_tpu_torch/utils/profiling.py", "chip_smoke.py"} <= scanned
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_sources_import_no_jax_or_reference(path):
     assert _forbidden_imports(path.read_text()) == []

@@ -237,6 +237,82 @@ def test_block_coo_wide_features_and_plain_function():
     np.testing.assert_array_equal(rows.numpy(), np.asarray(s.item_r))
 
 
+def _slot_order_reference(row_ptr, ld, perm, n):
+    """The slot order from its definition, item by item: each output row's
+    items in run order, each item's slots stably argsorted by ld, null
+    slots left out; returns (flat slot order, row pointers [n + 1])."""
+    row_ptr, ld, perm = (np.asarray(a) for a in (row_ptr, ld, perm))
+    eb = ld.shape[1]
+    per_row = [[] for _ in range(n)]
+    for r in range(len(row_ptr) - 1):
+        for j in range(row_ptr[r], row_ptr[r + 1]):
+            for q in np.argsort(ld[j], kind="stable"):
+                if perm[j, q] >= 0:
+                    per_row[r * tbc.BS + ld[j, q]].append(j * eb + q)
+    order = [q for row in per_row for q in row]
+    return np.array(order, np.int64), np.r_[0, np.cumsum([len(r) for r in per_row])]
+
+
+def _walk(order, row_ptr, item_c, ls, w, h):
+    """The kernel's walk over a slot order, in plain PyTorch: row i adds
+    w[q]·h[item_c[q // EB]·BS + ls[q]] for the q at its positions."""
+    eb = ls.shape[1]
+    m = int(row_ptr[-1])
+    q = order[:m].long()
+    rows = torch.repeat_interleave(torch.arange(len(row_ptr) - 1),
+                                   (row_ptr[1:] - row_ptr[:-1]).long())
+    src = item_c.long()[q // eb] * tbc.BS + ls.reshape(-1).long()[q]
+    return torch.zeros_like(h).index_add_(0, rows, w.reshape(-1)[q, None] * h[src])
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_block_coo_order_equals_its_definition(kind):
+    """Both orientations of `block_coo_order` against the item-by-item
+    reference, on a structure with sentinel items past the real ones; two
+    calls give the same tensors."""
+    src, dst, w = _stream(kind)
+    real = w > 0
+    s = tbc.build_block_coo(src[real], dst[real], N)
+    s = tbc.pad_structure(s, max(s.ls.shape[0], s.lsT.shape[0]) + 3)
+    st = s.map(torch.from_numpy)
+    o = tbc.block_coo_order(st, N)
+    again = tbc.block_coo_order(st, N)
+    for perm, rp, (row_ptr, ld, sp) in (
+            (o.perm, o.row_ptr, (s.row_ptr, s.ld, s.perm)),
+            (o.permT, o.row_ptrT, (s.row_ptrT, s.ldT, s.permT))):
+        want, want_rp = _slot_order_reference(row_ptr, ld, sp, N)
+        assert perm.dtype == rp.dtype == torch.int32
+        assert perm.shape == (np.asarray(ld).size,) and rp.shape == (N + 1,)
+        np.testing.assert_array_equal(rp.numpy(), want_rp)
+        np.testing.assert_array_equal(perm.numpy()[: len(want)], want)
+    for a, b in ((o.perm, again.perm), (o.row_ptr, again.row_ptr),
+                 (o.permT, again.permT), (o.row_ptrT, again.row_ptrT)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind,f", [("random", 32), ("duplicates", 1), ("filled", 97),
+                                    ("unsorted", 160), ("empty", 4)])
+def test_block_coo_walk_through_the_order_equals_plain(kind, f):
+    """The kernel's function taken through the slot order equals
+    `block_coo_plain`, forward and over the transpose orientation."""
+    src, dst, w = _stream(kind)
+    real = w > 0
+    s = tbc.build_block_coo(src[real], dst[real], N, pad_items_to=48)
+    st = s.map(torch.from_numpy)
+    wp = torch.from_numpy(tbc.pad_weights(s, w[real]))
+    wpT = torch.from_numpy(tbc.pad_weights_t(s, w[real]))
+    o = tbc.block_coo_order(st, N)
+    h, g = (torch.from_numpy(a) for a in _hg(f, seed=3))
+    torch.testing.assert_close(
+        _walk(o.perm, o.row_ptr, st.item_c, st.ls, wp, h),
+        tbc.block_coo_plain(st.row_ptr, st.item_c, st.ls, st.ld, wp, h),
+        rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(
+        _walk(o.permT, o.row_ptrT, st.item_cT, st.lsT, wpT, g),
+        tbc.block_coo_plain(st.row_ptrT, st.item_cT, st.lsT, st.ldT, wpT, g),
+        rtol=RTOL, atol=ATOL)
+
+
 def _good_stream():
     src, dst, w = _stream("random")
     h, _ = _hg(4)
@@ -314,7 +390,25 @@ def _bad_block_cases():
                      ValueError),
         "device_meta": (lambda: [a.map(lambda t: t.to("meta")) if i == 0 else a.to("meta")
                                  for i, a in enumerate(_good_block())], ValueError),
+        "order_perm_missing": (with_order(lambda o: dataclasses.replace(o, perm=None)),
+                               TypeError),
+        "order_perm_i64": (with_order(lambda o: dataclasses.replace(o, permT=o.permT.long())),
+                           TypeError),
+        "order_perm_shape": (with_order(lambda o: dataclasses.replace(o, perm=o.perm[:-1])),
+                             ValueError),
+        "order_row_ptr_shape": (
+            with_order(lambda o: dataclasses.replace(o, row_ptrT=o.row_ptrT[:-1])), ValueError),
+        "order_device": (with_order(lambda o: dataclasses.replace(o, perm=o.perm.to("meta"))),
+                         ValueError),
     }
+
+
+def with_order(fn):
+    """A good block-COO call whose slot order `fn` spoils."""
+    def make():
+        a = _good_block()
+        return a + [fn(tbc.block_coo_order(a[0], N))]
+    return make
 
 
 @pytest.mark.parametrize("case", list(_bad_block_cases()))
@@ -322,3 +416,9 @@ def test_block_coo_wrapper_rejects_bad_inputs(case):
     make, exc = _bad_block_cases()[case]
     with pytest.raises(exc):
         tbc.spmm_block_coo(*make())
+
+
+def test_block_coo_wrapper_takes_a_good_order():
+    a = _good_block()
+    want = tbc.spmm_block_coo(*a)
+    torch.testing.assert_close(tbc.spmm_block_coo(*a, tbc.block_coo_order(a[0], N)), want)
