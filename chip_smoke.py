@@ -10,10 +10,17 @@ CUDA is absent or any phase fails. Phases:
   2. build every kernel from dgcnn_tpu_torch/csrc (nvcc, sm_90a, one
      process per source, all at once);
   3. hold each kernel against its plain PyTorch version on the card:
-     a. the GCN trunk on real dense batches (synthetic MUTAG, NCI1,
-        PROTEINS) and one random symmetric T=2048 case, forward and
-        backward, K ∈ {1, 10} weight sets; each adjacency symmetric, two
-        backward runs bitwise equal;
+     a. the GCN trunk, forward and backward, K ∈ {1, 10} weight sets,
+        each adjacency symmetric, two backward runs bitwise equal, the
+        planned regime checked by its launch counts: real dense batches
+        (synthetic MUTAG T=32, NCI1 T=88, PROTEINS T=176; NCI1 at 112 and
+        PROTEINS at 624), random symmetric cases at the resident cap, the
+        cap + 8, T=40 (a ragged and an empty band at C=4) and T=2048; every
+        forced cluster size C ∈ {1, 2, 4} at T=88 and 176 (a direction
+        whose plan exceeds the shared memory, C=1's backward at 176, is
+        refused by the kernel); dims
+        (64,64,64,1) and (128,128,128,1) at one resident and one streamed
+        T; and `trunk_plan`'s shared-memory bytes against the kernels';
      b. both block-propagation kernels (CSR and item-parallel) on real
         synthetic-DD batches of 50 graphs (the main path's mean and
         largest batch and the batch holding the largest graph), with
@@ -41,7 +48,8 @@ CUDA is absent or any phase fails. Phases:
   4. the main paths, each with its launch counts set to 0 just before
      and read just after:
      a. the CLI trains synthetic NCI1 (dense layout, batch 50) for
-        2 folds × 2 epochs; one NCI1 batch on the card against the CPU;
+        2 folds × 2 epochs, every trunk call resident; one NCI1 batch on
+        the card against the CPU;
      b. the CLI trains synthetic DD with `--layout auto` (→ block, the
         kernel `block_impl` auto names) for 2 folds × 2 epochs, then
         1 fold × 1 epoch with the other `--block_impl` (CSR kernel =
@@ -60,7 +68,9 @@ CUDA is absent or any phase fails. Phases:
      events, so the host's launch rate is out of the number; warm
      (operands left in L2 by the previous call) and after a 64 MB
      L2-flushing write (the write's own time, measured the same way,
-     subtracted). Kernel, plain version, bound and the library yardstick
+     subtracted). The trunk at T = 88, 112, 176, 624 and each forced
+     C at 88 and 176, beside its bound (and its kind) and the plain chain.
+     Kernel, plain version, bound and the library yardstick
      (`torch.sparse_bsr_tensor` @ dense for the block kernels,
      `torch.sparse_csr_tensor` @ dense, cuSPARSE, for the SpMM kernels at
      the DD COO mean and largest batch, both the device-assembled and the
@@ -68,7 +78,7 @@ CUDA is absent or any phase fails. Phases:
      and its slot order's build also at every other batch of phase 3c;
   6. one `torch.profiler` table of a single train step for NCI1 dense,
      DD block, DD COO and DD COO `--spmm pallas` (top 10 CUDA kernels)
-     and each step's wall time;
+     and each step's wall time and launches;
   7. the block-COO cost-split probe (dgcnn_tpu_torch/tools/
      probe_kernel_anatomy.py) at its standard shape, its long-row variant
      and DD's `CooEngine` mean batch, its launch count set to 0 after its checks and read
@@ -95,6 +105,7 @@ from dgcnn_tpu_torch.utils.profiling import (
 
 S = 56  # graph slots: batch 50 rounded up to graph_pad_multiple 8
 DIMS = (32, 32, 32, 1)
+WIDE = ((64, 64, 64, 1), (128, 128, 128, 1))  # the two wider width buckets
 BS = 128
 
 
@@ -110,14 +121,14 @@ def glorot(gen, shape, device):
     return ((torch.rand(shape, generator=gen) * 2 - 1) * a).to(device)
 
 
-def trunk_inputs(adj, mask, k, seed, device):
+def trunk_inputs(adj, mask, k, seed, device, dims=DIMS):
     """hw1, wsel, W2..WL, b1..bL for a case (random, from a seed)."""
     gen = torch.Generator().manual_seed(seed)
     s, t = adj.shape[0], adj.shape[1]
-    hw1 = (torch.randn((s, t, DIMS[0]), generator=gen) * 0.5).to(device)
+    hw1 = (torch.randn((s, t, dims[0]), generator=gen) * 0.5).to(device)
     wsel = torch.randint(0, k, (s,), generator=gen, dtype=torch.int32).to(device)
-    ws = [glorot(gen, (k, a, b), device) for a, b in zip(DIMS[:-1], DIMS[1:])]
-    bs = [(torch.randn((k, d), generator=gen) * 0.1).to(device) for d in DIMS]
+    ws = [glorot(gen, (k, a, b), device) for a, b in zip(dims[:-1], dims[1:])]
+    bs = [(torch.randn((k, d), generator=gen) * 0.1).to(device) for d in dims]
     return hw1, wsel, ws, bs
 
 
@@ -138,15 +149,29 @@ def random_symmetric_case(t, seed, device):
     return (adj + adj.mT) * 0.5, mask
 
 
-def compare_trunk(name, adj, mask, device, dt, stats):
+def compare_trunk(name, adj, mask, device, dt, stats, dims=DIMS, plan=None):
+    """The kernel against the plain version at K ∈ {1, 10}: forward, and
+    every gradient against autograd of the plain chain, two backward runs
+    bitwise equal. `plan` forces a regime / cluster size (the kernels are
+    then called directly and their flat gradients summed as `GcnTrunkFn`
+    does); else `gcn_trunk` runs the plan it picks. Checks that the
+    planned regime ran."""
     sym = (adj - adj.mT).abs().max().item()
     if sym > 1e-7:
         raise AssertionError(f"{name}: adjacency not symmetric ({sym:.3g})")
+    s, t = adj.shape[0], adj.shape[1]
+    want_plan = plan or dt.trunk_plan(s, t, dims)
+    n = len(dims)
     for k in (1, 10):
-        hw1, wsel, ws, bs = trunk_inputs(adj, mask, k, seed=17 + k, device=device)
+        hw1, wsel, ws, bs = trunk_inputs(adj, mask, k, seed=17 + k, device=device,
+                                         dims=dims)
+        before = dict(vars(dt.launches))
         with torch.no_grad():
-            cat_k = dt.gcn_trunk(DIMS, adj, hw1, mask, wsel, ws, bs)
-            cat_p = dt.gcn_trunk_plain(DIMS, adj, hw1, mask, wsel, ws, bs)
+            if plan is None:
+                cat_k = dt.gcn_trunk(dims, adj, hw1, mask, wsel, ws, bs)
+            else:
+                cat_k = dt._cuda_fwd(dims, adj, hw1, mask, wsel, ws, bs, k, plan)
+            cat_p = dt.gcn_trunk_plain(dims, adj, hw1, mask, wsel, ws, bs)
         err, rel, ok = rel_err(cat_k, cat_p)
         stats["gcn_trunk_fwd"] = max(stats["gcn_trunk_fwd"], err)
         log(f"  {name} K={k} forward: max abs {err:.3e} rel {rel:.3e} "
@@ -160,15 +185,27 @@ def compare_trunk(name, adj, mask, device, dt, stats):
 
         def grads(fn):
             xs = [x.detach().clone().requires_grad_() for x in leaves]
-            n = len(DIMS)
-            cat = fn(DIMS, adj, xs[0], mask, wsel, xs[1:n], xs[n:])
+            cat = fn(dims, adj, xs[0], mask, wsel, xs[1:n], xs[n:])
             return torch.autograd.grad(cat, xs, g)
 
+        def kernel_grads():
+            if plan is None:
+                return grads(dt.gcn_trunk)
+            d_hw1, flat = dt._cuda_bwd(dims, adj, mask, wsel, ws, cat_k, g, k, plan)
+            dws, dbs = dt._split_grads(dt._segment_sum(flat, wsel, k), dims)
+            return [d_hw1, *dws, *dbs]
+
         want = grads(dt.gcn_trunk_plain)  # autograd of the plain chain
-        got = grads(dt.gcn_trunk)
-        again = grads(dt.gcn_trunk)
-        names = ["d_hw1"] + [f"dW{i + 2}" for i in range(len(DIMS) - 1)] + [
-            f"db{i + 1}" for i in range(len(DIMS))]
+        got = kernel_grads()
+        again = kernel_grads()
+        ran = {key: v - before[key] for key, v in vars(dt.launches).items()}
+        regime = want_plan.regime
+        if ran[f"{regime}_fwd"] < 1 or ran[f"{regime}_bwd"] != 2 or (
+                ran["resident_fwd"] + ran["streamed_fwd"] != ran["fwd_launches"]):
+            raise AssertionError(f"{name} K={k}: expected the {regime} kernels, "
+                                 f"counts moved {ran}")
+        names = ["d_hw1"] + [f"dW{i + 2}" for i in range(n - 1)] + [
+            f"db{i + 1}" for i in range(n)]
         worst = (0.0, 0.0, "")
         for nm, a, b, c in zip(names, got, want, again):
             err, rel, ok = rel_err(a, b)
@@ -181,7 +218,110 @@ def compare_trunk(name, adj, mask, device, dt, stats):
             if rel >= worst[1]:
                 worst = (err, rel, nm)
         log(f"  {name} K={k} backward: worst {worst[2]} max abs {worst[0]:.3e} "
-            f"rel {worst[1]:.3e} (ok; two runs bitwise equal)")
+            f"rel {worst[1]:.3e} (ok; two runs bitwise equal; {regime}"
+            f"{f', C={want_plan.c}' if regime == 'resident' else ''})")
+
+
+def check_refusal(name, adj, mask, device, dt, stats, plan):
+    """A forced resident plan that one direction cannot fit: the direction
+    that fits agrees with the plain version, the other is refused by the
+    kernel (cudaErrorInvalidValue), never run."""
+    hw1, wsel, ws, bs = trunk_inputs(adj, mask, 1, seed=18, device=device)
+    with torch.no_grad():
+        cat_p = dt.gcn_trunk_plain(DIMS, adj, hw1, mask, wsel, ws, bs)
+    calls = {
+        "forward": (plan.fwd_smem,
+                    lambda: dt._cuda_fwd(DIMS, adj, hw1, mask, wsel, ws, bs, 1, plan)),
+        "backward": (plan.bwd_smem,
+                     lambda: dt._cuda_bwd(DIMS, adj, mask, wsel, ws, cat_p,
+                                          torch.ones_like(cat_p), 1, plan)),
+    }
+    for what, (smem, call) in calls.items():
+        if smem <= dt.SMEM_MAX:
+            err, rel, ok = rel_err(call(), cat_p)
+            if what == "backward" or not ok:
+                raise AssertionError(f"{name} {what}: expected a refusal or agreement")
+            stats["gcn_trunk_fwd"] = max(stats["gcn_trunk_fwd"], err)
+            log(f"  {name} K=1 {what}: {smem} B fits, max abs {err:.3e} rel {rel:.3e} (ok)")
+            continue
+        try:
+            call()
+        except RuntimeError as e:
+            if "invalid argument" not in str(e):
+                raise
+            log(f"  {name} {what}: {smem} B > {dt.SMEM_MAX}, refused by the kernel "
+                f"({e})")
+        else:
+            raise AssertionError(f"{name} {what}: a plan over the shared memory ran")
+
+
+def resident_cap(dims=DIMS):
+    """The largest multiple of 8 that the plan keeps resident at S slots."""
+    from dgcnn_tpu_torch.kernels import dense_trunk as dt
+
+    t = 8
+    while dt.trunk_plan(S, t + 8, dims).regime == "resident":
+        t += 8
+    return t
+
+
+def check_trunk(datasets, device, dt, stats):
+    """Phase 3a: every trunk case; returns the packed tiles by T."""
+    from dgcnn_tpu_torch.batching.dense import dense_tile
+
+    t_main = dense_tile(datasets["NCI1"])
+    t_prot = dense_tile(datasets["PROTEINS"])
+    cases = [
+        ("MUTAG T=32", datasets["MUTAG"], 32),
+        (f"NCI1 T={t_main} (main path)", datasets["NCI1"], t_main),
+        ("NCI1 T=112", datasets["NCI1"], 112),
+        (f"PROTEINS T={t_prot}", datasets["PROTEINS"], t_prot),
+        ("PROTEINS T=624", datasets["PROTEINS"], 624),
+    ]
+    shapes = {}
+    for name, gs, n_tile in cases:
+        adj, mask = dense_case(gs, n_tile, device)
+        shapes[n_tile] = (adj, mask)
+    for smem_t in sorted(shapes):  # the plan's bytes are the kernels' bytes
+        for dims in (DIMS, WIDE[0], WIDE[1]):
+            for plan in [dt.trunk_plan(S, smem_t, dims, c=c) for c in dt.CLUSTERS] + [
+                    dt.trunk_plan(S, smem_t, dims, regime="streamed")]:
+                if dt.kernel_smem(plan, smem_t, dims) != (plan.fwd_smem, plan.bwd_smem):
+                    raise AssertionError(f"plan {plan} at T={smem_t} {dims}: the "
+                                         f"kernels count {dt.kernel_smem(plan, smem_t, dims)}")
+    log(f"  trunk_plan's shared-memory bytes equal the kernels' at T {sorted(shapes)}")
+    for name, _, n_tile in cases:
+        log(f"  {name}: plan {dt.trunk_plan(S, n_tile, DIMS)}")
+        compare_trunk(name, *shapes[n_tile], device, dt, stats)
+    cap = resident_cap()
+    for t in (cap, cap + 8):
+        adj, mask = random_symmetric_case(t, seed=t, device=device)
+        log(f"  random T={t}: plan {dt.trunk_plan(S, t, DIMS)}")
+        compare_trunk(f"random T={t} ({'resident cap' if t == cap else 'cap + 8'})",
+                      adj, mask, device, dt, stats)
+    for t in (t_main, t_prot):
+        for c in dt.CLUSTERS:
+            plan = dt.trunk_plan(S, t, DIMS, c=c)
+            if max(plan.fwd_smem, plan.bwd_smem) <= dt.SMEM_MAX:
+                compare_trunk(f"T={t} forced C={c}", *shapes[t], device, dt, stats,
+                              plan=plan)
+            else:
+                check_refusal(f"T={t} forced C={c}", *shapes[t], device, dt, stats, plan)
+    adj, mask = random_symmetric_case(40, seed=40, device=device)
+    compare_trunk("random T=40 forced C=4 (ragged last band)", adj, mask, device,
+                  dt, stats, plan=dt.trunk_plan(S, 40, DIMS, c=4))
+    for dims, t_res, t_str in ((WIDE[0], t_main, 624), (WIDE[1], 32, t_main)):
+        for t in (t_res, t_str):
+            plan = dt.trunk_plan(S, t, dims)
+            want = "resident" if t == t_res else "streamed"
+            if plan.regime != want:
+                raise AssertionError(f"dims {dims} T={t}: plan {plan}, expected {want}")
+            compare_trunk(f"dims {dims} T={t} ({want})", *shapes[t], device, dt,
+                          stats, dims=dims)
+    adj, mask = random_symmetric_case(2048, seed=5, device=device)
+    compare_trunk("random T=2048", adj, mask, device, dt, stats)
+    del adj, mask
+    return shapes
 
 
 def dense_case(gs, n_tile, device):
@@ -964,7 +1104,7 @@ def profile_step(name, net, optimizer, batch, fwd_kw):
         log("  the profiler recorded no device time on this machine")
     for e in kernels[:10]:
         log(f"    {self_dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
-    return float(np.median(walls)), total / 1e3
+    return float(np.median(walls)), total / 1e3, sum(e.count for e in kernels)
 
 
 def main() -> int:
@@ -1005,20 +1145,7 @@ def main() -> int:
     from dgcnn_tpu_torch.batching.dense import dense_tile
 
     t_main = dense_tile(datasets["NCI1"])
-    cases = [
-        ("MUTAG T=32", datasets["MUTAG"], 32),
-        (f"NCI1 T={t_main} (main path)", datasets["NCI1"], t_main),
-        ("NCI1 T=112", datasets["NCI1"], 112),
-        ("PROTEINS T=624", datasets["PROTEINS"], 624),
-    ]
-    shapes = {}
-    for name, gs, n_tile in cases:
-        adj, mask = dense_case(gs, n_tile, device)
-        shapes[n_tile] = (adj, mask)
-        compare_trunk(name, adj, mask, device, dt, stats)
-    adj, mask = random_symmetric_case(2048, seed=5, device=device)
-    compare_trunk("random T=2048", adj, mask, device, dt, stats)
-    del adj, mask
+    shapes = check_trunk(datasets, device, dt, stats)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1072,6 +1199,12 @@ def main() -> int:
             f"trunk launches fwd {trunk_fwd_n} bwd {trunk_bwd_n}")
         if trunk_fwd_n != tr_n + ev_n or trunk_bwd_n != tr_n:
             raise AssertionError("trunk launch counts do not match the steps run")
+        by_regime = (dt.launches.resident_fwd, dt.launches.resident_bwd,
+                     dt.launches.streamed_fwd, dt.launches.streamed_bwd)
+        log(f"  trunk calls by regime (resident fwd, bwd, streamed fwd, bwd): "
+            f"{by_regime}; plan at T={t_main}: {dt.trunk_plan(S, t_main, DIMS)}")
+        if by_regime != (trunk_fwd_n, trunk_bwd_n, 0, 0):
+            raise AssertionError("a main-path trunk call did not run resident")
         check_artifacts(tmp, "NCI1", 2, 2)
         log(f"accuracies: train {result['train_accuracies']} "
             f"test {result['test_accuracies']}")
@@ -1208,28 +1341,44 @@ def main() -> int:
     flush = Flush(device)
     log(f"  L2 flush: {FLUSH_BYTES >> 20} MB write, {flush.ms:.4f} ms")
     trunk_times = {}
-    for t in (t_main, 112, 624):
+    t_prot = dense_tile(datasets["PROTEINS"])
+    timed = [(t, None) for t in (t_main, 112, t_prot, 624)] + [
+        (t, dt.trunk_plan(S, t, DIMS, c=c)) for t in (t_main, t_prot) for c in dt.CLUSTERS]
+    for t, plan in timed:
         adj, mask = shapes[t]
         hw1, wsel, ws, bs = trunk_inputs(adj, mask, 1, seed=1, device=device)
         with torch.no_grad():
             cat = dt.gcn_trunk_plain(DIMS, adj, hw1, mask, wsel, ws, bs)
         g = torch.randn_like(cat)
-        fwd = lambda: dt._cuda_fwd(DIMS, adj, hw1, mask, wsel, ws, bs, 1)  # noqa: E731
-        bwd = lambda: dt._cuda_bwd(DIMS, adj, mask, wsel, ws, cat, g, 1)  # noqa: E731
+        fwd = lambda: dt._cuda_fwd(DIMS, adj, hw1, mask, wsel, ws, bs, 1, plan)  # noqa: E731
+        bwd = lambda: dt._cuda_bwd(DIMS, adj, mask, wsel, ws, cat, g, 1, plan)  # noqa: E731
+        fits = plan is None or plan.bwd_smem <= dt.SMEM_MAX
         row = {
             "fwd": device_ms(fwd), "fwd_flushed": device_ms(fwd, flush),
-            "fwd_plain": device_ms(
-                lambda: dt.gcn_trunk_plain(DIMS, adj, hw1, mask, wsel, ws, bs)),
-            "bwd": device_ms(bwd), "bwd_flushed": device_ms(bwd, flush),
-            "bwd_plain": device_ms(
-                lambda: dt.gcn_trunk_plain_bwd(DIMS, adj, mask, wsel, ws, cat, g)),
+            "bwd": device_ms(bwd) if fits else math.nan,
+            "bwd_flushed": device_ms(bwd, flush) if fits else math.nan,
         }
-        (fb, _), (bb, _) = trunk_bounds(S, t, 1)
-        trunk_times[t] = row
-        log(f"  trunk S={S} T={t}: fwd kernel {row['fwd']:.4f} ms (flushed "
-            f"{row['fwd_flushed']:.4f}) plain {row['fwd_plain']:.4f} bound {fb:.4f} | "
-            f"bwd kernel {row['bwd']:.4f} ms (flushed {row['bwd_flushed']:.4f}) "
-            f"plain {row['bwd_plain']:.4f} bound {bb:.4f}")
+        if plan is None:
+            row["fwd_plain"] = device_ms(
+                lambda: dt.gcn_trunk_plain(DIMS, adj, hw1, mask, wsel, ws, bs))
+            row["bwd_plain"] = device_ms(
+                lambda: dt.gcn_trunk_plain_bwd(DIMS, adj, mask, wsel, ws, cat, g))
+        (fb, fby), (bb, bby) = trunk_bounds(S, t, 1)
+        used = plan or dt.trunk_plan(S, t, DIMS)
+        row.update(bound_fwd=fb, bound_fwd_by=fby, bound_bwd=bb, bound_bwd_by=bby,
+                   plan=f"{used.regime}" + (f" C={used.c}" if used.c else ""))
+        trunk_times[(t, None if plan is None else plan.c)] = row
+        plain = (f" plain {row['fwd_plain']:.4f}" if plan is None else "",
+                 f" plain {row['bwd_plain']:.4f}" if plan is None else "")
+        log(f"  trunk S={S} T={t} {row['plan']}{' (forced)' if plan else ''}: fwd "
+            f"kernel {row['fwd']:.4f} ms (flushed {row['fwd_flushed']:.4f}){plain[0]} "
+            f"bound {fb:.4f} ({fby}) | bwd kernel {row['bwd']:.4f} ms (flushed "
+            f"{row['bwd_flushed']:.4f}){plain[1]} bound {bb:.4f} ({bby})")
+    for t in (t_main, 112, t_prot, 624):
+        row = trunk_times[(t, None)]
+        log(f"  trunk T={t}: below the plain chain forward "
+            f"{'yes' if row['fwd'] < row['fwd_plain'] else 'NO'}, backward "
+            f"{'yes' if row['bwd'] < row['bwd_plain'] else 'NO'}")
     block_times = {}
     for label, r in (("mean", ctx.mean_row), ("max", ctx.max_row)):
         log(f"  DD {label} batch (row {r}):")
@@ -1264,8 +1413,8 @@ def main() -> int:
     from dgcnn_tpu_torch.train.loop import make_optimizer
 
     net = DGCNNNet(nci1_model, init_params(torch.Generator().manual_seed(0), nci1_model, device))
-    profile_step("NCI1 dense", net, make_optimizer(net),
-                 batch_to_device(nci1_host, device), {})
+    nci1_step = profile_step("NCI1 dense", net, make_optimizer(net),
+                             batch_to_device(nci1_host, device), {})
     impl = ctx.engine.block_impl
     net = DGCNNNet(dd_model, init_params(torch.Generator().manual_seed(0), dd_model, device))
     profile_step(f"DD block ({impl}, mean batch)", net, make_optimizer(net),
@@ -1294,20 +1443,20 @@ def main() -> int:
     log(f"== phase 8: summary ({time.perf_counter() - t_start:.0f} s)")
     (fb, fby), (bb, bby) = trunk_bounds(S, t_main, 1)
     trunk_src = "dgcnn_tpu_torch/csrc/dense_trunk.cu"
-    tm = trunk_times[t_main]
+    tm = trunk_times[(t_main, None)]
     kernels = [
         {"name": "gcn_trunk_fwd", "route": "cuda", "source": trunk_src,
          "replaces": "dgcnn_tpu/kernels/dense_trunk.py:232",
          "launches": trunk_fwd_n, "max_abs_err": stats["gcn_trunk_fwd"],
          "ms": tm["fwd"], "ms_l2_flushed": tm["fwd_flushed"],
          "plain_ms": tm["fwd_plain"], "bound_ms": fb, "bound_by": fby,
-         "library_ms": None},
+         "library_ms": None, "plan": tm["plan"]},
         {"name": "gcn_trunk_bwd", "route": "cuda", "source": trunk_src,
          "replaces": "dgcnn_tpu/kernels/dense_trunk.py:310",
          "launches": trunk_bwd_n, "max_abs_err": stats["gcn_trunk_bwd"],
          "ms": tm["bwd"], "ms_l2_flushed": tm["bwd_flushed"],
          "plain_ms": tm["bwd_plain"], "bound_ms": bb, "bound_by": bby,
-         "library_ms": None},
+         "library_ms": None, "plan": tm["plan"]},
     ]
     replaces = {"block_csr": "dgcnn_tpu/kernels/block_pallas.py:152",
                 "block_resident": "dgcnn_tpu/kernels/block_resident.py:130"}
@@ -1370,6 +1519,8 @@ def main() -> int:
     })
     log(f"DD epoch seconds (main path, block_impl {auto_impl}): {dd_epoch_s}")
     log(f"COO epoch seconds: {coo_epoch_s}")
+    log(f"NCI1 dense train step: wall {nci1_step[0]:.3f} ms, device {nci1_step[1]:.3f} "
+        f"ms over {nci1_step[2]} kernel launches")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,281 +16,813 @@
 //     dW_i[s] = h_{i-1}^T d_hw_i,  db_i[s] = sum_rows d_pre_i,
 //     d_chain_{i-1} = d_hw_i @ W_i[k]^T,   d_hw1 = d_hw_1
 //
-// What bounds it on the H100. One slot's fp32 adjacency is T^2*4 bytes
-// (50 KB at T=112, 1.5 MB at T=624, 16 MB at T=2048), far over what one
-// block's shared memory holds at the larger tiles, so the TPU design
-// (whole tile resident across all layers) does not carry over. The work
-// per adjacency byte is 2*d/4 = 16 flop at d=32, under the fp32 ridge of
-// the card (67 TFLOP/s over 3.35 TB/s = 20 flop/byte), so the trunk is
-// bound by adjacency bytes, read once per layer per direction here.
+// What bounds it on the H100. Read once per direction, a slot's adjacency
+// (T^2 fp32) feeds 2*T^2*sum(d) operations: 2*sum(d)/4 = 48 flop per byte
+// at dims (32, 32, 32, 1), over the card's fp32 ridge (67 TFLOP/s over
+// 3.35 TB/s = 20 flop/byte). So the trunk is bound by fp32 FMA throughput
+// (never TF32: it would miss the 1e-4 checks) at every T the main path
+// trains on, and the design keeps the adjacency out of device memory after
+// its first read wherever shared memory can hold it.
 //
-// Design (simple and correct first; keeping adj resident, wgmma and TMA
-// are later work):
-//   * one launch per layer on a grid of (row block of BM=32 rows, slot);
-//   * the adjacency row tile [BM, BK] and the K-tile of the right-hand
-//     side [BK, DP] stream through shared memory; 256 threads each hold a
-//     4-row x DP/32-column accumulator in registers (fp32 FMA);
-//   * the epilogue is row-local: bias -> tanh -> mask, write h_i into its
-//     columns of cat, and compute the next layer's h_i @ W_{i+1} from the
-//     rows staged in shared memory, so hw never makes an extra round trip;
-//   * the backward's per-slot weight and bias gradients are reduced
-//     across row blocks deterministically: each block writes its partial
-//     sums (fixed in-block order) to a [S, nblk, P] scratch, and a second
-//     pass sums the blocks in index order. No float atomics, so two runs
-//     give the same bits.
+// Two regimes; kernels/dense_trunk.py `trunk_plan` picks one per shape from
+// the shared-memory formulas below (mirrored there formula for formula):
 //
-// Every function returns cudaGetLastError() of its launch; the Python
-// wrapper (kernels/dense_trunk.py) checks shapes, types and contiguity
-// before calling, and raises on a non-zero return.
+//   Resident (trunk_resident_fwd / _bwd): ONE launch per trunk call, each
+//   direction. Grid = S slots x C blocks, launched as thread-block clusters
+//   of C in {1, 2, 4}. Cluster rank c owns rows [c*Tb, min((c+1)*Tb, T)),
+//   Tb = ceil(T/C) rounded up to 8, copies that band of its slot's
+//   adjacency into shared memory once (16-byte cp.async, row pitch
+//   padded to 4 mod 32 floats) and keeps it for all layers. Per layer a
+//   256-thread block runs acc = adj_band @ hw_full with 4x4 register
+//   tiles (rows interleaved, 16-byte shared loads along k), applies bias,
+//   tanh and mask, writes its band of cat, computes its band of the next
+//   hw from the W staged in shared memory and stores it into every peer's
+//   copy of the full hw (distributed shared memory), then one
+//   cluster.sync(); hw is double-buffered, so one cluster barrier per
+//   layer suffices. The backward is the same walk: each rank forms its
+//   band of d_pre, pushes it to every peer, aggregates its band of d_hw
+//   with the resident adjacency, and keeps its dW_i / db_i partials in
+//   shared memory (double-buffered by layer); after the layer's barrier
+//   each rank sums a slice of every rank's partials IN RANK ORDER and
+//   writes the slot's row of the flat [S, P] gradient. No scratch, no
+//   second launch, no float atomics: two runs give the same bits.
+//
+//   Streamed (trunk_stream_*): shapes whose plan does not fit (T above the
+//   resident cap, e.g. T = 624 and 2048, or wide layers). A layer needs
+//   every row of the previous one, so a forward is L launches and a
+//   backward L + 2 (d_pre start, L layers, ordered reduction of the
+//   [S, nblk, P] partials). A block computes SBM = 64 rows x DP columns
+//   with 2*DP threads, each an 8-row x 4-column register tile (32
+//   accumulators): per 4 k, 8 + 4 16-byte shared loads feed 128 FMAs.
+//   Adjacency K-tiles [64 x 32] and hw K-tiles [32 x DP] are
+//   double-buffered with cp.async (zero-filled at the ragged edges, no
+//   per-element division), and W_{i+1} is staged in shared memory for the
+//   h @ W and chain epilogues.
+//
+// Every entry returns cudaGetLastError() of its launch (or
+// cudaErrorInvalidValue for a plan that does not fit); the Python wrapper
+// checks shapes, types and contiguity before calling and raises on a
+// non-zero return.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+constexpr int MAXL = 8;  // layers
+
+// Everything a resident launch needs, passed by value (mirrored by
+// kernels/dense_trunk.py `_TrunkArgs`). w[i] = W_{i+1} [K, d_{i-1}, d_i]
+// for i >= 1 (w[0] unused); b[i] = b_{i+1} [K, d_i].
+// Outside the anonymous namespace: the exported C entry takes a pointer
+// to it.
+struct TrunkArgs {
+  const float* adj;
+  const float* hw1;
+  const float* mask;
+  const int* wsel;
+  const float* w[MAXL];
+  const float* b[MAXL];
+  const float* cat_in;  // backward: the forward's cat
+  const float* g;       // backward: gradient of cat
+  float* cat;           // forward output [S, T, offs[L]]
+  float* dhw1;          // backward output [S, T, d_1]
+  float* flat;          // backward output [S, P]
+  int S, T, K, L, P, C;
+  int dims[MAXL];
+  int offs[MAXL + 1];
+  int woff[MAXL];
+  int dboff[MAXL];
+};
 
 namespace {
 
-constexpr int BM = 32;   // rows of one block
-constexpr int BK = 32;   // depth of one adjacency K-tile
-constexpr int NT = 256;  // threads of one block: 8 row groups x 32 lanes
-constexpr int RPT = 4;   // rows per thread (8 x 4 = BM)
+constexpr int SMEM_MAX = 232448;   // bytes of shared memory a block may use
+constexpr int RNT = 256;           // threads of a resident block
+constexpr int SBM = 64;            // rows of a streamed block
+constexpr int SBK = 32;            // depth of a streamed K-tile
+constexpr int SRT = 8;             // rows of a streamed thread tile
 
-// Accumulate acc[j][c] = sum_q A[row0 + ty*RPT + j, q] * B[q, tx + 32c]
-// over q < T for one slot. A is [T, T], B is [T, d] (row stride d).
-template <int DP>
-__device__ __forceinline__ void agg_rows(
-    const float* __restrict__ A, const float* __restrict__ B, int T, int d,
-    int row0, float* sA, float* sB, float (&acc)[RPT][DP / 32]) {
-  constexpr int NC = DP / 32;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < RPT; ++j)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[j][c] = 0.f;
+__host__ __device__ __forceinline__ int rup(int x, int m) {
+  return (x + m - 1) / m * m;
+}
 
-  for (int k0 = 0; k0 < T; k0 += BK) {
-    for (int e = threadIdx.x; e < BM * BK; e += NT) {
-      const int r = e / BK, q = e % BK;
-      const int gr = row0 + r, gq = k0 + q;
-      sA[r * (BK + 1) + q] =
-          (gr < T && gq < T) ? A[(size_t)gr * T + gq] : 0.f;
+// -- shared-memory plans (floats); kernels/dense_trunk.py mirrors these ----
+
+__host__ __device__ __forceinline__ int band_rows(int T, int C) {
+  return rup((T + C - 1) / C, 8);
+}
+// adjacency row pitch: 16-byte rows, and consecutive rows 4 banks apart
+__host__ __device__ __forceinline__ int adj_pitch(int T) {
+  return rup(T, 32) + 4;
+}
+// resident forward: adj band + 2 full hw + h band + W
+__host__ __device__ __forceinline__ size_t resident_fwd_floats(int T, int C,
+                                                                int DP) {
+  const int Tb = band_rows(T, C);
+  return (size_t)Tb * adj_pitch(T) + 2 * (size_t)rup(T, 4) * DP +
+         (size_t)Tb * (DP + 4) + (size_t)DP * DP;
+}
+// resident backward: adj band + 2 full d_pre + d_hw band + h_prev band +
+// W^T + (C > 1) two layers of partials [dW | db]
+__host__ __device__ __forceinline__ size_t resident_bwd_floats(int T, int C,
+                                                                int DP) {
+  const int Tb = band_rows(T, C);
+  return (size_t)Tb * adj_pitch(T) + 2 * (size_t)rup(T, 4) * DP +
+         2 * (size_t)Tb * (DP + 4) + (size_t)DP * DP +
+         (C > 1 ? 2 * ((size_t)DP * DP + DP) : 0);
+}
+// streamed: one K-stage = adj tile [SBM][SBK + 4] + hw tile [SBK][DP]; the
+// epilogue's row buffers reuse the two stages; W separate
+__host__ __device__ __forceinline__ size_t stream_stage_floats(int DP) {
+  return (size_t)SBM * (SBK + 4) + (size_t)SBK * DP;
+}
+__host__ __device__ __forceinline__ size_t stream_fwd_floats(int DP) {
+  const size_t st = 2 * stream_stage_floats(DP), ep = (size_t)SBM * (DP + 4);
+  return (st > ep ? st : ep) + (size_t)DP * DP;
+}
+__host__ __device__ __forceinline__ size_t stream_bwd_floats(int DP) {
+  const size_t st = 2 * stream_stage_floats(DP),
+               ep = 3 * (size_t)SBM * (DP + 4);
+  return (st > ep ? st : ep) + (size_t)DP * DP;
+}
+
+// -- copies ----------------------------------------------------------------
+
+// 16-byte (or 4-byte) asynchronous copy; src_bytes < size zero-fills the
+// rest (0 = write zeros, src not read)
+__device__ __forceinline__ void cp16(float* smem, const float* gmem, int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp4(float* smem, const float* gmem, int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// dst[r][c] (pitch dp, r < nrows, c < dcols, dcols a multiple of 4) =
+// src[r][c] (pitch sp) where r < valid and c < cols, else 0. A warp per row:
+// no division; 16-byte copies when the rows are 16-byte aligned.
+__device__ __forceinline__ void stage_rows(float* dst, int dp,
+                                           const float* src, int sp,
+                                           int nrows, int valid, int cols,
+                                           int dcols) {
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const bool vec = (sp % 4 == 0) && ((uintptr_t)src % 16 == 0);
+  for (int r = threadIdx.x >> 5; r < nrows; r += nw) {
+    const float* srow = src + (size_t)r * sp;
+    float* drow = dst + (size_t)r * dp;
+    if (vec) {
+      for (int c = lane * 4; c < dcols; c += 128) {
+        const int n = r < valid ? min(max(cols - c, 0), 4) : 0;
+        cp16(drow + c, n ? srow + c : src, 4 * n);
+      }
+    } else {
+      for (int c = lane; c < dcols; c += 32) {
+        const int n = (r < valid && c < cols) ? 4 : 0;
+        cp4(drow + c, n ? srow + c : src, n);
+      }
     }
-    for (int e = threadIdx.x; e < BK * DP; e += NT) {
-      const int q = e / DP, c = e % DP;
-      const int gq = k0 + q;
-      sB[q * DP + c] = (gq < T && c < d) ? B[(size_t)gq * d + c] : 0.f;
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void fma4(float (&acc)[4], float a, float4 b) {
+  acc[0] = fmaf(a, b.x, acc[0]);
+  acc[1] = fmaf(a, b.y, acc[1]);
+  acc[2] = fmaf(a, b.z, acc[2]);
+  acc[3] = fmaf(a, b.w, acc[3]);
+}
+
+// acc[j][:] += sum_{q < n4} X[rows[j]][q] * Y[q][c0 .. c0+3], n4 a multiple
+// of 4: per 4 q, RT + 4 16-byte loads feed 16*RT FMAs.
+template <int RT>
+__device__ __forceinline__ void tile_mac(const float* X, int xp,
+                                         const int (&rows)[RT],
+                                         const float* Y, int yp, int c0,
+                                         int n4, float (&acc)[RT][4]) {
+#pragma unroll 2
+  for (int q = 0; q < n4; q += 4) {
+    float4 a[RT], b[4];
+#pragma unroll
+    for (int j = 0; j < RT; ++j) a[j] = ld4(X + rows[j] * xp + q);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) b[u] = ld4(Y + (q + u) * yp + c0);
+#pragma unroll
+    for (int j = 0; j < RT; ++j) {
+      fma4(acc[j], a[j].x, b[0]);
+      fma4(acc[j], a[j].y, b[1]);
+      fma4(acc[j], a[j].z, b[2]);
+      fma4(acc[j], a[j].w, b[3]);
+    }
+  }
+}
+
+template <int RT>
+__device__ __forceinline__ void tile_zero(float (&acc)[RT][4]) {
+#pragma unroll
+  for (int j = 0; j < RT; ++j)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[j][u] = 0.f;
+}
+
+// -- cluster helpers ---------------------------------------------------------
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// every rank's copy of `local` (a shared address of this block) at row gr
+__device__ __forceinline__ void push4(cg::cluster_group& cl, int C,
+                                      float* local, float4 v) {
+  if (C == 1) {
+    *reinterpret_cast<float4*>(local) = v;
+    return;
+  }
+  for (int t = 0; t < C; ++t)
+    *reinterpret_cast<float4*>(cl.map_shared_rank(local, t)) = v;
+}
+
+__device__ __forceinline__ void end_of_layer(cg::cluster_group& cl, int C) {
+  if (C > 1)
+    cl.sync();
+  else
+    __syncthreads();
+}
+
+// -- resident regime ---------------------------------------------------------
+
+template <int DP>
+__global__ void __launch_bounds__(RNT) trunk_resident_fwd(TrunkArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int T = p.T, C = p.C, L = p.L, CS = p.offs[L];
+  const int Tb = band_rows(T, C), T4 = rup(T, 4), AP = adj_pitch(T);
+  constexpr int HP = DP + 4;
+  float* sA = smem;
+  float* sHW0 = sA + (size_t)Tb * AP;
+  float* sHW1 = sHW0 + (size_t)T4 * DP;
+  float* sH = sHW1 + (size_t)T4 * DP;
+  float* sW = sH + (size_t)Tb * HP;
+  const int s = blockIdx.x / C, rank = blockIdx.x % C, row0 = rank * Tb;
+  const int k_raw = p.wsel[s];
+  const bool bad = k_raw < 0 || k_raw >= p.K;  // poison the slot, never fault
+  const int k = bad ? 0 : k_raw;
+  const float* mask = p.mask + (size_t)s * T;
+  if (C > 1) cluster_arrive_relaxed();
+
+  // (an empty last band points at row T - 1 and copies nothing)
+  stage_rows(sA, AP, p.adj + ((size_t)s * T + min(row0, T - 1)) * T, T, Tb,
+             T - row0, T, rup(T, 4));
+  stage_rows(sHW0, DP, p.hw1 + (size_t)s * T * p.dims[0], p.dims[0], T4, T,
+             p.dims[0], DP);
+  cp_commit();
+  for (int e = threadIdx.x; e < (T4 - T) * DP; e += RNT)
+    sHW1[T * DP + e] = 0.f;  // rows no peer writes
+  cp_wait<0>();
+  __syncthreads();
+  if (C > 1) cluster_wait();  // every peer has started: pushes may begin
+
+  const int nrg = Tb / 4;
+  for (int i = 0; i < L; ++i) {
+    const int d = p.dims[i], dn = i + 1 < L ? p.dims[i + 1] : 0;
+    const float* HW = (i & 1) ? sHW1 : sHW0;
+    float* HWn = (i & 1) ? sHW0 : sHW1;
+    if (dn) {
+      stage_rows(sW, DP, p.w[i + 1] + (size_t)k * d * dn, dn, rup(d, 4), d,
+                 dn, DP);
+      cp_commit();
+    }
+    const int ncg = (d + 3) / 4;
+    const float* bias = p.b[i] + (size_t)k * d;
+    for (int it = threadIdx.x; it < nrg * ncg; it += RNT) {
+      const int rg = it / ncg, c0 = (it - rg * ncg) * 4;
+      int rows[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) rows[j] = rg + j * nrg;
+      float acc[4][4];
+      tile_zero<4>(acc);
+      tile_mac<4>(sA, AP, rows, HW, DP, c0, T4, acc);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int gr = row0 + rows[j];
+        const float m = gr < T ? mask[gr] : 0.f;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int col = c0 + u;
+          float h = 0.f;
+          if (col < d && gr < T) {
+            h = bad ? NAN : tanhf(acc[j][u] + bias[col]) * m;
+            p.cat[((size_t)s * T + gr) * CS + p.offs[i] + col] = h;
+          }
+          sH[rows[j] * HP + col] = h;
+        }
+      }
+    }
+    if (!dn) break;
+    cp_wait<0>();
+    __syncthreads();
+    // this band of the next hw = h_band @ W_{i+1}, into every rank's HWn
+    const int ncg2 = (dn + 3) / 4, d4 = rup(d, 4);
+    for (int it = threadIdx.x; it < nrg * ncg2; it += RNT) {
+      const int rg = it / ncg2, c0 = (it - rg * ncg2) * 4;
+      int rows[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) rows[j] = rg + j * nrg;
+      float acc[4][4];
+      tile_zero<4>(acc);
+      tile_mac<4>(sH, HP, rows, sW, DP, c0, d4, acc);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int gr = row0 + rows[j];
+        if (gr >= T) continue;
+        const float4 v = bad ? make_float4(NAN, NAN, NAN, NAN)
+                             : make_float4(acc[j][0], acc[j][1], acc[j][2],
+                                           acc[j][3]);
+        push4(cl, C, HWn + gr * DP + c0, v);
+      }
+    }
+    end_of_layer(cl, C);
+  }
+  // the last layer reads only this block's shared memory, and every push
+  // into it came before the last barrier: no peer touches it after exit
+}
+
+template <int DP>
+__global__ void __launch_bounds__(RNT) trunk_resident_bwd(TrunkArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int T = p.T, C = p.C, L = p.L, CS = p.offs[L];
+  const int Tb = band_rows(T, C), T4 = rup(T, 4), AP = adj_pitch(T);
+  constexpr int HP = DP + 4;
+  float* sA = smem;
+  float* sD0 = sA + (size_t)Tb * AP;
+  float* sD1 = sD0 + (size_t)T4 * DP;
+  float* sX = sD1 + (size_t)T4 * DP;  // d_hw band
+  float* sY = sX + (size_t)Tb * HP;   // h_{i-1} band
+  float* sW = sY + (size_t)Tb * HP;   // W_i^T [d_i][DP]
+  float* sP0 = sW + (size_t)DP * DP;  // partials [dW | db], C > 1
+  float* sP1 = sP0 + ((size_t)DP * DP + DP);
+  const int s = blockIdx.x / C, rank = blockIdx.x % C, row0 = rank * Tb;
+  const int k_raw = p.wsel[s];
+  const bool bad = k_raw < 0 || k_raw >= p.K;
+  const int k = bad ? 0 : k_raw;
+  const float* mask = p.mask + (size_t)s * T;
+  const float* cat = p.cat_in + (size_t)s * T * CS;
+  const float* g = p.g + (size_t)s * T * CS;
+  float* flat = p.flat + (size_t)s * p.P;
+  if (C > 1) cluster_arrive_relaxed();
+
+  // (an empty last band points at row T - 1 and copies nothing)
+  stage_rows(sA, AP, p.adj + ((size_t)s * T + min(row0, T - 1)) * T, T, Tb,
+             T - row0, T, rup(T, 4));
+  cp_commit();
+  for (int e = threadIdx.x; e < (T4 - T) * DP; e += RNT) {
+    sD0[T * DP + e] = 0.f;  // rows no peer writes
+    sD1[T * DP + e] = 0.f;
+  }
+  const int nrg = Tb / 4;
+  // d_pre of the last layer, this band, into every rank's first buffer
+  {
+    const int i = L - 1, d = p.dims[i], ncg = (d + 3) / 4;
+    cp_wait<0>();
+    __syncthreads();
+    if (C > 1) cluster_wait();  // every peer has started: pushes may begin
+    for (int it = threadIdx.x; it < nrg * ncg; it += RNT) {
+      const int rg = it / ncg, c0 = (it - rg * ncg) * 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int gr = row0 + rg + j * nrg;
+        if (gr >= T) continue;
+        float o[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int col = c0 + u;
+          o[u] = 0.f;
+          if (col < d) {
+            const size_t ci = (size_t)gr * CS + p.offs[i] + col;
+            const float h = cat[ci];
+            o[u] = g[ci] * mask[gr] * (1.f - h * h);
+          }
+        }
+        push4(cl, C, sD0 + gr * DP + c0, make_float4(o[0], o[1], o[2], o[3]));
+      }
+    }
+    end_of_layer(cl, C);
+  }
+
+  for (int i = L - 1; i >= 0; --i) {
+    const int step = L - 1 - i;
+    const float* D = (step & 1) ? sD1 : sD0;
+    float* Dn = (step & 1) ? sD0 : sD1;
+    float* part = (step & 1) ? sP1 : sP0;
+    const int d = p.dims[i], dp = i ? p.dims[i - 1] : 0;
+    const int ncg = (d + 3) / 4, d4 = rup(d, 4);
+    if (dp) {
+      stage_rows(sY, HP, cat + (size_t)min(row0, T - 1) * CS + p.offs[i - 1],
+                 CS, Tb, T - row0, dp, DP);
+      cp_commit();
+      // W_i^T: sW[b][a] = W_i[k][a][b], zero outside [d, dp]
+      const float* W = p.w[i] + (size_t)k * dp * d;
+      for (int b = threadIdx.x >> 5; b < d4; b += RNT / 32)
+        for (int a = threadIdx.x & 31; a < DP; a += 32)
+          sW[b * DP + a] = (b < d && a < dp) ? W[(size_t)a * d + b] : 0.f;
+    }
+    // db_i: this band's column sums of d_pre_i, rows in order
+    for (int a = threadIdx.x; a < d; a += RNT) {
+      float sum = 0.f;
+      for (int r = 0; r < Tb && row0 + r < T; ++r) sum += D[(row0 + r) * DP + a];
+      if (C > 1)
+        part[dp * d + a] = sum;
+      else
+        flat[p.dboff[i] + a] = bad ? NAN : sum;
+    }
+    // d_hw band = adj_band @ d_pre_i (adj^T = adj)
+    for (int it = threadIdx.x; it < nrg * ncg; it += RNT) {
+      const int rg = it / ncg, c0 = (it - rg * ncg) * 4;
+      int rows[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) rows[j] = rg + j * nrg;
+      float acc[4][4];
+      tile_zero<4>(acc);
+      tile_mac<4>(sA, AP, rows, D, DP, c0, T4, acc);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int gr = row0 + rows[j];
+        if (dp) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) sX[rows[j] * HP + c0 + u] = acc[j][u];
+        } else if (gr < T) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (c0 + u < d)
+              p.dhw1[((size_t)s * T + gr) * d + c0 + u] =
+                  bad ? NAN : acc[j][u];
+        }
+      }
+    }
+    if (dp) {
+      cp_wait<0>();
+      __syncthreads();
+      // dW_i partial [dp, d] = h_{i-1,band}^T d_hw_band, rows in order
+      for (int it = threadIdx.x; it < dp * ncg; it += RNT) {
+        const int a = it / ncg, b0 = (it - a * ncg) * 4;
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int r = 0; r < Tb; ++r) fma4(acc, sY[r * HP + a], ld4(sX + r * HP + b0));
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (b0 + u >= d) break;
+          if (C > 1)
+            part[a * d + b0 + u] = acc[u];
+          else
+            flat[p.woff[i] + a * d + b0 + u] = bad ? NAN : acc[u];
+        }
+      }
+      // chain: d_pre_{i-1} band = (g + d_hw @ W_i^T) * mask * (1 - h^2),
+      // pushed into every rank's Dn
+      const int ncg2 = (dp + 3) / 4;
+      for (int it = threadIdx.x; it < nrg * ncg2; it += RNT) {
+        const int rg = it / ncg2, a0 = (it - rg * ncg2) * 4;
+        int rows[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) rows[j] = rg + j * nrg;
+        float acc[4][4];
+        tile_zero<4>(acc);
+        tile_mac<4>(sX, HP, rows, sW, DP, a0, d4, acc);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int gr = row0 + rows[j];
+          if (gr >= T) continue;
+          const float m = mask[gr];
+          float o[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int a = a0 + u;
+            o[u] = 0.f;
+            if (a < dp) {
+              const float h = sY[rows[j] * HP + a];
+              o[u] = (g[(size_t)gr * CS + p.offs[i - 1] + a] + acc[j][u]) *
+                     m * (1.f - h * h);
+            }
+          }
+          push4(cl, C, Dn + gr * DP + a0, make_float4(o[0], o[1], o[2], o[3]));
+        }
+      }
+    }
+    end_of_layer(cl, C);
+    if (C > 1) {
+      // the slot's layer-i gradients: each rank sums a slice of the
+      // partials over ranks 0..C-1 in order
+      const int nw = dp * d, n = nw + d;
+      for (int e = rank * RNT + threadIdx.x; e < n; e += C * RNT) {
+        float sum = 0.f;
+        for (int t = 0; t < C; ++t) sum += cl.map_shared_rank(part, t)[e];
+        flat[e < nw ? p.woff[i] + e : p.dboff[i] + e - nw] = bad ? NAN : sum;
+      }
+    }
+  }
+  if (C > 1) cl.sync();  // no block exits while a peer reads its partials
+}
+
+// -- streamed regime ---------------------------------------------------------
+
+// One K-stage: adjacency rows [row0, row0 + SBM) x columns [k0, k0 + SBK)
+// into sA (pitch SBK + 4) and rows [k0, k0 + SBK) of B (pitch ld, width
+// d) into sB (pitch DP), zero outside the slot. Index arithmetic on
+// compile-time powers of two only.
+template <int DP>
+__device__ __forceinline__ void stream_stage(float* st, const float* A,
+                                             const float* B, int ld, int T,
+                                             int d, int row0, int k0,
+                                             bool avec, bool bvec) {
+  constexpr int NT = 2 * DP, AQ = SBK / 4, BQ = DP / 4;
+  float* sA = st;
+  float* sB = st + SBM * (SBK + 4);
+  if (avec) {  // T % 4 == 0: a 16-byte chunk is all in or all out
+    for (int e = threadIdx.x; e < SBM * AQ; e += NT) {
+      const int r = e / AQ, c = (e % AQ) * 4, gr = row0 + r, gc = k0 + c;
+      const bool ok = gr < T && gc < T;
+      cp16(sA + r * (SBK + 4) + c, ok ? A + (size_t)gr * T + gc : A,
+           ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < SBM * SBK; e += NT) {
+      const int r = e / SBK, c = e % SBK, gr = row0 + r, gc = k0 + c;
+      const bool ok = gr < T && gc < T;
+      cp4(sA + r * (SBK + 4) + c, ok ? A + (size_t)gr * T + gc : A,
+          ok ? 4 : 0);
+    }
+  }
+  if (bvec) {  // ld % 4 == 0
+    for (int e = threadIdx.x; e < SBK * BQ; e += NT) {
+      const int q = e / BQ, c = (e % BQ) * 4, gq = k0 + q;
+      const int n = gq < T ? min(max(d - c, 0), 4) : 0;
+      cp16(sB + q * DP + c, n ? B + (size_t)gq * ld + c : B, 4 * n);
+    }
+  } else {
+    for (int e = threadIdx.x; e < SBK * DP; e += NT) {
+      const int q = e / DP, c = e % DP, gq = k0 + q;
+      const bool ok = gq < T && c < d;
+      cp4(sB + q * DP + c, ok ? B + (size_t)gq * ld + c : B, ok ? 4 : 0);
+    }
+  }
+}
+
+// thread layout of a streamed block: 2*DP threads = 8 row groups x DP/4
+// column groups; thread (rg, cg) owns rows rg + 8j (j < 8) and columns
+// 4cg .. 4cg + 3
+template <int DP>
+__device__ __forceinline__ void stream_tile(int (&rows)[SRT], int& c0) {
+  constexpr int NCG = DP / 4;
+  const int rg = threadIdx.x / NCG;
+  c0 = (threadIdx.x % NCG) * 4;
+#pragma unroll
+  for (int j = 0; j < SRT; ++j) rows[j] = rg + j * (SBM / SRT);
+}
+
+// acc = A[row0 .. row0 + SBM, :] @ B[:, 0 .. DP) over k < T, K-tiles
+// double-buffered with cp.async. Callers may have committed copies of
+// their own before: the first wait covers them. Ends with a block barrier.
+template <int DP>
+__device__ __forceinline__ void stream_agg(const float* A, const float* B,
+                                           int ld, int T, int d, int row0,
+                                           float* stages,
+                                           float (&acc)[SRT][4]) {
+  constexpr int STAGE = SBM * (SBK + 4) + SBK * DP;
+  int rows[SRT], c0;
+  stream_tile<DP>(rows, c0);
+  const bool avec = T % 4 == 0 && (uintptr_t)A % 16 == 0;
+  const bool bvec = ld % 4 == 0 && (uintptr_t)B % 16 == 0;
+  tile_zero<SRT>(acc);
+  const int nk = (T + SBK - 1) / SBK;
+  stream_stage<DP>(stages, A, B, ld, T, d, row0, 0, avec, bvec);
+  cp_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) {
+      stream_stage<DP>(stages + ((kt + 1) & 1) * STAGE, A, B, ld, T, d, row0,
+                       (kt + 1) * SBK, avec, bvec);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
-#pragma unroll 8
-    for (int q = 0; q < BK; ++q) {
-      float a[RPT], b[NC];
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) a[j] = sA[(ty * RPT + j) * (BK + 1) + q];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) b[c] = sB[q * DP + tx + 32 * c];
-#pragma unroll
-      for (int j = 0; j < RPT; ++j)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[j][c] = fmaf(a[j], b[c], acc[j][c]);
-    }
+    const float* st = stages + (kt & 1) * STAGE;
+    tile_mac<SRT>(st, SBK + 4, rows, st + SBM * (SBK + 4), DP, c0, SBK, acc);
     __syncthreads();
   }
 }
 
-// Forward, one layer: cat[:, :, cat_off:cat_off+d] = h, and, unless
-// w_next is null, hw_next = h @ w_next[k] ([S, T, dn]).
+// Forward, one layer: cat[:, :, cat_off : cat_off + d] = h and, unless
+// w_next is null, hw_next = h @ w_next[k] ([S, T, DP], zero past dn).
 template <int DP>
-__global__ void __launch_bounds__(NT) trunk_fwd_layer(
-    const float* __restrict__ adj, const float* __restrict__ hw,
+__global__ void __launch_bounds__(2 * DP) trunk_stream_fwd(
+    const float* __restrict__ adj, const float* __restrict__ hw, int ld,
     const float* __restrict__ mask, const int* __restrict__ wsel,
     const float* __restrict__ bias, const float* __restrict__ w_next,
     float* __restrict__ cat, float* __restrict__ hw_next, int T, int d,
     int dn, int cat_stride, int cat_off, int K) {
-  constexpr int NC = DP / 32;
-  extern __shared__ float smem[];
-  float* sA = smem;                 // [BM][BK+1]
-  float* sB = sA + BM * (BK + 1);   // [BK][DP]
-  float* sH = sB + BK * DP;         // [BM][DP+1]
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int s = blockIdx.y, row0 = blockIdx.x * BM;
+  constexpr int HP = DP + 4;
+  extern __shared__ __align__(16) float smem[];
+  const size_t st_f = 2 * stream_stage_floats(DP), ep_f = (size_t)SBM * HP;
+  float* sH = smem;  // reuses the K-stages after the loop
+  float* sW = smem + (st_f > ep_f ? st_f : ep_f);
+  const int s = blockIdx.y, row0 = blockIdx.x * SBM;
   const int k_raw = wsel[s];
-  const bool bad = k_raw < 0 || k_raw >= K;  // poison the slot, never fault
+  const bool bad = k_raw < 0 || k_raw >= K;
   const int k = bad ? 0 : k_raw;
-
-  float acc[RPT][NC];
-  agg_rows<DP>(adj + (size_t)s * T * T, hw + (size_t)s * T * d, T, d, row0,
-               sA, sB, acc);
-
+  if (w_next != nullptr)  // lands with the first K-stage's group
+    stage_rows(sW, DP, w_next + (size_t)k * d * dn, dn, rup(d, 4), d, dn, DP);
+  float acc[SRT][4];
+  stream_agg<DP>(adj + (size_t)s * T * T, hw + (size_t)s * T * ld, ld, T, d,
+                 row0, smem, acc);
+  int rows[SRT], c0;
+  stream_tile<DP>(rows, c0);
 #pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const int r = ty * RPT + j, gr = row0 + r;
+  for (int j = 0; j < SRT; ++j) {
+    const int gr = row0 + rows[j];
     const float m = gr < T ? mask[(size_t)s * T + gr] : 0.f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 32 * c;
+    for (int u = 0; u < 4; ++u) {
+      const int col = c0 + u;
       float h = 0.f;
       if (col < d && gr < T) {
-        h = bad ? NAN : tanhf(acc[j][c] + bias[(size_t)k * d + col]) * m;
+        h = bad ? NAN : tanhf(acc[j][u] + bias[(size_t)k * d + col]) * m;
         cat[((size_t)s * T + gr) * cat_stride + cat_off + col] = h;
       }
-      sH[r * (DP + 1) + col] = h;
+      sH[rows[j] * HP + col] = h;
     }
   }
   if (w_next == nullptr) return;  // uniform across the block
   __syncthreads();
-  const float* W = w_next + (size_t)k * d * dn;
+  tile_zero<SRT>(acc);
+  tile_mac<SRT>(sH, HP, rows, sW, DP, c0, rup(d, 4), acc);
 #pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const int r = ty * RPT + j, gr = row0 + r;
+  for (int j = 0; j < SRT; ++j) {
+    const int gr = row0 + rows[j];
     if (gr >= T) continue;
-    for (int col = tx; col < dn; col += 32) {
-      float sum = 0.f;
-      for (int q = 0; q < d; ++q)
-        sum = fmaf(sH[r * (DP + 1) + q], W[(size_t)q * dn + col], sum);
-      hw_next[((size_t)s * T + gr) * dn + col] = bad ? NAN : sum;
-    }
+    *reinterpret_cast<float4*>(hw_next + ((size_t)s * T + gr) * DP + c0) =
+        bad ? make_float4(NAN, NAN, NAN, NAN)
+            : make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
   }
 }
 
-// Backward, last layer's row-local start: d_pre = g * mask * (1 - h^2),
-// plus this block's partial of db (columns db_off.. of part).
+// Backward start, the last layer: d_pre = g * mask * (1 - h^2) ([S, T, DP],
+// zero past d) and this block's partial of db (columns db_off.. of part).
 template <int DP>
-__global__ void __launch_bounds__(NT) trunk_bwd_first(
+__global__ void __launch_bounds__(2 * DP) trunk_stream_bwd_first(
     const float* __restrict__ cat, const float* __restrict__ g,
-    const float* __restrict__ mask, float* __restrict__ dpre,
-    float* __restrict__ part, int T, int d, int cat_stride, int off, int P,
-    int db_off) {
-  constexpr int NC = DP / 32;
-  __shared__ float sZ[BM * (DP + 1)];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int s = blockIdx.y, blk = blockIdx.x, row0 = blk * BM;
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const int r = ty * RPT + j, gr = row0 + r;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 32 * c;
-      float v = 0.f;
-      if (col < d && gr < T) {
-        const size_t ci = ((size_t)s * T + gr) * cat_stride + off + col;
-        const float h = cat[ci];
-        v = g[ci] * mask[(size_t)s * T + gr] * (1.f - h * h);
-        dpre[((size_t)s * T + gr) * d + col] = v;
-      }
-      sZ[r * (DP + 1) + col] = v;
+    const float* __restrict__ mask, const int* __restrict__ wsel,
+    float* __restrict__ dpre, float* __restrict__ part, int T, int d,
+    int cat_stride, int off, int P, int db_off, int K) {
+  constexpr int NT = 2 * DP;
+  __shared__ float sZ[SBM * (DP + 1)];
+  const int s = blockIdx.y, blk = blockIdx.x, row0 = blk * SBM;
+  const bool bad = wsel[s] < 0 || wsel[s] >= K;
+  for (int e = threadIdx.x; e < SBM * DP; e += NT) {
+    const int r = e / DP, c = e % DP, gr = row0 + r;
+    float v = 0.f;
+    if (c < d && gr < T) {
+      const size_t ci = ((size_t)s * T + gr) * cat_stride + off + c;
+      const float h = cat[ci];
+      v = g[ci] * mask[(size_t)s * T + gr] * (1.f - h * h);
     }
+    if (gr < T) dpre[((size_t)s * T + gr) * DP + c] = v;
+    sZ[r * (DP + 1) + c] = v;
   }
   __syncthreads();
   float* out = part + ((size_t)s * gridDim.x + blk) * P + db_off;
-  for (int col = threadIdx.x; col < d; col += NT) {
+  for (int c = threadIdx.x; c < d; c += NT) {
     float sum = 0.f;
-    for (int r = 0; r < BM; ++r) sum += sZ[r * (DP + 1) + col];
-    out[col] = sum;
+    for (int r = 0; r < SBM; ++r) sum += sZ[r * (DP + 1) + c];
+    out[c] = bad ? NAN : sum;
   }
 }
 
-// Backward, one layer i (width d, previous width dp; dp == 0 for the
-// first layer): d_hw = adj @ dpre_in. For the first layer d_hw is the
-// output d_hw1. Otherwise the block writes its partials of dW_i
+// Backward, one layer i (width d, previous width dp; dp == 0 for the first
+// layer): d_hw = adj @ dpre_in. For the first layer d_hw is the output
+// d_hw1 ([S, T, d]). Otherwise the block writes its partials of dW_i
 // ([dp, d] at dw_off) and db_{i-1} ([dp] at db_off), and the previous
-// layer's d_pre into out.
+// layer's d_pre into out ([S, T, DP]).
 template <int DP>
-__global__ void __launch_bounds__(NT) trunk_bwd_layer(
+__global__ void __launch_bounds__(2 * DP) trunk_stream_bwd(
     const float* __restrict__ adj, const float* __restrict__ dpre_in,
     const float* __restrict__ cat, const float* __restrict__ g,
     const float* __restrict__ mask, const int* __restrict__ wsel,
     const float* __restrict__ w, float* __restrict__ out,
     float* __restrict__ part, int T, int d, int dp, int cat_stride,
     int off_prev, int K, int P, int dw_off, int db_off) {
-  constexpr int NC = DP / 32;
-  extern __shared__ float smem[];
-  float* sA = smem;                 // [BM][BK+1]
-  float* sB = sA + BM * (BK + 1);   // [BK][DP]
-  float* sX = sB + BK * DP;         // d_hw rows   [BM][DP+1]
-  float* sY = sX + BM * (DP + 1);   // h_{i-1} rows [BM][DP+1]
-  float* sZ = sY + BM * (DP + 1);   // d_pre_{i-1} rows [BM][DP+1]
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int s = blockIdx.y, blk = blockIdx.x, row0 = blk * BM;
+  constexpr int NT = 2 * DP, HP = DP + 4;
+  extern __shared__ __align__(16) float smem[];
+  const size_t st_f = 2 * stream_stage_floats(DP),
+               ep_f = 3 * (size_t)SBM * HP;
+  float* sX = smem;  // d_hw rows       (the three reuse the K-stages)
+  float* sY = sX + SBM * HP;  // h_{i-1} rows
+  float* sZ = sY + SBM * HP;  // d_pre_{i-1} rows
+  float* sW = smem + (st_f > ep_f ? st_f : ep_f);  // W_i^T [d][DP]
+  const int s = blockIdx.y, blk = blockIdx.x, row0 = blk * SBM;
   const int k_raw = wsel[s];
   const bool bad = k_raw < 0 || k_raw >= K;
   const int k = bad ? 0 : k_raw;
-
-  float acc[RPT][NC];
-  agg_rows<DP>(adj + (size_t)s * T * T, dpre_in + (size_t)s * T * d, T, d,
-               row0, sA, sB, acc);
-
+  const int d4 = rup(d, 4);
+  if (dp) {  // visible after the K loop's first barrier
+    const float* W = w + (size_t)k * dp * d;
+    for (int b = threadIdx.x >> 5; b < d4; b += NT / 32)
+      for (int a = threadIdx.x & 31; a < DP; a += 32)
+        sW[b * DP + a] = (b < d && a < dp) ? W[(size_t)a * d + b] : 0.f;
+  }
+  float acc[SRT][4];
+  stream_agg<DP>(adj + (size_t)s * T * T, dpre_in + (size_t)s * T * DP, DP, T,
+                 d, row0, smem, acc);
+  int rows[SRT], c0;
+  stream_tile<DP>(rows, c0);
   if (dp == 0) {  // first layer: d_hw1 out, uniform across the block
 #pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int gr = row0 + ty * RPT + j;
+    for (int j = 0; j < SRT; ++j) {
+      const int gr = row0 + rows[j];
       if (gr >= T) continue;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tx + 32 * c;
-        if (col < d)
-          out[((size_t)s * T + gr) * d + col] = bad ? NAN : acc[j][c];
-      }
+      for (int u = 0; u < 4; ++u)
+        if (c0 + u < d)
+          out[((size_t)s * T + gr) * d + c0 + u] = bad ? NAN : acc[j][u];
     }
     return;
   }
-
 #pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const int r = ty * RPT + j, gr = row0 + r;
+  for (int j = 0; j < SRT; ++j)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 32 * c;
-      sX[r * (DP + 1) + col] = (col < d && gr < T) ? acc[j][c] : 0.f;
-      sY[r * (DP + 1) + col] =
-          (col < dp && gr < T)
-              ? cat[((size_t)s * T + gr) * cat_stride + off_prev + col]
-              : 0.f;
-    }
+    for (int u = 0; u < 4; ++u) sX[rows[j] * HP + c0 + u] = acc[j][u];
+  for (int e = threadIdx.x; e < SBM * DP; e += NT) {
+    const int r = e / DP, a = e % DP, gr = row0 + r;
+    sY[r * HP + a] =
+        (a < dp && gr < T)
+            ? cat[((size_t)s * T + gr) * cat_stride + off_prev + a]
+            : 0.f;
   }
   __syncthreads();
 
   float* pw = part + ((size_t)s * gridDim.x + blk) * P;
-  for (int e = threadIdx.x; e < dp * d; e += NT) {
-    const int a = e / d, b = e % d;
-    float sum = 0.f;
-    for (int r = 0; r < BM; ++r)
-      sum = fmaf(sY[r * (DP + 1) + a], sX[r * (DP + 1) + b], sum);
-    pw[dw_off + e] = bad ? NAN : sum;
+  const int ncg = (d + 3) / 4;
+  for (int it = threadIdx.x; it < dp * ncg; it += NT) {
+    const int a = it / ncg, b0 = (it - a * ncg) * 4;
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int r = 0; r < SBM; ++r) fma4(sum, sY[r * HP + a], ld4(sX + r * HP + b0));
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (b0 + u < d) pw[dw_off + a * d + b0 + u] = bad ? NAN : sum[u];
   }
 
-  const float* W = w + (size_t)k * dp * d;  // [dp, d]
+  tile_zero<SRT>(acc);
+  tile_mac<SRT>(sX, HP, rows, sW, DP, c0, d4, acc);
 #pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const int r = ty * RPT + j, gr = row0 + r;
+  for (int j = 0; j < SRT; ++j) {
+    const int gr = row0 + rows[j];
+    const float m = gr < T ? mask[(size_t)s * T + gr] : 0.f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int a = tx + 32 * c;
+    for (int u = 0; u < 4; ++u) {
+      const int a = c0 + u;
       float v = 0.f;
       if (a < dp && gr < T) {
-        float chain = 0.f;
-        for (int b = 0; b < d; ++b)
-          chain = fmaf(sX[r * (DP + 1) + b], W[(size_t)a * d + b], chain);
-        const float h = sY[r * (DP + 1) + a];
+        const float h = sY[rows[j] * HP + a];
         const size_t gi = ((size_t)s * T + gr) * cat_stride + off_prev + a;
-        v = (g[gi] + chain) * mask[(size_t)s * T + gr] * (1.f - h * h);
-        out[((size_t)s * T + gr) * dp + a] = bad ? NAN : v;
+        v = (g[gi] + acc[j][u]) * m * (1.f - h * h);
       }
-      sZ[r * (DP + 1) + a] = v;
+      if (gr < T) out[((size_t)s * T + gr) * DP + a] = bad ? NAN : v;
+      sZ[rows[j] * HP + a] = v;
     }
   }
   __syncthreads();
   for (int a = threadIdx.x; a < dp; a += NT) {
     float sum = 0.f;
-    for (int r = 0; r < BM; ++r) sum += sZ[r * (DP + 1) + a];
+    for (int r = 0; r < SBM; ++r) sum += sZ[r * HP + a];
     pw[db_off + a] = bad ? NAN : sum;
   }
 }
 
-// Second pass of the deterministic reduction: out[s, p] = sum over row
-// blocks b, in index order, of part[s, b, p].
-__global__ void __launch_bounds__(NT) trunk_reduce_blocks(
+// Second pass of the streamed backward's reduction: out[s, p] = sum over
+// row blocks b, in index order, of part[s, b, p].
+__global__ void __launch_bounds__(RNT) trunk_reduce_blocks(
     const float* __restrict__ part, float* __restrict__ out, int S, int nblk,
     int P) {
-  const size_t i = (size_t)blockIdx.x * NT + threadIdx.x;
+  const size_t i = (size_t)blockIdx.x * RNT + threadIdx.x;
   if (i >= (size_t)S * P) return;
   const size_t s = i / P, p = i % P;
   float sum = 0.f;
@@ -298,151 +830,186 @@ __global__ void __launch_bounds__(NT) trunk_reduce_blocks(
   out[i] = sum;
 }
 
-size_t fwd_smem(int dp_) {
-  return sizeof(float) *
-         (size_t)(BM * (BK + 1) + BK * dp_ + BM * (dp_ + 1));
-}
+// -- launches ------------------------------------------------------------------
 
-size_t bwd_smem(int dp_) {
-  return sizeof(float) *
-         (size_t)(BM * (BK + 1) + BK * dp_ + 3 * BM * (dp_ + 1));
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, size_t bytes) {
+  if (bytes > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 template <int DP>
-cudaError_t launch_fwd(const float* adj, const float* hw, const float* mask,
-                       const int* wsel, const float* bias,
-                       const float* w_next, float* cat, float* hw_next, int S,
-                       int T, int d, int dn, int cat_stride, int cat_off,
-                       int K, cudaStream_t st) {
-  const size_t smem = fwd_smem(DP);
-  cudaError_t e = cudaFuncSetAttribute(
-      trunk_fwd_layer<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+cudaError_t launch_resident(int bwd, const TrunkArgs& p, cudaStream_t st) {
+  const size_t smem = sizeof(float) * (bwd ? resident_bwd_floats(p.T, p.C, DP)
+                                           : resident_fwd_floats(p.T, p.C, DP));
+  void (*kern)(TrunkArgs) =
+      bwd ? &trunk_resident_bwd<DP> : &trunk_resident_fwd<DP>;
+  cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((T + BM - 1) / BM, S);
-  trunk_fwd_layer<DP><<<grid, NT, smem, st>>>(adj, hw, mask, wsel, bias,
-                                              w_next, cat, hw_next, T, d, dn,
-                                              cat_stride, cat_off, K);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.S * p.C);
+  cfg.blockDim = dim3(RNT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, p);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 template <int DP>
-cudaError_t launch_bwd_first(const float* cat, const float* g,
-                             const float* mask, float* dpre, float* part,
-                             int S, int T, int d, int cat_stride, int off,
-                             int P, int db_off, cudaStream_t st) {
-  dim3 grid((T + BM - 1) / BM, S);
-  trunk_bwd_first<DP><<<grid, NT, 0, st>>>(cat, g, mask, dpre, part, T, d,
-                                           cat_stride, off, P, db_off);
+cudaError_t launch_stream_fwd(const float* adj, const float* hw, int ld,
+                              const float* mask, const int* wsel,
+                              const float* bias, const float* w_next,
+                              float* cat, float* hw_next, int S, int T, int d,
+                              int dn, int cat_stride, int cat_off, int K,
+                              cudaStream_t st) {
+  const size_t smem = sizeof(float) * stream_fwd_floats(DP);
+  cudaError_t e = allow_smem(trunk_stream_fwd<DP>, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((T + SBM - 1) / SBM, S);
+  trunk_stream_fwd<DP><<<grid, 2 * DP, smem, st>>>(
+      adj, hw, ld, mask, wsel, bias, w_next, cat, hw_next, T, d, dn,
+      cat_stride, cat_off, K);
   return cudaGetLastError();
 }
 
 template <int DP>
-cudaError_t launch_bwd_layer(const float* adj, const float* dpre_in,
-                             const float* cat, const float* g,
-                             const float* mask, const int* wsel,
-                             const float* w, float* out, float* part, int S,
-                             int T, int d, int dp, int cat_stride,
-                             int off_prev, int K, int P, int dw_off,
-                             int db_off, cudaStream_t st) {
-  const size_t smem = bwd_smem(DP);
-  cudaError_t e = cudaFuncSetAttribute(
-      trunk_bwd_layer<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+cudaError_t launch_stream_bwd(const float* adj, const float* dpre_in,
+                              const float* cat, const float* g,
+                              const float* mask, const int* wsel,
+                              const float* w, float* out, float* part, int S,
+                              int T, int d, int dp, int cat_stride,
+                              int off_prev, int K, int P, int dw_off,
+                              int db_off, cudaStream_t st) {
+  const size_t smem = sizeof(float) * stream_bwd_floats(DP);
+  cudaError_t e = allow_smem(trunk_stream_bwd<DP>, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((T + BM - 1) / BM, S);
-  trunk_bwd_layer<DP><<<grid, NT, smem, st>>>(
+  dim3 grid((T + SBM - 1) / SBM, S);
+  trunk_stream_bwd<DP><<<grid, 2 * DP, smem, st>>>(
       adj, dpre_in, cat, g, mask, wsel, w, out, part, T, d, dp, cat_stride,
       off_prev, K, P, dw_off, db_off);
   return cudaGetLastError();
 }
 
+template <int DP>
+cudaError_t launch_stream_bwd_first(const float* cat, const float* g,
+                                    const float* mask, const int* wsel,
+                                    float* dpre, float* part, int S, int T,
+                                    int d, int cat_stride, int off, int P,
+                                    int db_off, int K, cudaStream_t st) {
+  dim3 grid((T + SBM - 1) / SBM, S);
+  trunk_stream_bwd_first<DP><<<grid, 2 * DP, 0, st>>>(
+      cat, g, mask, wsel, dpre, part, T, d, cat_stride, off, P, db_off, K);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C interface, loaded with ctypes. `dp_bucket` is the register/shared
-// tile width for the whole trunk: 32, 64 or 128 (the widest layer rounded
-// up), chosen by the wrapper. Any other value returns cudaErrorInvalidValue.
+// Plain C interface, loaded with ctypes. `dp_bucket` is the register and
+// shared tile width for the whole trunk: 32, 64 or 128 (the widest layer
+// rounded up), chosen by the wrapper; any other value returns
+// cudaErrorInvalidValue.
 
-extern "C" int trunk_fwd_layer_f32(const float* adj, const float* hw,
-                                   const float* mask, const int* wsel,
-                                   const float* bias, const float* w_next,
-                                   float* cat, float* hw_next, int S, int T,
-                                   int d, int dn, int cat_stride, int cat_off,
-                                   int K, int dp_bucket, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (dp_bucket) {
-    case 32:
-      return launch_fwd<32>(adj, hw, mask, wsel, bias, w_next, cat, hw_next,
-                            S, T, d, dn, cat_stride, cat_off, K, st);
-    case 64:
-      return launch_fwd<64>(adj, hw, mask, wsel, bias, w_next, cat, hw_next,
-                            S, T, d, dn, cat_stride, cat_off, K, st);
-    case 128:
-      return launch_fwd<128>(adj, hw, mask, wsel, bias, w_next, cat, hw_next,
-                             S, T, d, dn, cat_stride, cat_off, K, st);
-    default:
-      return cudaErrorInvalidValue;
+#define TRUNK_DISPATCH(bucket, CALL)           \
+  switch (bucket) {                            \
+    case 32: {                                 \
+      constexpr int DP = 32;                   \
+      return CALL;                             \
+    }                                          \
+    case 64: {                                 \
+      constexpr int DP = 64;                   \
+      return CALL;                             \
+    }                                          \
+    case 128: {                                \
+      constexpr int DP = 128;                  \
+      return CALL;                             \
+    }                                          \
+    default:                                   \
+      return cudaErrorInvalidValue;            \
   }
+
+// Shared-memory bytes of one block: regime 0 = resident, 1 = streamed;
+// bwd 0 = forward, 1 = backward (C is not read for the streamed regime).
+extern "C" long long trunk_smem_bytes(int regime, int bwd, int T, int C,
+                                      int dp_bucket) {
+  if (regime == 0)
+    return (long long)sizeof(float) *
+           (bwd ? resident_bwd_floats(T, C, dp_bucket)
+                : resident_fwd_floats(T, C, dp_bucket));
+  return (long long)sizeof(float) *
+         (bwd ? stream_bwd_floats(dp_bucket) : stream_fwd_floats(dp_bucket));
 }
 
-extern "C" int trunk_bwd_first_f32(const float* cat, const float* g,
-                                   const float* mask, float* dpre,
-                                   float* part, int S, int T, int d,
-                                   int cat_stride, int off, int P, int db_off,
-                                   int dp_bucket, void* stream) {
+// The whole trunk in one launch per direction (bwd 0: forward into
+// p->cat; 1: backward into p->dhw1 and p->flat).
+extern "C" int trunk_resident_f32(int bwd, const TrunkArgs* p, int dp_bucket,
+                                  void* stream) {
+  if ((p->C != 1 && p->C != 2 && p->C != 4) || p->L < 1 || p->L > MAXL ||
+      p->S < 1 || p->T < 1)
+    return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (dp_bucket) {
-    case 32:
-      return launch_bwd_first<32>(cat, g, mask, dpre, part, S, T, d,
-                                  cat_stride, off, P, db_off, st);
-    case 64:
-      return launch_bwd_first<64>(cat, g, mask, dpre, part, S, T, d,
-                                  cat_stride, off, P, db_off, st);
-    case 128:
-      return launch_bwd_first<128>(cat, g, mask, dpre, part, S, T, d,
-                                   cat_stride, off, P, db_off, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  TRUNK_DISPATCH(dp_bucket, launch_resident<DP>(bwd, *p, st))
 }
 
-extern "C" int trunk_bwd_layer_f32(const float* adj, const float* dpre_in,
-                                   const float* cat, const float* g,
-                                   const float* mask, const int* wsel,
-                                   const float* w, float* out, float* part,
-                                   int S, int T, int d, int dp,
-                                   int cat_stride, int off_prev, int K, int P,
-                                   int dw_off, int db_off, int dp_bucket,
-                                   void* stream) {
+extern "C" int trunk_stream_fwd_f32(const float* adj, const float* hw, int ld,
+                                    const float* mask, const int* wsel,
+                                    const float* bias, const float* w_next,
+                                    float* cat, float* hw_next, int S, int T,
+                                    int d, int dn, int cat_stride,
+                                    int cat_off, int K, int dp_bucket,
+                                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (dp_bucket) {
-    case 32:
-      return launch_bwd_layer<32>(adj, dpre_in, cat, g, mask, wsel, w, out,
-                                  part, S, T, d, dp, cat_stride, off_prev, K,
-                                  P, dw_off, db_off, st);
-    case 64:
-      return launch_bwd_layer<64>(adj, dpre_in, cat, g, mask, wsel, w, out,
-                                  part, S, T, d, dp, cat_stride, off_prev, K,
-                                  P, dw_off, db_off, st);
-    case 128:
-      return launch_bwd_layer<128>(adj, dpre_in, cat, g, mask, wsel, w, out,
-                                   part, S, T, d, dp, cat_stride, off_prev, K,
-                                   P, dw_off, db_off, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  TRUNK_DISPATCH(dp_bucket, launch_stream_fwd<DP>(
+                                adj, hw, ld, mask, wsel, bias, w_next, cat,
+                                hw_next, S, T, d, dn, cat_stride, cat_off, K,
+                                st))
 }
 
-extern "C" const char* trunk_error_string(int e) {
-  return cudaGetErrorString((cudaError_t)e);
+extern "C" int trunk_stream_bwd_first_f32(const float* cat, const float* g,
+                                          const float* mask, const int* wsel,
+                                          float* dpre, float* part, int S,
+                                          int T, int d, int cat_stride,
+                                          int off, int P, int db_off, int K,
+                                          int dp_bucket, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  TRUNK_DISPATCH(dp_bucket, launch_stream_bwd_first<DP>(
+                                cat, g, mask, wsel, dpre, part, S, T, d,
+                                cat_stride, off, P, db_off, K, st))
+}
+
+extern "C" int trunk_stream_bwd_f32(const float* adj, const float* dpre_in,
+                                    const float* cat, const float* g,
+                                    const float* mask, const int* wsel,
+                                    const float* w, float* out, float* part,
+                                    int S, int T, int d, int dp,
+                                    int cat_stride, int off_prev, int K, int P,
+                                    int dw_off, int db_off, int dp_bucket,
+                                    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  TRUNK_DISPATCH(dp_bucket, launch_stream_bwd<DP>(
+                                adj, dpre_in, cat, g, mask, wsel, w, out,
+                                part, S, T, d, dp, cat_stride, off_prev, K, P,
+                                dw_off, db_off, st))
 }
 
 extern "C" int trunk_reduce_blocks_f32(const float* part, float* out, int S,
                                        int nblk, int P, void* stream) {
   const size_t n = (size_t)S * P;
   if (n == 0) return cudaSuccess;
-  const unsigned blocks = (unsigned)((n + NT - 1) / NT);
-  trunk_reduce_blocks<<<blocks, NT, 0, (cudaStream_t)stream>>>(part, out, S,
-                                                               nblk, P);
+  const unsigned blocks = (unsigned)((n + RNT - 1) / RNT);
+  trunk_reduce_blocks<<<blocks, RNT, 0, (cudaStream_t)stream>>>(part, out, S,
+                                                                nblk, P);
   return cudaGetLastError();
+}
+
+extern "C" const char* trunk_error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
 }

@@ -17,29 +17,44 @@ backward — of the CUDA kernel and of `gcn_trunk_plain_bwd` alike — uses
 
 Three implementations of one function live here:
   * `gcn_trunk_plain` / `gcn_trunk_plain_bwd`: the plain PyTorch chain and
-    its written-out reverse recurrence, the same algorithm the kernel
-    runs, so it is tested on the CPU against JAX before the card runs it;
+    its written-out reverse recurrence, the same algorithm the kernels
+    run, so it is tested on the CPU against JAX before the card runs it;
   * the CUDA kernels (csrc/dense_trunk.cu — design and bound in its
     header), reached through `_cuda_fwd` / `_cuda_bwd`;
   * `gcn_trunk`, the public entry: `GcnTrunkFn` runs the plain version
     for CPU tensors and the kernels for CUDA tensors, or raises. There is
     no fallback from the kernel to the plain version.
 
+Read once per direction, the adjacency feeds 48 flop per byte at dims
+(32, 32, 32, 1), over the H100's fp32 ridge of 20: the trunk is bound by
+fp32 FMA throughput. `trunk_plan` (pure Python) picks one of two regimes
+from the kernels' shared-memory formulas, mirrored here:
+  * resident — both directions fit one block's shared memory for a
+    cluster of C ∈ {1, 2, 4} blocks per slot, each holding a band of rows
+    of the adjacency for every layer (T = 32, 88, 112, 176 at S = 56; up
+    to T = 320 at dims (32, 32, 32, 1)): ONE launch per forward and ONE
+    per backward;
+  * streamed — everything else (T = 624, 2048, wide layers at larger T):
+    a forward is L launches, a backward L + 2 (`launches_per_call`).
+`_cuda_fwd` / `_cuda_bwd` take a forced plan for measurement only.
+
 `launches.fwd_launches` / `launches.bwd_launches` count one per trunk
-forward / backward that ran on the kernels (a forward is L layer
-launches; a backward L + 2).
+forward / backward that ran on the kernels, whatever the regime;
+`launches.resident_fwd`, `resident_bwd`, `streamed_fwd` and
+`streamed_bwd` split the same calls by regime.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+import os
+import re
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
 MAX_LAYERS = 8
 MAX_WIDTH = 128
-_BM = 32  # rows per block, csrc/dense_trunk.cu BM
 
 
 class LaunchCounts:
@@ -54,7 +69,18 @@ class LaunchCounts:
         self.bwd_launches = 0
 
 
-launches = LaunchCounts()
+class TrunkLaunchCounts(LaunchCounts):
+    """The per-call counts, and the same split by regime."""
+
+    def reset(self) -> None:
+        super().reset()
+        self.resident_fwd = self.resident_bwd = 0
+        self.streamed_fwd = self.streamed_bwd = 0
+
+    __init__ = reset
+
+
+launches = TrunkLaunchCounts()
 
 
 def _offsets(dims: Sequence[int]) -> List[int]:
@@ -198,7 +224,153 @@ def _split_grads(flat: torch.Tensor, dims):
     return dws, dbs
 
 
+# -- the plan: which regime, how many blocks per slot ---------------------
+
+_CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                   "csrc", "dense_trunk.cu")
+
+
+def _cu_constant(name: str) -> int:
+    """`constexpr int <name> = <value>;` of csrc/dense_trunk.cu: the one
+    definition the kernels and this plan share."""
+    with open(_CU) as f:
+        m = re.search(rf"constexpr int {name} = (\d+);", f.read())
+    return int(m.group(1))
+
+
+SMEM_MAX = _cu_constant("SMEM_MAX")  # bytes of shared memory a block may use
+SBM = _cu_constant("SBM")  # rows of a streamed block
+SBK = _cu_constant("SBK")  # depth of a streamed K-tile
+NUM_SMS = 132  # H100 SXM
+CLUSTERS = (1, 2, 4)
+
+
+class TrunkPlan(NamedTuple):
+    """regime "resident" (one launch per direction, C blocks per slot in a
+    thread-block cluster) or "streamed" (C = 0: a launch per layer), and
+    the shared-memory bytes of one forward and one backward block."""
+
+    regime: str
+    c: int
+    fwd_smem: int
+    bwd_smem: int
+
+
+def _rup(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+# Shared-memory plans, formula for formula as csrc/dense_trunk.cu (floats).
+def band_rows(t: int, c: int) -> int:
+    return _rup(-(-t // c), 8)
+
+
+def _adj_pitch(t: int) -> int:
+    # adjacency row pitch: 16-byte rows, and consecutive rows 4 banks apart
+    return _rup(t, 32) + 4
+
+
+def _resident_fwd_floats(t: int, c: int, dp: int) -> int:
+    # resident forward: adj band + 2 full hw + h band + W
+    tb = band_rows(t, c)
+    return tb * _adj_pitch(t) + 2 * _rup(t, 4) * dp + tb * (dp + 4) + dp * dp
+
+
+def _resident_bwd_floats(t: int, c: int, dp: int) -> int:
+    # resident backward: adj band + 2 full d_pre + d_hw band + h_prev band +
+    # W^T + (C > 1) two layers of partials [dW | db]
+    tb = band_rows(t, c)
+    return (tb * _adj_pitch(t) + 2 * _rup(t, 4) * dp + 2 * tb * (dp + 4)
+            + dp * dp + (2 * (dp * dp + dp) if c > 1 else 0))
+
+
+def _stream_stage_floats(dp: int) -> int:
+    # streamed: one K-stage = adj tile [SBM][SBK + 4] + hw tile [SBK][DP]; the
+    # epilogue's row buffers reuse the two stages; W separate
+    return SBM * (SBK + 4) + SBK * dp
+
+
+def _stream_fwd_floats(dp: int) -> int:
+    return max(2 * _stream_stage_floats(dp), SBM * (dp + 4)) + dp * dp
+
+
+def _stream_bwd_floats(dp: int) -> int:
+    return max(2 * _stream_stage_floats(dp), 3 * SBM * (dp + 4)) + dp * dp
+
+
+def resident_smem(t: int, c: int, dims) -> Tuple[int, int]:
+    """(forward, backward) shared-memory bytes of one resident block."""
+    dp = _bucket(dims)
+    return 4 * _resident_fwd_floats(t, c, dp), 4 * _resident_bwd_floats(t, c, dp)
+
+
+def trunk_plan(s: int, t: int, dims, c: int = None, regime: str = None) -> TrunkPlan:
+    """The regime for S slots of T rows at layer widths `dims`. Resident
+    when both directions fit SMEM_MAX for some C in CLUSTERS whose bands
+    all hold rows: the smallest such C with S·C ≥ NUM_SMS / 2, else the
+    largest. A resident call's time is one block's serial chain of
+    layers, not the card's fill: on the H100 C = 2 (112 blocks at S = 56)
+    beat C = 4 (224) by 5-9 % at T = 88 and tied at T = 176 (chip_smoke.py
+    phase 5, in PERF.md). Otherwise streamed. `c` (resident) or `regime="streamed"`
+    forces a plan, for measurement; a forced resident plan that does not
+    fit is returned as it is and refused by the kernel."""
+    dp = _bucket(dims)
+    streamed = TrunkPlan("streamed", 0, 4 * _stream_fwd_floats(dp),
+                         4 * _stream_bwd_floats(dp))
+    if regime == "streamed":
+        return streamed
+    if c is not None:
+        return TrunkPlan("resident", c, *resident_smem(t, c, dims))
+    fits = [c for c in CLUSTERS
+            if (c - 1) * band_rows(t, c) < t
+            and max(resident_smem(t, c, dims)) <= SMEM_MAX]
+    if not fits:
+        return streamed
+    full = [c for c in fits if 2 * s * c >= NUM_SMS]
+    c = full[0] if full else fits[-1]
+    return TrunkPlan("resident", c, *resident_smem(t, c, dims))
+
+
+def launches_per_call(plan: TrunkPlan, dims) -> Tuple[int, int]:
+    """Kernel launches of one forward and one backward trunk call."""
+    if plan.regime == "resident":
+        return 1, 1
+    return len(dims), len(dims) + 2
+
+
 # -- CUDA kernels --------------------------------------------------------
+
+
+class _TrunkArgs(ctypes.Structure):
+    """csrc/dense_trunk.cu `TrunkArgs`, field for field."""
+
+    _fields_ = [
+        ("adj", ctypes.c_void_p), ("hw1", ctypes.c_void_p),
+        ("mask", ctypes.c_void_p), ("wsel", ctypes.c_void_p),
+        ("w", ctypes.c_void_p * MAX_LAYERS), ("b", ctypes.c_void_p * MAX_LAYERS),
+        ("cat_in", ctypes.c_void_p), ("g", ctypes.c_void_p),
+        ("cat", ctypes.c_void_p), ("dhw1", ctypes.c_void_p),
+        ("flat", ctypes.c_void_p),
+        ("S", ctypes.c_int), ("T", ctypes.c_int), ("K", ctypes.c_int),
+        ("L", ctypes.c_int), ("P", ctypes.c_int), ("C", ctypes.c_int),
+        ("dims", ctypes.c_int * MAX_LAYERS),
+        ("offs", ctypes.c_int * (MAX_LAYERS + 1)),
+        ("woff", ctypes.c_int * MAX_LAYERS),
+        ("dboff", ctypes.c_int * MAX_LAYERS),
+    ]
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argument types of csrc/dense_trunk.cu's C entries, in order
+_SIGNATURES = {
+    "trunk_resident_f32": [_I, ctypes.POINTER(_TrunkArgs), _I, _P],
+    "trunk_stream_fwd_f32": [_P, _P, _I] + [_P] * 6 + [_I] * 8 + [_P],
+    "trunk_stream_bwd_first_f32": [_P] * 6 + [_I] * 9 + [_P],
+    "trunk_stream_bwd_f32": [_P] * 9 + [_I] * 11 + [_P],
+    "trunk_reduce_blocks_f32": [_P, _P, _I, _I, _I, _P],
+    "trunk_smem_bytes": [_I] * 5,
+    "trunk_error_string": [_I],
+}
 
 
 def _lib():
@@ -206,18 +378,21 @@ def _lib():
 
     lib = _build.load("dense_trunk")
     if not getattr(lib, "_dgcnn_bound", False):
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.trunk_fwd_layer_f32.argtypes = [P] * 8 + [I] * 8 + [P]
-        lib.trunk_bwd_first_f32.argtypes = [P] * 5 + [I] * 8 + [P]
-        lib.trunk_bwd_layer_f32.argtypes = [P] * 9 + [I] * 11 + [P]
-        lib.trunk_reduce_blocks_f32.argtypes = [P, P, I, I, I, P]
-        for f in (lib.trunk_fwd_layer_f32, lib.trunk_bwd_first_f32,
-                  lib.trunk_bwd_layer_f32, lib.trunk_reduce_blocks_f32):
-            f.restype = I
-        lib.trunk_error_string.argtypes = [I]
+        for name, types in _SIGNATURES.items():
+            getattr(lib, name).argtypes = types
+            getattr(lib, name).restype = _I
+        lib.trunk_smem_bytes.restype = ctypes.c_longlong
         lib.trunk_error_string.restype = ctypes.c_char_p
         lib._dgcnn_bound = True
     return lib
+
+
+def kernel_smem(plan: TrunkPlan, t: int, dims) -> Tuple[int, int]:
+    """(forward, backward) shared-memory bytes as the compiled kernels
+    count them (needs the built library); equal to `plan`'s own."""
+    lib, dp = _lib(), _bucket(dims)
+    reg = 0 if plan.regime == "resident" else 1
+    return tuple(int(lib.trunk_smem_bytes(reg, b, t, plan.c, dp)) for b in (0, 1))
 
 
 def _ok(lib, rc: int, what: str) -> None:
@@ -235,77 +410,114 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _cuda_fwd(dims, adj, hw1, mask, wsel, ws, bs, k) -> torch.Tensor:
-    lib = _lib()
+def _args(dims, plan, adj, mask, wsel, ws, k) -> _TrunkArgs:
     s, t = adj.shape[0], adj.shape[1]
-    offs = _offsets(dims)
-    cdim = offs[-1]
-    dpb = _bucket(dims)
-    with torch.cuda.device(adj.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        cat = torch.empty((s, t, cdim), dtype=torch.float32, device=adj.device)
-        hw = hw1
-        for i, d in enumerate(dims):
-            dn = dims[i + 1] if i + 1 < len(dims) else 0
-            hw_next = (
-                torch.empty((s, t, dn), dtype=torch.float32, device=adj.device)
-                if dn else None
-            )
-            rc = lib.trunk_fwd_layer_f32(
-                adj.data_ptr(), hw.data_ptr(), mask.data_ptr(), wsel.data_ptr(),
-                bs[i].data_ptr(), _ptr(ws[i] if dn else None), cat.data_ptr(),
-                _ptr(hw_next), s, t, d, dn, cdim, offs[i], k, dpb, stream,
-            )
-            _ok(lib, rc, f"trunk forward layer {i + 1}")
-            hw = hw_next
-    launches.fwd_launches += 1
-    return cat
-
-
-def _cuda_bwd(dims, adj, mask, wsel, ws, cat, g, k):
-    """Returns (d_hw1, per-slot gradient rows [S, P])."""
-    lib = _lib()
-    s, t = adj.shape[0], adj.shape[1]
-    offs = _offsets(dims)
-    cdim = offs[-1]
-    n = len(dims)
     woff, dboff, p = _grad_layout(dims)
-    nblk = -(-t // _BM)
+    a = _TrunkArgs()
+    a.adj, a.mask, a.wsel = adj.data_ptr(), mask.data_ptr(), wsel.data_ptr()
+    for i, w in enumerate(ws):
+        a.w[i + 1] = w.data_ptr()
+    a.S, a.T, a.K, a.L, a.P, a.C = s, t, k, len(dims), p, plan.c
+    for i, d in enumerate(dims):
+        a.dims[i], a.woff[i], a.dboff[i] = d, woff[i], dboff[i]
+    for i, o in enumerate(_offsets(dims)):
+        a.offs[i] = o
+    return a
+
+
+def _cuda_fwd(dims, adj, hw1, mask, wsel, ws, bs, k, plan=None) -> torch.Tensor:
+    lib = _lib()
+    s, t = adj.shape[0], adj.shape[1]
+    plan = plan or trunk_plan(s, t, dims)
+    offs = _offsets(dims)
+    cdim = offs[-1]
     dpb = _bucket(dims)
     dev = adj.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        part = torch.empty((s, nblk, p), dtype=torch.float32, device=dev)
-        dpre = torch.empty((s, t, dims[-1]), dtype=torch.float32, device=dev)
-        rc = lib.trunk_bwd_first_f32(
-            cat.data_ptr(), g.data_ptr(), mask.data_ptr(), dpre.data_ptr(),
-            part.data_ptr(), s, t, dims[-1], cdim, offs[n - 1], p,
-            dboff[n - 1], dpb, stream,
-        )
-        _ok(lib, rc, "trunk backward start")
-        for i in range(n - 1, -1, -1):
-            dp = dims[i - 1] if i > 0 else 0
-            out = torch.empty(
-                (s, t, dp if i > 0 else dims[0]), dtype=torch.float32, device=dev
-            )
-            rc = lib.trunk_bwd_layer_f32(
-                adj.data_ptr(), dpre.data_ptr(), cat.data_ptr(), g.data_ptr(),
-                mask.data_ptr(), wsel.data_ptr(),
-                _ptr(ws[i - 1] if i > 0 else None), out.data_ptr(),
-                part.data_ptr(), s, t, dims[i], dp, cdim,
-                offs[i - 1] if i > 0 else 0, k, p,
-                woff[i] if i > 0 else 0, dboff[i - 1] if i > 0 else 0,
-                dpb, stream,
-            )
-            _ok(lib, rc, f"trunk backward layer {i + 1}")
-            dpre = out
+        cat = torch.empty((s, t, cdim), dtype=torch.float32, device=dev)
+        if plan.regime == "resident":
+            a = _args(dims, plan, adj, mask, wsel, ws, k)
+            a.hw1, a.cat = hw1.data_ptr(), cat.data_ptr()
+            for i, b in enumerate(bs):
+                a.b[i] = b.data_ptr()
+            _ok(lib, lib.trunk_resident_f32(0, ctypes.byref(a), dpb, stream),
+                f"trunk forward (resident, C={plan.c})")
+            launches.resident_fwd += 1
+        else:
+            hw, ld = hw1, dims[0]
+            for i, d in enumerate(dims):
+                dn = dims[i + 1] if i + 1 < len(dims) else 0
+                # intermediate hw rows padded to the tile width, zero past dn
+                hw_next = (torch.empty((s, t, dpb), dtype=torch.float32, device=dev)
+                           if dn else None)
+                rc = lib.trunk_stream_fwd_f32(
+                    adj.data_ptr(), hw.data_ptr(), ld, mask.data_ptr(),
+                    wsel.data_ptr(), bs[i].data_ptr(), _ptr(ws[i] if dn else None),
+                    cat.data_ptr(), _ptr(hw_next), s, t, d, dn, cdim, offs[i], k,
+                    dpb, stream,
+                )
+                _ok(lib, rc, f"trunk forward layer {i + 1}")
+                hw, ld = hw_next, dpb
+            launches.streamed_fwd += 1
+    launches.fwd_launches += 1
+    return cat
+
+
+def _cuda_bwd(dims, adj, mask, wsel, ws, cat, g, k, plan=None):
+    """Returns (d_hw1, per-slot gradient rows [S, P])."""
+    lib = _lib()
+    s, t = adj.shape[0], adj.shape[1]
+    plan = plan or trunk_plan(s, t, dims)
+    offs = _offsets(dims)
+    cdim = offs[-1]
+    n = len(dims)
+    woff, dboff, p = _grad_layout(dims)
+    dpb = _bucket(dims)
+    dev = adj.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
         flat = torch.empty((s, p), dtype=torch.float32, device=dev)
-        rc = lib.trunk_reduce_blocks_f32(
-            part.data_ptr(), flat.data_ptr(), s, nblk, p, stream
-        )
-        _ok(lib, rc, "trunk backward block reduction")
+        d_hw1 = torch.empty((s, t, dims[0]), dtype=torch.float32, device=dev)
+        if plan.regime == "resident":
+            a = _args(dims, plan, adj, mask, wsel, ws, k)
+            a.cat_in, a.g = cat.data_ptr(), g.data_ptr()
+            a.dhw1, a.flat = d_hw1.data_ptr(), flat.data_ptr()
+            _ok(lib, lib.trunk_resident_f32(1, ctypes.byref(a), dpb, stream),
+                f"trunk backward (resident, C={plan.c})")
+            launches.resident_bwd += 1
+        else:
+            nblk = -(-t // SBM)
+            part = torch.empty((s, nblk, p), dtype=torch.float32, device=dev)
+            dpre = torch.empty((s, t, dpb), dtype=torch.float32, device=dev)
+            rc = lib.trunk_stream_bwd_first_f32(
+                cat.data_ptr(), g.data_ptr(), mask.data_ptr(), wsel.data_ptr(),
+                dpre.data_ptr(), part.data_ptr(), s, t, dims[-1], cdim,
+                offs[n - 1], p, dboff[n - 1], k, dpb, stream,
+            )
+            _ok(lib, rc, "trunk backward start")
+            for i in range(n - 1, -1, -1):
+                dp = dims[i - 1] if i > 0 else 0
+                out = (torch.empty((s, t, dpb), dtype=torch.float32, device=dev)
+                       if i > 0 else d_hw1)
+                rc = lib.trunk_stream_bwd_f32(
+                    adj.data_ptr(), dpre.data_ptr(), cat.data_ptr(), g.data_ptr(),
+                    mask.data_ptr(), wsel.data_ptr(),
+                    _ptr(ws[i - 1] if i > 0 else None), out.data_ptr(),
+                    part.data_ptr(), s, t, dims[i], dp, cdim,
+                    offs[i - 1] if i > 0 else 0, k, p,
+                    woff[i] if i > 0 else 0, dboff[i - 1] if i > 0 else 0,
+                    dpb, stream,
+                )
+                _ok(lib, rc, f"trunk backward layer {i + 1}")
+                dpre = out
+            rc = lib.trunk_reduce_blocks_f32(
+                part.data_ptr(), flat.data_ptr(), s, nblk, p, stream
+            )
+            _ok(lib, rc, "trunk backward block reduction")
+            launches.streamed_bwd += 1
     launches.bwd_launches += 1
-    return dpre, flat
+    return d_hw1, flat
 
 
 # -- autograd packaging and the public entry -----------------------------

@@ -143,3 +143,163 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(mutate, exc):
     mutate(args)
     with pytest.raises(exc):
         dt.gcn_trunk(*args)
+
+
+# -- the kernels' plan and band decomposition (pure Python: the kernels
+# themselves run on the card, under chip_smoke.py) -------------------------
+
+DEFAULT = (32, 32, 32, 1)
+WIDE = (128, 128, 128, 1)
+
+
+@pytest.mark.parametrize("t,regime", [(32, "resident"), (88, "resident"),
+                                      (112, "resident"), (176, "resident"),
+                                      (624, "streamed"), (2048, "streamed")])
+def test_plan_regime_at_the_main_paths_tiles(t, regime):
+    plan = dt.trunk_plan(56, t, DEFAULT)
+    assert plan.regime == regime
+    assert dt.launches_per_call(plan, DEFAULT) == (
+        (1, 1) if regime == "resident" else (4, 6))
+    if regime == "resident":
+        assert plan.c == 2  # 56 slots x 2 blocks reach half the 132 SMs
+    else:
+        assert plan.c == 0
+
+
+def _cap(dims, s=56):
+    t = 8
+    while dt.trunk_plan(s, t + 8, dims).regime == "resident":
+        t += 8
+    return t
+
+
+def test_wide_layers_lower_the_resident_cap():
+    caps = [_cap(d) for d in (DEFAULT, (64, 64, 64, 1), WIDE)]
+    assert caps[0] > caps[1] > caps[2] >= 32
+    assert dt.trunk_plan(56, caps[0] + 8, DEFAULT).regime == "streamed"
+
+
+@pytest.mark.parametrize("dims", [DEFAULT, (16, 8, 1), (64, 64, 64, 1), WIDE])
+@pytest.mark.parametrize("s", [4, 56])
+def test_every_resident_plan_fits_and_covers_the_tile(dims, s):
+    for t in range(1, 420, 3):
+        plan = dt.trunk_plan(s, t, dims)
+        if plan.regime == "streamed":
+            assert t > 16 and plan.fwd_smem <= dt.SMEM_MAX and plan.bwd_smem <= dt.SMEM_MAX
+            continue
+        assert plan.c in dt.CLUSTERS
+        tb = dt.band_rows(t, plan.c)
+        assert tb % 8 == 0 and plan.c * tb >= t > (plan.c - 1) * tb
+        assert max(plan.fwd_smem, plan.bwd_smem) <= dt.SMEM_MAX
+        assert (plan.fwd_smem, plan.bwd_smem) == dt.resident_smem(t, plan.c, dims)
+        if 2 * s * plan.c < dt.NUM_SMS:  # C stops short only when a
+            bigger = [c for c in dt.CLUSTERS if c > plan.c]  # larger one fails
+            assert all(max(dt.resident_smem(t, c, dims)) > dt.SMEM_MAX
+                       or (c - 1) * dt.band_rows(t, c) >= t for c in bigger)
+
+
+def test_plan_reads_the_kernels_constants():
+    assert (dt.SBM, dt.SBK, dt.SMEM_MAX) == (64, 32, 232448)
+    forced = dt.trunk_plan(56, 88, DEFAULT, c=2)
+    assert forced == ("resident", 2, *dt.resident_smem(88, 2, DEFAULT))
+    assert dt.trunk_plan(56, 88, DEFAULT, regime="streamed").regime == "streamed"
+
+
+def test_launch_counts_reset_every_regime():
+    dt.launches.resident_fwd = dt.launches.streamed_bwd = dt.launches.fwd_launches = 3
+    dt.launches.reset()
+    assert set(vars(dt.launches).values()) == {0}
+    assert set(vars(dt.launches)) == {"fwd_launches", "bwd_launches", "resident_fwd",
+                                      "resident_bwd", "streamed_fwd", "streamed_bwd"}
+
+
+def _bands(t, c):
+    tb = dt.band_rows(t, c)
+    return [(min(r * tb, t), min((r + 1) * tb, t)) for r in range(c)]
+
+
+def _band_emulation(dims, adj, hw1, mask, wsel, ws, bs, g, c):
+    """The resident kernels' decomposition in PyTorch: rank r of C owns a
+    band of rows; per layer each band is aggregated against the gathered
+    full hw (d_pre), and the per-band dW / db partials are summed in rank
+    order. Returns (cat, d_hw1, flat [S, P])."""
+    sel, m, n = wsel.long(), mask[..., None], len(dims)
+    bands = _bands(adj.shape[1], c)
+    hw, outs = hw1, []
+    for i in range(n):
+        hs = [torch.tanh(torch.bmm(adj[:, lo:hi], hw) + bs[i][sel][:, None, :])
+              * m[:, lo:hi] for lo, hi in bands]
+        outs.append(torch.cat(hs, 1))
+        if i + 1 < n:  # every rank's band of the next hw, gathered
+            hw = torch.cat([torch.bmm(h, ws[i][sel]) for h in hs], 1)
+    cat = torch.cat(outs, -1)
+    offs = dt._offsets(dims)
+    woff, dboff, p = dt._grad_layout(dims)
+    flat = torch.zeros((adj.shape[0], p))
+    h_last = cat[..., offs[n - 1]:]
+    d_pre = g[..., offs[n - 1]:] * m * (1 - h_last * h_last)
+    d_hw1 = None
+    for i in range(n - 1, -1, -1):
+        d_hws = [torch.bmm(adj[:, lo:hi], d_pre) for lo, hi in bands]
+        db = sum((d_pre[:, lo:hi].sum(1) for lo, hi in bands[1:]),
+                 d_pre[:, bands[0][0]:bands[0][1]].sum(1))
+        flat[:, dboff[i]:dboff[i] + dims[i]] = db
+        if i == 0:
+            d_hw1 = torch.cat(d_hws, 1)
+            break
+        hp = [cat[:, lo:hi, offs[i - 1]:offs[i]] for lo, hi in bands]
+        dws = [torch.bmm(h.mT, x) for h, x in zip(hp, d_hws)]
+        dw = sum(dws[1:], dws[0])
+        flat[:, woff[i]:woff[i] + dims[i - 1] * dims[i]] = dw.reshape(dw.shape[0], -1)
+        d_pre = torch.cat([
+            (g[:, lo:hi, offs[i - 1]:offs[i]] + torch.bmm(x, ws[i - 1][sel].mT))
+            * m[:, lo:hi] * (1 - h * h)
+            for (lo, hi), x, h in zip(bands, d_hws, hp)], 1)
+    return cat, d_hw1, flat
+
+
+@pytest.mark.parametrize("c", [1, 2, 4])
+@pytest.mark.parametrize("dims", [DEFAULT, (16, 8, 1)], ids=["32x32x32x1", "16x8x1"])
+def test_band_decomposition_matches_plain_and_jax(dims, c):
+    """T=40 at C=4: bands of 16, 16, 8 and an empty one."""
+    t = 40
+    adj, hw1, mask, wsel, ws, bs, g = _case(dims, t, seed=3, k=2)
+    assert _bands(t, 4)[-2:] == [(32, 40), (40, 40)]
+    tw, tb_ = list(map(_t, ws)), list(map(_t, bs))
+    cat, d_hw1, flat = _band_emulation(dims, _t(adj), _t(hw1), _t(mask), _t(wsel),
+                                       tw, tb_, _t(g), c)
+    cat_p = dt.gcn_trunk_plain(dims, _t(adj), _t(hw1), _t(mask), _t(wsel), tw, tb_)
+    torch.testing.assert_close(cat, cat_p, rtol=2e-4, atol=2e-5)
+    want_hw1, dws_slot, dbs_slot = dt.gcn_trunk_plain_bwd(
+        dims, _t(adj), _t(mask), _t(wsel), tw, cat_p, _t(g))
+    want_flat = torch.cat([x.reshape(x.shape[0], -1) for x in (*dws_slot, *dbs_slot)], 1)
+    torch.testing.assert_close(d_hw1, want_hw1, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(flat, want_flat, rtol=2e-4, atol=2e-5)
+
+    ja, jm, jw = map(jnp.asarray, (adj, mask, wsel))
+    _, vjp = jax.vjp(
+        lambda h, w, b: gcn_trunk_fused(dims, True, ja, h, jm, jw, w, b),
+        jnp.asarray(hw1), tuple(map(jnp.asarray, ws)), tuple(map(jnp.asarray, bs)))
+    want = jax.tree_util.tree_leaves(vjp(jnp.asarray(g)))
+    k = bs[0].shape[0]
+    dws, dbs = dt._split_grads(dt._segment_sum(flat, _t(wsel), k), dims)
+    got = [d_hw1] + [x.reshape(k, *x.shape[1:]) for x in (*dws, *dbs)]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4, atol=2e-5)
+
+
+def test_ctypes_signatures_match_the_c_entries():
+    """Each `extern "C"` entry of csrc/dense_trunk.cu against the argument
+    types the wrapper binds: the count, and pointer or int at each place
+    (a missing int would pass the stream pointer as a 32-bit int)."""
+    import ctypes
+    import re
+
+    with open(dt._CU) as f:
+        src = f.read()
+    entries = dict(re.findall(r'extern "C" [\w\s*]+?\b(\w+)\(([^)]*)\)', src))
+    assert set(entries) == set(dt._SIGNATURES)
+    for name, params in entries.items():
+        kinds = ["ptr" if "*" in p else "int" for p in params.split(",")]
+        bound = ["int" if t is ctypes.c_int else "ptr" for t in dt._SIGNATURES[name]]
+        assert kinds == bound, name
