@@ -25,9 +25,15 @@ CUDA is absent or any phase fails. Phases:
         synthetic-DD batches of 50 graphs (the main path's mean and
         largest batch and the batch holding the largest graph), with
         budget headroom so padded items and unvisited block-rows exist,
-        F ∈ {32, 1}, forward and transposed: against the plain version,
+        F ∈ {32, 1} (every width F ∈ {1, 2, 31, 32, 64, 97, 128} at the
+        mean batch), forward and transposed: against the plain version,
         gradients against autograd of the plain forward, two runs
-        bitwise equal, unvisited rows exactly 0;
+        bitwise equal, unvisited rows exactly 0; a stress batch whose one
+        block-row holds 80 real items (blocks from the real pool, split
+        into many pieces both ways) and a batch with num_items = 0; every
+        design phase 5 times (pieces of P ∈ {2, 4, 6} and one piece per
+        row, groups of G ∈ {2, 4, 8}) at the mean and
+        the stress batch, forward and transposed;
      c. the three COO SpMM kernels (row-parallel CSR, edge-block,
         block-COO) on the DD COO main path's mean and largest batch and an
         NCI1 COO batch (device-assembled buckets, block-COO structures
@@ -53,8 +59,10 @@ CUDA is absent or any phase fails. Phases:
      b. the CLI trains synthetic DD with `--layout auto` (→ block, the
         kernel `block_impl` auto names) for 2 folds × 2 epochs, then
         1 fold × 1 epoch with the other `--block_impl` (CSR kernel =
-        pallas, item-parallel kernel = xla); one DD batch on the card
-        against the CPU through each kernel;
+        pallas, item-parallel kernel = xla); propagations exactly
+        4 × (train + eval steps) forward and 4 × train steps backward,
+        a quarter of each of width 1; one DD batch on the card against
+        the CPU through each kernel;
      c. the CLI trains synthetic DD with `--layout coo`: `--spmm auto` for
         2 folds × 2 epochs, then the other device-assembled name and
         `--spmm pallas` (host-packed, block-pair structures) for 1 fold ×
@@ -70,6 +78,12 @@ CUDA is absent or any phase fails. Phases:
      L2-flushing write (the write's own time, measured the same way,
      subtracted). The trunk at T = 88, 112, 176, 624 and each forced
      C at 88 and 176, beside its bound (and its kind) and the plain chain.
+     The block kernels at the DD mean and largest batch and the batch of
+     the largest graph, F ∈ {32, 1}, each design (the CSR kernel at
+     P ∈ {2, 4, 6} and one piece per row; the item-parallel one at
+     G ∈ {2, 4, 8}), each kernel's
+     plan build, and one train step's propagations per kernel (the
+     measure `block_impl` auto is chosen by).
      Kernel, plain version, bound and the library yardstick
      (`torch.sparse_bsr_tensor` @ dense for the block kernels,
      `torch.sparse_csr_tensor` @ dense, cuSPARSE, for the SpMM kernels at
@@ -77,7 +91,8 @@ CUDA is absent or any phase fails. Phases:
      `CooEngine` ones); the block-COO kernel, its earlier A-build design
      and its slot order's build also at every other batch of phase 3c;
   6. one `torch.profiler` table of a single train step for NCI1 dense,
-     DD block, DD COO and DD COO `--spmm pallas` (top 10 CUDA kernels)
+     DD block through each `--block_impl`, DD COO and DD COO `--spmm
+     pallas` (top 10 CUDA kernels)
      and each step's wall time and launches;
   7. the block-COO cost-split probe (dgcnn_tpu_torch/tools/
      probe_kernel_anatomy.py) at its standard shape, its long-row variant
@@ -410,10 +425,12 @@ class DDContext:
 
 
 BLOCK_KERNELS = ("block_csr", "block_resident")
+BLOCK_WIDTHS = (1, 2, 31, 32, 64, 97, 128)  # every width bucket of the tile, both edges
 
 
 def block_kernels():
-    """name → (module: launch counts and `_cuda_prop`, autograd entry)."""
+    """name → (module: launch counts, `make_plan` and `_cuda_prop`,
+    autograd entry)."""
     from dgcnn_tpu_torch.kernels import block_csr, block_resident
 
     return {"block_csr": (block_csr, block_csr.block_propagate_csr),
@@ -421,35 +438,80 @@ def block_kernels():
                                block_resident.block_propagate_resident)}
 
 
-def compare_block(name, ctx, r, device, stats):
-    """Both kernels vs the plain version on batch row r, headroom budgets."""
+def block_variants(kname):
+    """(label, plan size) of each design of a block kernel that phase 5
+    times; the first is the one the wrapper runs. A size of None is one
+    piece per row: no split, each row's whole run in one block."""
+    mod = block_kernels()[kname][0]
+    if kname == "block_csr":
+        sizes = [mod.PIECE] + [p for p in (2, 4, 6) if p != mod.PIECE]
+        return [(f"P={p}", p) for p in sizes] + [("one piece per row", None)]
+    sizes = [mod.GROUP] + [g for g in (2, 4, 8) if g != mod.GROUP]
+    return [(f"G={g}", g) for g in sizes]
+
+
+def variant_plan(mod, b, nb, size):
+    items = (b.item_pool, b.item_row, b.item_col, b.item_permT, b.item_colT)
+    return mod.make_plan(*items, nb, size or max(b.item_pool.shape[0], 1))
+
+
+def made_batch(pool, rows, cols, nb, w, seed, device):
+    """A batch of len(rows) real items at (row, col), rows non-decreasing,
+    blocks drawn from the real pool, padded to w items as
+    `gather_block_batch` pads (sentinel block, row nb, col 0; the
+    col-major traversal by col then row, identity on padding)."""
+    from types import SimpleNamespace
+
+    n = len(rows)
+    rng = np.random.default_rng(seed)
+    sentinel = pool.shape[0] - 1
+    ip = np.full(w, sentinel, np.int32)
+    ip[:n] = rng.integers(0, sentinel, n)
+    row = np.full(w, nb, np.int32)
+    row[:n] = rows
+    col = np.zeros(w, np.int32)
+    col[:n] = cols
+    perm = np.arange(w, dtype=np.int32)
+    perm[:n] = np.lexsort((row[:n], col[:n]))
+    colT = np.full(w, nb, np.int32)
+    colT[:n] = col[perm[:n]]
+    t = {k: torch.from_numpy(v).to(device) for k, v in (
+        ("item_pool", ip), ("item_row", row), ("item_col", col),
+        ("item_permT", perm), ("item_colT", colT))}
+    return SimpleNamespace(**t, num_items=torch.tensor(n, dtype=torch.int32, device=device))
+
+
+def compare_block(name, b, nb, pool, device, stats, widths=(32, 1), variants=False,
+                  need_padding=True):
+    """Both kernels vs the plain version on batch b at each width: forward
+    and gradient (autograd of the plain forward) through the autograd
+    entries, two runs bitwise equal, unvisited rows exactly 0; with
+    `variants`, every design phase 5 times, forward and transposed."""
     from dgcnn_tpu_torch.kernels.block_prop import block_propagate_plain, row_ptr
 
-    nb, w = ctx.nb + 8, ctx.w + 64  # padded items and unvisited rows exist
-    b = ctx.batch(r, nb, w)
+    items = (b.item_pool, b.item_row, b.item_col, b.item_permT, b.item_colT)
+    w = b.item_pool.shape[0]
     n_items = int(b.num_items)
     rp = row_ptr(b.item_row, nb)
     dead = (rp[1:] == rp[:-1])
     rpT = row_ptr(b.item_colT, nb)
     deadT = (rpT[1:] == rpT[:-1])
-    if not bool(dead.any()) or n_items >= w:
+    if need_padding and (not bool(dead.any()) or n_items >= w):
         raise AssertionError(f"{name}: the case must leave unvisited rows and padded items")
-    gen = torch.Generator(device=device).manual_seed(r)
-    for f in (32, 1):
+    gen = torch.Generator(device=device).manual_seed(nb + n_items)
+    for f in widths:
         hb = torch.randn((nb, BS, f), generator=gen, device=device)
         g = torch.randn((nb, BS, f), generator=gen, device=device)
-        items = (b.item_pool, b.item_row, b.item_col, b.item_permT, b.item_colT)
         with torch.no_grad():
-            want = block_propagate_plain(hb, ctx.pool, b.item_pool, b.item_row, b.item_col)
+            want = block_propagate_plain(hb, pool, b.item_pool, b.item_row, b.item_col)
         hr = hb.clone().requires_grad_()
         want_g, = torch.autograd.grad(
-            block_propagate_plain(hr, ctx.pool, b.item_pool, b.item_row, b.item_col),
-            hr, g)
-        for kname, (_, fn) in block_kernels().items():
+            block_propagate_plain(hr, pool, b.item_pool, b.item_row, b.item_col), hr, g)
+        for kname, (mod, fn) in block_kernels().items():
             outs, grads = [], []
             for _ in range(2):
                 x = hb.clone().requires_grad_()
-                out = fn(x, ctx.pool, *items, b.num_items)
+                out = fn(x, pool, *items, b.num_items)
                 out.backward(g)
                 outs.append(out.detach())
                 grads.append(x.grad)
@@ -469,7 +531,42 @@ def compare_block(name, ctx, r, device, stats):
                 f"grad vs autograd of plain max abs {gerr:.3e} rel {grel:.3e}; "
                 f"two runs bitwise equal; {int(dead.sum())} unvisited rows fwd, "
                 f"{int(deadT.sum())} bwd, exactly 0")
+            if not variants:
+                continue
+            for label, size in block_variants(kname)[1:]:
+                plan = variant_plan(mod, b, nb, size)
+                got = mod._cuda_prop(hb, pool, plan, plan.fwd, b.num_items, False)
+                got_t = mod._cuda_prop(g, pool, plan, plan.bwd, b.num_items, True)
+                err, rel, ok = rel_err(got, want)
+                gerr, grel, gok = rel_err(got_t, want_g)
+                if (not ok or not gok or bool((got[dead] != 0).any())
+                        or bool((got_t[deadT] != 0).any())):
+                    raise AssertionError(
+                        f"{name} F={f} {kname} {label}: disagrees with the plain version "
+                        f"or leaves an unvisited row non-zero (fwd abs {err:.3e}, "
+                        f"transposed abs {gerr:.3e})")
+                log(f"    {kname} {label}: fwd max abs {err:.3e}, transposed {gerr:.3e}")
     return n_items
+
+
+def check_blocks(ctx, device, stats):
+    """Phase 3b: every case of both block kernels."""
+    checked = {"mean": ctx.mean_row, "max": ctx.max_row, "largest graph": ctx.big_row}
+    nb, w = ctx.nb + 8, ctx.w + 64  # padded items and unvisited rows exist
+    for label, r in checked.items():
+        compare_block(f"DD {label} batch (row {r}, {ctx.row_items[r]} items)",
+                      ctx.batch(r, nb, w), nb, ctx.pool, device, stats,
+                      widths=BLOCK_WIDTHS if label == "mean" else (32, 1),
+                      variants=label == "mean")
+    run = 80  # one row of 80 real items, 20 pieces at P = 4, 13-14 per column
+    stress = made_batch(ctx.pool, [0] * run, [i % 6 for i in range(run)], 6, 96,
+                        seed=5, device=device)
+    compare_block(f"stress batch (one block-row of {run} real items over 6 columns)",
+                  stress, 6, ctx.pool, device, stats, widths=(32, 1, 64, 128),
+                  variants=True)
+    empty = made_batch(ctx.pool, [], [], 6, 16, seed=6, device=device)
+    compare_block("batch with num_items = 0", empty, 6, ctx.pool, device, stats,
+                  widths=(32, 1), need_padding=False)
 
 
 def block_bounds(n_items, nb, f):
@@ -500,36 +597,31 @@ def library_bsr(b, nb, pool, f, hb, transpose):
 
 
 def time_block(ctx, r, flush, device):
-    """Per kernel and F: warm and flushed device ms of the kernel, warm ms
-    of the plain version and of the library call, and the bound."""
-    from dgcnn_tpu_torch.kernels.block_prop import (
-        block_propagate_plain, transposed_items)
+    """Per kernel, design and F: warm and flushed device ms of the kernel
+    (its plan built outside the timed call), warm ms of the plain version
+    and of the library call, and the bound; each kernel's plan build."""
+    from dgcnn_tpu_torch.kernels.block_prop import block_propagate_plain
 
     b = ctx.batch(r)
     nb = ctx.nb
     n_items = int(b.num_items)
+    items = (b.item_pool, b.item_row, b.item_col, b.item_permT, b.item_colT)
     gen = torch.Generator(device=device).manual_seed(7)
     rows = {}
+    for kname, (mod, _) in block_kernels().items():
+        rows[(kname, "plan")] = device_ms(lambda mod=mod: mod.make_plan(*items, nb))
+        log(f"  {kname} plan build (once per batch): {rows[(kname, 'plan')]:.4f} ms")
+    tplan = block_kernels()["block_csr"][0].make_plan(*items, nb).bwd
     for f in (32, 1):
         hb = torch.randn((nb, BS, f), generator=gen, device=device)
         bnd = block_bounds(n_items, nb, f)
-        calls = {}
-        for kname, (mod, _) in block_kernels().items():
-            fwd = (lambda mod=mod: mod._cuda_prop(
-                hb, ctx.pool, b.item_pool, b.item_row, b.item_col, b.num_items, False))
-
-            def bwd(mod=mod):
-                ipT, rT = transposed_items(b.item_pool, b.item_row, b.item_permT, nb)
-                return mod._cuda_prop(hb, ctx.pool, ipT, b.item_colT, rT, b.num_items, True)
-
-            calls[kname] = (fwd, bwd)
 
         def plain_fwd():
             return block_propagate_plain(hb, ctx.pool, b.item_pool, b.item_row, b.item_col)
 
         def plain_bwd():
-            ipT, rT = transposed_items(b.item_pool, b.item_row, b.item_permT, nb)
-            return block_propagate_plain(hb, ctx.pool, ipT, b.item_colT, rT, transpose=True)
+            return block_propagate_plain(hb, ctx.pool, tplan.ip, tplan.seg, tplan.src,
+                                         transpose=True)
 
         plain = {"fwd": device_ms(plain_fwd), "bwd": device_ms(plain_bwd)}
         lib = {}
@@ -544,21 +636,40 @@ def time_block(ctx, r, flush, device):
             except (RuntimeError, AssertionError, NotImplementedError) as e:
                 log(f"  library BSR {d} F={f}: {type(e).__name__}: {str(e)[:200]} → null")
                 lib[d] = None
-        for kname, (fwd, bwd) in calls.items():
-            for d, fn in (("fwd", fwd), ("bwd", bwd)):
-                row = {
-                    "ms": device_ms(fn), "ms_l2_flushed": device_ms(fn, flush),
-                    "plain_ms": plain[d], "library_ms": lib[d],
-                    "bound_ms": bnd[0], "bound_by": bnd[1],
-                    "n_items": n_items, "nb": nb, "f": f,
-                }
-                rows[(kname, d, f)] = row
-                log(f"  {kname} {d} F={f} items {n_items} nb {nb}: kernel warm "
-                    f"{row['ms']:.4f} ms, L2-flushed {row['ms_l2_flushed']:.4f} ms; "
-                    f"plain {row['plain_ms']:.4f} ms; library "
-                    f"{'null' if lib[d] is None else f'{lib[d]:.4f} ms'}; bound "
-                    f"{bnd[0]:.4f} ms ({bnd[1]})")
+        for kname, (mod, _) in block_kernels().items():
+            for label, size in block_variants(kname):
+                plan = variant_plan(mod, b, nb, size)
+                for d, tr in (("fwd", False), ("bwd", True)):
+                    dr = plan.bwd if tr else plan.fwd
+                    fn = (lambda mod=mod, plan=plan, dr=dr, tr=tr:
+                          mod._cuda_prop(hb, ctx.pool, plan, dr, b.num_items, tr))
+                    row = {
+                        "ms": device_ms(fn), "ms_l2_flushed": device_ms(fn, flush),
+                        "plain_ms": plain[d], "library_ms": lib[d],
+                        "bound_ms": bnd[0], "bound_by": bnd[1],
+                        "n_items": n_items, "nb": nb, "f": f, "design": label,
+                    }
+                    rows[(kname, label, d, f)] = row
+                    log(f"  {kname} [{label}] {d} F={f} items {n_items} nb {nb}: "
+                        f"kernel warm {row['ms']:.4f} ms, L2-flushed "
+                        f"{row['ms_l2_flushed']:.4f} ms ({row['ms'] / bnd[0]:.2f}x the "
+                        f"bound); plain {row['plain_ms']:.4f} ms; library "
+                        f"{'null' if lib[d] is None else f'{lib[d]:.4f} ms'}; bound "
+                        f"{bnd[0]:.4f} ms ({bnd[1]})")
     return rows
+
+
+def block_row(rows, kname, d, f):
+    """The timing row of the design the wrapper runs."""
+    return rows[(kname, block_variants(kname)[0][0], d, f)]
+
+
+def block_step_ms(rows, kname, label=None):
+    """One train step's propagations on one design: 3 x F=32 + F=1, forward
+    and backward (the measure `block_impl` auto is chosen by)."""
+    label = label or block_variants(kname)[0][0]
+    return sum(rows[(kname, label, d, f)]["ms"] * (3 if f == 32 else 1)
+               for d in ("fwd", "bwd") for f in (32, 1))
 
 
 # -- phase 3c: the SpMM kernels -------------------------------------------
@@ -1153,10 +1264,7 @@ def main() -> int:
     ctx = DDContext(device)
     if ctx.layout != "block":
         raise AssertionError(f"choose_layout gave {ctx.layout} for DD, not block")
-    checked = {"mean": ctx.mean_row, "max": ctx.max_row, "largest graph": ctx.big_row}
-    for label, r in checked.items():
-        compare_block(f"DD {label} batch (row {r}, {ctx.row_items[r]} items)",
-                      ctx, r, device, stats)
+    check_blocks(ctx, device, stats)
 
     log("== phase 3c: SpMM kernels vs plain version on the card")
     dd_coo = CooContext("DD", device, gs=ctx.gs)
@@ -1242,12 +1350,16 @@ def main() -> int:
                                      os.path.join(tmp, "data", "DD", "10fold_idx"))
             used = kernel_of[impl]
             idle = kernel_of[{"pallas": "xla", "xla": "pallas"}[impl]]
+            f1 = (mods[used].launches.f1_fwd, mods[used].launches.f1_bwd)
             log(f"DD {' '.join(extra)}: {wall:.1f} s; train steps {tr_n}, eval "
-                f"steps {ev_n}; launches (fwd, bwd) {counts}")
-            if counts[used] != (4 * (tr_n + ev_n), 4 * tr_n) or counts[idle] != (0, 0):
+                f"steps {ev_n}; propagations (fwd, bwd) {counts}, of width 1 on "
+                f"{used} {f1}")
+            if (counts[used] != (4 * (tr_n + ev_n), 4 * tr_n) or counts[idle] != (0, 0)
+                    or f1 != (tr_n + ev_n, tr_n)):
                 raise AssertionError(
                     f"block launch counts do not match the steps run on {used}")
             dd_launches[used] = counts[used]
+            dd_launches[used + "_f1"] = f1
             events = check_artifacts(tmp, "DD", folds_n, epochs)
             start = events[0]
             if (start["kind"] != "run_start" or start["layout"] != "block"
@@ -1380,9 +1492,29 @@ def main() -> int:
             f"{'yes' if row['fwd'] < row['fwd_plain'] else 'NO'}, backward "
             f"{'yes' if row['bwd'] < row['bwd_plain'] else 'NO'}")
     block_times = {}
-    for label, r in (("mean", ctx.mean_row), ("max", ctx.max_row)):
+    for label, r in (("mean", ctx.mean_row), ("max", ctx.max_row),
+                     ("largest graph", ctx.big_row)):
         log(f"  DD {label} batch (row {r}):")
         block_times[label] = time_block(ctx, r, flush, device)
+    for label, rows in block_times.items():
+        steps = {k: block_step_ms(rows, k) for k in BLOCK_KERNELS}
+        log(f"  DD {label} batch, one train step's propagations (3 x F=32 + F=1, fwd + "
+            f"bwd): " + ", ".join(f"{k} {v:.4f} ms" for k, v in steps.items())
+            + f"; faster: {min(steps, key=steps.get)}")
+        if label == "mean":
+            for k in BLOCK_KERNELS:
+                log(f"    {k} by design: " + ", ".join(
+                    f"[{lab}] {block_step_ms(rows, k, lab):.4f} ms"
+                    for lab, _ in block_variants(k)))
+        for k in BLOCK_KERNELS:
+            shapes = [(d, f) for d in ("fwd", "bwd") for f in (32, 1)]
+            beats = all(block_row(rows, k, d, f)["library_ms"] is not None
+                        and block_row(rows, k, d, f)["ms"] < block_row(rows, k, d, f)["library_ms"]
+                        for d, f in shapes)
+            ratios = ", ".join(f"{d} F={f} {block_row(rows, k, d, f)['ms'] / block_row(rows, k, d, f)['bound_ms']:.2f}x"
+                               for d, f in shapes)
+            log(f"    {k}: below cuSPARSE BSR at every F and direction: "
+                f"{'yes' if beats else 'no'}; time over bound {ratios}")
     spmm_times = {}
     for label, what in (("mean", "DD COO mean batch"), ("max", "DD COO largest batch"),
                         ("host mean", "DD CooEngine mean batch (what --spmm pallas "
@@ -1415,10 +1547,12 @@ def main() -> int:
     net = DGCNNNet(nci1_model, init_params(torch.Generator().manual_seed(0), nci1_model, device))
     nci1_step = profile_step("NCI1 dense", net, make_optimizer(net),
                              batch_to_device(nci1_host, device), {})
-    impl = ctx.engine.block_impl
-    net = DGCNNNet(dd_model, init_params(torch.Generator().manual_seed(0), dd_model, device))
-    profile_step(f"DD block ({impl}, mean batch)", net, make_optimizer(net),
-                 ctx.batch(ctx.mean_row), {"pool": ctx.pool, "block_impl": impl})
+    for impl in (auto_impl, other_impl):
+        net = DGCNNNet(dd_model, init_params(torch.Generator().manual_seed(0), dd_model,
+                                             device))
+        profile_step(f"DD block ({impl} = {kernel_of[impl]}, mean batch)", net,
+                     make_optimizer(net), ctx.batch(ctx.mean_row),
+                     {"pool": ctx.pool, "block_impl": impl})
     net = DGCNNNet(dd_model, init_params(torch.Generator().manual_seed(0), dd_model, device))
     profile_step(f"DD COO ({spmm_auto}, mean batch)", net, make_optimizer(net),
                  dd_coo.batch(dd_coo.mean_row), {"spmm_impl": spmm_auto})
@@ -1462,18 +1596,21 @@ def main() -> int:
                 "block_resident": "dgcnn_tpu/kernels/block_resident.py:130"}
     for kname in BLOCK_KERNELS:
         for i, d in enumerate(("fwd", "bwd")):
-            row = block_times["mean"][(kname, d, 32)]
-            kernels.append({
-                "name": f"{kname}_{d}", "route": "cuda",
-                "source": f"dgcnn_tpu_torch/csrc/{kname}.cu",
-                "replaces": replaces[kname],
-                "launches": dd_launches[kname][i],
-                "max_abs_err": stats[f"{kname}_{d}"],
-                "ms": row["ms"], "ms_l2_flushed": row["ms_l2_flushed"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                "shape": f"DD mean batch: {row['n_items']} items, nb {row['nb']}, F 32",
-            })
+            f1_n = dd_launches[kname + "_f1"][i]
+            for f, suffix, n in ((32, "", dd_launches[kname][i] - f1_n), (1, "_f1", f1_n)):
+                row = block_row(block_times["mean"], kname, d, f)
+                kernels.append({
+                    "name": f"{kname}_{d}{suffix}", "route": "cuda",
+                    "source": f"dgcnn_tpu_torch/csrc/{kname}.cu",
+                    "replaces": replaces[kname],
+                    "launches": n,
+                    "max_abs_err": stats[f"{kname}_{d}"],
+                    "ms": row["ms"], "ms_l2_flushed": row["ms_l2_flushed"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                    "shape": (f"DD mean batch: {row['n_items']} items, nb {row['nb']}, "
+                              f"F {f}; {row['design']}"),
+                })
     spmm_replaces = {
         "spmm_rows": "dgcnn_tpu/kernels/spmm_pallas.py:102",
         "spmm_edge_block": "dgcnn_tpu/kernels/spmm_pallas.py:170",

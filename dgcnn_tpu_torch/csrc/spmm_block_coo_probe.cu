@@ -48,7 +48,8 @@ using namespace blk;
 
 enum AbMode { AB_FULL = 0, AB_NO_AH = 1, AB_NO_ABUILD = 2 };
 
-// cp.async copies of the 128 x f rows at `b` into sB (row stride FP).
+// cp.async copies of the 128 x f rows at `b` into sB (row stride
+// TileShape<FP>::LDB, the stride tile_mac reads).
 template <int FP>
 __device__ __forceinline__ void stage_h(float* sB, const float* __restrict__ b,
                                         int f) {
@@ -56,12 +57,12 @@ __device__ __forceinline__ void stage_h(float* sB, const float* __restrict__ b,
     const int q = f >> 2;
     for (int e = threadIdx.x; e < BS * q; e += NT) {
       const int r = e / q, c4 = e - r * q;
-      cp_async16(sB + r * FP + c4 * 4, b + r * f + c4 * 4);
+      cp_async16(sB + r * TileShape<FP>::LDB + c4 * 4, b + r * f + c4 * 4);
     }
   } else {
     for (int e = threadIdx.x; e < BS * f; e += NT) {
       const int r = e / f, c = e - r * f;
-      cp_async4(sB + r * FP + c, b + e);
+      cp_async4(sB + r * TileShape<FP>::LDB + c, b + e);
     }
   }
 }

@@ -16,11 +16,20 @@ kernels/block_csr.py (the port of block_pallas) and
 kernels/block_resident.py (the port of block_resident) each bind their
 CUDA kernel into `make_block_prop_fn`; on a CPU tensor both run
 `block_propagate_plain`, and on a CUDA tensor the kernel or an exception.
+
+Each kernel walks a per-batch `BlockPlan` that holds both directions'
+item lists and the kernel's tables, built once per batch
+(`plan_pieces` for the CSR kernel, `plan_groups` for the item-parallel
+one; models/dgcnn.py apply_block builds it and hands it to the four
+layers, forward and backward). Both are torch ops on the batch's device
+with shapes set by the budgets: no host sync, nothing that changes with a
+batch's real counts.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import dataclasses
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -89,9 +98,8 @@ def transposed_items(item_pool: torch.Tensor, item_row: torch.Tensor,
     `item_colT` order. Padded items (identity permutation, row nb) get
     their source clamped to nb-1; their pool id is the zero block and
     their segment nb, so they add nothing."""
-    perm = item_permT.long()
-    ipT = item_pool[perm].contiguous()
-    rT = item_row[perm].clamp(max=nb - 1).contiguous()
+    ipT = item_pool.index_select(0, item_permT)
+    rT = item_row.index_select(0, item_permT).clamp_(max=nb - 1)
     return ipT, rT
 
 
@@ -102,43 +110,166 @@ def row_ptr(seg: torch.Tensor, nb: int) -> torch.Tensor:
     return torch.searchsorted(seg, bounds, side="left", out_int32=True)
 
 
+@dataclasses.dataclass(frozen=True)
+class Direction:
+    """One direction of a propagation: its item lists in segment order
+    (`ip` pool ids, `seg` destination rows, non-decreasing, ≥ nb on
+    padding; `src` source rows) and the rows' item ranges `row_ptr`
+    [nb+1]. The CSR kernel's plan adds `piece_ptr` [nb+1]: row r's pieces
+    are piece_ptr[r] .. piece_ptr[r+1]-1."""
+
+    ip: torch.Tensor
+    seg: torch.Tensor
+    src: torch.Tensor
+    row_ptr: torch.Tensor
+    piece_ptr: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockPlan:
+    """A batch's plan for one kernel: `kind` "pieces" (CSR kernel, `size`
+    = P items per piece at most) or "groups" (item-parallel kernel,
+    `size` = G items per group); the budgets it was built for; `parts`,
+    the scratch's length in partial tiles (for the CSR kernel also its
+    grid, ceil(W/P) + nb pieces); the forward and the transposed
+    direction."""
+
+    kind: str
+    size: int
+    nb: int
+    w: int
+    parts: int
+    fwd: Direction
+    bwd: Direction
+
+
+def _directions(item_pool, item_row, item_col, item_permT, item_colT, nb):
+    """Both directions' item lists, and their row pointers [2, nb+1]."""
+    ipT, rT = transposed_items(item_pool, item_row, item_permT, nb)
+    segs = torch.stack([item_row, item_colT])
+    bounds = torch.arange(nb + 1, dtype=segs.dtype, device=segs.device)
+    rp = torch.searchsorted(segs, bounds.repeat(2, 1), out_int32=True)
+    return (item_pool, item_row, item_col), (ipT, item_colT, rT), rp
+
+
+def plan_pieces(item_pool, item_row, item_col, item_permT, item_colT,
+                nb: int, p: int) -> BlockPlan:
+    """The CSR kernel's plan: each row's item run cut into pieces of at
+    most `p` items, in item order; an empty row gets one empty piece, so
+    every row is written and piece_ptr rises strictly.
+    Piece q belongs to the row r with piece_ptr[r] <= q < piece_ptr[r+1]
+    and covers items rp[r] + k·p .. min(rp[r] + (k+1)·p, rp[r+1]),
+    k = q − piece_ptr[r] (the kernel's block q derives this itself). At
+    most ceil(W/p) + nb pieces."""
+    if p < 1:
+        raise ValueError(f"piece length must be >= 1, got {p}")
+    w = item_row.shape[0]
+    fwd, bwd, rp = _directions(item_pool, item_row, item_col, item_permT,
+                               item_colT, nb)
+    n_pieces = ((rp[:, 1:] - rp[:, :-1] + (p - 1)) // p).clamp_(min=1)
+    piece_ptr = torch.nn.functional.pad(n_pieces.cumsum(1, dtype=torch.int32),
+                                        (1, 0))                  # [2, nb+1]
+    dirs = [Direction(*lists, rp[i], piece_ptr[i])
+            for i, lists in enumerate((fwd, bwd))]
+    return BlockPlan("pieces", p, nb, w, -(-w // p) + nb, *dirs)
+
+
+def plan_groups(item_pool, item_row, item_col, item_permT, item_colT,
+                nb: int, g: int) -> BlockPlan:
+    """The item-parallel kernel's plan: fixed groups of `g` consecutive
+    items. A row segment begins at every group start and every row
+    change, and its partial goes to the slot of its first item, so row
+    r's partials are slot rp[r] and the group starts inside its run,
+    rp[r] < j·g < rp[r+1], in group order: the row pointers are the whole
+    table. The scratch has W slots, of which the segments (at most
+    ceil(W/g) + nb) are written and read."""
+    if g < 1:
+        raise ValueError(f"group size must be >= 1, got {g}")
+    w = item_row.shape[0]
+    fwd, bwd, rp = _directions(item_pool, item_row, item_col, item_permT,
+                               item_colT, nb)
+    dirs = [Direction(*lists, rp[i]) for i, lists in enumerate((fwd, bwd))]
+    return BlockPlan("groups", g, nb, w, w, *dirs)
+
+
+def check_plan(plan: BlockPlan, kind: str, nb: int, w: int, device) -> None:
+    """Raise unless `plan` is a `kind` plan for these budgets and device."""
+    if not isinstance(plan, BlockPlan) or plan.kind != kind:
+        raise ValueError(f"expected a {kind!r} BlockPlan, got {plan!r:.80}")
+    if (plan.nb, plan.w) != (nb, w):
+        raise ValueError(f"plan built for nb={plan.nb}, W={plan.w}; the call "
+                         f"has nb={nb}, W={w}")
+    if plan.fwd.row_ptr.device != device:
+        raise ValueError(f"plan on {plan.fwd.row_ptr.device}, inputs on {device}")
+
+
+class BlockLaunchCounts:
+    """Plain integer counts of propagations run on a block kernel, and
+    those of width F = 1 among them."""
+
+    def reset(self) -> None:
+        self.fwd_launches = self.bwd_launches = 0
+        self.f1_fwd = self.f1_bwd = 0
+
+    __init__ = reset
+
+    def count(self, transpose: bool, f: int) -> None:
+        if transpose:
+            self.bwd_launches += 1
+            self.f1_bwd += f == 1
+        else:
+            self.fwd_launches += 1
+            self.f1_fwd += f == 1
+
+
 Launch = Callable[..., torch.Tensor]
+Planner = Callable[..., BlockPlan]
 
 
-def make_block_prop_fn(name: str, launch: Launch) -> type:
-    """An autograd Function around one kernel. `launch(hb, pool, ip, seg,
-    src, num_items, transpose)` runs the kernel on CUDA tensors (and
-    counts the launch); CPU tensors run `block_propagate_plain`. Gradients
-    flow to hb only."""
+def make_block_prop(name: str, kind: str, planner: Planner, launch: Launch
+                    ) -> Callable[..., torch.Tensor]:
+    """The entry of one kernel: checks its inputs, takes the caller's
+    `kind` plan or builds one (`planner(items..., nb)`), and applies an
+    autograd Function whose forward and backward walk that plan.
+    `launch(hb, pool, plan, direction, num_items, transpose)` runs the
+    kernel on CUDA tensors (and counts the launch); CPU tensors run
+    `block_propagate_plain`. Gradients flow to hb only."""
 
-    def forward(hb, pool, item_pool, item_row, item_col, item_permT,
-                item_colT, num_items):
-        check_inputs(hb, pool, item_pool, item_row, item_col, item_permT,
-                     item_colT, num_items)
+    def forward(hb, pool, num_items, plan):
         if hb.is_cuda:
-            return launch(hb, pool, item_pool, item_row, item_col, num_items,
-                          False)
-        return block_propagate_plain(hb, pool, item_pool, item_row, item_col)
+            return launch(hb, pool, plan, plan.fwd, num_items, False)
+        d = plan.fwd
+        return block_propagate_plain(hb, pool, d.ip, d.seg, d.src)
 
     def setup_context(ctx, inputs, output):
-        _hb, pool, item_pool, item_row, _col, item_permT, item_colT, n = inputs
-        ctx.save_for_backward(pool, item_pool, item_row, item_permT,
-                              item_colT, n)
+        _hb, pool, num_items, ctx.plan = inputs
+        ctx.save_for_backward(pool, num_items)
 
     def backward(ctx, g):
-        pool, item_pool, item_row, item_permT, item_colT, n = ctx.saved_tensors
+        pool, num_items = ctx.saved_tensors
         g = g.contiguous()
-        ipT, rT = transposed_items(item_pool, item_row, item_permT, g.shape[0])
+        d = ctx.plan.bwd
         if g.is_cuda:
-            d_hb = launch(g, pool, ipT, item_colT, rT, n, True)
+            d_hb = launch(g, pool, ctx.plan, d, num_items, True)
         else:
-            d_hb = block_propagate_plain(g, pool, ipT, item_colT, rT,
+            d_hb = block_propagate_plain(g, pool, d.ip, d.seg, d.src,
                                          transpose=True)
-        return (d_hb,) + (None,) * 7
+        return d_hb, None, None, None
 
-    return type(name, (torch.autograd.Function,), {
+    fn = type(name, (torch.autograd.Function,), {
         "forward": staticmethod(forward),
         "setup_context": staticmethod(setup_context),
         "backward": staticmethod(backward),
     })
 
+    def propagate(hb, pool, item_pool, item_row, item_col, item_permT,
+                  item_colT, num_items, plan=None) -> torch.Tensor:
+        nb, _ = check_inputs(hb, pool, item_pool, item_row, item_col,
+                             item_permT, item_colT, num_items)
+        if plan is None:
+            plan = planner(item_pool, item_row, item_col, item_permT,
+                           item_colT, nb)
+        check_plan(plan, kind, nb, item_pool.shape[0], hb.device)
+        return fn.apply(hb, pool, num_items, plan)
+
+    return propagate

@@ -32,7 +32,9 @@ from dgcnn_tpu_torch.batching.block_sparse import BlockBatch
 from dgcnn_tpu_torch.batching.dense import DenseGraphBatch
 from dgcnn_tpu_torch.batching.packer import GraphBatch
 from dgcnn_tpu_torch.kernels.block_csr import block_propagate_csr
+from dgcnn_tpu_torch.kernels.block_csr import make_plan as block_csr_plan
 from dgcnn_tpu_torch.kernels.block_resident import block_propagate_resident
+from dgcnn_tpu_torch.kernels.block_resident import make_plan as block_resident_plan
 from dgcnn_tpu_torch.kernels.dense_trunk import gcn_trunk
 from dgcnn_tpu_torch.kernels.spmm_block_coo import block_coo_order
 from dgcnn_tpu_torch.ops.gcn import gcn_conv, gcn_degree
@@ -265,9 +267,11 @@ def apply_dense(
 # block_impl → propagation: "pallas" is the CSR kernel (the port of
 # block_pallas), "xla" the item-parallel kernel (the reference's "per-item
 # products, then a destination-sorted segment-sum", written as a kernel).
+# Each kernel walks its own per-batch plan (kernels/block_prop.py),
+# built once here and shared by the four layers, forward and backward.
 BLOCK_PROPAGATE = {
-    "pallas": block_propagate_csr,
-    "xla": block_propagate_resident,
+    "pallas": (block_propagate_csr, block_csr_plan),
+    "xla": (block_propagate_resident, block_resident_plan),
 }
 
 
@@ -287,25 +291,28 @@ def apply_block(
     matmul, as the reference leaves it to XLA), the block propagation
     over the batch's work items (`block_impl`: "pallas" the CSR kernel,
     "xla" the item-parallel kernel; on CPU tensors both run the plain
-    version), then bias, tanh and the node mask. SortPooling is the global
+    version) over the kernel's plan, built once per batch here, then bias,
+    tanh and the node mask. SortPooling is the global
     lexicographic sort with the row-block prefilter (row_block = bs)."""
     if block_impl not in BLOCK_PROPAGATE:
         raise ValueError(f"unknown block_impl {block_impl!r}")
-    propagate = BLOCK_PROPAGATE[block_impl]
+    propagate, make_plan = BLOCK_PROPAGATE[block_impl]
     bs = pool.shape[1]
     s_nodes = batch.x.shape[0]
     nb = s_nodes // bs
     num_slots = batch.y.shape[0]
     mask = batch.node_mask[:, None]
 
+    items = (batch.item_pool, batch.item_row, batch.item_col,
+             batch.item_permT, batch.item_colT)
+    plan = make_plan(*items, nb)
+
     acts: dict = {}
     h = batch.x
     layer_outs = []
     for i, layer in enumerate(params["gcn"]):
         hb = torch.matmul(h, layer["w"]).reshape(nb, bs, -1)
-        agg = propagate(hb, pool, batch.item_pool, batch.item_row,
-                        batch.item_col, batch.item_permT, batch.item_colT,
-                        batch.num_items)
+        agg = propagate(hb, pool, *items, batch.num_items, plan)
         h = torch.tanh(agg.reshape(s_nodes, -1) + layer["b"]) * mask
         layer_outs.append(h)
         acts[f"gcn{i + 1}"] = h
