@@ -47,10 +47,14 @@ CUDA is absent or any phase fails. Phases:
         random weights on the real edges: forward and dh against the
         plain version and autograd of it (the block-COO kernel also
         against `block_coo_plain`), two runs bitwise equal, rows with no
-        edge exactly 0; the earlier A-build design of the block-COO kernel
+        edge exactly 0; the row and edge-block kernels forward and dh
+        bitwise equal to their earlier designs (the C entries' `design` 1:
+        one edge at a time through perm → col → h); the earlier A-build design of the block-COO kernel
         (the probe's `abuild`) forward and transposed against the same; on
         an NCI1 batch that fills its bucket, padded edges (weight 0, into
-        the real node N−1) add exactly nothing;
+        the real node N−1) add exactly nothing; the row and edge-block
+        kernels also on an unsorted stream with one row over ≥ 3 blocks of
+        256 positions both ways, and on the same stream with no real edge;
   4. the main paths, each with its launch counts set to 0 just before
      and read just after:
      a. the CLI trains synthetic NCI1 (dense layout, batch 50) for
@@ -68,9 +72,10 @@ CUDA is absent or any phase fails. Phases:
         `--spmm pallas` (host-packed, block-pair structures) for 1 fold ×
         1 epoch each, and synthetic NCI1 `--layout coo --spmm pallas` for
         1 fold × 1 epoch; launches exactly 4 × (train + eval steps)
-        forward and 4 × train steps backward on the named kernel, 0 on the
-        others; one DD and one NCI1 COO batch on the card against the CPU
-        through each kernel (the block-COO kernel on a `CooEngine` batch);
+        forward and 4 × train steps backward on the named kernel, a
+        quarter of each of width 1, 0 on the others; one DD and one NCI1
+        COO batch on the card against the CPU through each kernel (the
+        block-COO kernel on a `CooEngine` batch);
   5. device times (utils/profiling.py `device_ms`): each call captured
      10 times in one CUDA graph, the graph replayed and timed with CUDA
      events, so the host's launch rate is out of the number; warm
@@ -88,7 +93,10 @@ CUDA is absent or any phase fails. Phases:
      (`torch.sparse_bsr_tensor` @ dense for the block kernels,
      `torch.sparse_csr_tensor` @ dense, cuSPARSE, for the SpMM kernels at
      the DD COO mean and largest batch, both the device-assembled and the
-     `CooEngine` ones); the block-COO kernel, its earlier A-build design
+     `CooEngine` ones), F ∈ {32, 1}; the row and edge-block kernels' earlier
+     designs beside them at the device-assembled batches, and one train
+     step's SpMMs on each (the measure `spmm_impl` auto is chosen by); the
+     block-COO kernel, its earlier A-build design
      and its slot order's build also at every other batch of phase 3c;
   6. one `torch.profiler` table of a single train step for NCI1 dense,
      DD block through each `--block_impl`, DD COO and DD COO `--spmm
@@ -98,8 +106,10 @@ CUDA is absent or any phase fails. Phases:
      probe_kernel_anatomy.py) at its standard shape, its long-row variant
      and DD's `CooEngine` mean batch, its launch count set to 0 after its checks and read
      after its timing; its JSON line;
-  8. one JSON line describing every kernel, the card line again, and
-     the final `{"ok": true, ...}` line.
+  8. one JSON line describing every kernel (the block and SpMM kernels
+     once per width, F=32 and `_f1`, with the main path's launches of
+     that width), the card line again, and the final `{"ok": true, ...}`
+     line.
 """
 
 from __future__ import annotations
@@ -790,7 +800,8 @@ class SpmmCase:
     the host from the real edges with `item_headroom` sentinel items past
     the real ones."""
 
-    def __init__(self, b, seed, device, item_headroom=16, structure=None):
+    def __init__(self, b, seed, device, item_headroom=16, structure=None,
+                 block_coo=True, dst_sorted=True):
         from dgcnn_tpu_torch.kernels.spmm_block_coo import (
             block_coo_order, build_block_coo, pad_structure, pad_weights,
             pad_weights_t)
@@ -802,7 +813,7 @@ class SpmmCase:
         self.w = (torch.rand(b.edge_mask.shape, generator=gen, device=device)
                   + 0.5) * b.edge_mask
         self.order = edge_order(self.src, self.dst, self.n, edge_mask=b.edge_mask,
-                                dst_sorted=True)
+                                dst_sorted=dst_sorted)
         self.e_real = int(self.order.row_ptr[-1])
         real = b.edge_mask.cpu().numpy() > 0
         w_r = self.w.cpu().numpy()[real]
@@ -810,6 +821,14 @@ class SpmmCase:
         # rows of the input each direction reads: h at the sources, g at
         # the destinations
         self.rows_read = (len(np.unique(src_r)), len(np.unique(dst_r)))
+        # the most 256-edge blocks one row's positions span, each direction
+        self.spans = tuple(int((((rp[1:] - 1) // 256 - rp[:-1] // 256 + 1)
+                                * (rp[1:] > rp[:-1])).max())
+                           for rp in (self.order.row_ptr, self.order.row_ptrT))
+        self.block_coo = block_coo
+        if not block_coo:
+            self.items, self.slots, self.longest_row = (0, 0), 0, 0
+            return
         if structure is None:
             s = build_block_coo(src_r, dst_r, self.n)
             s = pad_structure(s, max(s.ls.shape[0], s.lsT.shape[0]) + item_headroom)
@@ -832,12 +851,25 @@ class SpmmCase:
         from dgcnn_tpu_torch.kernels.spmm_pallas import spmm_pallas, spmm_pallas_mxu
 
         o = self.order if order is None else order
-        return {
+        fns = {
             "spmm_rows": lambda h: spmm_pallas(self.src, self.dst, self.w, h, o),
             "spmm_edge_block": lambda h: spmm_pallas_mxu(self.src, self.dst, self.w, h, o),
-            "spmm_block_coo": lambda h: spmm_block_coo(self.structure, self.w_pad,
-                                                      self.w_padT, h),
         }
+        if self.block_coo:
+            fns["spmm_block_coo"] = lambda h: spmm_block_coo(self.structure, self.w_pad,
+                                                            self.w_padT, h)
+        return fns
+
+    def launch(self, kname, x, transpose: bool, design=None):
+        """One launch of an edge-stream kernel's wrapper over one direction of
+        the order (`design`: the C entry's, default the current one)."""
+        from dgcnn_tpu_torch.kernels import spmm_pallas as sp
+
+        fn = {"spmm_rows": sp.cuda_rows, "spmm_edge_block": sp.cuda_edge_block}[kname]
+        o, kw = self.order, {} if design is None else {"design": design}
+        if transpose:
+            return fn(o.row_ptrT, o.permT, self.src, self.dst, o.colT, self.w, x, True, **kw)
+        return fn(o.row_ptr, o.perm, self.dst, self.src, o.col, self.w, x, False, **kw)
 
     def block_plain(self, x, transpose: bool):
         """`block_coo_plain` over one orientation of the structure."""
@@ -876,14 +908,19 @@ def _run_twice(fn, h, g):
 
 
 SPMM_WIDTHS = (32, 1, 97, 160)
+EARLIER = 1  # the C entries' earlier design (kernels/spmm_pallas.py EARLIER)
+EARLIER_TIMED = ("spmm_rows", "spmm_edge_block")  # kernels with an earlier design
 
 
 def compare_spmm(name, case, device, stats):
     """Every SpMM kernel vs the plain version on one batch, F ∈ SPMM_WIDTHS:
     forward; dh against autograd of the plain forward; two runs bitwise
     equal; rows with no edge (padding nodes included) exactly 0 both ways.
-    The block-COO kernel, and the earlier A-build design (the probe's
-    `abuild`, forward and transposed), also against `block_coo_plain`."""
+    The row and edge-block kernels forward and dh bitwise equal to their
+    earlier designs (the C entries' `design` 1). The block-COO
+    kernel, and its earlier A-build design (the probe's `abuild`, forward
+    and transposed), also against `block_coo_plain` (cases that carry a
+    block-pair structure)."""
     o = case.order
     empty = o.row_ptr[1:] == o.row_ptr[:-1]
     emptyT = o.row_ptrT[1:] == o.row_ptrT[:-1]
@@ -893,7 +930,8 @@ def compare_spmm(name, case, device, stats):
         g = torch.randn((case.n, f), generator=gen, device=device)
         with torch.no_grad():
             want = case.plain(h)
-            want_bc = (case.block_plain(h, False), case.block_plain(g, True))
+            want_bc = ((case.block_plain(h, False), case.block_plain(g, True))
+                       if case.block_coo else None)
         hr = h.clone().requires_grad_()
         want_g, = torch.autograd.grad(case.plain(hr), hr, g)
         for kname, fn in case.fns().items():
@@ -913,10 +951,23 @@ def compare_spmm(name, case, device, stats):
                 raise AssertionError(f"{name} F={f} {kname}: a row with no edge is not 0")
             stats[f"{kname}_fwd"] = max(stats[f"{kname}_fwd"], err)
             stats[f"{kname}_bwd"] = max(stats[f"{kname}_bwd"], gerr)
+            same = ""
+            if kname in EARLIER_TIMED:
+                with torch.no_grad():
+                    old = (case.launch(kname, h, False, EARLIER),
+                           case.launch(kname, g, True, EARLIER))
+                if not (torch.equal(outs[0], old[0]) and torch.equal(grads[0], old[1])):
+                    raise AssertionError(
+                        f"{name} F={f} {kname}: not bitwise equal to its earlier design "
+                        f"(fwd max abs {(outs[0] - old[0]).abs().max():.3e}, dh "
+                        f"{(grads[0] - old[1]).abs().max():.3e})")
+                same = "; fwd and dh bitwise equal to the earlier design"
             log(f"  {name} F={f} {kname}: fwd max abs {err:.3e} rel {rel:.3e}; dh vs "
                 f"autograd of plain max abs {gerr:.3e} rel {grel:.3e}; two runs bitwise "
                 f"equal; {int(empty.sum())} empty rows fwd, {int(emptyT.sum())} bwd, "
-                f"exactly 0")
+                f"exactly 0{same}")
+        if not case.block_coo:
+            continue
         with torch.no_grad():
             got = [case.abuild(h, False), case.abuild(g, True)]
             again = [case.abuild(h, False), case.abuild(g, True)]
@@ -1020,18 +1071,47 @@ def probe_case(device, num_edges):
     return SpmmCase(b, seed=5, device=device)
 
 
+def edge_block_cases(device):
+    """Two streams for the edge-block kernel's straddling and empty-row
+    logic (unsorted, so both directions go through a sort): 4,096 nodes
+    and 8,192 edges with one row of 900 in-edges from one source (a row
+    over at least 3 blocks of 256 positions both ways) among random
+    edges; and the same stream with every edge masked (no real edge:
+    row_ptr[N] = 0)."""
+    import types
+
+    n, e, star = 4096, 8192, 900
+    rng = np.random.default_rng(7)
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    hub = rng.choice(e, star, replace=False)
+    src[hub], dst[hub] = 1234, 2345
+    cases = {}
+    for label, mask in (("one row over >= 3 blocks", np.ones(e, np.float32)),
+                        ("no real edge", np.zeros(e, np.float32))):
+        b = types.SimpleNamespace(
+            x=torch.zeros((n, 1), device=device), edge_src=torch.from_numpy(src).to(device),
+            edge_dst=torch.from_numpy(dst).to(device),
+            edge_mask=torch.from_numpy(mask).to(device))
+        cases[label] = SpmmCase(b, seed=6, device=device, block_coo=False, dst_sorted=False)
+    if min(cases["one row over >= 3 blocks"].spans) < 3 or cases["no real edge"].e_real:
+        raise AssertionError("the edge-block cases lack their row over 3 blocks or "
+                             "have a real edge")
+    return cases
+
+
 BLOCK_COO_TIMED = ("spmm_block_coo", "spmm_block_coo_abuild")
 
 
 def time_spmm(case, flush, device, kernels=SPMM_KERNELS + ("spmm_block_coo_abuild",)):
-    """Per kernel of `kernels`, direction and F: warm and flushed device
-    ms, the plain version's and the library call's ms, and the bound; the
+    """Per kernel of `kernels` (an edge-stream kernel's earlier design as
+    `<name>_earlier`), direction and F: warm and flushed device ms, the
+    plain version's and the library call's ms, and the bound; the
     block-COO slot order's build time."""
     from dgcnn_tpu_torch.kernels.spmm_block_coo import _cuda_spmm, block_coo_order
-    from dgcnn_tpu_torch.kernels.spmm_pallas import cuda_edge_block, cuda_rows
     from dgcnn_tpu_torch.ops.spmm import spmm_plain
 
-    o, s, bo = case.order, case.structure, case.bc_order
+    s, bo = case.structure, case.bc_order
     gen = torch.Generator(device=device).manual_seed(11)
     rows = {"order_ms": device_ms(lambda: block_coo_order(s, case.n))}
     log(f"  block-COO slot order (both orientations): {rows['order_ms']:.4f} ms")
@@ -1042,12 +1122,11 @@ def time_spmm(case, flush, device, kernels=SPMM_KERNELS + ("spmm_block_coo_abuil
         bnds = {d: spmm_bound(case.e_real, case.n, case.rows_read[i], f)
                 for i, d in enumerate(("fwd", "bwd"))}
         calls = {}
-        for kname, launch in (("spmm_rows", cuda_rows), ("spmm_edge_block", cuda_edge_block)):
-            calls[kname] = (
-                lambda launch=launch: launch(o.row_ptr, o.perm, case.dst, case.src,
-                                             case.w, h, False),
-                lambda launch=launch: launch(o.row_ptrT, o.permT, case.src, case.dst,
-                                             case.w, g, True))
+        for kname in EARLIER_TIMED:
+            for suffix, design in (("", None), ("_earlier", EARLIER)):
+                calls[kname + suffix] = (
+                    lambda k=kname, d=design: case.launch(k, h, False, d),
+                    lambda k=kname, d=design: case.launch(k, g, True, d))
         calls["spmm_block_coo"] = (
             lambda: _cuda_spmm(bo.row_ptr, bo.perm, s.item_c, s.ls, case.w_pad, h, False),
             lambda: _cuda_spmm(bo.row_ptrT, bo.permT, s.item_cT, s.lsT, case.w_padT, g,
@@ -1091,6 +1170,10 @@ def time_spmm(case, flush, device, kernels=SPMM_KERNELS + ("spmm_block_coo_abuil
                     f"library {'null' if lib[d] is None else f'{lib[d]:.4f} ms'}; "
                     f"bound {bnd[0]:.4f} ms ({bnd[1]})")
     return rows
+
+
+SPMM_TIMED = SPMM_KERNELS + ("spmm_block_coo_abuild",) + tuple(
+    k + "_earlier" for k in EARLIER_TIMED)
 
 
 def spmm_step_ms(rows, kname):
@@ -1295,6 +1378,10 @@ def main() -> int:
         compare_spmm(f"{key} shape ({case.e_real} edges, N {case.n}, every edge real, "
                      f"longest row {case.longest_row} slots, block-COO items "
                      f"{case.items} of {case.slots})", case, device, stats)
+    for key, case in edge_block_cases(device).items():
+        compare_spmm(f"{key} ({case.e_real} real edges of {case.src.shape[0]}, N "
+                     f"{case.n}; a row's positions span at most {case.spans} blocks "
+                     f"fwd, bwd; edge-stream kernels only)", case, device, stats)
 
     log("== phase 4a: main path, synthetic NCI1, dense, 2 folds x 2 epochs")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1413,14 +1500,18 @@ def main() -> int:
             tr_n, ev_n = count_steps(data_type, gs.y, folds_n, epochs, 50,
                                      os.path.join(tmp, "data", data_type, "10fold_idx"))
             used = SPMM_KERNEL_OF[impl]
+            f1 = (counters[used].f1_fwd, counters[used].f1_bwd)
             log(f"{data_type} {' '.join(extra)}: {wall:.1f} s; train steps {tr_n}, "
-                f"eval steps {ev_n}; launches (fwd, bwd) {counts}")
+                f"eval steps {ev_n}; launches (fwd, bwd) {counts}, of width 1 on "
+                f"{used} {f1}")
             want = {k: (4 * (tr_n + ev_n), 4 * tr_n) if k == used else (0, 0)
                     for k in SPMM_KERNELS}
-            if counts != want:
-                raise AssertionError(f"SpMM launch counts {counts}, expected {want}")
+            if counts != want or f1 != (tr_n + ev_n, tr_n):
+                raise AssertionError(f"SpMM launch counts {counts} (F=1 {f1}), "
+                                     f"expected {want}, a quarter of width 1")
             if data_type == "DD" and used not in coo_launches:
                 coo_launches[used] = counts[used]
+                coo_launches[used + "_f1"] = f1
             events = check_artifacts(tmp, data_type, folds_n, epochs)
             start = events[0]
             if (start["kind"] != "run_start" or start["layout"] != "coo"
@@ -1521,7 +1612,9 @@ def main() -> int:
                                       "trains on)"),
                         ("host max", "DD CooEngine largest batch")):
         log(f"  {what}:")
-        spmm_times[label] = time_spmm(spmm_cases[label], flush, device)
+        spmm_times[label] = time_spmm(
+            spmm_cases[label], flush, device,
+            kernels=SPMM_TIMED if label in ("mean", "max") else SPMM_TIMED[:4])
     for label in ("NCI1 dev", "NCI1 host mean", "NCI1 filled", "probe standard",
                   "probe long row"):
         log(f"  {label} batch (block-COO only):")
@@ -1531,7 +1624,19 @@ def main() -> int:
         rows = spmm_times[label]
         log(f"  DD COO {label} batch, one train step's SpMMs (3 x F=32 + F=1, fwd + "
             f"bwd): " + ", ".join(f"{k} {spmm_step_ms(rows, k):.4f} ms"
-                                  for k in SPMM_KERNELS + ("spmm_block_coo_abuild",)))
+                                  for k in SPMM_TIMED if (k, "fwd", 32) in rows))
+        if label not in ("mean", "max"):
+            continue
+        steps = {k: spmm_step_ms(rows, k) for k in EARLIER_TIMED}
+        log(f"    faster on device-assembled batches: {min(steps, key=steps.get)} "
+            f"(spmm_impl auto = {spmm_auto})")
+        for k in EARLIER_TIMED:
+            shapes = [(d, f) for d in ("fwd", "bwd") for f in (32, 1)]
+            log(f"    {k}: " + "; ".join(
+                f"{d} F={f} {rows[(k, d, f)]['ms']:.4f} ms (earlier design "
+                f"{rows[(k + '_earlier', d, f)]['ms']:.4f}), "
+                f"{rows[(k, d, f)]['ms'] / rows[(k, d, f)]['bound_ms']:.2f}x its bound"
+                for d, f in shapes))
     for label, rows in spmm_times.items():
         beats = all(rows[("spmm_block_coo", d, 32)]["library_ms"] is not None
                     and rows[("spmm_block_coo", d, 32)]["ms"]
@@ -1621,25 +1726,30 @@ def main() -> int:
         where = "host mean" if kname == "spmm_block_coo" else "mean"
         engine = "CooEngine" if where == "host mean" else "DeviceCooEngine"
         for i, d in enumerate(("fwd", "bwd")):
-            row = spmm_times[where][(kname, d, 32)]
-            kernels.append({
-                "name": f"{kname}_{d}", "route": "cuda",
-                "source": f"dgcnn_tpu_torch/csrc/{kname}.cu",
-                "replaces": spmm_replaces[kname],
-                "launches": coo_launches[kname][i],
-                "max_abs_err": stats[f"{kname}_{d}"],
-                "ms": row["ms"], "ms_l2_flushed": row["ms_l2_flushed"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                "shape": (f"DD COO mean batch ({engine}): {row['edges']} edges, "
-                          f"N {row['n']}, F 32"
-                          + (f", {row['items']} items of {row['slots']}"
-                             if kname == "spmm_block_coo" else "")),
-            })
-            if kname == "spmm_block_coo":
-                kernels[-1]["abuild_ms"] = spmm_times[where][
-                    ("spmm_block_coo_abuild", d, 32)]["ms"]
-                kernels[-1]["slot_order_ms"] = spmm_times[where]["order_ms"]
+            f1_n = coo_launches[kname + "_f1"][i]
+            for f, suffix, n in ((32, "", coo_launches[kname][i] - f1_n), (1, "_f1", f1_n)):
+                row = spmm_times[where][(kname, d, f)]
+                kernels.append({
+                    "name": f"{kname}_{d}{suffix}", "route": "cuda",
+                    "source": f"dgcnn_tpu_torch/csrc/{kname}.cu",
+                    "replaces": spmm_replaces[kname],
+                    "launches": n,
+                    "max_abs_err": stats[f"{kname}_{d}"],
+                    "ms": row["ms"], "ms_l2_flushed": row["ms_l2_flushed"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                    "shape": (f"DD COO mean batch ({engine}): {row['edges']} edges, "
+                              f"N {row['n']}, F {f}"
+                              + (f", {row['items']} items of {row['slots']}"
+                                 if kname == "spmm_block_coo" else "")),
+                })
+                if kname == "spmm_block_coo":
+                    kernels[-1]["abuild_ms"] = spmm_times[where][
+                        ("spmm_block_coo_abuild", d, f)]["ms"]
+                    kernels[-1]["slot_order_ms"] = spmm_times[where]["order_ms"]
+                else:
+                    kernels[-1]["earlier_design_ms"] = spmm_times[where][
+                        (kname + "_earlier", d, f)]["ms"]
     std = probe_result["shapes"][probe_shapes[0].label]
     kernels.append({
         "name": "probe_kernel_anatomy", "route": "cuda",

@@ -204,8 +204,8 @@ def check_plan(plan: BlockPlan, kind: str, nb: int, w: int, device) -> None:
 
 
 class BlockLaunchCounts:
-    """Plain integer counts of propagations run on a block kernel, and
-    those of width F = 1 among them."""
+    """Plain integer counts of the calls run on a kernel (block
+    propagations, SpMMs), and those of width F = 1 among them."""
 
     def reset(self) -> None:
         self.fwd_launches = self.bwd_launches = 0

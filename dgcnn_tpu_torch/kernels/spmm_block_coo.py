@@ -29,7 +29,8 @@ reference leaves its SDDMM to XLA. `block_coo_fits` (the TPU's VMEM gate)
 is not ported: the card reads h through L2.
 
 `launches.fwd_launches` / `launches.bwd_launches` count one per forward /
-backward SpMM that ran on the kernel.
+backward SpMM that ran on the kernel (`f1_fwd` / `f1_bwd`: those of width
+1).
 """
 
 from __future__ import annotations
@@ -41,14 +42,14 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from dgcnn_tpu_torch.kernels.dense_trunk import LaunchCounts
+from dgcnn_tpu_torch.kernels.block_prop import BlockLaunchCounts
 from dgcnn_tpu_torch.ops.spmm import EdgeOrder
 
 BS = 128
 DEFAULT_EB = 256
 _LANES = 128
 
-launches = LaunchCounts()
+launches = BlockLaunchCounts()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,10 +310,7 @@ def _cuda_spmm(row_ptr, perm, item_c, ls, w_pad, h, transpose: bool) -> torch.Te
         raise RuntimeError(
             f"spmm_block_coo {'backward' if transpose else 'forward'}: "
             f"CUDA error {rc} ({msg})")
-    if transpose:
-        launches.bwd_launches += 1
-    else:
-        launches.fwd_launches += 1
+    launches.count(transpose, f)
     return out
 
 

@@ -2,26 +2,33 @@
 
   * `spmm_pallas` (:220; `pallas_call` :102; backward `_bwd` :230): the
     per-edge gather-scale-scatter, here the row-parallel CSR kernel of
-    csrc/spmm_rows.cu (a warp per destination row walks the row's edges
-    in order and writes the row once);
+    csrc/spmm_rows.cu (a group of lanes per destination row loads the
+    row's columns and weights together and keeps eight h-row loads in
+    flight, summing in position order; the row is written once);
   * `spmm_pallas_mxu` (:191; `pallas_call` :170; backward `_mxu_bwd`
     :201): the one-hot selector kernel over 256-edge blocks, here the
-    edge-block kernel of csrc/spmm_edge_block.cu (a segmented reduction
-    per 256 ordered edges, rows that straddle blocks finished by a second
-    pass in block order).
+    edge-block kernel of csrc/spmm_edge_block.cu (one launch: a block per
+    256 ordered edges stages them in shared memory, and lane groups walk
+    its runs as the row kernel walks a row; a row that straddles blocks is
+    finished in block order by the last group to arrive on its counter).
 
 Both compute `out[i] = Σ_{dst_e=i} w_e·h[src_e]` for any edge order, as
 the reference's kernels do: they walk an `EdgeOrder` (ops/spmm.py), taken
 from the caller (the model builds one per batch) or built here by stable
-device sorts. The backward runs the same kernel over the source order
-with src and dst swapped for dh, and the plain SDDMM for dw only when the
-weights need a gradient (the GCN's weights are the edge mask and never
-do). On CPU tensors both run `spmm_plain`; on CUDA tensors the kernel or
-an exception. Design and bound are in each source's header. No float
-atomics: two runs give the same bits.
+device sorts, and read the column of each position from its `col` /
+`colT` (gathered here when the order has none). The backward runs the same
+kernel over the source order with src and dst swapped for dh, and the
+plain SDDMM for dw only when the weights need a gradient (the GCN's
+weights are the edge mask and never do). On CPU tensors both run
+`spmm_plain`; on CUDA tensors the kernel or an exception. Design and bound
+are in each source's header. No float atomics: two runs give the same
+bits, and the same bits as each kernel's earlier design (`design=EARLIER`:
+one edge at a time through perm → col → h; reachable only through
+`cuda_rows` / `cuda_edge_block`, for chip_smoke.py's in-run comparison).
 
 `rows_launches` and `edge_block_launches` count one per forward /
-backward SpMM that ran on each kernel.
+backward SpMM that ran on each kernel (`f1_fwd` / `f1_bwd`: those of
+width 1).
 """
 
 from __future__ import annotations
@@ -31,20 +38,28 @@ from typing import Optional
 
 import torch
 
-from dgcnn_tpu_torch.kernels.dense_trunk import LaunchCounts
-from dgcnn_tpu_torch.ops.spmm import EdgeOrder, edge_order, sddmm_plain, spmm_plain
+from dgcnn_tpu_torch.kernels.block_prop import BlockLaunchCounts
+from dgcnn_tpu_torch.ops.spmm import (
+    EdgeOrder, edge_order, position_columns, sddmm_plain, spmm_plain,
+)
 
-rows_launches = LaunchCounts()
-edge_block_launches = LaunchCounts()
+rows_launches = BlockLaunchCounts()
+edge_block_launches = BlockLaunchCounts()
 EDGE_BLOCK = 256  # positions per block of the edge-block kernel
+CURRENT, EARLIER = 0, 1  # the C entries' `design` (csrc/spmm_seq.cuh)
 
 
-def _bind(name: str, n_ptr: int, n_int: int):
+# `<name>_f32` of csrc/<name>.cu: (pointers, then ints), then the stream
+ENTRY_ARGS = {"spmm_rows": (7, 3), "spmm_edge_block": (10, 4)}
+
+
+def _bind(name: str):
     from dgcnn_tpu_torch.kernels import _build
 
     lib = _build.load(name)
     if not getattr(lib, "_dgcnn_bound", False):
         P, I = ctypes.c_void_p, ctypes.c_int
+        n_ptr, n_int = ENTRY_ARGS[name]
         fn = getattr(lib, f"{name}_f32")
         fn.argtypes = [P] * n_ptr + [I] * n_int + [P]
         fn.restype = I
@@ -66,43 +81,55 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def cuda_rows(row_ptr, perm, row, col, w, h, transpose: bool) -> torch.Tensor:
+def cuda_rows(row_ptr, perm, row, col, colp, w, h, transpose: bool,
+              design: int = CURRENT) -> torch.Tensor:
     """One launch of csrc/spmm_rows.cu (`row` is unused: the row pointers
-    give each row's range)."""
+    give each row's range). `col` is by edge id (read by the earlier
+    design), `colp` by position (read by the current one)."""
     del row
-    lib = _bind("spmm_rows", 6, 2)
+    lib = _bind("spmm_rows")
     n, f = row_ptr.shape[0] - 1, h.shape[1]
     with torch.cuda.device(h.device):
         out = torch.empty((n, f), dtype=torch.float32, device=h.device)
-        rc = lib.spmm_rows_f32(row_ptr.data_ptr(), _ptr(perm), col.data_ptr(),
+        rc = lib.spmm_rows_f32(row_ptr.data_ptr(), _ptr(perm), _ptr(col), _ptr(colp),
                                w.data_ptr(), h.data_ptr(), out.data_ptr(), n, f,
-                               torch.cuda.current_stream().cuda_stream)
+                               design, torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, "spmm_rows", rc, transpose)
-    if transpose:
-        rows_launches.bwd_launches += 1
-    else:
-        rows_launches.fwd_launches += 1
+    rows_launches.count(transpose, f)
     return out
 
 
-def cuda_edge_block(row_ptr, perm, row, col, w, h, transpose: bool) -> torch.Tensor:
-    """Both passes of csrc/spmm_edge_block.cu, with their scratch."""
-    lib = _bind("spmm_edge_block", 8, 3)
+_COUNTERS = {}  # device → int32 arrival counters, all 0 between launches
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """At least n zeroed counters on `device`; a larger N allocates new
+    ones, zeroed (a launch that faulted could have left old ones dirty)."""
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                            device=device)
+    return c
+
+
+def cuda_edge_block(row_ptr, perm, row, col, colp, w, h, transpose: bool,
+                    design: int = CURRENT) -> torch.Tensor:
+    """One launch of csrc/spmm_edge_block.cu (two for the earlier design),
+    with its scratch and the row counters. `row` and `col` are by edge id,
+    `colp` by position."""
+    lib = _bind("spmm_edge_block")
     n, f, n_pos = row_ptr.shape[0] - 1, h.shape[1], row.shape[0]
-    blocks = -(-n_pos // EDGE_BLOCK)
+    blocks = max(-(-n_pos // EDGE_BLOCK), 1)
     with torch.cuda.device(h.device):
         out = torch.empty((n, f), dtype=torch.float32, device=h.device)
-        partial = torch.empty((max(2 * blocks, 1), f), dtype=torch.float32,
-                              device=h.device)
+        partial = torch.empty((2 * blocks, f), dtype=torch.float32, device=h.device)
         rc = lib.spmm_edge_block_f32(
-            row_ptr.data_ptr(), _ptr(perm), row.data_ptr(), col.data_ptr(),
+            row_ptr.data_ptr(), _ptr(perm), row.data_ptr(), _ptr(col), _ptr(colp),
             w.data_ptr(), h.data_ptr(), out.data_ptr(), partial.data_ptr(),
-            n, n_pos, f, torch.cuda.current_stream().cuda_stream)
+            _counters(h.device, n).data_ptr(), n, n_pos, f, design,
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, "spmm_edge_block", rc, transpose)
-    if transpose:
-        edge_block_launches.bwd_launches += 1
-    else:
-        edge_block_launches.fwd_launches += 1
+    edge_block_launches.count(transpose, f)
     return out
 
 
@@ -117,40 +144,41 @@ def check_inputs(edge_src, edge_dst, edge_weight, h,
     for t in (edge_src, edge_dst):
         if t.dtype != torch.int32:
             raise TypeError(f"edge indices must be int32, got {t.dtype}")
-    tensors = [edge_src, edge_dst, edge_weight, h]
+    tensors = {"edge_src": edge_src, "edge_dst": edge_dst,
+               "edge_weight": edge_weight, "h": h}
     if order is not None:
         n = h.shape[0]
-        for name in ("perm", "row_ptr", "permT", "row_ptrT"):
+        for name in ("perm", "row_ptr", "permT", "row_ptrT", "col", "colT"):
             t = getattr(order, name)
-            if t is None and name == "perm":
+            if t is None and name in ("perm", "col", "colT"):
                 continue
             if t.dtype != torch.int32:
                 raise TypeError(f"EdgeOrder.{name} must be int32")
             want = (n + 1,) if name.startswith("row_ptr") else (e,)
             if tuple(t.shape) != want:
                 raise ValueError(f"EdgeOrder.{name} must be {want}, got {tuple(t.shape)}")
-            tensors.append(t)
+            tensors[f"EdgeOrder.{name}"] = t
     for t in (edge_src, edge_dst, edge_weight):
         if t.dim() != 1 or t.shape[0] != e:
             raise ValueError(f"edge arrays must all be [E={e}], got {tuple(t.shape)}")
     dev = h.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"the SpMM runs on cpu or cuda, got {dev}")
-    for t in tensors:
+    for name, t in tensors.items():
         if t.device != dev:
-            raise ValueError(f"all inputs must be on {dev}, got {t.device}")
+            raise ValueError(f"all inputs must be on {dev}, got {name} on {t.device}")
         if not t.is_contiguous():
-            raise ValueError("the SpMM's inputs must be contiguous")
+            raise ValueError(f"the SpMM's inputs must be contiguous, {name} is not")
 
 
 def make_spmm_fn(name: str, launch) -> type:
     """An autograd Function around one edge-stream kernel. `launch(row_ptr,
-    perm, row, col, w, h, transpose)` runs it on CUDA tensors; CPU tensors
-    run `spmm_plain`."""
+    perm, row, col, colp, w, h, transpose)` runs it on CUDA tensors (the
+    order carries its position columns); CPU tensors run `spmm_plain`."""
 
     def forward(edge_src, edge_dst, edge_weight, h, order):
         if h.is_cuda:
-            return launch(order.row_ptr, order.perm, edge_dst, edge_src,
+            return launch(order.row_ptr, order.perm, edge_dst, edge_src, order.col,
                           edge_weight, h, False)
         return spmm_plain(edge_src, edge_dst, edge_weight, h, h.shape[0])
 
@@ -166,8 +194,8 @@ def make_spmm_fn(name: str, launch) -> type:
         if ctx.needs_input_grad[3]:
             if g.is_cuda:
                 o = ctx.order
-                dh = launch(o.row_ptrT, o.permT, edge_src, edge_dst, edge_weight,
-                            g, True)
+                dh = launch(o.row_ptrT, o.permT, edge_src, edge_dst, o.colT,
+                            edge_weight, g, True)
             else:
                 dh = spmm_plain(edge_dst, edge_src, edge_weight, g, g.shape[0])
         if ctx.needs_input_grad[2]:
@@ -187,8 +215,9 @@ SpmmEdgeBlockFn = make_spmm_fn("SpmmEdgeBlockFn", cuda_edge_block)
 
 def _apply(fn, edge_src, edge_dst, edge_weight, h, order):
     check_inputs(edge_src, edge_dst, edge_weight, h, order)
-    if h.is_cuda and order is None:
-        order = edge_order(edge_src, edge_dst, h.shape[0])
+    if h.is_cuda:
+        order = (edge_order(edge_src, edge_dst, h.shape[0]) if order is None
+                 else position_columns(order, edge_src, edge_dst))
     return fn.apply(edge_src, edge_dst, edge_weight, h, order)
 
 

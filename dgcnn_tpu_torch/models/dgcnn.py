@@ -344,10 +344,12 @@ def apply_coo(
     d̂^{-1/2} are computed once; each layer is `gcn_conv` in its node-scale
     form (the SpMM weighted by the edge mask) → tanh → node mask. The SpMM
     runs the kernel `spmm_impl` names (ops/spmm.py); one `EdgeOrder` of
-    the batch (padded edges left out) serves the four layers' SpMMs,
-    forward and backward, and a block-pair structure the packer attached
-    serves "pallas", with its slot order (`block_coo_order`) built once
-    here. SortPooling is the global lexicographic sort."""
+    the batch (padded edges left out; with each position's column, so the
+    edge-stream kernels gather h without a perm → col chain) serves the
+    four layers' SpMMs, forward and backward, and a block-pair structure
+    the packer attached serves "pallas", with its slot order
+    (`block_coo_order`) built once here. SortPooling is the global
+    lexicographic sort."""
     num_nodes = batch.x.shape[0]
     num_slots = batch.y.shape[0]
     deg_hat = gcn_degree(batch.edge_dst, batch.edge_mask, num_nodes)

@@ -62,13 +62,36 @@ class EdgeOrder:
     row_ptr:   [N+1] position range of each destination row
     permT:     [E] edge at each position of the source order (stable)
     row_ptrT:  [N+1] position range of each source row
+    col:       [E] source of the edge at each destination-order position
+               (src[perm]; the stream's src itself when perm is None)
+    colT:      [E] destination of the edge at each source-order position
+               (dst[permT])
 
-    Edges left out (a mask of 0) fall past row_ptr[N] and row_ptrT[N]."""
+    Edges left out (a mask of 0) fall past row_ptr[N] and row_ptrT[N]; col
+    and colT are only read before those. The edge-stream kernels read the
+    column of each position from col / colT, so that their h gathers wait
+    on one index read; an order built without them (None) gets them from
+    the wrapper before a launch."""
 
     perm: Optional[torch.Tensor]
     row_ptr: torch.Tensor
     permT: torch.Tensor
     row_ptrT: torch.Tensor
+    col: Optional[torch.Tensor] = None
+    colT: Optional[torch.Tensor] = None
+
+
+def position_columns(order: EdgeOrder, edge_src, edge_dst) -> EdgeOrder:
+    """`order` with col / colT filled in where they are None (one gather
+    each; none for col when perm is None)."""
+    col, colT = order.col, order.colT
+    if col is not None and colT is not None:
+        return order
+    if col is None:
+        col = edge_src if order.perm is None else edge_src.index_select(0, order.perm)
+    if colT is None:
+        colT = edge_dst.index_select(0, order.permT)
+    return dataclasses.replace(order, col=col, colT=colT)
 
 
 def _ranges(sorted_key: torch.Tensor, num_nodes: int) -> torch.Tensor:
@@ -84,9 +107,10 @@ def edge_order(edge_src, edge_dst, num_nodes: int, edge_mask=None,
     that vanish there, as the GCN's edge-mask weights do). `dst_sorted`
     promises that the kept edges come first in destination order — true of
     the packer's streams, whose padding sits at the tail — and skips that
-    sort."""
+    sort; `col` is then `edge_src` itself (when it is int32), no copy."""
     i32 = torch.int32
-    src, dst = edge_src.to(i32), edge_dst.to(i32)
+    src0 = src = edge_src.to(i32)
+    dst0 = dst = edge_dst.to(i32)
     if edge_mask is not None:
         keep = edge_mask > 0
         dst = torch.where(keep, dst, num_nodes)
@@ -97,8 +121,10 @@ def edge_order(edge_src, edge_dst, num_nodes: int, edge_mask=None,
         dst_s, perm = torch.sort(dst, stable=True)
         perm = perm.to(i32)
     src_s, permT = torch.sort(src, stable=True)
-    return EdgeOrder(perm=perm, row_ptr=_ranges(dst_s, num_nodes),
-                     permT=permT.to(i32), row_ptrT=_ranges(src_s, num_nodes))
+    return position_columns(
+        EdgeOrder(perm=perm, row_ptr=_ranges(dst_s, num_nodes),
+                  permT=permT.to(i32), row_ptrT=_ranges(src_s, num_nodes)),
+        src0, dst0)
 
 
 def spmm(edge_src, edge_dst, edge_weight, h, num_nodes: int, impl: str = "xla",
