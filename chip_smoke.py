@@ -21,6 +21,10 @@ CUDA is absent or any phase fails. Phases:
         refused by the kernel); dims
         (64,64,64,1) and (128,128,128,1) at one resident and one streamed
         T; and `trunk_plan`'s shared-memory bytes against the kernels';
+        the lockstep step's trunk: the ten folds' first train batches of
+        synthetic NCI1 (T=88, plan resident C=1) and PROTEINS (T=176, C=2)
+        stacked on the slot axis, S = 560, K = 10, slot s on weight set
+        s // 56;
      b. both block-propagation kernels (CSR and item-parallel) on real
         synthetic-DD batches of 50 graphs (the main path's mean and
         largest batch and the batch holding the largest graph), with
@@ -57,9 +61,16 @@ CUDA is absent or any phase fails. Phases:
         256 positions both ways, and on the same stream with no real edge;
   4. the main paths, each with its launch counts set to 0 just before
      and read just after:
-     a. the CLI trains synthetic NCI1 (dense layout, batch 50) for
-        2 folds × 2 epochs, every trunk call resident; one NCI1 batch on
-        the card against the CPU;
+     a. the CLI trains synthetic NCI1 (`--layout auto` → dense, batch 50,
+        `cv_parallel` auto → fold-lockstep) for 10 folds × 2 epochs: every
+        epoch event says `folds_in_lockstep` 10, trunk launches exactly
+        2 × (train + eval lockstep steps) forward and 2 × train steps
+        backward, all resident; then the sequential driver trains the same
+        10 folds for 1 epoch on the card and every fold's row agrees with
+        lockstep's epoch 1 within rtol/atol 5e-4; each fold's dropout mask
+        in a lockstep forward is bitwise the sequential one; one lockstep
+        batch (10 folds stacked) and one NCI1 batch on the card against
+        the CPU;
      b. the CLI trains synthetic DD with `--layout auto` (→ block, the
         kernel `block_impl` auto names) for 2 folds × 2 epochs, then
         1 fold × 1 epoch with the other `--block_impl` (CSR kernel =
@@ -82,7 +93,8 @@ CUDA is absent or any phase fails. Phases:
      (operands left in L2 by the previous call) and after a 64 MB
      L2-flushing write (the write's own time, measured the same way,
      subtracted). The trunk at T = 88, 112, 176, 624 and each forced
-     C at 88 and 176, beside its bound (and its kind) and the plain chain.
+     C at 88 and 176, and the lockstep step's trunk (S = 560, K = 10) at
+     T = 88 and 176, beside its bound (and its kind) and the plain chain.
      The block kernels at the DD mean and largest batch and the batch of
      the largest graph, F ∈ {32, 1}, each design (the CSR kernel at
      P ∈ {2, 4, 6} and one piece per row; the item-parallel one at
@@ -98,18 +110,19 @@ CUDA is absent or any phase fails. Phases:
      step's SpMMs on each (the measure `spmm_impl` auto is chosen by); the
      block-COO kernel, its earlier A-build design
      and its slot order's build also at every other batch of phase 3c;
-  6. one `torch.profiler` table of a single train step for NCI1 dense,
-     DD block through each `--block_impl`, DD COO and DD COO `--spmm
-     pallas` (top 10 CUDA kernels)
-     and each step's wall time and launches;
+  6. one `torch.profiler` table of a single train step for NCI1 dense
+     (one fold, and the lockstep step of all ten), DD block through each
+     `--block_impl`, DD COO and DD COO `--spmm pallas` (top 10 CUDA
+     kernels) and each step's wall time and launches;
   7. the block-COO cost-split probe (dgcnn_tpu_torch/tools/
      probe_kernel_anatomy.py) at its standard shape, its long-row variant
      and DD's `CooEngine` mean batch, its launch count set to 0 after its checks and read
      after its timing; its JSON line;
-  8. one JSON line describing every kernel (the block and SpMM kernels
-     once per width, F=32 and `_f1`, with the main path's launches of
-     that width), the card line again, and the final `{"ok": true, ...}`
-     line.
+  8. one JSON line describing every kernel (the trunk at the lockstep
+     step's shape with the lockstep main path's launches, its one-fold
+     shape beside it; the block and SpMM kernels once per width, F=32 and
+     `_f1`, with the main path's launches of that width), the card line
+     again, and the final `{"ok": true, ...}` line.
 """
 
 from __future__ import annotations
@@ -129,6 +142,8 @@ from dgcnn_tpu_torch.utils.profiling import (
 )
 
 S = 56  # graph slots: batch 50 rounded up to graph_pad_multiple 8
+FOLDS = 10  # the reference's CV folds, stacked on the slot axis in lockstep
+SL = FOLDS * S  # slots of one lockstep step
 DIMS = (32, 32, 32, 1)
 WIDE = ((64, 64, 64, 1), (128, 128, 128, 1))  # the two wider width buckets
 BS = 128
@@ -174,22 +189,33 @@ def random_symmetric_case(t, seed, device):
     return (adj + adj.mT) * 0.5, mask
 
 
-def compare_trunk(name, adj, mask, device, dt, stats, dims=DIMS, plan=None):
+def lockstep_wsel(s, folds, device):
+    """The weight set of each of `s` slots: slot i reads set i // (s / folds),
+    its fold's."""
+    return torch.arange(folds, dtype=torch.int32, device=device).repeat_interleave(
+        s // folds)
+
+
+def compare_trunk(name, adj, mask, device, dt, stats, dims=DIMS, plan=None,
+                  folds=None):
     """The kernel against the plain version at K ∈ {1, 10}: forward, and
     every gradient against autograd of the plain chain, two backward runs
     bitwise equal. `plan` forces a regime / cluster size (the kernels are
     then called directly and their flat gradients summed as `GcnTrunkFn`
     does); else `gcn_trunk` runs the plan it picks. Checks that the
-    planned regime ran."""
+    planned regime ran. `folds` runs K = folds only, with the lockstep
+    step's `wsel` (each fold's run of slots on its own weight set)."""
     sym = (adj - adj.mT).abs().max().item()
     if sym > 1e-7:
         raise AssertionError(f"{name}: adjacency not symmetric ({sym:.3g})")
     s, t = adj.shape[0], adj.shape[1]
     want_plan = plan or dt.trunk_plan(s, t, dims)
     n = len(dims)
-    for k in (1, 10):
+    for k in (folds,) if folds else (1, 10):
         hw1, wsel, ws, bs = trunk_inputs(adj, mask, k, seed=17 + k, device=device,
                                          dims=dims)
+        if folds:
+            wsel = lockstep_wsel(s, folds, device)
         before = dict(vars(dt.launches))
         with torch.no_grad():
             if plan is None:
@@ -356,6 +382,57 @@ def dense_case(gs, n_tile, device):
     return torch.from_numpy(b.adj).to(device), torch.from_numpy(b.node_mask).to(device)
 
 
+def lockstep_parts(gs, n_tile, data_type):
+    """The lockstep main path's first train step, one host batch per fold:
+    fold f's first 50 graphs of its epoch-1 shuffle
+    (`default_rng(SeedSequence([324, f]))`, as the CV drivers draw it)."""
+    from dgcnn_tpu_torch.batching.dense import pack_dense_batch
+    from dgcnn_tpu_torch.data.folds import get_folds
+
+    parts = []
+    for f, (tr, _) in enumerate(get_folds(gs.y, "", FOLDS, 324, data_type=data_type),
+                                start=1):
+        perm = np.random.default_rng(np.random.SeedSequence([324, f])).permutation(len(tr))
+        parts.append(pack_dense_batch(gs, np.asarray(tr)[perm][:50], n_tile, S))
+    return parts
+
+
+def stack_batches(parts):
+    """F host batches → one of F·S slots, fold f's in slots [f·S, (f+1)·S)."""
+    import dataclasses
+
+    from dgcnn_tpu_torch.batching.dense import DenseGraphBatch
+
+    return DenseGraphBatch(**{
+        fld.name: (np.asarray(sum(int(p.num_graphs) for p in parts), np.int32)
+                   if fld.name == "num_graphs" else
+                   np.concatenate([getattr(p, fld.name) for p in parts]))
+        for fld in dataclasses.fields(DenseGraphBatch)})
+
+
+def check_lockstep_trunk(datasets, device, dt, stats):
+    """Phase 3a's lockstep cases: the ten folds' first train rows of
+    synthetic NCI1 (T=88, plan resident C=1) and PROTEINS (T=176, C=2)
+    stacked on the slot axis, S = 560, K = 10; returns the shapes by T."""
+    from dgcnn_tpu_torch.batching.dense import dense_tile
+
+    shapes = {}
+    for name, want_c in (("NCI1", 1), ("PROTEINS", 2)):
+        t = dense_tile(datasets[name])
+        b = stack_batches(lockstep_parts(datasets[name], t, name))
+        adj = torch.from_numpy(b.adj).to(device)
+        mask = torch.from_numpy(b.node_mask).to(device)
+        plan = dt.trunk_plan(SL, t, DIMS)
+        log(f"  lockstep {name} T={t} S={SL} K={FOLDS}: plan {plan}")
+        if plan.regime != "resident" or plan.c != want_c:
+            raise AssertionError(f"lockstep {name}: plan {plan}, expected resident "
+                                 f"C={want_c}")
+        compare_trunk(f"lockstep {name} T={t} S={SL}", adj, mask, device, dt, stats,
+                      folds=FOLDS)
+        shapes[t] = (adj, mask)
+    return shapes
+
+
 def trunk_bounds(s, t, k):
     """(fwd, bwd) least times in ms. Each input read once, each output
     written once."""
@@ -369,6 +446,38 @@ def trunk_bounds(s, t, k):
                      + s * p) + wbytes
     bwd_flops = 2 * s * t * t * sd + 4 * s * t * pairs
     return bound(fwd_bytes, fwd_flops), bound(bwd_bytes, bwd_flops)
+
+
+def time_trunk(dt, adj, mask, plan, flush, device, folds=None):
+    """Phase 5's times of one trunk shape: kernel forward and backward warm
+    and flushed, the plain chain (unforced plans), the bounds. K = 1, or
+    K = `folds` with the lockstep `wsel`."""
+    k = folds or 1
+    s, t = adj.shape[0], adj.shape[1]
+    hw1, wsel, ws, bs = trunk_inputs(adj, mask, k, seed=1, device=device)
+    if folds:
+        wsel = lockstep_wsel(s, folds, device)
+    with torch.no_grad():
+        cat = dt.gcn_trunk_plain(DIMS, adj, hw1, mask, wsel, ws, bs)
+    g = torch.randn_like(cat)
+    fwd = lambda: dt._cuda_fwd(DIMS, adj, hw1, mask, wsel, ws, bs, k, plan)  # noqa: E731
+    bwd = lambda: dt._cuda_bwd(DIMS, adj, mask, wsel, ws, cat, g, k, plan)  # noqa: E731
+    fits = plan is None or plan.bwd_smem <= dt.SMEM_MAX
+    row = {
+        "fwd": device_ms(fwd), "fwd_flushed": device_ms(fwd, flush),
+        "bwd": device_ms(bwd) if fits else math.nan,
+        "bwd_flushed": device_ms(bwd, flush) if fits else math.nan,
+    }
+    if plan is None:
+        row["fwd_plain"] = device_ms(
+            lambda: dt.gcn_trunk_plain(DIMS, adj, hw1, mask, wsel, ws, bs))
+        row["bwd_plain"] = device_ms(
+            lambda: dt.gcn_trunk_plain_bwd(DIMS, adj, mask, wsel, ws, cat, g))
+    (fb, fby), (bb, bby) = trunk_bounds(s, t, k)
+    used = plan or dt.trunk_plan(s, t, DIMS)
+    row.update(bound_fwd=fb, bound_fwd_by=fby, bound_bwd=bb, bound_bwd_by=bby,
+               plan=f"{used.regime}" + (f" C={used.c}" if used.c else ""))
+    return row
 
 
 # -- phase 3b: the block kernels ------------------------------------------
@@ -1228,18 +1337,46 @@ def run_cli(data_type, extra, folds_n, epochs, tmp):
     return result, time.perf_counter() - t0
 
 
-def card_vs_cpu(name, make_batch, model):
+def lockstep_steps(data_type, y, folds_n, batch, data_dir):
+    """(train, eval) lockstep steps of one epoch: the longest fold's."""
+    from dgcnn_tpu_torch.data.folds import get_folds
+
+    folds = get_folds(y, data_dir, folds_n, 324, data_type=data_type)
+    return (max(-(-len(tr) // batch) for tr, _ in folds),
+            max(-(-len(te) // batch) for _, te in folds))
+
+
+def folds_net(model, device, seed=3):
+    """A `DGCNNFoldsNet` of FOLDS folds' weights, fold f's from seed + f."""
+    from dgcnn_tpu_torch.models.dgcnn import DGCNNFoldsNet, init_params, stack_params
+
+    return DGCNNFoldsNet(model, stack_params([
+        init_params(torch.Generator().manual_seed(seed + f), model, device)
+        for f in range(FOLDS)]))
+
+
+def card_vs_cpu(name, make_batch, model, folds=False):
     """log-probs and every parameter gradient of one batch on the card and
-    on the CPU, the same weights; returns the worst relative error."""
+    on the CPU, the same weights; returns the worst relative error.
+    `folds`: a lockstep batch of FOLDS folds through `DGCNNFoldsNet`, the
+    sum of the per-fold losses backpropagated."""
     from dgcnn_tpu_torch.models.dgcnn import DGCNNNet, init_params
     from dgcnn_tpu_torch.train.loop import nll_loss_and_correct
 
     outs = {}
     for dev in ("cpu", "cuda"):
-        net = DGCNNNet(model, init_params(torch.Generator().manual_seed(3), model, dev))
         b, kw = make_batch(dev)
-        lp = net(b, **kw)
-        loss, _ = nll_loss_and_correct(lp, b.y, b.graph_mask)
+        if folds:
+            net = folds_net(model, dev)
+            lp = net(b)
+            loss, _ = nll_loss_and_correct(lp, b.y.view(FOLDS, -1),
+                                           b.graph_mask.view(FOLDS, -1))
+            loss = loss.sum()
+        else:
+            net = DGCNNNet(model, init_params(torch.Generator().manual_seed(3), model,
+                                              dev))
+            lp = net(b, **kw)
+            loss, _ = nll_loss_and_correct(lp, b.y, b.graph_mask)
         loss.backward()
         outs[dev] = [lp.detach()] + [p.grad for p in net.parameters()]
     worst = 0.0
@@ -1253,26 +1390,128 @@ def card_vs_cpu(name, make_batch, model):
     return worst
 
 
+def check_lockstep_dropout(model, parts, device):
+    """On the card, each fold's dropout mask in one lockstep forward is
+    bitwise the mask the sequential forward draws from the same seed."""
+    from dgcnn_tpu_torch.batching.dense import batch_to_device
+    from dgcnn_tpu_torch.models.dgcnn import apply_dense
+    from dgcnn_tpu_torch.parity.convert import state_to_params
+
+    net_f = folds_net(model, device)
+    gens = [torch.Generator(device=device).manual_seed(50 + f) for f in range(FOLDS)]
+    _, acts = net_f(batch_to_device(stack_batches(parts), device), deterministic=False,
+                    dropout_gens=gens, return_activations=True)
+    for f, part in enumerate(parts):
+        gen = torch.Generator(device=device).manual_seed(50 + f)
+        _, one = apply_dense(state_to_params(net_f.fold_state_dict(f)), model,
+                             batch_to_device(part, device), deterministic=False,
+                             dropout_gen=gen, return_activations=True)
+        if not torch.equal(acts["dropout_keep"][f], one["dropout_keep"]):
+            raise AssertionError(f"fold {f + 1}: lockstep dropout mask differs")
+        if not torch.equal(gens[f].get_state(), gen.get_state()):
+            raise AssertionError(f"fold {f + 1}: generator states differ")
+    log(f"  lockstep dropout: {FOLDS} folds' masks bitwise the sequential ones, "
+        f"generators in the same state")
+
+
+def lockstep_main_path(nci1, t_main, dt):
+    """Phase 4a: the CLI trains synthetic NCI1 (layout auto → dense,
+    cv_parallel auto → lockstep) for FOLDS folds x 2 epochs, trunk launches
+    counted exactly per lockstep step, all resident; then the sequential
+    driver runs the same folds for 1 epoch, every fold's row within
+    rtol/atol 5e-4 of lockstep's epoch 1."""
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.train.cv import run_cross_validation
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dt.launches.reset()
+        result, wall = run_cli("NCI1", [], FOLDS, 2, tmp)
+        trunk_fwd_n, trunk_bwd_n = dt.launches.fwd_launches, dt.launches.bwd_launches
+        by_regime = (dt.launches.resident_fwd, dt.launches.resident_bwd,
+                     dt.launches.streamed_fwd, dt.launches.streamed_bwd)
+        data_dir = os.path.join(tmp, "data", "NCI1", "10fold_idx")
+        steps_max, t_steps_max = lockstep_steps("NCI1", nci1.y, FOLDS, 50, data_dir)
+        tr_n, ev_n = count_steps("NCI1", nci1.y, FOLDS, 2, 50, data_dir)
+        log(f"main path: {wall:.1f} s; lockstep steps a epoch: train {steps_max}, "
+            f"eval {t_steps_max} (the folds' own: {tr_n} train, {ev_n} eval over "
+            f"2 epochs); trunk launches fwd {trunk_fwd_n} bwd {trunk_bwd_n}")
+        if (trunk_fwd_n != 2 * (steps_max + t_steps_max)
+                or trunk_bwd_n != 2 * steps_max):
+            raise AssertionError("trunk launch counts do not match the lockstep "
+                                 "steps run")
+        log(f"  trunk calls by regime (resident fwd, bwd, streamed fwd, bwd): "
+            f"{by_regime}; plan at S={SL} T={t_main}: "
+            f"{dt.trunk_plan(SL, t_main, DIMS)}")
+        if by_regime != (trunk_fwd_n, trunk_bwd_n, 0, 0):
+            raise AssertionError("a main-path trunk call did not run resident")
+        events = check_artifacts(tmp, "NCI1", FOLDS, 2)
+        start, epochs = events[0], [e for e in events if e["kind"] == "epoch"]
+        if start["kind"] != "run_start" or start["layout"] != "dense":
+            raise AssertionError(f"run_start says {start}")
+        if [(e["epoch"], e["fold"]) for e in epochs] != [
+                (ep, f) for ep in (1, 2) for f in range(1, FOLDS + 1)] or any(
+                e.get("folds_in_lockstep") != FOLDS for e in epochs):
+            raise AssertionError("the epoch events are not a lockstep run's")
+        lock_epoch_s = [e["epoch_seconds"] for e in epochs[::FOLDS]]
+        log(f"  every epoch event says folds_in_lockstep {FOLDS}; lockstep epoch "
+            f"seconds {lock_epoch_s}")
+        log(f"accuracies: train {result['train_accuracies']} "
+            f"test {result['test_accuracies']}")
+
+        seq_cfg = Config(
+            data_type="NCI1", cv_parallel="sequential", num_folds=FOLDS,
+            num_epochs=1, batch_size=50, data_root=os.path.join(tmp, "data"),
+            statistics_dir=os.path.join(tmp, "seq", "statistics"),
+            epochs_dir=os.path.join(tmp, "seq", "epochs"))
+        t0 = time.perf_counter()
+        run_cross_validation(seq_cfg, allow_synthetic=True)
+        torch.cuda.synchronize()
+        seq_wall = time.perf_counter() - t0
+        worst = 0.0
+        for f in range(1, FOLDS + 1):
+            name = f"NCI1_results_{f}.csv"
+            lock = np.loadtxt(os.path.join(tmp, "statistics", name), delimiter=",",
+                              skiprows=1, ndmin=2)[0]
+            seq = np.loadtxt(os.path.join(tmp, "seq", "statistics", name),
+                             delimiter=",", skiprows=1, ndmin=2)[0]
+            if not np.allclose(lock, seq, rtol=5e-4, atol=5e-4):
+                raise AssertionError(f"fold {f}: lockstep epoch 1 {lock} vs "
+                                     f"sequential {seq}")
+            worst = max(worst, float(np.abs(lock - seq).max()))
+        with open(os.path.join(tmp, "seq", "statistics", "NCI1_events.jsonl")) as fh:
+            seq_epoch_s = [e["epoch_seconds"] for e in map(json.loads, fh)
+                           if e["kind"] == "epoch"]
+        log(f"  sequential driver ({seq_wall:.1f} s): every fold's epoch-1 row within "
+            f"rtol/atol 5e-4 of lockstep's (worst abs {worst:.3e}); fold-epoch "
+            f"seconds: sequential median {np.median(seq_epoch_s):.4f}, lockstep "
+            f"epoch 2 / {FOLDS} = {lock_epoch_s[-1] / FOLDS:.4f}")
+
+    return {"trunk_launches": (trunk_fwd_n, trunk_bwd_n),
+            "lockstep_epoch_s": lock_epoch_s, "sequential_epoch_s": seq_epoch_s}
+
+
 # -- phase 6: one profiled train step ---------------------------------------
 
 
-def profile_step(name, net, optimizer, batch, fwd_kw):
-    from dgcnn_tpu_torch.train.loop import train_step
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def profile_step(name, step, by_op=False):
+    """`step()` runs one train step: 3 warm-ups, the host clock over 10
+    steps, then one step under torch.profiler (device-side events).
+    `by_op` also lists the ATen ops that launched the most device time,
+    with their input shapes."""
     for _ in range(3):
-        train_step(net, optimizer, batch, gen, **fwd_kw)
+        step()
     torch.cuda.synchronize()
     walls = []
     for _ in range(10):
         t0 = time.perf_counter()
-        train_step(net, optimizer, batch, gen, **fwd_kw)
+        step()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        train_step(net, optimizer, batch, gen, **fwd_kw)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=by_op) as prof:
+        step()
         torch.cuda.synchronize()
     from torch.autograd import DeviceType
 
@@ -1298,6 +1537,15 @@ def profile_step(name, net, optimizer, batch, fwd_kw):
         log("  the profiler recorded no device time on this machine")
     for e in kernels[:10]:
         log(f"    {self_dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    if by_op:
+        ops = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                      if getattr(e, "device_type", None) == DeviceType.CPU
+                      and e.key.startswith("aten::")),
+                     key=self_dev_us, reverse=True)
+        log(f"  {name}: ATen ops by the device time they launched")
+        for e in ops[:8]:
+            log(f"    {self_dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key} "
+                f"{e.input_shapes}")
     return float(np.median(walls)), total / 1e3, sum(e.count for e in kernels)
 
 
@@ -1340,6 +1588,7 @@ def main() -> int:
 
     t_main = dense_tile(datasets["NCI1"])
     shapes = check_trunk(datasets, device, dt, stats)
+    lock_shapes = check_lockstep_trunk(datasets, device, dt, stats)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1383,37 +1632,29 @@ def main() -> int:
                      f"{case.n}; a row's positions span at most {case.spans} blocks "
                      f"fwd, bwd; edge-stream kernels only)", case, device, stats)
 
-    log("== phase 4a: main path, synthetic NCI1, dense, 2 folds x 2 epochs")
-    with tempfile.TemporaryDirectory() as tmp:
-        dt.launches.reset()
-        result, wall = run_cli("NCI1", ["--layout", "dense"], 2, 2, tmp)
-        trunk_fwd_n, trunk_bwd_n = dt.launches.fwd_launches, dt.launches.bwd_launches
-        tr_n, ev_n = count_steps("NCI1", datasets["NCI1"].y, 2, 2, 50,
-                                 os.path.join(tmp, "data", "NCI1", "10fold_idx"))
-        log(f"main path: {wall:.1f} s; train steps {tr_n}, eval steps {ev_n}; "
-            f"trunk launches fwd {trunk_fwd_n} bwd {trunk_bwd_n}")
-        if trunk_fwd_n != tr_n + ev_n or trunk_bwd_n != tr_n:
-            raise AssertionError("trunk launch counts do not match the steps run")
-        by_regime = (dt.launches.resident_fwd, dt.launches.resident_bwd,
-                     dt.launches.streamed_fwd, dt.launches.streamed_bwd)
-        log(f"  trunk calls by regime (resident fwd, bwd, streamed fwd, bwd): "
-            f"{by_regime}; plan at T={t_main}: {dt.trunk_plan(S, t_main, DIMS)}")
-        if by_regime != (trunk_fwd_n, trunk_bwd_n, 0, 0):
-            raise AssertionError("a main-path trunk call did not run resident")
-        check_artifacts(tmp, "NCI1", 2, 2)
-        log(f"accuracies: train {result['train_accuracies']} "
-            f"test {result['test_accuracies']}")
-
-    from dgcnn_tpu_torch.batching.dense import batch_to_device, pack_dense_batch
+    log(f"== phase 4a: main path, synthetic NCI1, --layout auto (dense), "
+        f"{FOLDS} folds x 2 epochs in lockstep (cv_parallel auto); then the "
+        f"sequential driver, {FOLDS} folds x 1 epoch")
+    from dgcnn_tpu_torch.batching.dense import batch_to_device
+    from dgcnn_tpu_torch.config import Config
     from dgcnn_tpu_torch.models.dgcnn import DGCNN
 
     nci1 = datasets["NCI1"]
     nci1_model = DGCNN(num_features=nci1.num_features, num_classes=nci1.num_classes)
+    lock = lockstep_main_path(nci1, t_main, dt)
+    trunk_fwd_n, trunk_bwd_n = lock["trunk_launches"]
+    lock_epoch_s, seq_epoch_s = lock["lockstep_epoch_s"], lock["sequential_epoch_s"]
+
+    lock_parts = lockstep_parts(nci1, t_main, "NCI1")
+    lock_host = stack_batches(lock_parts)
+    check_lockstep_dropout(nci1_model, lock_parts, device)
+    card_vs_cpu(f"NCI1 lockstep batch ({FOLDS} folds x {S} slots)",
+                lambda dev: (batch_to_device(lock_host, dev), {}), nci1_model, folds=True)
+    from dgcnn_tpu_torch.batching.dense import pack_dense_batch
+
     nci1_host = pack_dense_batch(nci1, np.arange(100, 150), t_main, S)
     card_vs_cpu("NCI1 dense batch",
                 lambda dev: (batch_to_device(nci1_host, dev), {}), nci1_model)
-
-    from dgcnn_tpu_torch.config import Config
 
     auto_impl = Config().resolved_block_impl()
     other_impl = {"pallas": "xla", "xla": "pallas"}[auto_impl]
@@ -1548,35 +1789,25 @@ def main() -> int:
     timed = [(t, None) for t in (t_main, 112, t_prot, 624)] + [
         (t, dt.trunk_plan(S, t, DIMS, c=c)) for t in (t_main, t_prot) for c in dt.CLUSTERS]
     for t, plan in timed:
-        adj, mask = shapes[t]
-        hw1, wsel, ws, bs = trunk_inputs(adj, mask, 1, seed=1, device=device)
-        with torch.no_grad():
-            cat = dt.gcn_trunk_plain(DIMS, adj, hw1, mask, wsel, ws, bs)
-        g = torch.randn_like(cat)
-        fwd = lambda: dt._cuda_fwd(DIMS, adj, hw1, mask, wsel, ws, bs, 1, plan)  # noqa: E731
-        bwd = lambda: dt._cuda_bwd(DIMS, adj, mask, wsel, ws, cat, g, 1, plan)  # noqa: E731
-        fits = plan is None or plan.bwd_smem <= dt.SMEM_MAX
-        row = {
-            "fwd": device_ms(fwd), "fwd_flushed": device_ms(fwd, flush),
-            "bwd": device_ms(bwd) if fits else math.nan,
-            "bwd_flushed": device_ms(bwd, flush) if fits else math.nan,
-        }
-        if plan is None:
-            row["fwd_plain"] = device_ms(
-                lambda: dt.gcn_trunk_plain(DIMS, adj, hw1, mask, wsel, ws, bs))
-            row["bwd_plain"] = device_ms(
-                lambda: dt.gcn_trunk_plain_bwd(DIMS, adj, mask, wsel, ws, cat, g))
-        (fb, fby), (bb, bby) = trunk_bounds(S, t, 1)
-        used = plan or dt.trunk_plan(S, t, DIMS)
-        row.update(bound_fwd=fb, bound_fwd_by=fby, bound_bwd=bb, bound_bwd_by=bby,
-                   plan=f"{used.regime}" + (f" C={used.c}" if used.c else ""))
-        trunk_times[(t, None if plan is None else plan.c)] = row
+        row = trunk_times[(t, None if plan is None else plan.c)] = time_trunk(
+            dt, *shapes[t], plan, flush, device)
         plain = (f" plain {row['fwd_plain']:.4f}" if plan is None else "",
                  f" plain {row['bwd_plain']:.4f}" if plan is None else "")
         log(f"  trunk S={S} T={t} {row['plan']}{' (forced)' if plan else ''}: fwd "
             f"kernel {row['fwd']:.4f} ms (flushed {row['fwd_flushed']:.4f}){plain[0]} "
-            f"bound {fb:.4f} ({fby}) | bwd kernel {row['bwd']:.4f} ms (flushed "
-            f"{row['bwd_flushed']:.4f}){plain[1]} bound {bb:.4f} ({bby})")
+            f"bound {row['bound_fwd']:.4f} ({row['bound_fwd_by']}) | bwd kernel "
+            f"{row['bwd']:.4f} ms (flushed {row['bwd_flushed']:.4f}){plain[1]} bound "
+            f"{row['bound_bwd']:.4f} ({row['bound_bwd_by']})")
+    for t, (adj, mask) in lock_shapes.items():
+        row = trunk_times[("lockstep", t)] = time_trunk(dt, adj, mask, None, flush,
+                                                        device, folds=FOLDS)
+        log(f"  trunk lockstep S={SL} K={FOLDS} T={t} {row['plan']}: fwd kernel "
+            f"{row['fwd']:.4f} ms (flushed {row['fwd_flushed']:.4f}) plain "
+            f"{row['fwd_plain']:.4f} bound {row['bound_fwd']:.4f} "
+            f"({row['bound_fwd_by']}) | bwd kernel {row['bwd']:.4f} ms (flushed "
+            f"{row['bwd_flushed']:.4f}) plain {row['bwd_plain']:.4f} bound "
+            f"{row['bound_bwd']:.4f} ({row['bound_bwd_by']}); per fold fwd + bwd "
+            f"{(row['fwd'] + row['bwd']) / FOLDS:.4f} ms")
     for t in (t_main, 112, t_prot, 624):
         row = trunk_times[(t, None)]
         log(f"  trunk T={t}: below the plain chain forward "
@@ -1647,24 +1878,37 @@ def main() -> int:
 
     log("== phase 6: one profiled train step (torch.profiler)")
     from dgcnn_tpu_torch.models.dgcnn import DGCNNNet, init_params
-    from dgcnn_tpu_torch.train.loop import make_optimizer
+    from dgcnn_tpu_torch.train.loop import FoldAdam, lockstep_train_step, make_optimizer, train_step
 
-    net = DGCNNNet(nci1_model, init_params(torch.Generator().manual_seed(0), nci1_model, device))
-    nci1_step = profile_step("NCI1 dense", net, make_optimizer(net),
-                             batch_to_device(nci1_host, device), {})
+    def seq_step(model, batch, **fwd_kw):
+        """One sequential train step of fresh weights on `batch`."""
+        net = DGCNNNet(model, init_params(torch.Generator().manual_seed(0), model, device))
+        opt = make_optimizer(net)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return lambda: train_step(net, opt, batch, gen, **fwd_kw)
+
+    nci1_step = profile_step("NCI1 dense", seq_step(nci1_model,
+                                                    batch_to_device(nci1_host, device)))
+    net_f = folds_net(nci1_model, device, seed=0)
+    adam_f = FoldAdam(net_f)
+    lock_batch = batch_to_device(lock_host, device)
+    real = torch.ones(FOLDS, dtype=torch.bool, device=device)
+    gens = [torch.Generator(device="cuda").manual_seed(f) for f in range(FOLDS)]
+    lock_step = profile_step(
+        f"NCI1 dense lockstep ({FOLDS} folds x {S} slots)",
+        lambda: lockstep_train_step(net_f, adam_f, lock_batch, real, gens), by_op=True)
+    log(f"  lockstep step per fold: wall {lock_step[0] / FOLDS:.3f} ms, device "
+        f"{lock_step[1] / FOLDS:.4f} ms, {lock_step[2] / FOLDS:.1f} launches; the "
+        f"sequential step: wall {nci1_step[0]:.3f} ms, device {nci1_step[1]:.4f} ms, "
+        f"{nci1_step[2]} launches")
     for impl in (auto_impl, other_impl):
-        net = DGCNNNet(dd_model, init_params(torch.Generator().manual_seed(0), dd_model,
-                                             device))
-        profile_step(f"DD block ({impl} = {kernel_of[impl]}, mean batch)", net,
-                     make_optimizer(net), ctx.batch(ctx.mean_row),
-                     {"pool": ctx.pool, "block_impl": impl})
-    net = DGCNNNet(dd_model, init_params(torch.Generator().manual_seed(0), dd_model, device))
-    profile_step(f"DD COO ({spmm_auto}, mean batch)", net, make_optimizer(net),
-                 dd_coo.batch(dd_coo.mean_row), {"spmm_impl": spmm_auto})
-    net = DGCNNNet(dd_model, init_params(torch.Generator().manual_seed(0), dd_model, device))
+        profile_step(f"DD block ({impl} = {kernel_of[impl]}, mean batch)",
+                     seq_step(dd_model, ctx.batch(ctx.mean_row), pool=ctx.pool,
+                              block_impl=impl))
+    profile_step(f"DD COO ({spmm_auto}, mean batch)",
+                 seq_step(dd_model, dd_coo.batch(dd_coo.mean_row), spmm_impl=spmm_auto))
     profile_step("DD COO (pallas, CooEngine mean batch; the slot order's sorts included)",
-                 net, make_optimizer(net), dd_host.batch(dd_host.mean_row),
-                 {"spmm_impl": "pallas"})
+                 seq_step(dd_model, dd_host.batch(dd_host.mean_row), spmm_impl="pallas"))
 
     log("== phase 7: the block-COO cost-split probe "
         "(dgcnn_tpu_torch.tools.probe_kernel_anatomy)")
@@ -1680,22 +1924,22 @@ def main() -> int:
     log("probe: " + json.dumps(probe_result))
 
     log(f"== phase 8: summary ({time.perf_counter() - t_start:.0f} s)")
-    (fb, fby), (bb, bby) = trunk_bounds(S, t_main, 1)
     trunk_src = "dgcnn_tpu_torch/csrc/dense_trunk.cu"
-    tm = trunk_times[(t_main, None)]
+    tl = trunk_times[("lockstep", t_main)]  # the lockstep main path's shape
+    ts = trunk_times[(t_main, None)]  # one fold's batch, as the sequential driver runs
     kernels = [
-        {"name": "gcn_trunk_fwd", "route": "cuda", "source": trunk_src,
-         "replaces": "dgcnn_tpu/kernels/dense_trunk.py:232",
-         "launches": trunk_fwd_n, "max_abs_err": stats["gcn_trunk_fwd"],
-         "ms": tm["fwd"], "ms_l2_flushed": tm["fwd_flushed"],
-         "plain_ms": tm["fwd_plain"], "bound_ms": fb, "bound_by": fby,
-         "library_ms": None, "plan": tm["plan"]},
-        {"name": "gcn_trunk_bwd", "route": "cuda", "source": trunk_src,
-         "replaces": "dgcnn_tpu/kernels/dense_trunk.py:310",
-         "launches": trunk_bwd_n, "max_abs_err": stats["gcn_trunk_bwd"],
-         "ms": tm["bwd"], "ms_l2_flushed": tm["bwd_flushed"],
-         "plain_ms": tm["bwd_plain"], "bound_ms": bb, "bound_by": bby,
-         "library_ms": None, "plan": tm["plan"]},
+        {"name": f"gcn_trunk_{d}", "route": "cuda", "source": trunk_src,
+         "replaces": f"dgcnn_tpu/kernels/dense_trunk.py:{line}",
+         "launches": n, "max_abs_err": stats[f"gcn_trunk_{d}"],
+         "ms": tl[d], "ms_l2_flushed": tl[f"{d}_flushed"],
+         "plain_ms": tl[f"{d}_plain"], "bound_ms": tl[f"bound_{d}"],
+         "bound_by": tl[f"bound_{d}_by"], "library_ms": None, "plan": tl["plan"],
+         "shape": f"lockstep step: S={SL} ({FOLDS} folds x {S} slots), K={FOLDS}, "
+                  f"T={t_main}",
+         "sequential_shape": {"shape": f"S={S}, K=1, T={t_main}", "plan": ts["plan"],
+                              "ms": ts[d], "plain_ms": ts[f"{d}_plain"],
+                              "bound_ms": ts[f"bound_{d}"]}}
+        for d, line, n in (("fwd", 232, trunk_fwd_n), ("bwd", 310, trunk_bwd_n))
     ]
     replaces = {"block_csr": "dgcnn_tpu/kernels/block_pallas.py:152",
                 "block_resident": "dgcnn_tpu/kernels/block_resident.py:130"}
@@ -1768,6 +2012,10 @@ def main() -> int:
     log(f"COO epoch seconds: {coo_epoch_s}")
     log(f"NCI1 dense train step: wall {nci1_step[0]:.3f} ms, device {nci1_step[1]:.3f} "
         f"ms over {nci1_step[2]} kernel launches")
+    log(f"NCI1 dense lockstep train step ({FOLDS} folds): wall {lock_step[0]:.3f} ms, "
+        f"device {lock_step[1]:.3f} ms over {lock_step[2]} kernel launches")
+    log(f"NCI1 lockstep epoch seconds ({FOLDS} folds): {lock_epoch_s}; sequential "
+        f"fold-epoch seconds: {seq_epoch_s}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """DGCNN — the port of dgcnn_tpu/models/dgcnn.py (`DGCNN` :41,
 `init_params` :88, the head :134, `apply_coo` :178, `_dense_trunk` :260,
 `apply_dense` :344, `apply_block` :930, the layout dispatch of `apply`
-:1035):
+:1035; the fold-lockstep forward, `apply` under `jax.vmap` in
+dgcnn_tpu/train/cv_vmap.py:180-203):
 
     4 × [GCNConv → tanh] with dims (F→32→32→32→1), skip-concat (97)
     SortPooling k=30
@@ -15,6 +16,12 @@ functional `apply_dense` / `apply_block` / `apply_coo(params, ...)` work
 on a nested dict of tensors shaped like the reference's pytree;
 `DGCNNNet` is the `nn.Module` that owns those tensors as parameters and
 dispatches on the batch's layout.
+
+Fold-lockstep: `apply_dense_folds` runs F folds' batches, stacked on one
+dense batch's slot axis, through F sets of weights (every leaf with a
+leading fold axis): one trunk-kernel call with K = F weight sets picked
+per slot by `wsel`, then the readout and head as batched products over
+the fold axis. `DGCNNFoldsNet` owns the stacked parameters.
 
 fp32 only: bfloat16 compute is ROADMAP Queue 1 item 10.
 """
@@ -38,9 +45,10 @@ from dgcnn_tpu_torch.kernels.block_resident import make_plan as block_resident_p
 from dgcnn_tpu_torch.kernels.dense_trunk import gcn_trunk
 from dgcnn_tpu_torch.kernels.spmm_block_coo import block_coo_order
 from dgcnn_tpu_torch.ops.gcn import gcn_conv, gcn_degree
-from dgcnn_tpu_torch.ops.readout import conv1d_readout
+from dgcnn_tpu_torch.ops.readout import conv1d_readout, linear
 from dgcnn_tpu_torch.ops.spmm import edge_order
 from dgcnn_tpu_torch.ops.sort_pool import sort_pool, sort_pool_dense
+from dgcnn_tpu_torch.parity.convert import fold_state
 
 Params = Dict[str, Any]
 
@@ -126,6 +134,22 @@ def _map(params: Params, fn) -> Params:
     }
 
 
+def stack_params(per_fold) -> Params:
+    """F folds' parameter dicts → one dict whose leaves carry a leading
+    fold axis [F, ...]."""
+    first = per_fold[0]
+    return {
+        "gcn": [
+            {n: torch.stack([p["gcn"][i][n] for p in per_fold]) for n in ("w", "b")}
+            for i in range(len(first["gcn"]))
+        ],
+        **{
+            name: {n: torch.stack([p[name][n] for p in per_fold]) for n in ("w", "b")}
+            for name in ("conv5", "conv6", "lin1", "lin2")
+        },
+    }
+
+
 def leaves(params: Params):
     """The parameter tensors in the reference pytree's leaf order (sorted
     keys: conv5, conv6, gcn, lin1, lin2; b before w)."""
@@ -161,13 +185,7 @@ class DGCNNNet(nn.Module):
 
     def params(self) -> Params:
         """The parameters as the reference-shaped nested dict."""
-        return {
-            "gcn": [{"w": layer["w"], "b": layer["b"]} for layer in self.gcn],
-            **{
-                name: {"w": getattr(self, name)["w"], "b": getattr(self, name)["b"]}
-                for name in ("conv5", "conv6", "lin1", "lin2")
-            },
-        }
+        return _module_params(self)
 
     def forward(self, batch, *, deterministic: bool = True,
                 dropout_gen: Optional[torch.Generator] = None,
@@ -191,6 +209,73 @@ class DGCNNNet(nn.Module):
         return apply_dense(self.params(), self.model, batch, **kw)
 
 
+def _module_params(mod: nn.Module) -> Params:
+    return {
+        "gcn": [{"w": layer["w"], "b": layer["b"]} for layer in mod.gcn],
+        **{
+            name: {"w": getattr(mod, name)["w"], "b": getattr(mod, name)["b"]}
+            for name in ("conv5", "conv6", "lin1", "lin2")
+        },
+    }
+
+
+class DGCNNFoldsNet(nn.Module):
+    """F folds' models in one module, for fold-lockstep on the dense
+    layout: `DGCNNNet`'s parameters, each with a leading fold axis
+    (state_dict keys as `DGCNNNet`'s, shapes [F, ...]). Every parameter is
+    a view of one flat buffer, `flat`, holding the parameters one after
+    another in `parameters()` order, each a contiguous [F, ...] run, so
+    that the fold-stacked Adam (train/loop.py `FoldAdam`) updates all of
+    them in one pass. Build the module on its device: `.to` would copy
+    the parameters out of `flat`."""
+
+    def __init__(self, model: DGCNN, params_f: Params):
+        super().__init__()
+        self.model = model
+        self.num_folds = int(params_f["gcn"][0]["w"].shape[0])
+
+        def pd(d):
+            return nn.ParameterDict({n: nn.Parameter(t.detach()) for n, t in d.items()})
+
+        self.gcn = nn.ModuleList([pd(layer) for layer in params_f["gcn"]])
+        self.conv5 = pd(params_f["conv5"])
+        self.conv6 = pd(params_f["conv6"])
+        self.lin1 = pd(params_f["lin1"])
+        self.lin2 = pd(params_f["lin2"])
+        params = list(self.parameters())
+        self.flat = torch.cat([p.detach().reshape(-1) for p in params])
+        off = 0
+        for p in params:  # each parameter becomes a view of its run of `flat`
+            p.data = self.flat[off : off + p.numel()].view(p.shape)
+            off += p.numel()
+
+    def params(self) -> Params:
+        """The stacked parameters as the reference-shaped nested dict."""
+        return _module_params(self)
+
+    def fold_state_dict(self, fold: int) -> Dict[str, torch.Tensor]:
+        """Fold `fold` (0-based) as a `DGCNNNet` state dict (copies)."""
+        return fold_state(self.state_dict(), fold)
+
+    def forward(self, batch: DenseGraphBatch, *, deterministic: bool = True,
+                dropout_gens=None, return_activations: bool = False):
+        return apply_dense_folds(self.params(), self.model, batch, self.num_folds,
+                                 deterministic=deterministic,
+                                 dropout_gens=dropout_gens,
+                                 return_activations=return_activations)
+
+
+def _fold_uniform(h: torch.Tensor, gens) -> torch.Tensor:
+    """U[0, 1) noise shaped like h [F, B, D]: fold f's [B, D] drawn from
+    gens[f] (the bits `torch.rand` gives that generator), zeros for a fold
+    whose generator is None (it draws nothing)."""
+    u = torch.zeros_like(h)
+    for f, gen in enumerate(gens):
+        if gen is not None:
+            u[f].uniform_(0.0, 1.0, generator=gen)
+    return u
+
+
 def _pooled_to_log_probs(
     params: Params,
     model: DGCNN,
@@ -199,21 +284,28 @@ def _pooled_to_log_probs(
     dropout_gen: Optional[torch.Generator],
     acts: dict,
 ) -> torch.Tensor:
-    """conv1d readout → MLP head → log_softmax."""
+    """conv1d readout → MLP head → log_softmax. With fold-stacked
+    parameters `pooled` is [F, B, k, C] and `dropout_gen` a list of F
+    generators (None for a fold that draws nothing)."""
     feats = conv1d_readout(
         pooled,
         params["conv5"]["w"], params["conv5"]["b"],
         params["conv6"]["w"], params["conv6"]["b"],
     )
     acts["readout"] = feats
-    h = torch.relu(torch.matmul(feats, params["lin1"]["w"]) + params["lin1"]["b"])
+    h = torch.relu(linear(feats, params["lin1"]["w"], params["lin1"]["b"]))
     if not deterministic:
         if dropout_gen is None:
             raise ValueError("dropout_gen required when deterministic=False")
         keep = 1.0 - model.dropout_rate
-        mask = torch.rand(h.shape, generator=dropout_gen, device=h.device) < keep
+        if isinstance(dropout_gen, torch.Generator):
+            u = torch.rand(h.shape, generator=dropout_gen, device=h.device)
+        else:
+            u = _fold_uniform(h, dropout_gen)
+        mask = u < keep
+        acts["dropout_keep"] = mask
         h = torch.where(mask, h / keep, torch.zeros_like(h))
-    logits = torch.matmul(h, params["lin2"]["w"]) + params["lin2"]["b"]
+    logits = linear(h, params["lin2"]["w"], params["lin2"]["b"])
     log_probs = torch.log_softmax(logits, dim=-1)
     acts["log_probs"] = log_probs
     return log_probs
@@ -223,14 +315,29 @@ def _dense_trunk(params: Params, model: DGCNN, batch: DenseGraphBatch,
                  acts: dict) -> torch.Tensor:
     """GCN stack + SortPooling → pooled [S, k, Σdims]. `x @ W1` is a plain
     matmul; the adjacency-coupled chain runs in `gcn_trunk` (the CUDA
-    kernel on the card, its plain version on the CPU)."""
+    kernel on the card, its plain version on the CPU). Fold-stacked
+    parameters (leaves [F, ...]) take the S slots as F runs of S/F, one
+    per fold: `x @ W1` per fold as one batched product, and one trunk call
+    with K = F weight sets, slot s reading set s // (S/F)."""
     gcn = params["gcn"]
     dims = tuple(model.hidden_dims)
-    hw1 = torch.matmul(batch.x, gcn[0]["w"])
-    wsel = torch.zeros(batch.adj.shape[0], dtype=torch.int32,
-                       device=batch.adj.device)
-    ws = tuple(layer["w"].unsqueeze(0) for layer in gcn[1:])
-    bs = tuple(layer["b"].unsqueeze(0) for layer in gcn)
+    s, dev = batch.adj.shape[0], batch.adj.device
+    if gcn[0]["w"].dim() == 3:
+        f = gcn[0]["w"].shape[0]
+        if s % f:
+            raise ValueError(f"{s} slots do not split into {f} folds")
+        x = batch.x
+        hw1 = torch.matmul(x.reshape(f, -1, x.shape[-1]), gcn[0]["w"]).reshape(
+            s, x.shape[1], -1)
+        wsel = torch.arange(f, dtype=torch.int32, device=dev)[:, None].expand(
+            f, s // f).reshape(-1)
+        ws = tuple(layer["w"] for layer in gcn[1:])
+        bs = tuple(layer["b"] for layer in gcn)
+    else:
+        hw1 = torch.matmul(batch.x, gcn[0]["w"])
+        wsel = torch.zeros(s, dtype=torch.int32, device=dev)
+        ws = tuple(layer["w"].unsqueeze(0) for layer in gcn[1:])
+        bs = tuple(layer["b"].unsqueeze(0) for layer in gcn)
     cat = gcn_trunk(dims, batch.adj, hw1, batch.node_mask, wsel, ws, bs)
     off = 0
     for i, d in enumerate(dims):
@@ -258,6 +365,44 @@ def apply_dense(
     pooled = _dense_trunk(params, model, batch, acts)
     log_probs = _pooled_to_log_probs(
         params, model, pooled, deterministic, dropout_gen, acts
+    )
+    if return_activations:
+        return log_probs, acts
+    return log_probs
+
+
+def apply_dense_folds(
+    params_f: Params,
+    model: DGCNN,
+    batch: DenseGraphBatch,
+    num_folds: int,
+    *,
+    deterministic: bool = True,
+    dropout_gens=None,
+    return_activations: bool = False,
+):
+    """Fold-lockstep forward on the dense layout → log-probabilities
+    [F, slots, C]. `params_f` is the reference-shaped dict with a leading
+    fold axis F = `num_folds` on every leaf; `batch` holds F × slots graph
+    slots, fold f's in slots [f·slots, (f+1)·slots) (`gather_dense_batch`
+    of the flattened [F, slots] index row; a −1 slot is masked). Each
+    fold's graphs meet only that fold's weights: fold f's log-probs are
+    `apply_dense` of fold f's weights on its slots. With dropout on,
+    `dropout_gens[f]` draws fold f's [slots, dense_dim] mask exactly as
+    the sequential driver's generator for that fold does; None for a fold
+    with no real graph in the step (it draws nothing)."""
+    if params_f["gcn"][0]["w"].shape[0] != num_folds:
+        raise ValueError(f"parameters hold {params_f['gcn'][0]['w'].shape[0]} "
+                         f"folds, not {num_folds}")
+    if not deterministic and (dropout_gens is None
+                              or len(dropout_gens) != num_folds):
+        raise ValueError(f"dropout needs {num_folds} generators (None for a "
+                         f"fold that draws nothing)")
+    acts: dict = {}
+    pooled = _dense_trunk(params_f, model, batch, acts)
+    pooled = pooled.reshape(num_folds, -1, *pooled.shape[1:])
+    log_probs = _pooled_to_log_probs(
+        params_f, model, pooled, deterministic, dropout_gens, acts
     )
     if return_activations:
         return log_probs, acts

@@ -8,6 +8,11 @@ Layouts are the reference's: the pooled tensor stays [B, k, C]
 (channels-last), conv5 is one matmul per retained node (w5 [C, c5]),
 conv6 takes 'HIO' weights [w, c5, c6], and the result flattens [B, T, c6]
 TIME-major (torch's own Conv1d would flatten channel-major).
+
+Fold-lockstep (train/cv_vmap.py) runs F folds' batches at once: every
+weight and bias then carries a leading fold axis F, the pooled tensor is
+[F, B, k, C], and each fold's graphs go through that fold's weights
+(`linear`: one batched product per layer over the fold axis).
 """
 
 from __future__ import annotations
@@ -15,31 +20,43 @@ from __future__ import annotations
 import torch
 
 
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x @ w + b for w [in, out], b [out]. With a leading fold axis, w
+    [F, in, out] and b [F, out], x [F, ..., in] goes through its own
+    fold's weights as one batched product."""
+    if w.dim() == 2:
+        return torch.matmul(x, w) + b
+    f = w.shape[0]
+    y = torch.bmm(x.reshape(f, -1, x.shape[-1]), w) + b[:, None, :]
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def conv1d_readout(
-    pooled: torch.Tensor,  # [B, k, C]
-    w5: torch.Tensor,  # [C, c5]
-    b5: torch.Tensor,  # [c5]
-    w6: torch.Tensor,  # [width, c5, c6]  ('HIO')
-    b6: torch.Tensor,  # [c6]
+    pooled: torch.Tensor,  # [B, k, C] (folds: [F, B, k, C])
+    w5: torch.Tensor,  # [C, c5] (folds: [F, C, c5])
+    b5: torch.Tensor,  # [c5] (folds: [F, c5])
+    w6: torch.Tensor,  # [width, c5, c6]  ('HIO'; folds: [F, width, c5, c6])
+    b6: torch.Tensor,  # [c6] (folds: [F, c6])
 ) -> torch.Tensor:
-    """Returns flattened readout features [B, T*c6]."""
-    h = torch.relu(torch.matmul(pooled, w5) + b5)
+    """Returns flattened readout features [B, T*c6] (folds: [F, B, T*c6])."""
+    h = torch.relu(linear(pooled, w5, b5))
 
     # MaxPool1d(2, 2): the windows tile the node axis, so the pool is a
     # reshape + pairwise select. `where(h0 >= h1, h0, h1)` (not max)
     # routes a tie's gradient to the FIRST element, torch max_pool1d's and
     # the reference's convention; degree-only datasets tie constantly.
-    t2 = (h.shape[1] // 2) * 2
-    hp = h[:, :t2].reshape(h.shape[0], t2 // 2, 2, h.shape[2])
-    h0, h1 = hp[:, :, 0], hp[:, :, 1]
+    t2 = (h.shape[-2] // 2) * 2
+    hp = h[..., :t2, :].reshape(*h.shape[:-2], t2 // 2, 2, h.shape[-1])
+    h0, h1 = hp[..., 0, :], hp[..., 1, :]
     h = torch.where(h0 >= h1, h0, h1)
 
     # conv6, channels-last, as windows × weights: one matmul over
     # [B, T, w·c5] — no cuDNN (whose conv runs TF32 by default and whose
     # weight-gradient algorithms need not be deterministic)
-    width = w6.shape[0]
-    t_out = h.shape[1] - width + 1
-    win = torch.stack([h[:, j : j + t_out] for j in range(width)], dim=2)
-    win = win.reshape(h.shape[0], t_out, width * h.shape[2])  # [B, T, w·c5]
-    out = torch.relu(torch.matmul(win, w6.reshape(-1, w6.shape[2])) + b6)
-    return out.reshape(out.shape[0], -1)
+    width = w6.shape[-3]
+    t_out = h.shape[-2] - width + 1
+    win = torch.stack([h[..., j : j + t_out, :] for j in range(width)], dim=-2)
+    win = win.reshape(*h.shape[:-2], t_out, width * h.shape[-1])  # [B, T, w·c5]
+    w6m = w6.reshape(*w6.shape[:-3], -1, w6.shape[-1])
+    out = torch.relu(linear(win, w6m, b6))
+    return out.reshape(*out.shape[:-2], -1)

@@ -7,6 +7,12 @@ readout flattened time-major), so the transfer is a copy: numpy leaves in,
 tensors out, and back. The nested tree is the reference's
 {"gcn": [{"w", "b"}, ...], "conv5": {"w", "b"}, "conv6", "lin1", "lin2"};
 the port's state keys are `gcn.<i>.w`, `gcn.<i>.b`, `conv5.w`, ….
+
+Fold-stacked trees carry over the same way: the reference's lockstep
+state (dgcnn_tpu/train/cv_vmap.py:632 `_init_all`, every leaf with a
+leading fold axis) goes through `params_from_jax` into the state of a
+`DGCNNFoldsNet`, and `fold_state` slices one fold back out as a
+`DGCNNNet` state.
 """
 
 from __future__ import annotations
@@ -61,3 +67,9 @@ def state_to_params(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         ],
         **{name: {"w": state[f"{name}.w"], "b": state[f"{name}.b"]} for name in _HEADS},
     }
+
+
+def fold_state(state: Dict[str, torch.Tensor], fold: int) -> Dict[str, torch.Tensor]:
+    """Fold `fold` (0-based) of a fold-stacked port state dict (leaves
+    [F, ...]) → a `DGCNNNet` state dict (copies)."""
+    return {k: v[fold].detach().clone() for k, v in state.items()}

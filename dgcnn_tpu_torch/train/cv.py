@@ -2,7 +2,7 @@
 (`choose_layout` :141, `CooEngine` :249, `DeviceCooEngine` :339,
 `_geom_round` :373, `BlockSparseEngine` :434, `DenseEngine` :521, the
 engine choice of `make_engine` :1067, `run_fold` :1130,
-`run_cross_validation` :1301).
+`run_cross_validation` :1301, with its lockstep dispatch :1355-1400).
 
 Protocol: for each fold, fresh weights and a fresh Adam, the fold's
 training graphs shuffled each epoch on numpy's
@@ -11,11 +11,14 @@ both packages see the same batches), train then evaluate every epoch,
 and write the per-fold CSV, the `epochs/` bundle, the overall CSV and the
 event log under the reference's file names.
 
-The port serves the dense, block-sparse and COO layouts with folds run
-one after another. `choose_layout` answers as the reference does; the
-multi-tile and halo layouts, fold-lockstep, meshes, bf16, resume and the
-other options not ported yet raise NotImplementedError naming the ROADMAP
-item that ports them (`check_supported`).
+The port serves the dense, block-sparse and COO layouts. On the dense
+layout the folds train in lockstep (train/cv_vmap.py) when the reference
+would lockstep them (`cv_parallel="folds"`, or "auto" and
+`_lockstep_would_engage`); otherwise, and on the other layouts, one after
+another. `choose_layout` answers as the reference does; the multi-tile
+and halo layouts, block lockstep, meshes, bf16, resume and the other
+options not ported yet raise NotImplementedError naming the ROADMAP item
+that ports them (`check_supported`, `check_lockstep_layout`).
 
 Randomness: weights come from a CPU `torch.Generator` and dropout from a
 generator on the run's device, each seeded from
@@ -99,8 +102,6 @@ def check_supported(cfg: Config) -> None:
     unserved = []
     if cfg.compute_dtype != "float32" or cfg.adj_dtype == "bfloat16":
         unserved.append("bfloat16 compute or adjacency (ROADMAP Queue 1 item 10)")
-    if cfg.cv_parallel == "folds":
-        unserved.append("cv_parallel='folds', fold-lockstep (ROADMAP Queue 1 item 5)")
     if tuple(cfg.mesh_shape) != (1, 1):
         unserved.append("a device mesh (ROADMAP Queue 1 item 12)")
     if cfg.checkpoint_resume or cfg.checkpoint_every:
@@ -113,6 +114,30 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(unserved)
         )
+
+
+# the layouts the reference locksteps and the port does not yet, and the
+# ROADMAP item that ports each
+UNPORTED_LOCKSTEP = {
+    "block": "block fold-lockstep is not ported yet (ROADMAP Queue 1 item 9)",
+    "multi": "the multi-tile layout and its fold-lockstep are not ported yet "
+             "(ROADMAP Queue 1 item 7)",
+}
+
+
+def check_lockstep_layout(layout: str) -> None:
+    """Fold-lockstep on a layout other than dense: NotImplementedError
+    naming the ROADMAP item for block and multi (the reference locksteps
+    them), the reference's ValueError for the layouts lockstep never runs
+    on (coo, halo)."""
+    if layout in UNPORTED_LOCKSTEP:
+        raise NotImplementedError(
+            f"cv_parallel='folds': {UNPORTED_LOCKSTEP[layout]}")
+    if layout != "dense":
+        raise ValueError(
+            f"cv_parallel='folds' is incompatible with: layout={layout!r} "
+            f"(lockstep runs on the dense, block-sparse or multi-tile layout; "
+            f"this dataset resolved to {layout!r})")
 
 
 _LAYOUT_ITEM = {
@@ -163,8 +188,9 @@ def fold_shard_devices(mesh_shape, num_folds: int):
 
 
 def _lockstep_would_engage(cfg: Config, dataset: GraphSet, n_tile: int) -> bool:
-    """Whether the reference would train this dataset's folds in lockstep
-    on the dense layout (its stacked step under the byte budget)."""
+    """Whether this dataset's folds train in lockstep on the dense layout:
+    the reference's gate, semantics copied (its stacked step under the
+    byte budget; `cv_parallel="folds"` always, "sequential" never)."""
     if cfg.cv_parallel == "folds":
         return True
     if cfg.cv_parallel != "auto":
@@ -534,19 +560,18 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         cfg, dataset.num_features, dataset.num_classes, dataset.node_counts()
     )
     layout = choose_layout(cfg, dataset)
+    if cfg.cv_parallel == "folds":
+        check_lockstep_layout(layout)
     if layout not in PORTED_LAYOUTS:
         raise NotImplementedError(
             f"the {layout!r} layout (chosen for {cfg.data_type}) is not ported "
             f"yet ({_LAYOUT_ITEM[layout]}); the port runs the dense, block "
             f"and coo layouts"
         )
-    if layout == "dense" and _lockstep_would_engage(cfg, dataset,
-                                                     dense_tile(dataset)):
-        print("fold-lockstep is not ported yet (ROADMAP Queue 1 item 5): "
-              "folds run sequentially")
+    use_lockstep = layout == "dense" and _lockstep_would_engage(
+        cfg, dataset, dense_tile(dataset))
     if layout == "block" and _batched_lockstep_would_engage(cfg):
-        print("block fold-lockstep is not ported yet (ROADMAP Queue 1 item 9): "
-              "folds run sequentially")
+        print(f"{UNPORTED_LOCKSTEP['block']}: folds run sequentially")
 
     fold_dir = cfg.fold_index_dir or os.path.join(
         cfg.data_root, cfg.data_type, "10fold_idx"
@@ -569,6 +594,12 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         num_params=num_params(init_params(torch.Generator().manual_seed(0), model)),
         device=str(device),
     )
+    if use_lockstep:
+        from dgcnn_tpu_torch.train.cv_vmap import run_cv_folds_lockstep
+
+        train_accs, test_accs = run_cv_folds_lockstep(
+            cfg, dataset, model, folds, events, device)
+        return _finalize_cv(cfg, events, train_accs, test_accs)
     engine = make_engine(cfg, dataset, device, layout)
 
     train_accs, test_accs = [], []

@@ -1,0 +1,148 @@
+"""Fold-lockstep cross-validation on the dense layout — the port of
+dgcnn_tpu/train/cv_vmap.py (`_stacked_orders` :348 and the dense branch of
+`run_cv_folds_vmap`: :368-447, :598-620, :632-645, :714-790).
+
+All K folds train at once. Each step stacks the folds' batches on one
+dense batch's slot axis (F × slots slots, fold f's in the f-th run of
+`slots`), and the forward runs the trunk kernel once over all of them
+with K = F weight sets (`apply_dense_folds`). The per-fold protocol is
+the sequential driver's (train/cv.py `run_fold`):
+
+  * fold f keeps the sequential driver's streams: the shuffle
+    `default_rng(SeedSequence([seed, f]))`, init from `_stream_seed(seed,
+    f, 1)`, dropout from `_stream_seed(seed, f, 2)`; its dropout masks are
+    the sequential driver's bits;
+  * a fold with fewer train or test batches than the longest fold sees
+    all-(−1) rows on the steps past its own: it draws no dropout, takes
+    no Adam step and adds nothing to its epoch row, so it performs
+    exactly its own updates;
+  * per-fold rows equal the sequential driver's within float tolerance
+    (batched products sum in another order; tests/test_torch_lockstep.py).
+
+Artifacts are the sequential driver's (per-fold CSVs, `epochs/` bundles
+in its format, the event log); the CSVs and bundles are written at run
+end, and the `epoch` events come epoch by epoch, fold by fold, each with
+`folds_in_lockstep` and the lockstep epoch's seconds.
+
+Not ported here: the block and multi-tile branches (ROADMAP Queue 1 items
+9 and 7), fold sharding over a mesh (item 12) and the in-flight lockstep
+checkpoint (item 11); `train/cv.py` refuses those settings before this
+module runs.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from dgcnn_tpu_torch.batching.dense import (
+    build_dense_dataset,
+    dense_tile,
+    gather_dense_batch,
+    order_matrix,
+)
+from dgcnn_tpu_torch.config import Config
+from dgcnn_tpu_torch.data.graphset import GraphSet
+from dgcnn_tpu_torch.models.dgcnn import DGCNN, DGCNNFoldsNet, init_params, stack_params
+from dgcnn_tpu_torch.train.cv import _stream_seed, fp32_only
+from dgcnn_tpu_torch.train.loop import FoldAdam, run_lockstep_epoch
+from dgcnn_tpu_torch.train.metrics import EventLog, FoldMetrics
+from dgcnn_tpu_torch.utils.checkpoint import save_checkpoint
+
+def stacked_orders(idx_f: List[np.ndarray], batch_size: int, slots: int,
+                   steps: int) -> np.ndarray:
+    """[steps, F, slots]: each fold's order matrix of `idx_f[f]` (in that
+    order), −1-row padded up to the lockstep step count."""
+    mats = []
+    for idx in idx_f:
+        m = order_matrix(idx, batch_size, slots)
+        if len(m) < steps:
+            m = np.concatenate([m, np.full((steps - len(m), slots), -1, np.int32)])
+        mats.append(m)
+    return np.stack(mats, axis=1)
+
+
+def run_cv_folds_lockstep(cfg: Config, dataset: GraphSet, model: DGCNN,
+                          folds: List[Tuple[np.ndarray, np.ndarray]],
+                          events: EventLog, device: torch.device
+                          ) -> Tuple[List[float], List[float]]:
+    """Run the whole K-fold experiment in fold-lockstep on the dense
+    layout. Returns (train_accs, test_accs) and writes the sequential
+    driver's artifact set."""
+    fp32_only()  # the trunk's per-weight-set gradient sum is an fp32 product
+    num_folds = len(folds)
+    slots = -(-cfg.batch_size // cfg.graph_pad_multiple) * cfg.graph_pad_multiple
+    data = build_dense_dataset(dataset, dense_tile(dataset), device)
+
+    train_idx_f = [np.asarray(tr, np.int32) for tr, _ in folds]
+    test_idx_f = [np.asarray(te, np.int32) for _, te in folds]
+    n_train_f = [len(t) for t in train_idx_f]
+    n_test_f = [len(t) for t in test_idx_f]
+    steps_max = max(-(-n // cfg.batch_size) for n in n_train_f)
+    t_steps_max = max(-(-n // cfg.batch_size) for n in n_test_f)
+    test_order = stacked_orders(test_idx_f, cfg.batch_size, slots, t_steps_max)
+
+    fold_ids = range(1, num_folds + 1)
+    shuffles = [np.random.default_rng(np.random.SeedSequence([cfg.seed, f]))
+                for f in fold_ids]
+    net_f = DGCNNFoldsNet(model, stack_params([
+        init_params(torch.Generator().manual_seed(_stream_seed(cfg.seed, f, 1)),
+                    model, device) for f in fold_ids]))
+    adam_f = FoldAdam(net_f, cfg.learning_rate, cfg.adam_b1, cfg.adam_b2,
+                      cfg.adam_eps)
+    dropout_gens = [torch.Generator(device=device).manual_seed(
+        _stream_seed(cfg.seed, f, 2)) for f in fold_ids]
+
+    edge_counts = dataset.edge_counts()
+    train_edges = int(sum(edge_counts[idx].sum() for idx in train_idx_f))
+    metrics_f = [FoldMetrics() for _ in fold_ids]
+    batch_fn = lambda row: gather_dense_batch(data, row)  # noqa: E731
+    for epoch in range(1, cfg.num_epochs + 1):
+        order = stacked_orders(
+            [idx[rng.permutation(len(idx))] for idx, rng in zip(train_idx_f, shuffles)],
+            cfg.batch_size, slots, steps_max)
+        t0 = time.perf_counter()
+        rows = run_lockstep_epoch(net_f, adam_f, batch_fn, order, test_order,
+                                  dropout_gens)
+        dt = time.perf_counter() - t0
+        for f in range(num_folds):
+            tr_loss, te_loss, tr_correct, te_correct = rows[f]
+            train_acc = tr_correct / n_train_f[f] * 100.0
+            test_acc = te_correct / n_test_f[f] * 100.0
+            metrics_f[f].append(tr_loss, te_loss, train_acc, test_acc)
+            events.write(
+                kind="epoch",
+                fold=f + 1,
+                epoch=epoch,
+                train_loss=float(tr_loss),
+                test_loss=float(te_loss),
+                train_accuracy=float(train_acc),
+                test_accuracy=float(test_acc),
+                # one lockstep epoch covers every fold's epoch
+                epoch_seconds=dt,
+                edges_per_second=train_edges / dt if dt > 0 else 0.0,
+                chunk_epochs=1,
+                folds_in_lockstep=num_folds,
+            )
+        if cfg.log_every and epoch % cfg.log_every == 0:
+            accs = " ".join(f"{rows[f, 3] / n_test_f[f] * 100.0:.1f}"
+                            for f in range(num_folds))
+            print(f"[all folds] epoch {epoch}: test% [{accs}] ({dt:.2f}s)")
+
+    train_accs, test_accs = [], []
+    for f in range(num_folds):
+        save_checkpoint(
+            os.path.join(cfg.epochs_dir, f"{cfg.data_type}_{f + 1}"),
+            {"params": net_f.fold_state_dict(f), "opt_state": adam_f.fold_state(f)},
+        )
+        metrics_f[f].to_csv(os.path.join(
+            cfg.statistics_dir, f"{cfg.data_type}_results_{f + 1}.csv"))
+        train_accs.append(metrics_f[f].last("train_accuracy"))
+        test_accs.append(metrics_f[f].last("test_accuracy"))
+        print(f"[{f + 1}] Train Acc: {train_accs[-1]:.2f}% "
+              f"Test Acc: {test_accs[-1]:.2f}%")
+    return train_accs, test_accs

@@ -123,7 +123,8 @@ def test_cv_run_writes_reference_artifacts(tmp_path):
 
 @pytest.mark.parametrize("kw", [
     {"compute_dtype": "bfloat16"}, {"adj_dtype": "bfloat16"},
-    {"cv_parallel": "folds"}, {"mesh_shape": (2, 1)},
+    # dense lockstep is served; block lockstep is not (ROADMAP item 9)
+    {"cv_parallel": "folds", "layout": "block"}, {"mesh_shape": (2, 1)},
     {"checkpoint_resume": True}, {"checkpoint_every": 5},
     {"tensorboard_dir": "tb"}, {"opt_flatten": True},
     {"layout": "multi"},
