@@ -61,16 +61,27 @@ CUDA is absent or any phase fails. Phases:
         256 positions both ways, and on the same stream with no real edge;
   4. the main paths, each with its launch counts set to 0 just before
      and read just after:
-     a. the CLI trains synthetic NCI1 (`--layout auto` → dense, batch 50,
-        `cv_parallel` auto → fold-lockstep) for 10 folds × 2 epochs: every
-        epoch event says `folds_in_lockstep` 10, trunk launches exactly
-        2 × (train + eval lockstep steps) forward and 2 × train steps
-        backward, all resident; then the sequential driver trains the same
-        10 folds for 1 epoch on the card and every fold's row agrees with
-        lockstep's epoch 1 within rtol/atol 5e-4; each fold's dropout mask
-        in a lockstep forward is bitwise the sequential one; one lockstep
-        batch (10 folds stacked) and one NCI1 batch on the card against
-        the CPU;
+     a. `run_cross_validation` trains synthetic NCI1 (layout auto →
+        dense, batch 50, `cv_parallel` auto → fold-lockstep) for 10 folds
+        × 4 epochs with `max_fused_epochs` 2, through the fused runner
+        (epoch 1 eager, the warm-up; epochs 2-4 CUDA-graph replays): every
+        epoch event says `folds_in_lockstep` 10 and `chunk_epochs` 2,
+        trunk launches exactly 4 × (train + eval lockstep steps) forward
+        and 4 × train steps backward, counted per replay, all resident;
+        then the same run with every epoch eager (`graphs=False`), every
+        fold's row of every epoch bitwise equal; the sequential driver on
+        the same folds, 10 × 2 (`max_fused_epochs` 1), graphed and eager,
+        rows bitwise equal and epoch 1 within rtol/atol 5e-4 of
+        lockstep's; synthetic PROTEINS lockstep (T=176, resident C=2),
+        10 × 2, graphed and eager, rows bitwise equal; the fused runners
+        built directly (lockstep, and fold 1 alone): one eager epoch of
+        each body under `torch.cuda.set_sync_debug_mode("error")`, then 3
+        epochs graphed against 3 eager from the same seeds — rows,
+        parameters, optimizer state and dropout generators' states
+        bitwise equal — and the peak memory of each; each fold's dropout
+        mask in a lockstep forward is bitwise the sequential one; one
+        lockstep batch (10 folds stacked) and one NCI1 batch on the card
+        against the CPU;
      b. the CLI trains synthetic DD with `--layout auto` (→ block, the
         kernel `block_impl` auto names) for 2 folds × 2 epochs, then
         1 fold × 1 epoch with the other `--block_impl` (CSR kernel =
@@ -110,16 +121,21 @@ CUDA is absent or any phase fails. Phases:
      step's SpMMs on each (the measure `spmm_impl` auto is chosen by); the
      block-COO kernel, its earlier A-build design
      and its slot order's build also at every other batch of phase 3c;
-  6. one `torch.profiler` table of a single train step for NCI1 dense
-     (one fold, and the lockstep step of all ten), DD block through each
-     `--block_impl`, DD COO and DD COO `--spmm pallas` (top 10 CUDA
-     kernels) and each step's wall time and launches;
+  6. one `torch.profiler` table of a single eager train step for NCI1
+     dense (one fold, and the lockstep step of all ten), DD block through
+     each `--block_impl`, DD COO and DD COO `--spmm pallas` (top 10 CUDA
+     kernels) and each step's wall time and launches; the same for one
+     epoch of the NCI1 lockstep runner's graph and of fold 1's one-fold
+     graph (a replay), with the replay's span between CUDA events, the
+     per-step wall and device time, the device's idle share, the capture
+     seconds and the peak memory;
   7. the block-COO cost-split probe (dgcnn_tpu_torch/tools/
      probe_kernel_anatomy.py) at its standard shape, its long-row variant
      and DD's `CooEngine` mean batch, its launch count set to 0 after its checks and read
      after its timing; its JSON line;
   8. one JSON line describing every kernel (the trunk at the lockstep
-     step's shape with the lockstep main path's launches, its one-fold
+     step's shape with the lockstep main path's launches, replays
+     counted, its one-fold
      shape beside it; the block and SpMM kernels once per width, F=32 and
      `_f1`, with the main path's launches of that width), the card line
      again, and the final `{"ok": true, ...}` line.
@@ -1414,90 +1430,287 @@ def check_lockstep_dropout(model, parts, device):
         f"generators in the same state")
 
 
-def lockstep_main_path(nci1, t_main, dt):
-    """Phase 4a: the CLI trains synthetic NCI1 (layout auto → dense,
-    cv_parallel auto → lockstep) for FOLDS folds x 2 epochs, trunk launches
-    counted exactly per lockstep step, all resident; then the sequential
-    driver runs the same folds for 1 epoch, every fold's row within
-    rtol/atol 5e-4 of lockstep's epoch 1."""
+def cv_config(tmp, sub, data_type, folds_n, epochs, **kw):
+    """A run of `folds_n` folds x `epochs` epochs at batch 50, its
+    artifacts under tmp/sub."""
     from dgcnn_tpu_torch.config import Config
+
+    return Config(data_type=data_type, num_folds=folds_n, num_epochs=epochs,
+                  batch_size=50, data_root=os.path.join(tmp, "data"),
+                  statistics_dir=os.path.join(tmp, sub, "statistics"),
+                  epochs_dir=os.path.join(tmp, sub, "epochs"), **kw)
+
+
+def run_cv(cfg, graphs):
+    """`run_cross_validation` on the card (`graphs=False`: every epoch
+    eager); (result, wall seconds)."""
     from dgcnn_tpu_torch.train.cv import run_cross_validation
 
+    t0 = time.perf_counter()
+    result = run_cross_validation(cfg, allow_synthetic=True, graphs=graphs)
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
+def fold_rows(cfg):
+    """Every fold's CSV rows [epochs, 5] as the run wrote them."""
+    return [np.loadtxt(os.path.join(cfg.statistics_dir,
+                                    f"{cfg.data_type}_results_{f}.csv"),
+                       delimiter=",", skiprows=1, ndmin=2)
+            for f in range(1, cfg.num_folds + 1)]
+
+
+def epoch_events(cfg):
+    with open(os.path.join(cfg.statistics_dir, f"{cfg.data_type}_events.jsonl")) as fh:
+        return [e for e in map(json.loads, fh) if e["kind"] == "epoch"]
+
+
+def same_bits(name, got, want):
+    """Raise unless every array of `got` is bitwise `want`'s."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape or not np.array_equal(a, b):
+            diff = np.abs(a - b).max() if a.shape == b.shape else "shape"
+            raise AssertionError(f"{name}: item {i} differs (max abs {diff})")
+
+
+def counted_run(cfg, graphs, dt, want):
+    """`run_cv` with the trunk's counts set to 0 just before and read just
+    after; raises unless they are `want` (fwd, bwd), all resident.
+    Returns (result, wall seconds, (fwd, bwd))."""
+    dt.launches.reset()
+    result, wall = run_cv(cfg, graphs)
+    got = (dt.launches.fwd_launches, dt.launches.bwd_launches)
+    by_regime = (dt.launches.resident_fwd, dt.launches.resident_bwd,
+                 dt.launches.streamed_fwd, dt.launches.streamed_bwd)
+    log(f"  {cfg.data_type} {cfg.cv_parallel} {cfg.num_folds} x {cfg.num_epochs}, "
+        f"max_fused_epochs {cfg.max_fused_epochs}, {'graphed' if graphs else 'eager'}: "
+        f"{wall:.1f} s; trunk calls {got} (want {want}), by regime (resident fwd, "
+        f"bwd, streamed fwd, bwd) {by_regime}")
+    if got != want or by_regime != (*want, 0, 0):
+        raise AssertionError(f"trunk launches {got} {by_regime}, expected {want} "
+                             f"all resident")
+    return result, wall, got
+
+
+def graphed_vs_eager(tmp, label, data_type, folds_n, epochs, dt, want, **kw):
+    """One run graphed (launches counted) and one eager, each fold's rows
+    bitwise equal; returns (graphed cfg, trunk launches, graphed and
+    eager epoch events)."""
+    cfg = cv_config(tmp, label, data_type, folds_n, epochs, **kw)
+    eager = cv_config(tmp, label + "_eager", data_type, folds_n, epochs, **kw)
+    _, _, launches = counted_run(cfg, True, dt, want)
+    run_cv(eager, False)
+    same_bits(f"{label}: graphed vs eager rows", fold_rows(cfg), fold_rows(eager))
+    log(f"  {label}: every fold's rows of every epoch bitwise equal, graphed and eager")
+    return cfg, launches, epoch_events(cfg), epoch_events(eager)
+
+
+def chunk_seconds(events, per):
+    """Each epoch's `epoch_seconds` (the first fold's event) over `per`."""
+    first = min(e["fold"] for e in events)
+    return [e["epoch_seconds"] / per for e in events if e["fold"] == first]
+
+
+def lockstep_main_path(nci1, t_main, dt):
+    """Phase 4a: synthetic NCI1 (layout auto → dense, cv_parallel auto →
+    lockstep) for FOLDS folds x 4 epochs in chunks of max_fused_epochs 2,
+    graphed (trunk launches counted exactly per replay, all resident,
+    every event `chunk_epochs` 2) and eager, rows bitwise equal; the
+    sequential driver on the same folds, 10 x 2 graphed and eager, rows
+    bitwise equal and epoch 1 within rtol/atol 5e-4 of lockstep's;
+    synthetic PROTEINS lockstep (T=176, C=2), 10 x 2, graphed and eager."""
     with tempfile.TemporaryDirectory() as tmp:
-        dt.launches.reset()
-        result, wall = run_cli("NCI1", [], FOLDS, 2, tmp)
-        trunk_fwd_n, trunk_bwd_n = dt.launches.fwd_launches, dt.launches.bwd_launches
-        by_regime = (dt.launches.resident_fwd, dt.launches.resident_bwd,
-                     dt.launches.streamed_fwd, dt.launches.streamed_bwd)
         data_dir = os.path.join(tmp, "data", "NCI1", "10fold_idx")
         steps_max, t_steps_max = lockstep_steps("NCI1", nci1.y, FOLDS, 50, data_dir)
-        tr_n, ev_n = count_steps("NCI1", nci1.y, FOLDS, 2, 50, data_dir)
-        log(f"main path: {wall:.1f} s; lockstep steps a epoch: train {steps_max}, "
-            f"eval {t_steps_max} (the folds' own: {tr_n} train, {ev_n} eval over "
-            f"2 epochs); trunk launches fwd {trunk_fwd_n} bwd {trunk_bwd_n}")
-        if (trunk_fwd_n != 2 * (steps_max + t_steps_max)
-                or trunk_bwd_n != 2 * steps_max):
-            raise AssertionError("trunk launch counts do not match the lockstep "
-                                 "steps run")
-        log(f"  trunk calls by regime (resident fwd, bwd, streamed fwd, bwd): "
-            f"{by_regime}; plan at S={SL} T={t_main}: "
-            f"{dt.trunk_plan(SL, t_main, DIMS)}")
-        if by_regime != (trunk_fwd_n, trunk_bwd_n, 0, 0):
-            raise AssertionError("a main-path trunk call did not run resident")
-        events = check_artifacts(tmp, "NCI1", FOLDS, 2)
-        start, epochs = events[0], [e for e in events if e["kind"] == "epoch"]
-        if start["kind"] != "run_start" or start["layout"] != "dense":
-            raise AssertionError(f"run_start says {start}")
+        log(f"NCI1 lockstep steps an epoch: train {steps_max}, eval {t_steps_max}; "
+            f"plan at S={SL} T={t_main}: {dt.trunk_plan(SL, t_main, DIMS)}")
+        cfg, trunk_n, ev, ev_eager = graphed_vs_eager(
+            tmp, "lockstep", "NCI1", FOLDS, 4, dt,
+            (4 * (steps_max + t_steps_max), 4 * steps_max), max_fused_epochs=2)
+        result = {"train_accuracies": [r[-1, 3] for r in fold_rows(cfg)],
+                  "test_accuracies": [r[-1, 4] for r in fold_rows(cfg)]}
+        events = check_artifacts(os.path.join(tmp, "lockstep"), "NCI1", FOLDS, 4)
+        epochs = [e for e in events if e["kind"] == "epoch"]
+        if events[0]["kind"] != "run_start" or events[0]["layout"] != "dense":
+            raise AssertionError(f"run_start says {events[0]}")
         if [(e["epoch"], e["fold"]) for e in epochs] != [
-                (ep, f) for ep in (1, 2) for f in range(1, FOLDS + 1)] or any(
-                e.get("folds_in_lockstep") != FOLDS for e in epochs):
-            raise AssertionError("the epoch events are not a lockstep run's")
-        lock_epoch_s = [e["epoch_seconds"] for e in epochs[::FOLDS]]
-        log(f"  every epoch event says folds_in_lockstep {FOLDS}; lockstep epoch "
-            f"seconds {lock_epoch_s}")
+                (ep, f) for ep in (1, 2, 3, 4) for f in range(1, FOLDS + 1)] or any(
+                e.get("folds_in_lockstep") != FOLDS or e["chunk_epochs"] != 2
+                for e in epochs):
+            raise AssertionError("the epoch events are not a chunked lockstep run's")
+        lock_s, lock_eager_s = chunk_seconds(ev, FOLDS), chunk_seconds(ev_eager, FOLDS)
+        log(f"  every epoch event: folds_in_lockstep {FOLDS}, chunk_epochs 2; "
+            f"fold-epoch seconds (epoch seconds / {FOLDS}) graphed {lock_s} (chunk 1 "
+            f"holds the warm-up and the capture) vs eager {lock_eager_s}")
         log(f"accuracies: train {result['train_accuracies']} "
             f"test {result['test_accuracies']}")
 
-        seq_cfg = Config(
-            data_type="NCI1", cv_parallel="sequential", num_folds=FOLDS,
-            num_epochs=1, batch_size=50, data_root=os.path.join(tmp, "data"),
-            statistics_dir=os.path.join(tmp, "seq", "statistics"),
-            epochs_dir=os.path.join(tmp, "seq", "epochs"))
-        t0 = time.perf_counter()
-        run_cross_validation(seq_cfg, allow_synthetic=True)
-        torch.cuda.synchronize()
-        seq_wall = time.perf_counter() - t0
+        tr_n, ev_n = count_steps("NCI1", nci1.y, FOLDS, 2, 50, data_dir)
+        seq, seq_n, seq_ev, seq_eager_ev = graphed_vs_eager(
+            tmp, "sequential", "NCI1", FOLDS, 2, dt, (tr_n + ev_n, tr_n),
+            cv_parallel="sequential", max_fused_epochs=1)
         worst = 0.0
-        for f in range(1, FOLDS + 1):
-            name = f"NCI1_results_{f}.csv"
-            lock = np.loadtxt(os.path.join(tmp, "statistics", name), delimiter=",",
-                              skiprows=1, ndmin=2)[0]
-            seq = np.loadtxt(os.path.join(tmp, "seq", "statistics", name),
-                             delimiter=",", skiprows=1, ndmin=2)[0]
-            if not np.allclose(lock, seq, rtol=5e-4, atol=5e-4):
-                raise AssertionError(f"fold {f}: lockstep epoch 1 {lock} vs "
-                                     f"sequential {seq}")
-            worst = max(worst, float(np.abs(lock - seq).max()))
-        with open(os.path.join(tmp, "seq", "statistics", "NCI1_events.jsonl")) as fh:
-            seq_epoch_s = [e["epoch_seconds"] for e in map(json.loads, fh)
-                           if e["kind"] == "epoch"]
-        log(f"  sequential driver ({seq_wall:.1f} s): every fold's epoch-1 row within "
-            f"rtol/atol 5e-4 of lockstep's (worst abs {worst:.3e}); fold-epoch "
-            f"seconds: sequential median {np.median(seq_epoch_s):.4f}, lockstep "
-            f"epoch 2 / {FOLDS} = {lock_epoch_s[-1] / FOLDS:.4f}")
+        for f, (lock, one) in enumerate(zip(fold_rows(cfg), fold_rows(seq)), start=1):
+            if not np.allclose(lock[0], one[0], rtol=5e-4, atol=5e-4):
+                raise AssertionError(f"fold {f}: lockstep epoch 1 {lock[0]} vs "
+                                     f"sequential {one[0]}")
+            worst = max(worst, float(np.abs(lock[0] - one[0]).max()))
+        seq_s = [e["epoch_seconds"] for e in seq_ev]
+        seq_eager_s = [e["epoch_seconds"] for e in seq_eager_ev]
+        log(f"  sequential: every fold's epoch-1 row within rtol/atol 5e-4 of "
+            f"lockstep's (worst abs {worst:.3e}); fold-epoch seconds, epoch 2 (a "
+            f"replay) median graphed {np.median(seq_s[1::2]):.4f} vs eager "
+            f"{np.median(seq_eager_s[1::2]):.4f}; epoch 1 (warm-up + capture) "
+            f"median {np.median(seq_s[::2]):.4f}")
 
-    return {"trunk_launches": (trunk_fwd_n, trunk_bwd_n),
-            "lockstep_epoch_s": lock_epoch_s, "sequential_epoch_s": seq_epoch_s}
+        from dgcnn_tpu_torch.data.synthetic import synthesize_tu_dataset
+
+        proteins = synthesize_tu_dataset("PROTEINS")
+        p_steps, p_t_steps = lockstep_steps(
+            "PROTEINS", proteins.y, FOLDS, 50,
+            os.path.join(tmp, "data", "PROTEINS", "10fold_idx"))
+        _, _, p_ev, p_eager_ev = graphed_vs_eager(
+            tmp, "proteins", "PROTEINS", FOLDS, 2, dt,
+            (2 * (p_steps + p_t_steps), 2 * p_steps), max_fused_epochs=1)
+        log(f"  PROTEINS lockstep (T=176, resident C=2 inside the graph): fold-epoch "
+            f"seconds graphed {chunk_seconds(p_ev, FOLDS)} vs eager "
+            f"{chunk_seconds(p_eager_ev, FOLDS)}")
+
+    return {"trunk_launches": trunk_n, "lockstep_epoch_s": lock_s,
+            "lockstep_eager_epoch_s": lock_eager_s, "sequential_epoch_s": seq_s,
+            "sequential_eager_epoch_s": seq_eager_s,
+            "steps": (steps_max, t_steps_max)}
+
+
+def epoch_runners(gs, model, n_tile, device, graphs):
+    """The fused runners as the drivers build them, the drivers' seeds:
+    synthetic NCI1's FOLDS-fold lockstep runner and fold 1's one-fold
+    runner, each with its first 3 epochs' orders and a `state()` of what
+    an epoch updates (parameters, optimizer state, generator states)."""
+    from dgcnn_tpu_torch.batching.dense import build_dense_dataset, order_matrix
+    from dgcnn_tpu_torch.data.folds import get_folds
+    from dgcnn_tpu_torch.models.dgcnn import (DGCNNFoldsNet, DGCNNNet, init_params,
+                                              stack_params)
+    from dgcnn_tpu_torch.train.cv import _stream_seed
+    from dgcnn_tpu_torch.train.cv_vmap import fold_pattern, stacked_orders
+    from dgcnn_tpu_torch.train.loop import (FoldAdam, make_dense_gather_run,
+                                            make_dense_lockstep_run, make_optimizer)
+
+    data = build_dense_dataset(gs, n_tile, device)
+    folds = get_folds(gs.y, "", FOLDS, 324, data_type="NCI1")
+    train = [np.asarray(tr, np.int32) for tr, _ in folds]
+    test = [np.asarray(te, np.int32) for _, te in folds]
+    steps = max(-(-len(t) // 50) for t in train)
+    t_steps = max(-(-len(t) // 50) for t in test)
+    rngs = [np.random.default_rng(np.random.SeedSequence([324, f]))
+            for f in range(1, FOLDS + 1)]
+    orders = np.stack([stacked_orders([t[r.permutation(len(t))] for t, r in zip(train, rngs)],
+                                      50, S, steps) for _ in range(3)])
+    net_f = DGCNNFoldsNet(model, stack_params([
+        init_params(torch.Generator().manual_seed(_stream_seed(324, f, 1)), model, device)
+        for f in range(1, FOLDS + 1)]))
+    adam_f = FoldAdam(net_f)
+    gens = [torch.Generator(device=device).manual_seed(_stream_seed(324, f, 2))
+            for f in range(1, FOLDS + 1)]
+    lock = make_dense_lockstep_run(
+        net_f, adam_f, data, stacked_orders(test, 50, S, t_steps),
+        fold_pattern([len(t) for t in train], 50, steps), gens, graphs)
+
+    net = DGCNNNet(model, init_params(
+        torch.Generator().manual_seed(_stream_seed(324, 1, 1)), model, device))
+    opt = make_optimizer(net)
+    gen = torch.Generator(device=device).manual_seed(_stream_seed(324, 1, 2))
+    rng = np.random.default_rng(np.random.SeedSequence([324, 1]))
+    one_orders = np.stack([order_matrix(train[0][rng.permutation(len(train[0]))], 50, S)
+                           for _ in range(3)])
+    one = make_dense_gather_run(net, opt, data, order_matrix(test[0], 50, S),
+                                one_orders.shape[1], gen, graphs)
+
+    def lock_state():
+        return [net_f.flat, adam_f.exp_avg, adam_f.exp_avg_sq, adam_f.steps,
+                *(g.get_state() for g in gens)]
+
+    def one_state():
+        return [*net.parameters(), *(st[k] for st in opt.state.values()
+                                     for k in ("step", "exp_avg", "exp_avg_sq")),
+                gen.get_state()]
+
+    return {"lockstep": (lock, orders, lock_state, steps + t_steps),
+            "one fold": (one, one_orders, one_state,
+                         one_orders.shape[1] + -(-len(test[0]) // 50))}
+
+
+def check_runners(gs, model, n_tile, device):
+    """Phase 4a's runner checks, lockstep and one fold: one eager epoch of
+    each body under `set_sync_debug_mode("error")` (no host sync in it),
+    then 3 epochs eager against 3 graphed (warm-up, capture, 2 replays)
+    from the same seeds: rows, parameters, optimizer state and dropout
+    generators' states bitwise equal; the peak memory of each. Returns
+    the graphed runners for phase 6."""
+    side, a = torch.cuda.Stream(), torch.ones(64, 64, device=device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with torch.cuda.stream(side):
+        a @ a
+    torch.cuda.synchronize()
+    log(f"  a first matmul on a new stream allocates "
+        f"{(torch.cuda.memory_allocated() - base) / 2**20:.1f} MiB (its cuBLAS workspace)")
+    del side, a
+    eager = epoch_runners(gs, model, n_tile, device, graphs=False)
+    graphed = epoch_runners(gs, model, n_tile, device, graphs=True)
+    out = {}
+    for name, (run_e, orders, state_e, steps) in eager.items():
+        run_g, _, state_g, _ = graphed[name]
+        run_e.order.copy_(torch.from_numpy(orders[0]).to(device))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run_e.body()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        first = run_e.rows.cpu().double().numpy()
+        log(f"  {name}: one eager epoch of the body ran under "
+            f"set_sync_debug_mode('error'): no host sync")
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rows_e = np.concatenate([first[None], run_e.run_epochs(orders[1:])])
+        peak_e_abs = torch.cuda.max_memory_allocated()
+        peak_e = peak_e_abs - base
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rows_g = run_g.run_epochs(orders)
+        torch.cuda.synchronize()
+        if run_g.graph is None:
+            raise AssertionError(f"{name} runner: no graph was captured")
+        peak_g = torch.cuda.max_memory_allocated() - base
+        held_g = torch.cuda.memory_allocated() - base
+        same_bits(f"{name} runner: graphed vs eager rows", [rows_g], [rows_e])
+        same_bits(f"{name} runner: graphed vs eager state",
+                  [t.detach().cpu().numpy() for t in state_g()],
+                  [t.detach().cpu().numpy() for t in state_e()])
+        log(f"  {name} runner: 3 epochs graphed (warm-up, capture {run_g.capture_seconds:.3f} s, "
+            f"2 replays) bitwise the eager epochs: rows, parameters, optimizer state, "
+            f"generator states; peak memory over the epochs above what was allocated: "
+            f"eager {peak_e / 2**20:.1f} MiB, graphed {peak_g / 2**20:.1f} MiB "
+            f"(held after: {held_g / 2**20:.1f} MiB: the graph's pool, the state and "
+            f"what the runner's stream allocated); torch.cuda.max_memory_allocated "
+            f"eager {peak_e_abs / 2**20:.1f} MiB, graphed "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        out[name] = {"runner": run_g, "orders": orders, "steps": steps,
+                     "capture_s": run_g.capture_seconds, "peak_eager_mib": peak_e / 2**20,
+                     "peak_graphed_mib": peak_g / 2**20}
+    return out
 
 
 # -- phase 6: one profiled train step ---------------------------------------
 
 
-def profile_step(name, step, by_op=False):
-    """`step()` runs one train step: 3 warm-ups, the host clock over 10
-    steps, then one step under torch.profiler (device-side events).
-    `by_op` also lists the ATen ops that launched the most device time,
-    with their input shapes."""
+def profile_step(name, step, by_op=False, unit="train step"):
+    """`step()` runs one train step (or one `unit`): 3 warm-ups, the host
+    clock over 10 steps, then one step under torch.profiler (device-side
+    events). `by_op` also lists the ATen ops that launched the most
+    device time, with their input shapes."""
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -1530,8 +1743,8 @@ def profile_step(name, step, by_op=False):
                       and "#" not in e.key),
                      key=self_dev_us, reverse=True)
     total = sum(self_dev_us(e) for e in kernels)
-    log(f"  {name} train step: wall median {np.median(walls):.3f} ms "
-        f"(min {min(walls):.3f}, host clock, 10 steps); profiler device time "
+    log(f"  {name} {unit}: wall median {np.median(walls):.3f} ms "
+        f"(min {min(walls):.3f}, host clock, 10 of them); profiler device time "
         f"{total / 1e3:.3f} ms over {sum(e.count for e in kernels)} kernel launches")
     if total == 0:
         log("  the profiler recorded no device time on this machine")
@@ -1547,6 +1760,40 @@ def profile_step(name, step, by_op=False):
             log(f"    {self_dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key} "
                 f"{e.input_shapes}")
     return float(np.median(walls)), total / 1e3, sum(e.count for e in kernels)
+
+
+def profile_epoch(name, r, eager_step):
+    """Phase 6: one epoch of a graphed fused runner (one replay): its wall
+    time by the host clock (`run_epochs` of one epoch: the order's copy
+    in, the replay, the rows' copy out), its device time by torch.profiler
+    (`profile_step`) and the replay alone between two CUDA events; each
+    over the epoch's train + eval steps beside the eager train step
+    `eager_step` (wall, device, launches) measured in this run; the
+    device's idle share, 1 − device / wall."""
+    runner, orders, steps = r["runner"], r["orders"], r["steps"]
+    one = orders[2:3]
+    wall, dev, launches = profile_step(f"{name} epoch graph ({steps} steps)",
+                                       lambda: runner.run_epochs(one),
+                                       unit="epoch (one replay)")
+    runner.order.copy_(torch.from_numpy(one[0]).to(runner.order.device))
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    runner.graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    replay = e0.elapsed_time(e1)
+    idle = 1.0 - dev / wall if dev > 0 else 1.0 - replay / wall
+    log(f"  {name} epoch graph: wall {wall:.3f} ms, device {dev:.3f} ms (replay "
+        f"between events {replay:.3f} ms), {launches} launches; per step: wall "
+        f"{wall / steps:.4f} ms, device {dev / steps:.4f} ms; device idle "
+        f"{100 * idle:.1f} %; the eager train step in this run: wall "
+        f"{eager_step[0]:.3f} ms, device {eager_step[1]:.4f} ms, idle "
+        f"{100 * (1 - eager_step[1] / eager_step[0]):.1f} %; capture "
+        f"{r['capture_s']:.3f} s; peak memory over 3 epochs eager "
+        f"{r['peak_eager_mib']:.1f} MiB, graphed {r['peak_graphed_mib']:.1f} MiB")
+    return {"wall_ms": wall, "device_ms": dev, "replay_ms": replay, "launches": launches,
+            "steps": steps, "idle": idle, "capture_s": r["capture_s"]}
 
 
 def main() -> int:
@@ -1632,9 +1879,12 @@ def main() -> int:
                      f"{case.n}; a row's positions span at most {case.spans} blocks "
                      f"fwd, bwd; edge-stream kernels only)", case, device, stats)
 
-    log(f"== phase 4a: main path, synthetic NCI1, --layout auto (dense), "
-        f"{FOLDS} folds x 2 epochs in lockstep (cv_parallel auto); then the "
-        f"sequential driver, {FOLDS} folds x 1 epoch")
+    log(f"== phase 4a: main path, synthetic NCI1, layout auto (dense), "
+        f"{FOLDS} folds x 4 epochs in lockstep (cv_parallel auto) in chunks of "
+        f"max_fused_epochs 2, graphed then eager; the sequential driver, {FOLDS} "
+        f"folds x 2 epochs, and PROTEINS lockstep {FOLDS} x 2, each graphed then "
+        f"eager; the fused runners' sync and graphed-vs-eager checks")
+    log(card)
     from dgcnn_tpu_torch.batching.dense import batch_to_device
     from dgcnn_tpu_torch.config import Config
     from dgcnn_tpu_torch.models.dgcnn import DGCNN
@@ -1643,7 +1893,7 @@ def main() -> int:
     nci1_model = DGCNN(num_features=nci1.num_features, num_classes=nci1.num_classes)
     lock = lockstep_main_path(nci1, t_main, dt)
     trunk_fwd_n, trunk_bwd_n = lock["trunk_launches"]
-    lock_epoch_s, seq_epoch_s = lock["lockstep_epoch_s"], lock["sequential_epoch_s"]
+    runners = check_runners(nci1, nci1_model, t_main, device)
 
     lock_parts = lockstep_parts(nci1, t_main, "NCI1")
     lock_host = stack_batches(lock_parts)
@@ -1876,7 +2126,9 @@ def main() -> int:
             f"{'yes' if beats else 'no'}")
     del flush
 
-    log("== phase 6: one profiled train step (torch.profiler)")
+    log("== phase 6: one profiled train step (torch.profiler), then one epoch "
+        "of each dense epoch graph")
+    log(card)
     from dgcnn_tpu_torch.models.dgcnn import DGCNNNet, init_params
     from dgcnn_tpu_torch.train.loop import FoldAdam, lockstep_train_step, make_optimizer, train_step
 
@@ -1909,6 +2161,13 @@ def main() -> int:
                  seq_step(dd_model, dd_coo.batch(dd_coo.mean_row), spmm_impl=spmm_auto))
     profile_step("DD COO (pallas, CooEngine mean batch; the slot order's sorts included)",
                  seq_step(dd_model, dd_host.batch(dd_host.mean_row), spmm_impl="pallas"))
+    # the epoch graphs last, so that the step tables above are taken as in
+    # earlier runs (one run that profiled the DD block step after them
+    # recorded 62 of its launches)
+    epoch_graphs = {name: profile_epoch(name, r, lock_step if name == "lockstep"
+                                        else nci1_step)
+                    for name, r in runners.items()}
+    del runners
 
     log("== phase 7: the block-COO cost-split probe "
         "(dgcnn_tpu_torch.tools.probe_kernel_anatomy)")
@@ -1934,6 +2193,9 @@ def main() -> int:
          "ms": tl[d], "ms_l2_flushed": tl[f"{d}_flushed"],
          "plain_ms": tl[f"{d}_plain"], "bound_ms": tl[f"bound_{d}"],
          "bound_by": tl[f"bound_{d}_by"], "library_ms": None, "plan": tl["plan"],
+         "main_path": f"NCI1 lockstep, {FOLDS} folds x 4 epochs in chunks of 2: "
+                      f"epoch 1 eager (the warm-up), epochs 2-4 CUDA-graph replays, "
+                      f"launches counted per replay",
          "shape": f"lockstep step: S={SL} ({FOLDS} folds x {S} slots), K={FOLDS}, "
                   f"T={t_main}",
          "sequential_shape": {"shape": f"S={S}, K=1, T={t_main}", "plan": ts["plan"],
@@ -2014,8 +2276,12 @@ def main() -> int:
         f"ms over {nci1_step[2]} kernel launches")
     log(f"NCI1 dense lockstep train step ({FOLDS} folds): wall {lock_step[0]:.3f} ms, "
         f"device {lock_step[1]:.3f} ms over {lock_step[2]} kernel launches")
-    log(f"NCI1 lockstep epoch seconds ({FOLDS} folds): {lock_epoch_s}; sequential "
-        f"fold-epoch seconds: {seq_epoch_s}")
+    log(f"NCI1 fold-epoch seconds, lockstep ({FOLDS} folds, chunks of 2): graphed "
+        f"{lock['lockstep_epoch_s']}, eager {lock['lockstep_eager_epoch_s']}; "
+        f"sequential (epoch 1, epoch 2 of each fold): graphed "
+        f"{lock['sequential_epoch_s']}, eager {lock['sequential_eager_epoch_s']}")
+    for name, g in epoch_graphs.items():
+        log(f"NCI1 {name} epoch graph: {json.dumps(g)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,8 +25,15 @@ ROADMAP item that ports them. What differs from the reference:
     assembles batches on the card (`DeviceCooEngine`), "host" packs them
     with NumPy and ships one epoch at a time (`CooEngine`); `--spmm
     pallas` always packs on the host, where the structures are built;
-  * `xla_cache_dir`, `max_fused_epochs` and `coo_fuse_bytes` are TPU
-    dispatch knobs with no effect here.
+  * `max_fused_epochs` bounds the epochs of one chunk, as in the
+    reference: the dense layout runs a chunk's epochs through the fused
+    runner (train/loop.py `FusedRun`: one host round trip a chunk; on the
+    card one CUDA-graph replay an epoch after the warm-up), the block
+    and COO layouts run them eagerly with one transfer a chunk; every
+    `epoch` event carries the chunk's `chunk_epochs` and its seconds
+    over k;
+  * `xla_cache_dir` and `coo_fuse_bytes` are TPU dispatch knobs with no
+    effect here.
 """
 
 from __future__ import annotations

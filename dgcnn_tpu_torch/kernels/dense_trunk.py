@@ -41,7 +41,10 @@ from the kernels' shared-memory formulas, mirrored here:
 `launches.fwd_launches` / `launches.bwd_launches` count one per trunk
 forward / backward that ran on the kernels, whatever the regime;
 `launches.resident_fwd`, `resident_bwd`, `streamed_fwd` and
-`streamed_bwd` split the same calls by regime.
+`streamed_bwd` split the same calls by regime. A call captured in a CUDA
+graph counts once, at capture; the fused runner's `CountedGraph`
+(train/loop.py) takes that back and adds it once per replay, so the
+counts are of calls run, replays included.
 """
 
 from __future__ import annotations

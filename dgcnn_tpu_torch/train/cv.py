@@ -46,7 +46,6 @@ from dgcnn_tpu_torch.batching.dense import (
     build_dense_dataset,
     dense_dataset_bytes,
     dense_tile,
-    gather_dense_batch,
     order_matrix,
 )
 from dgcnn_tpu_torch.batching.device_coo import (
@@ -69,7 +68,7 @@ from dgcnn_tpu_torch.data.datasets import load_dataset
 from dgcnn_tpu_torch.data.folds import get_folds
 from dgcnn_tpu_torch.data.graphset import GraphSet
 from dgcnn_tpu_torch.models.dgcnn import DGCNN, DGCNNNet, init_params, num_params
-from dgcnn_tpu_torch.train.loop import make_optimizer, run_epoch
+from dgcnn_tpu_torch.train.loop import epoch_rows, make_dense_gather_run, make_optimizer
 from dgcnn_tpu_torch.train.metrics import EventLog, FoldMetrics, write_overall_csv
 from dgcnn_tpu_torch.utils.checkpoint import save_checkpoint
 
@@ -266,37 +265,62 @@ def _geom_round(x: int, multiple: int, ratio: float = 1.3) -> int:
     return v
 
 
+class EagerEpochs:
+    """`run_epochs` for the engines whose epochs run eagerly (block and
+    COO: their budgets grow with the batches, which one captured graph
+    could not follow): one `epoch_rows` after another, and the chunk's
+    rows brought to the host in one transfer, as the reference's
+    `EngineBase.run_epochs` (dgcnn_tpu/train/cv.py:237-246)."""
+
+    def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
+        rows = torch.stack([self.epoch_rows(net, optimizer, dropout_gen, perm)
+                            for perm in perms])
+        return rows.cpu().double().numpy()
+
+    def end_fold(self) -> None:
+        pass
+
+
 class DenseEngine:
     """The dense layout's epoch engine: the whole dataset lives on the
-    device in dense form; an epoch ships one [steps, slots] index matrix
-    and batches are gathered on the device."""
+    device in dense form; a chunk of epochs ships one [k, steps, slots]
+    index matrix and batches are gathered on the device. A fold's epochs
+    run through one fused runner (train/loop.py `make_dense_gather_run`:
+    on the card the fold's first epoch warms up, the rest are CUDA-graph
+    replays), dropped at the fold's end with its graph. `graphs=False`
+    runs every epoch eagerly on the card, for comparison only."""
 
-    def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device):
+    def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device,
+                 graphs: bool = True):
         self.cfg = cfg
         self.device = device
+        self.graphs = graphs
         self.n_tile = dense_tile(dataset)
         self.slots = _round_up(cfg.batch_size, cfg.graph_pad_multiple)
         self.data = build_dense_dataset(dataset, self.n_tile, device)
+        self._runner = None
 
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_idx = np.asarray(train_idx, dtype=np.int32)
-        self._test_order = self._to_device(
-            order_matrix(test_idx, self.cfg.batch_size, self.slots)
-        )
+        self._test_np = order_matrix(test_idx, self.cfg.batch_size, self.slots)
+        self._runner = None
 
-    def _to_device(self, order2d: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(order2d).to(self.device)
+    def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
+        """Train + eval one epoch per permutation of the fold's training
+        graphs; host rows [k, 4]."""
+        orders = np.stack([order_matrix(self._train_idx[perm], self.cfg.batch_size,
+                                        self.slots) for perm in perms])
+        if self._runner is None:
+            self._runner = make_dense_gather_run(
+                net, optimizer, self.data, self._test_np, orders.shape[1],
+                dropout_gen, self.graphs)
+        return self._runner.run_epochs(orders)
 
-    def run_epoch(self, net, optimizer, dropout_gen, perm: np.ndarray) -> np.ndarray:
-        order2d = order_matrix(
-            self._train_idx[perm], self.cfg.batch_size, self.slots
-        )
-        return run_epoch(net, optimizer,
-                         lambda row: gather_dense_batch(self.data, row),
-                         self._to_device(order2d), self._test_order, dropout_gen)
+    def end_fold(self) -> None:
+        self._runner = None
 
 
-class BlockSparseEngine:
+class BlockSparseEngine(EagerEpochs):
     """The block-sparse layout's epoch engine (batching/block_sparse.py):
     the dataset lives on the device as a pool of nonzero 128×128
     normalized-adjacency blocks plus block-row features, shipped once per
@@ -334,12 +358,12 @@ class BlockSparseEngine:
         self._test_np = order_matrix(test_idx, self.cfg.batch_size, self.slots)
         self._test_order = torch.from_numpy(self._test_np).to(self.device)
 
-    def run_epoch(self, net, optimizer, dropout_gen, perm: np.ndarray) -> np.ndarray:
+    def epoch_rows(self, net, optimizer, dropout_gen, perm: np.ndarray) -> torch.Tensor:
         order2d = order_matrix(
             self._train_idx[perm], self.cfg.batch_size, self.slots
         )
         nb, w = self.budget_for(order2d, self._test_np)
-        return run_epoch(
+        return epoch_rows(
             net, optimizer,
             lambda row: gather_block_batch(self.dev, row, nb, w),
             torch.from_numpy(order2d).to(self.device), self._test_order,
@@ -347,7 +371,7 @@ class BlockSparseEngine:
         )
 
 
-class DeviceCooEngine:
+class DeviceCooEngine(EagerEpochs):
     """The COO layout with batches assembled on the device
     (batching/device_coo.py): the flattened dataset is shipped once, an
     epoch ships its int32 order matrix, and each batch is gathered on the
@@ -386,19 +410,19 @@ class DeviceCooEngine:
         self._test_np = order_matrix(test_idx, self.cfg.batch_size, self.slots)
         self._test_order = torch.from_numpy(self._test_np).to(self.device)
 
-    def run_epoch(self, net, optimizer, dropout_gen, perm: np.ndarray) -> np.ndarray:
+    def epoch_rows(self, net, optimizer, dropout_gen, perm: np.ndarray) -> torch.Tensor:
         order2d = order_matrix(
             self._train_idx[perm], self.cfg.batch_size, self.slots
         )
         bucket = self.bucket_for(order2d, self._test_np)
-        return run_epoch(
+        return epoch_rows(
             net, optimizer, lambda row: gather_coo_batch(self.dev, row, bucket),
             torch.from_numpy(order2d).to(self.device), self._test_order,
             dropout_gen, spmm_impl=self.spmm_impl,
         )
 
 
-class CooEngine:
+class CooEngine(EagerEpochs):
     """The COO layout packed on the host (batching/packer.py): every epoch
     is packed with NumPy into the worst-case bucket (`compute_bucket`) and
     shipped to the device as one stacked epoch; the fold's test batches are
@@ -430,7 +454,7 @@ class CooEngine:
 
     @staticmethod
     def _rows(which: int, steps: int) -> torch.Tensor:
-        """[steps, 2] host rows (stack, step) for `run_epoch`'s batch_fn."""
+        """[steps, 2] host rows (stack, step) for `epoch_rows`' batch_fn."""
         return torch.stack([torch.full((steps,), which), torch.arange(steps)], 1)
 
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
@@ -438,10 +462,10 @@ class CooEngine:
         test_set = self.dataset.subset(test_idx)
         self._test = self._pack(test_set, np.arange(test_set.num_graphs))
 
-    def run_epoch(self, net, optimizer, dropout_gen, perm: np.ndarray) -> np.ndarray:
+    def epoch_rows(self, net, optimizer, dropout_gen, perm: np.ndarray) -> torch.Tensor:
         train = self._pack(self._train_set, perm)
         stacks = (train, self._test)
-        return run_epoch(
+        return epoch_rows(
             net, optimizer,
             lambda row: batch_step(stacks[int(row[0])], int(row[1])),
             self._rows(0, train.y.shape[0]), self._rows(1, self._test.y.shape[0]),
@@ -452,15 +476,17 @@ class CooEngine:
 PORTED_LAYOUTS = ("dense", "block", "coo")
 
 
-def make_engine(cfg: Config, dataset: GraphSet, device: torch.device, layout: str):
+def make_engine(cfg: Config, dataset: GraphSet, device: torch.device, layout: str,
+                graphs: bool = True):
     """The layout's engine; COO picks as the reference's `make_engine`:
     `--spmm pallas` needs host-built structures (CooEngine), otherwise
-    `coo_assembly` decides."""
+    `coo_assembly` decides. `graphs` goes to `DenseEngine`."""
     if layout == "coo":
         host = cfg.resolved_spmm_impl() == "pallas" or cfg.coo_assembly == "host"
         return (CooEngine if host else DeviceCooEngine)(cfg, dataset, device)
-    return (BlockSparseEngine if layout == "block" else DenseEngine)(
-        cfg, dataset, device)
+    if layout == "block":
+        return BlockSparseEngine(cfg, dataset, device)
+    return DenseEngine(cfg, dataset, device, graphs)
 
 
 def _stream_seed(seed: int, fold: int, stream: int) -> int:
@@ -469,12 +495,13 @@ def _stream_seed(seed: int, fold: int, stream: int) -> int:
 
 
 def adam_state(net: DGCNNNet, optimizer: torch.optim.Adam) -> dict:
-    """Adam's moments and step counts in `net.parameters()` order."""
+    """Adam's moments and step counts in `net.parameters()` order, on the
+    CPU (a `capturable` Adam keeps its step counts on the card)."""
     out = {"step": [], "exp_avg": [], "exp_avg_sq": []}
     for p in net.parameters():
         st = optimizer.state.get(p, {})
         for key in out:
-            out[key].append(st.get(key, torch.zeros(())))
+            out[key].append(st.get(key, torch.zeros(())).detach().cpu())
     return out
 
 
@@ -482,7 +509,10 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
              train_idx: np.ndarray, test_idx: np.ndarray, engine,
              events: EventLog) -> FoldMetrics:
     """One fold: fresh weights and optimizer, `cfg.num_epochs` epochs of
-    train + eval, then the fold's CSV and `epochs/` bundle."""
+    train + eval in chunks of k ≤ `max_fused_epochs` (`engine.run_epochs`,
+    one host round trip a chunk; the reference's chunk loop,
+    dgcnn_tpu/train/cv.py:1185-1250), the fold's CSV flushed at every
+    chunk boundary, then its final CSV and `epochs/` bundle."""
     device = engine.device
     n_train, n_test = len(train_idx), len(test_idx)
     train_edges = int(dataset.edge_counts()[np.asarray(train_idx)].sum())
@@ -498,52 +528,63 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
     shuffle_rng = np.random.default_rng(
         np.random.SeedSequence([cfg.seed, fold_number])
     )
+    csv = os.path.join(cfg.statistics_dir,
+                       f"{cfg.data_type}_results_{fold_number}.csv")
 
     metrics = FoldMetrics()
-    for epoch in range(1, cfg.num_epochs + 1):
-        perm = shuffle_rng.permutation(n_train)
+    epoch = 1
+    while epoch <= cfg.num_epochs:
+        k = cfg.num_epochs - epoch + 1
+        if cfg.max_fused_epochs:
+            k = min(k, cfg.max_fused_epochs)
+        perms = np.stack([shuffle_rng.permutation(n_train) for _ in range(k)])
         t0 = time.perf_counter()
-        tr_loss, te_loss, tr_correct, te_correct = engine.run_epoch(
-            net, optimizer, dropout_gen, perm
-        )
-        dt = time.perf_counter() - t0
-        train_acc = float(tr_correct) / n_train * 100.0
-        test_acc = float(te_correct) / n_test * 100.0
-        metrics.append(float(tr_loss), float(te_loss), train_acc, test_acc)
-        events.write(
-            kind="epoch",
-            fold=fold_number,
-            epoch=epoch,
-            train_loss=float(tr_loss),
-            test_loss=float(te_loss),
-            train_accuracy=train_acc,
-            test_accuracy=test_acc,
-            epoch_seconds=dt,
-            edges_per_second=train_edges / dt if dt > 0 else 0.0,
-            chunk_epochs=1,
-        )
-        if cfg.log_every and epoch % cfg.log_every == 0:
-            print(
-                f"[fold {fold_number}] epoch {epoch}: "
-                f"train {tr_loss:.4f}/{train_acc:.2f}% "
-                f"test {te_loss:.4f}/{test_acc:.2f}% ({dt:.2f}s)"
+        rows = engine.run_epochs(net, optimizer, dropout_gen, perms)
+        dt = (time.perf_counter() - t0) / k  # amortized over the chunk
+        for j in range(k):
+            tr_loss, te_loss, tr_correct, te_correct = rows[j]
+            train_acc = float(tr_correct) / n_train * 100.0
+            test_acc = float(te_correct) / n_test * 100.0
+            metrics.append(float(tr_loss), float(te_loss), train_acc, test_acc)
+            events.write(
+                kind="epoch",
+                fold=fold_number,
+                epoch=epoch + j,
+                train_loss=float(tr_loss),
+                test_loss=float(te_loss),
+                train_accuracy=train_acc,
+                test_accuracy=test_acc,
+                epoch_seconds=dt,
+                edges_per_second=train_edges / dt if dt > 0 else 0.0,
+                chunk_epochs=k,
             )
+            if cfg.log_every and (epoch + j) % cfg.log_every == 0:
+                print(
+                    f"[fold {fold_number}] epoch {epoch + j}: "
+                    f"train {tr_loss:.4f}/{train_acc:.2f}% "
+                    f"test {te_loss:.4f}/{test_acc:.2f}% ({dt:.2f}s)"
+                )
+        epoch += k
+        if epoch <= cfg.num_epochs:
+            metrics.to_csv(csv)  # the fold so far, at every chunk boundary
+    engine.end_fold()
 
     save_checkpoint(
         os.path.join(cfg.epochs_dir, f"{cfg.data_type}_{fold_number}"),
         {"params": net.state_dict(), "opt_state": adam_state(net, optimizer)},
     )
-    metrics.to_csv(
-        os.path.join(cfg.statistics_dir, f"{cfg.data_type}_results_{fold_number}.csv")
-    )
+    metrics.to_csv(csv)
     return metrics
 
 
 def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
-                         allow_synthetic: bool = False, device=None):
+                         allow_synthetic: bool = False, device=None,
+                         graphs: bool = True):
     """Full experiment on `device` (default `cuda`; `"cpu"` runs the plain
     PyTorch path). Returns per-fold and aggregate accuracies, as the
-    reference does."""
+    reference does. On the card the dense layout runs each epoch after a
+    fold's (lockstep: the run's) first as a CUDA-graph replay;
+    `graphs=False` runs them eagerly, for comparison only."""
     device = resolve_device(device)
     fp32_only()
     check_supported(cfg)
@@ -598,9 +639,9 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         from dgcnn_tpu_torch.train.cv_vmap import run_cv_folds_lockstep
 
         train_accs, test_accs = run_cv_folds_lockstep(
-            cfg, dataset, model, folds, events, device)
+            cfg, dataset, model, folds, events, device, graphs)
         return _finalize_cv(cfg, events, train_accs, test_accs)
-    engine = make_engine(cfg, dataset, device, layout)
+    engine = make_engine(cfg, dataset, device, layout, graphs)
 
     train_accs, test_accs = [], []
     for fold_number, (train_idx, test_idx) in enumerate(folds, start=1):

@@ -19,10 +19,16 @@ the sequential driver's (train/cv.py `run_fold`):
   * per-fold rows equal the sequential driver's within float tolerance
     (batched products sum in another order; tests/test_torch_lockstep.py).
 
+Epochs run in chunks of k ≤ `max_fused_epochs`, cut as the reference's
+chunk loop cuts them (:714-760): the k epochs' orders are drawn from each
+fold's shuffle stream and run by the fused runner (train/loop.py
+`make_dense_lockstep_run`: on the card one CUDA-graph replay an epoch
+after the first), and their rows come back in one transfer.
+
 Artifacts are the sequential driver's (per-fold CSVs, `epochs/` bundles
 in its format, the event log); the CSVs and bundles are written at run
 end, and the `epoch` events come epoch by epoch, fold by fold, each with
-`folds_in_lockstep` and the lockstep epoch's seconds.
+`folds_in_lockstep`, `chunk_epochs` = k and the chunk's seconds over k.
 
 Not ported here: the block and multi-tile branches (ROADMAP Queue 1 items
 9 and 7), fold sharding over a mesh (item 12) and the in-flight lockstep
@@ -42,14 +48,13 @@ import torch
 from dgcnn_tpu_torch.batching.dense import (
     build_dense_dataset,
     dense_tile,
-    gather_dense_batch,
     order_matrix,
 )
 from dgcnn_tpu_torch.config import Config
 from dgcnn_tpu_torch.data.graphset import GraphSet
 from dgcnn_tpu_torch.models.dgcnn import DGCNN, DGCNNFoldsNet, init_params, stack_params
 from dgcnn_tpu_torch.train.cv import _stream_seed, fp32_only
-from dgcnn_tpu_torch.train.loop import FoldAdam, run_lockstep_epoch
+from dgcnn_tpu_torch.train.loop import FoldAdam, make_dense_lockstep_run
 from dgcnn_tpu_torch.train.metrics import EventLog, FoldMetrics
 from dgcnn_tpu_torch.utils.checkpoint import save_checkpoint
 
@@ -66,13 +71,23 @@ def stacked_orders(idx_f: List[np.ndarray], batch_size: int, slots: int,
     return np.stack(mats, axis=1)
 
 
+def fold_pattern(n_f: List[int], batch_size: int, steps: int) -> np.ndarray:
+    """[steps, F] bool: whether fold f holds a real graph at step s of
+    `stacked_orders` — in every epoch, since each fold's batches come
+    first and its padding rows after them, so the pattern follows from
+    the fold sizes alone."""
+    own = np.array([-(-n // batch_size) for n in n_f])
+    return np.arange(steps)[:, None] < own[None, :]
+
+
 def run_cv_folds_lockstep(cfg: Config, dataset: GraphSet, model: DGCNN,
                           folds: List[Tuple[np.ndarray, np.ndarray]],
-                          events: EventLog, device: torch.device
-                          ) -> Tuple[List[float], List[float]]:
+                          events: EventLog, device: torch.device,
+                          graphs: bool = True) -> Tuple[List[float], List[float]]:
     """Run the whole K-fold experiment in fold-lockstep on the dense
     layout. Returns (train_accs, test_accs) and writes the sequential
-    driver's artifact set."""
+    driver's artifact set. `graphs=False` runs every epoch eagerly on the
+    card (train/loop.py `FusedRun`), for comparison only."""
     fp32_only()  # the trunk's per-weight-set gradient sum is an fp32 product
     num_folds = len(folds)
     slots = -(-cfg.batch_size // cfg.graph_pad_multiple) * cfg.graph_pad_multiple
@@ -100,38 +115,45 @@ def run_cv_folds_lockstep(cfg: Config, dataset: GraphSet, model: DGCNN,
     edge_counts = dataset.edge_counts()
     train_edges = int(sum(edge_counts[idx].sum() for idx in train_idx_f))
     metrics_f = [FoldMetrics() for _ in fold_ids]
-    batch_fn = lambda row: gather_dense_batch(data, row)  # noqa: E731
-    for epoch in range(1, cfg.num_epochs + 1):
-        order = stacked_orders(
+    runner = make_dense_lockstep_run(
+        net_f, adam_f, data, test_order,
+        fold_pattern(n_train_f, cfg.batch_size, steps_max), dropout_gens, graphs)
+    epoch = 1
+    while epoch <= cfg.num_epochs:
+        k = cfg.num_epochs - epoch + 1
+        if cfg.max_fused_epochs:
+            k = min(k, cfg.max_fused_epochs)
+        orders = np.stack([stacked_orders(
             [idx[rng.permutation(len(idx))] for idx, rng in zip(train_idx_f, shuffles)],
-            cfg.batch_size, slots, steps_max)
+            cfg.batch_size, slots, steps_max) for _ in range(k)])
         t0 = time.perf_counter()
-        rows = run_lockstep_epoch(net_f, adam_f, batch_fn, order, test_order,
-                                  dropout_gens)
-        dt = time.perf_counter() - t0
-        for f in range(num_folds):
-            tr_loss, te_loss, tr_correct, te_correct = rows[f]
-            train_acc = tr_correct / n_train_f[f] * 100.0
-            test_acc = te_correct / n_test_f[f] * 100.0
-            metrics_f[f].append(tr_loss, te_loss, train_acc, test_acc)
-            events.write(
-                kind="epoch",
-                fold=f + 1,
-                epoch=epoch,
-                train_loss=float(tr_loss),
-                test_loss=float(te_loss),
-                train_accuracy=float(train_acc),
-                test_accuracy=float(test_acc),
-                # one lockstep epoch covers every fold's epoch
-                epoch_seconds=dt,
-                edges_per_second=train_edges / dt if dt > 0 else 0.0,
-                chunk_epochs=1,
-                folds_in_lockstep=num_folds,
-            )
-        if cfg.log_every and epoch % cfg.log_every == 0:
-            accs = " ".join(f"{rows[f, 3] / n_test_f[f] * 100.0:.1f}"
-                            for f in range(num_folds))
-            print(f"[all folds] epoch {epoch}: test% [{accs}] ({dt:.2f}s)")
+        rows = runner.run_epochs(orders)  # [k, F, 4]
+        dt = (time.perf_counter() - t0) / k  # amortized over the chunk
+        for j in range(k):
+            for f in range(num_folds):
+                tr_loss, te_loss, tr_correct, te_correct = rows[j, f]
+                train_acc = tr_correct / n_train_f[f] * 100.0
+                test_acc = te_correct / n_test_f[f] * 100.0
+                metrics_f[f].append(tr_loss, te_loss, train_acc, test_acc)
+                events.write(
+                    kind="epoch",
+                    fold=f + 1,
+                    epoch=epoch + j,
+                    train_loss=float(tr_loss),
+                    test_loss=float(te_loss),
+                    train_accuracy=float(train_acc),
+                    test_accuracy=float(test_acc),
+                    # one lockstep epoch covers every fold's epoch
+                    epoch_seconds=dt,
+                    edges_per_second=train_edges / dt if dt > 0 else 0.0,
+                    chunk_epochs=k,
+                    folds_in_lockstep=num_folds,
+                )
+            if cfg.log_every and (epoch + j) % cfg.log_every == 0:
+                accs = " ".join(f"{rows[j, f, 3] / n_test_f[f] * 100.0:.1f}"
+                                for f in range(num_folds))
+                print(f"[all folds] epoch {epoch + j}: test% [{accs}] ({dt:.2f}s)")
+        epoch += k
 
     train_accs, test_accs = [], []
     for f in range(num_folds):

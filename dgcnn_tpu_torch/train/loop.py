@@ -1,9 +1,10 @@
 """Training and evaluation loops — the port of dgcnn_tpu/train/loop.py
-(`nll_loss_and_correct` :38, the step :58-86, the epoch runners over a
-batch function: `_fused_run` and `make_block_run` :270-303), and the
+(`nll_loss_and_correct` :38, the step :58-86, the fused multi-epoch
+runner `_fused_run` :89 and `make_dense_gather_run` :373), and the
 fold-lockstep step and epoch of dgcnn_tpu/train/cv_vmap.py:58
 `_make_lockstep_body` (`masked_update` :86, `real_folds` :97, the step
-and epoch reductions :106-152).
+and epoch reductions :106-152, run over k epochs by `make_dense_vmap_run`
+:167).
 
 Contract with the reference:
   * loss per batch = NLL mean over the batch's real graphs; the epoch
@@ -13,24 +14,52 @@ Contract with the reference:
   * Adam with optax.adam's formula: torch.optim.Adam computes
     lr·m̂/(√v̂ + ε) with bias-corrected moments and ε outside the root.
 
-Losses and correct counts stay on the device during an epoch and come to
-the host once, at the epoch's end: no per-batch `.item()`.
+One epoch body per driver: `epoch_body` (one model) and
+`lockstep_epoch_body` (F folds) train over a device order buffer,
+evaluate over the fixed test order and write the epoch's row into a
+device rows buffer. A body moves nothing between host and device and
+never waits for the device (no `.item()`, no `nonzero`, no boolean-mask
+indexing, no host tensor), as long as its `batch_fn` does not: the
+dense layout's gather does not. `epoch_rows` runs one eager epoch of
+`epoch_body` (the block and COO engines' epochs).
+
+The fused runner (`FusedRun`, built by `make_dense_gather_run` and
+`make_dense_lockstep_run`) runs k epochs of a dense body per host round
+trip, as the reference's `_fused_run` runs k epochs in one program:
+`run_epochs` ships the chunk's k orders in one copy, runs each epoch
+from the static order buffer, gathers the k rows on the device and
+brings them back in one copy. On the card the first epoch a runner sees
+runs eagerly on the runner's own stream (the warm-up: kernel builds, the
+optimizer's state, cuBLAS set-up); the body is then captured once as a
+`torch.cuda.CUDAGraph`, every dropout generator registered with it, and
+every later epoch is one replay. On the CPU every epoch runs the body
+eagerly. The kernels and the order of operations are the same either
+way, so the rows are the eager loop's bits.
 
 Fold-lockstep: F folds train as one model of fold-stacked parameters
 (`DGCNNFoldsNet`). A step backpropagates the sum of the F per-fold mean
 losses, so each fold's gradient is its own, and `FoldAdam` updates only
 the folds with a real graph in the step; a fold whose row is all −1 (it
 has fewer steps than the longest fold) draws no dropout, takes no Adam
-step and adds nothing to its epoch row.
+step and adds nothing to its epoch row. Which folds are real at each
+step depends only on the fold sizes (`stacked_orders` pads each fold at
+its end), so one captured graph serves every epoch; the runner refuses
+an order whose pattern differs from the one it was built for.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import contextlib
+import functools
+import time
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from dgcnn_tpu_torch.batching.dense import DenseDataset, gather_dense_batch
+from dgcnn_tpu_torch.kernels import block_csr, block_resident, dense_trunk
+from dgcnn_tpu_torch.kernels import spmm_block_coo, spmm_pallas
 from dgcnn_tpu_torch.models.dgcnn import DGCNNFoldsNet, DGCNNNet
 
 
@@ -38,13 +67,14 @@ def nll_loss_and_correct(
     log_probs: torch.Tensor, y: torch.Tensor, graph_mask: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked NLL (mean over real graphs) and correct-prediction count. The
-    label pick is a one-hot product, as in the reference; `argmax` takes
-    the first index among equal maxima. Log-probs [F, S, C] with y and
-    graph_mask [F, S] give each fold's pair, [F] and [F]."""
+    label pick is a one-hot product, as in the reference (the one-hot is
+    a comparison with the class ids: `F.one_hot` reads the labels back to
+    the host on the CPU); `argmax` takes the first index among equal
+    maxima. Log-probs [F, S, C] with y and graph_mask [F, S] give each
+    fold's pair, [F] and [F]."""
     n = graph_mask.sum(dim=-1).clamp(min=1.0)
-    onehot = torch.nn.functional.one_hot(
-        y.long(), log_probs.shape[-1]
-    ).to(log_probs.dtype)
+    classes = torch.arange(log_probs.shape[-1], device=log_probs.device)
+    onehot = (y.long()[..., None] == classes).to(log_probs.dtype)
     ll = (log_probs * onehot).sum(dim=-1)
     loss = -(ll * graph_mask).sum(dim=-1) / n
     pred = torch.argmax(log_probs, dim=-1)
@@ -54,7 +84,13 @@ def nll_loss_and_correct(
 
 def make_optimizer(net: DGCNNNet, lr: float = 1e-3, b1: float = 0.9,
                    b2: float = 0.999, eps: float = 1e-8) -> torch.optim.Adam:
-    return torch.optim.Adam(net.parameters(), lr=lr, betas=(b1, b2), eps=eps)
+    """torch's Adam. On CUDA parameters it is `capturable`: the step counts
+    and bias corrections stay on the device, so an epoch graph can hold
+    the update, and the eager epochs run the same update and give the
+    same bits. torch refuses `capturable` on the CPU."""
+    cuda = next(net.parameters()).is_cuda
+    return torch.optim.Adam(net.parameters(), lr=lr, betas=(b1, b2), eps=eps,
+                            capturable=cuda)
 
 
 def train_step(
@@ -79,11 +115,16 @@ def train_step(
 BatchFn = Callable[[torch.Tensor], object]
 
 
-def train_epoch(net, optimizer, batch_fn: BatchFn, order2d: torch.Tensor,
-                dropout_gen, **fwd_kw) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Train over the rows of an on-device [steps, slots] index matrix,
-    each row assembled into a batch on the device by `batch_fn`; returns
-    (mean batch loss, correct count) as device scalars."""
+def epoch_body(net, optimizer, batch_fn: BatchFn, order2d: torch.Tensor,
+               test_order2d: torch.Tensor, dropout_gen, rows: torch.Tensor,
+               **fwd_kw) -> None:
+    """One epoch of train + eval over any layout (the epoch of the
+    reference's `_fused_run(batch_fn, ...)`): train over the rows of the
+    [steps, slots] index matrix `order2d`, each row assembled into a batch
+    by `batch_fn`, then evaluate over `test_order2d` with dropout off and
+    no gradients; `fwd_kw` goes to the forward. Writes (train_loss,
+    test_loss, train_correct, test_correct) into `rows` [4] on the
+    device: the losses are means of batch means, the counts sums."""
     net.train()
     losses, corrects = [], []
     for row in order2d:
@@ -91,40 +132,31 @@ def train_epoch(net, optimizer, batch_fn: BatchFn, order2d: torch.Tensor,
                                    **fwd_kw)
         losses.append(loss)
         corrects.append(correct)
-    return torch.stack(losses).mean(), torch.stack(corrects).sum()
-
-
-@torch.no_grad()
-def eval_epoch(net, batch_fn: BatchFn, order2d: torch.Tensor, **fwd_kw
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dropout off, no gradients; (mean batch loss, correct count)."""
+    tr_loss, tr_correct = torch.stack(losses).mean(), torch.stack(corrects).sum()
     net.eval()
-    if order2d.shape[0] == 0:
-        zero = torch.zeros((), device=next(net.parameters()).device)
-        return zero, zero
-    losses, corrects = [], []
-    for row in order2d:
-        batch = batch_fn(row)
-        loss, correct = nll_loss_and_correct(
-            net(batch, deterministic=True, **fwd_kw), batch.y, batch.graph_mask
-        )
-        losses.append(loss)
-        corrects.append(correct)
-    return torch.stack(losses).mean(), torch.stack(corrects).sum()
+    with torch.no_grad():
+        if test_order2d.shape[0] == 0:
+            te_loss = te_correct = torch.zeros((), device=rows.device)
+        else:
+            losses, corrects = [], []
+            for row in test_order2d:
+                batch = batch_fn(row)
+                loss, correct = nll_loss_and_correct(
+                    net(batch, deterministic=True, **fwd_kw), batch.y,
+                    batch.graph_mask)
+                losses.append(loss)
+                corrects.append(correct)
+            te_loss, te_correct = torch.stack(losses).mean(), torch.stack(corrects).sum()
+        rows.copy_(torch.stack([tr_loss, te_loss, tr_correct, te_correct]))
 
 
-def run_epoch(net, optimizer, batch_fn: BatchFn, order2d: torch.Tensor,
-              test_order2d: torch.Tensor, dropout_gen, **fwd_kw) -> np.ndarray:
-    """One epoch of train + eval over any layout (the counterpart of the
-    reference's `_fused_run(batch_fn, ...)`): `batch_fn(row)` assembles a
-    batch from a [slots] graph-id row on the device, `fwd_kw` goes to the
-    forward. Returns the host row (train_loss, test_loss, train_correct,
-    test_correct) — the epoch's one device-to-host transfer."""
-    tr_loss, tr_correct = train_epoch(net, optimizer, batch_fn, order2d,
-                                      dropout_gen, **fwd_kw)
-    te_loss, te_correct = eval_epoch(net, batch_fn, test_order2d, **fwd_kw)
-    row = torch.stack([tr_loss, te_loss, tr_correct, te_correct])
-    return row.cpu().double().numpy()
+def epoch_rows(net, optimizer, batch_fn: BatchFn, order2d: torch.Tensor,
+               test_order2d: torch.Tensor, dropout_gen, **fwd_kw) -> torch.Tensor:
+    """One eager `epoch_body`; its row [4] on the net's device."""
+    rows = torch.empty(4, dtype=torch.float32, device=next(net.parameters()).device)
+    epoch_body(net, optimizer, batch_fn, order2d, test_order2d, dropout_gen, rows,
+               **fwd_kw)
+    return rows
 
 
 # -- fold-lockstep --------------------------------------------------------
@@ -215,54 +247,199 @@ def _fold_means(losses, corrects, real) -> Tuple[torch.Tensor, torch.Tensor]:
     return loss, (torch.stack(corrects) * rf).sum(0)
 
 
-def lockstep_train_epoch(net_f, adam_f, batch_fn: BatchFn, order3d: np.ndarray,
-                         dropout_gens) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Train all folds over a host [steps, F, slots] index matrix (−1
-    padded; a fold's all-(−1) row is a step it skips), each step's
-    flattened [F·slots] row assembled on the device by `batch_fn`.
-    Returns per-fold (mean loss, correct count) on the device."""
+def lockstep_epoch_body(net_f, adam_f, batch_fn: BatchFn, order3d: torch.Tensor,
+                        test_order3d: torch.Tensor, step_gens: Sequence[list],
+                        rows: torch.Tensor) -> None:
+    """One lockstep epoch of train + eval for every fold: train over the
+    device [steps, F, slots] index matrix `order3d` (−1 padded; a fold's
+    all-(−1) row is a step it skips), each step's flattened [F·slots] row
+    assembled by `batch_fn`, step s drawing fold f's dropout from
+    `step_gens[s][f]` (None where the fold skips the step); then evaluate
+    over `test_order3d`. Writes the per-fold rows [F, 4] (train_loss,
+    test_loss, train_correct, test_correct; each fold's means over its
+    own real steps) into `rows` on the device."""
+    if len(step_gens) != order3d.shape[0]:
+        raise ValueError(f"{len(step_gens)} steps of generators for "
+                         f"{order3d.shape[0]} train steps")
     net_f.train()
-    device = net_f.flat.device
-    orders = torch.from_numpy(order3d).to(device)
-    real = (orders >= 0).any(dim=-1)  # [steps, F]
-    real_host = (order3d >= 0).any(axis=-1)
+    real = (order3d >= 0).any(dim=-1)  # [steps, F]
     losses, corrects = [], []
-    for s in range(order3d.shape[0]):
-        gens = [g if r else None for g, r in zip(dropout_gens, real_host[s])]
+    for s, gens in enumerate(step_gens):
         loss_f, correct_f = lockstep_train_step(
-            net_f, adam_f, batch_fn(orders[s].reshape(-1)), real[s], gens)
+            net_f, adam_f, batch_fn(order3d[s].reshape(-1)), real[s], gens)
         losses.append(loss_f)
         corrects.append(correct_f)
-    return _fold_means(losses, corrects, real)
-
-
-@torch.no_grad()
-def lockstep_eval_epoch(net_f, batch_fn: BatchFn, order3d: np.ndarray
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dropout off, no gradients; per-fold (mean loss, correct count) over
-    each fold's real steps."""
+    tr_loss, tr_correct = _fold_means(losses, corrects, real)
     net_f.eval()
-    orders = torch.from_numpy(order3d).to(net_f.flat.device)
-    real = (orders >= 0).any(dim=-1)
-    losses, corrects = [], []
-    for row in orders:
-        batch = batch_fn(row.reshape(-1))
-        log_probs = net_f(batch, deterministic=True)
-        f = log_probs.shape[0]
-        loss_f, correct_f = nll_loss_and_correct(
-            log_probs, batch.y.view(f, -1), batch.graph_mask.view(f, -1))
-        losses.append(loss_f)
-        corrects.append(correct_f)
-    return _fold_means(losses, corrects, real)
+    with torch.no_grad():
+        te_real = (test_order3d >= 0).any(dim=-1)
+        losses, corrects = [], []
+        for row in test_order3d:
+            batch = batch_fn(row.reshape(-1))
+            log_probs = net_f(batch, deterministic=True)
+            f = log_probs.shape[0]
+            loss_f, correct_f = nll_loss_and_correct(
+                log_probs, batch.y.view(f, -1), batch.graph_mask.view(f, -1))
+            losses.append(loss_f)
+            corrects.append(correct_f)
+        te_loss, te_correct = _fold_means(losses, corrects, te_real)
+        rows.copy_(torch.stack([tr_loss, te_loss, tr_correct, te_correct], dim=-1))
 
 
-def run_lockstep_epoch(net_f, adam_f, batch_fn: BatchFn, order3d: np.ndarray,
-                       test_order3d: np.ndarray, dropout_gens) -> np.ndarray:
-    """One lockstep epoch of train + eval for every fold. Returns the host
-    rows [F, 4] (train_loss, test_loss, train_correct, test_correct) —
-    the epoch's one device-to-host transfer."""
-    tr_loss, tr_correct = lockstep_train_epoch(net_f, adam_f, batch_fn, order3d,
-                                               dropout_gens)
-    te_loss, te_correct = lockstep_eval_epoch(net_f, batch_fn, test_order3d)
-    rows = torch.stack([tr_loss, te_loss, tr_correct, te_correct], dim=-1)
-    return rows.cpu().double().numpy()
+# -- the fused runner -----------------------------------------------------
+
+# every kernel wrapper's launch counter; a graph replay adds what its
+# capture counted to each
+KERNEL_COUNTERS = (
+    dense_trunk.launches, block_csr.launches, block_resident.launches,
+    spmm_block_coo.launches, spmm_pallas.rows_launches,
+    spmm_pallas.edge_block_launches,
+)
+
+
+class CountedGraph:
+    """A CUDA graph and the kernels' launch counters (objects whose
+    attributes are plain int counts). A wrapper counts when Python calls
+    it, which for a graph is once, at capture: `capture()` takes the
+    counters' difference over the capture and puts the counters back (the
+    capture launched nothing), and each `replay()` adds that difference."""
+
+    def __init__(self, graph, counters=KERNEL_COUNTERS):
+        self.graph = graph
+        self.counters = counters
+        self.per_replay = None
+
+    @contextlib.contextmanager
+    def capture(self):
+        before = [dict(vars(c)) for c in self.counters]
+        try:
+            yield self.graph
+        finally:
+            self.per_replay = [{k: v - b[k] for k, v in vars(c).items()}
+                               for c, b in zip(self.counters, before)]
+            for c, b in zip(self.counters, before):
+                vars(c).update(b)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for c, diff in zip(self.counters, self.per_replay):
+            for k, v in diff.items():
+                setattr(c, k, getattr(c, k) + v)
+
+
+class FusedRun:
+    """k epochs of one epoch body per host round trip (see the module
+    docstring). `body()` reads the static device buffer `order` [steps,
+    (F,) slots] and writes the epoch's row into `rows` [(F,) 4]; `pattern`
+    [steps(, F)] is which steps (of which folds) hold a real graph in
+    every epoch; `generators` are the dropout generators the body draws
+    from. `graphs=False` runs every epoch eagerly on the card, for
+    comparison only; on the CPU every epoch is eager. A capture or replay
+    that fails raises."""
+
+    def __init__(self, body: Callable[[], None], order: torch.Tensor,
+                 rows: torch.Tensor, pattern: np.ndarray,
+                 generators: Sequence[torch.Generator], graphs: bool = True):
+        self.body = body
+        self.order = order
+        self.rows = rows
+        self.pattern = np.asarray(pattern, dtype=bool)
+        self.generators = list(generators)
+        self.graphs = graphs and order.is_cuda
+        self.stream = torch.cuda.Stream(order.device) if self.graphs else None
+        self.graph: Optional[CountedGraph] = None
+        self.capture_seconds: Optional[float] = None
+
+    def _check(self, orders_k: np.ndarray) -> None:
+        """Raise unless `orders_k` [k, steps, (F,) slots] fits the order
+        buffer and every epoch's real steps are the runner's pattern."""
+        if tuple(orders_k.shape[1:]) != tuple(self.order.shape):
+            raise ValueError(f"orders {tuple(orders_k.shape)} do not fit the "
+                             f"order buffer {tuple(self.order.shape)}")
+        real = (orders_k >= 0).any(axis=-1)
+        for j, r in enumerate(real):
+            if not np.array_equal(r, self.pattern):
+                raise ValueError(
+                    f"epoch {j} of the chunk has real steps {r.astype(int).tolist()}, "
+                    f"not the runner's {self.pattern.astype(int).tolist()}")
+
+    def run_epochs(self, orders_k: np.ndarray) -> np.ndarray:
+        """Run the epochs of a chunk of host orders [k, steps, (F,) slots];
+        returns the host rows [k, (F,) 4] in float64."""
+        orders_k = np.ascontiguousarray(orders_k, dtype=np.int32)
+        self._check(orders_k)
+        dev = self.order.device
+        orders = torch.from_numpy(orders_k).to(dev)  # the chunk's one host-to-device copy
+        out = torch.empty((len(orders_k), *self.rows.shape), dtype=self.rows.dtype,
+                          device=dev)
+        for j in range(len(orders_k)):
+            self.order.copy_(orders[j])
+            if not self.graphs:
+                self.body()
+            elif self.graph is None:
+                self._warm_up_and_capture()
+            else:
+                self.graph.replay()
+            out[j].copy_(self.rows)
+        return out.cpu().double().numpy()  # the chunk's one device-to-host copy
+
+    def _warm_up_and_capture(self) -> None:
+        main = torch.cuda.current_stream(self.order.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            self.body()
+        main.wait_stream(self.stream)
+        t0 = time.perf_counter()
+        graph = CountedGraph(torch.cuda.CUDAGraph())
+        for g in self.generators:
+            graph.graph.register_generator_state(g)
+        with graph.capture(), torch.cuda.graph(graph.graph, stream=self.stream):
+            self.body()
+        self.graph = graph
+        self.capture_seconds = time.perf_counter() - t0
+
+
+def make_dense_gather_run(net: DGCNNNet, optimizer, data: DenseDataset,
+                          test_order2d: np.ndarray, steps: int, dropout_gen,
+                          graphs: bool = True) -> FusedRun:
+    """The port of `make_dense_gather_run` (dgcnn_tpu/train/loop.py:373):
+    the fused runner of one fold's `epoch_body` over a dense dataset on
+    the device, `steps` train steps an epoch, the fold's fixed test order
+    [t_steps, slots]. Every train step holds a real graph."""
+    dev = data.adj.device
+    order = torch.full((steps, test_order2d.shape[1]), -1, dtype=torch.int32,
+                       device=dev)
+    test = torch.from_numpy(np.ascontiguousarray(test_order2d)).to(dev)
+    rows = torch.zeros(4, dtype=torch.float32, device=dev)
+    batch_fn = functools.partial(gather_dense_batch, data)
+
+    def body():
+        epoch_body(net, optimizer, batch_fn, order, test, dropout_gen, rows)
+
+    return FusedRun(body, order, rows, np.ones(steps, dtype=bool), [dropout_gen],
+                    graphs)
+
+
+def make_dense_lockstep_run(net_f: DGCNNFoldsNet, adam_f: FoldAdam,
+                            data: DenseDataset, test_order3d: np.ndarray,
+                            pattern: np.ndarray, dropout_gens,
+                            graphs: bool = True) -> FusedRun:
+    """The fused runner of the dense lockstep epoch, the port of the epoch
+    scan of `_make_lockstep_body` (dgcnn_tpu/train/cv_vmap.py:106-152) as
+    `make_dense_vmap_run` (:167) runs it: `lockstep_epoch_body` over the
+    folds' fixed test order [t_steps, F, slots], `pattern` [steps, F] the
+    folds' real train steps (`train/cv_vmap.py fold_pattern`), fold f's
+    dropout from `dropout_gens[f]`."""
+    dev = net_f.flat.device
+    order = torch.full((len(pattern), *test_order3d.shape[1:]), -1,
+                       dtype=torch.int32, device=dev)
+    test = torch.from_numpy(np.ascontiguousarray(test_order3d)).to(dev)
+    rows = torch.zeros((net_f.num_folds, 4), dtype=torch.float32, device=dev)
+    batch_fn = functools.partial(gather_dense_batch, data)
+    step_gens = [[g if r else None for g, r in zip(dropout_gens, row)]
+                 for row in pattern]
+
+    def body():
+        lockstep_epoch_body(net_f, adam_f, batch_fn, order, test, step_gens, rows)
+
+    return FusedRun(body, order, rows, pattern, dropout_gens, graphs)

@@ -247,9 +247,9 @@ def test_device_coo_engine_equals_host_engine(tmp_path, spmm_impl):
         net = DGCNNNet(model, cv.init_params(torch.Generator().manual_seed(0), model))
         opt = make_optimizer(net)
         gen = torch.Generator().manual_seed(7)
-        rows = [engine.run_epoch(net, opt, gen, np.random.default_rng(e).permutation(24))
-                for e in range(3)]
-        results.append((np.stack(rows), [p.detach() for p in net.parameters()]))
+        rows = engine.run_epochs(net, opt, gen, [np.random.default_rng(e).permutation(24)
+                                                 for e in range(3)])
+        results.append((rows, [p.detach() for p in net.parameters()]))
     np.testing.assert_allclose(results[1][0], results[0][0], rtol=1e-6, atol=1e-6)
     for a, b in zip(results[1][1], results[0][1]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)

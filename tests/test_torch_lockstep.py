@@ -41,10 +41,10 @@ from dgcnn_tpu_torch.train import cv
 from dgcnn_tpu_torch.train.cv_vmap import stacked_orders
 from dgcnn_tpu_torch.train.loop import (
     FoldAdam,
+    epoch_rows,
+    make_dense_lockstep_run,
     make_optimizer,
     nll_loss_and_correct,
-    run_epoch,
-    run_lockstep_epoch,
 )
 from dgcnn_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -111,10 +111,10 @@ def test_lockstep_epochs_match_jax_make_dense_vmap_run():
     adam_f = FoldAdam(net_f, lr=lr, b2=b2, eps=eps)
     data = build_dense_dataset(gs, n_tile, "cpu")
     gens = [torch.Generator().manual_seed(f) for f in range(F)]
-    rows = np.stack([
-        run_lockstep_epoch(net_f, adam_f, lambda r: gather_dense_batch(data, r),
-                           order4d[j], test3d, gens)
-        for j in range(len(order4d))])
+    runner = make_dense_lockstep_run(net_f, adam_f, data, test3d,
+                                     (order4d[0] >= 0).any(-1), gens)
+    rows = np.concatenate([runner.run_epochs(order4d[j:j + 1])
+                           for j in range(len(order4d))])
     assert rows.shape == jrows.shape == (2, F, 4)
     np.testing.assert_allclose(rows[..., :2], jrows[..., :2], rtol=1e-5)
     np.testing.assert_array_equal(rows[..., 2:], jrows[..., 2:])
@@ -267,7 +267,8 @@ def test_lockstep_matches_sequential_driver(seq_and_lockstep):
     """(d) Every fold's CSV row within rtol/atol 5e-4 of the sequential
     driver's (the reference's own lockstep tolerance,
     tests/test_cv_vmap.py), ragged folds, dropout on; the events carry
-    `folds_in_lockstep`."""
+    `folds_in_lockstep`, and `chunk_epochs` 3: the three epochs are one
+    chunk under the default `max_fused_epochs` 25."""
     root, _, res = seq_and_lockstep
     assert res["folds"]["test_accuracies"] == res["sequential"]["test_accuracies"]
     for fold in (1, 2, 3):
@@ -282,7 +283,7 @@ def test_lockstep_matches_sequential_driver(seq_and_lockstep):
     epochs = [e for e in events if e["kind"] == "epoch"]
     assert [(e["epoch"], e["fold"]) for e in epochs] == [
         (ep, f) for ep in (1, 2, 3) for f in (1, 2, 3)]
-    assert all(e["folds_in_lockstep"] == 3 and e["chunk_epochs"] == 1 for e in epochs)
+    assert all(e["folds_in_lockstep"] == 3 and e["chunk_epochs"] == 3 for e in epochs)
 
 
 def test_lockstep_dropout_masks_are_the_sequential_bits(monkeypatch):
@@ -309,15 +310,16 @@ def test_lockstep_dropout_masks_are_the_sequential_bits(monkeypatch):
     per_fold = [init_params(torch.Generator().manual_seed(f), tm) for f in range(F)]
     net_f = DGCNNFoldsNet(tm, stack_params(per_fold))
     gens = [torch.Generator().manual_seed(7 + f) for f in range(F)]
-    run_lockstep_epoch(net_f, FoldAdam(net_f), fn, order4d[0], test3d, gens)
+    make_dense_lockstep_run(net_f, FoldAdam(net_f), data, test3d,
+                            (order4d[0] >= 0).any(-1), gens).run_epochs(order4d[:1])
     lock, seen[:] = list(seen), []
     for f in range(F):
         net = DGCNNNet(tm, per_fold[f])
         gen = torch.Generator().manual_seed(7 + f)
         own = order4d[0][:, f][(order4d[0][:, f] >= 0).any(-1)]
         own_test = test3d[:, f][(test3d[:, f] >= 0).any(-1)]
-        run_epoch(net, make_optimizer(net), fn, torch.from_numpy(own),
-                  torch.from_numpy(own_test), gen)
+        epoch_rows(net, make_optimizer(net), fn, torch.from_numpy(own),
+                   torch.from_numpy(own_test), gen)
         assert len(seen) == len(own)
         assert len(own) < len(lock) if f == 0 else len(own) == len(lock)
         for s, mask in enumerate(seen):
