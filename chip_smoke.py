@@ -82,22 +82,40 @@ CUDA is absent or any phase fails. Phases:
         mask in a lockstep forward is bitwise the sequential one; one
         lockstep batch (10 folds stacked) and one NCI1 batch on the card
         against the CPU;
-     b. the CLI trains synthetic DD with `--layout auto` (→ block, the
-        kernel `block_impl` auto names) for 2 folds × 2 epochs, then
-        1 fold × 1 epoch with the other `--block_impl` (CSR kernel =
-        pallas, item-parallel kernel = xla); propagations exactly
-        4 × (train + eval steps) forward and 4 × train steps backward,
-        a quarter of each of width 1; one DD batch on the card against
+     b. `run_cross_validation` trains synthetic DD (layout auto → block,
+        the kernel `block_impl` auto names) for 2 folds × 4 epochs in
+        chunks of `max_fused_epochs` 2 through the block layout's fused
+        runner (each fold's chunk 1: a warm-up epoch, the capture and a
+        replay; chunk 2: two replays), then 1 fold × 3 epochs with the
+        other `block_impl` (CSR kernel = pallas, item-parallel kernel =
+        xla); each run graphed (launches counted per replay: exactly
+        4 × (train + eval steps) forward and 4 × train steps backward, a
+        quarter of each of width 1, 0 on the other kernel) and again eager
+        (`graphs=False`): every fold's rows and `epochs/` bundle
+        (parameters, optimizer state) bitwise equal, the fold-epoch seconds
+        of chunk 2 graphed beside eager; one DD batch on the card against
         the CPU through each kernel;
-     c. the CLI trains synthetic DD with `--layout coo`: `--spmm auto` for
-        2 folds × 2 epochs, then the other device-assembled name and
-        `--spmm pallas` (host-packed, block-pair structures) for 1 fold ×
-        1 epoch each, and synthetic NCI1 `--layout coo --spmm pallas` for
-        1 fold × 1 epoch; launches exactly 4 × (train + eval steps)
-        forward and 4 × train steps backward on the named kernel, a
-        quarter of each of width 1, 0 on the others; one DD and one NCI1
-        COO batch on the card against the CPU through each kernel (the
-        block-COO kernel on a `CooEngine` batch);
+     c. the same for synthetic DD `--layout coo` (`DeviceCooEngine`):
+        `--spmm auto` 2 × 4, the other device-assembled name 1 × 3, and
+        `--spmm pallas` (`CooEngine`: host-packed sub-chunks, each epoch
+        staged into one static device stack, block-pair structures padded
+        to the sub-chunk's grow-only item budget) 1 × 2, and synthetic NCI1
+        `--layout coo --spmm pallas` 1 × 2, graphed and eager, launches
+        exact on the named kernel and 0 on the others; then the block and
+        COO runners built directly (fold 1 of DD, its first 3 epochs at
+        their budgets, `run_fold`'s seeds): one eager epoch of every new
+        body (both block kernels, both device-assembled SpMM kernels, NCI1
+        `CooEngine` with a staged epoch) under
+        `torch.cuda.set_sync_debug_mode("error")`, 3 epochs graphed against
+        3 eager (rows, parameters, optimizer state, generator states
+        bitwise), capture seconds and peak memory; a forced budget growth
+        on the block and the device-COO engine (two chunks at one budget,
+        then a chunk with the fold's largest graphs in one batch): the
+        budget grows there and only there, the old runner's graph is
+        destroyed at its drop (memory before and after), exactly one new
+        runner captures, and 5 epochs' rows, state and launch counts are
+        eager's; one DD and one NCI1 COO batch on the card against the CPU
+        through each kernel (the block-COO kernel on a `CooEngine` batch);
   5. device times (utils/profiling.py `device_ms`): each call captured
      10 times in one CUDA graph, the graph replayed and timed with CUDA
      events, so the host's launch rate is out of the number; warm
@@ -125,10 +143,10 @@ CUDA is absent or any phase fails. Phases:
      dense (one fold, and the lockstep step of all ten), DD block through
      each `--block_impl`, DD COO and DD COO `--spmm pallas` (top 10 CUDA
      kernels) and each step's wall time and launches; the same for one
-     epoch of the NCI1 lockstep runner's graph and of fold 1's one-fold
-     graph (a replay), with the replay's span between CUDA events, the
-     per-step wall and device time, the device's idle share, the capture
-     seconds and the peak memory;
+     epoch of each epoch graph (a replay): the NCI1 lockstep runner's,
+     fold 1's one-fold runner's, and DD's block and COO runners', with the
+     replay's span between CUDA events, the per-step wall and device time,
+     the device's idle share, the capture seconds and the peak memory;
   7. the block-COO cost-split probe (dgcnn_tpu_torch/tools/
      probe_kernel_anatomy.py) at its standard shape, its long-row variant
      and DD's `CooEngine` mean batch, its launch count set to 0 after its checks and read
@@ -137,18 +155,21 @@ CUDA is absent or any phase fails. Phases:
      step's shape with the lockstep main path's launches, replays
      counted, its one-fold
      shape beside it; the block and SpMM kernels once per width, F=32 and
-     `_f1`, with the main path's launches of that width), the card line
+     `_f1`, with the graphed main path's launches of that width, replays
+     counted), the card line
      again, and the final `{"ok": true, ...}` line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
 import sys
 import tempfile
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -1340,19 +1361,6 @@ def check_artifacts(tmp, data_type, folds_n, epochs):
     return events
 
 
-def run_cli(data_type, extra, folds_n, epochs, tmp):
-    from dgcnn_tpu_torch import cli
-
-    argv = ["--data_type", data_type, "--synthetic", *extra,
-            "--num_folds", str(folds_n), "--num_epochs", str(epochs),
-            "--batch_size", "50", "--data_root", os.path.join(tmp, "data"),
-            "--out_root", tmp]
-    t0 = time.perf_counter()
-    result = cli.main(argv)
-    torch.cuda.synchronize()
-    return result, time.perf_counter() - t0
-
-
 def lockstep_steps(data_type, y, folds_n, batch, data_dir):
     """(train, eval) lockstep steps of one epoch: the longest fold's."""
     from dgcnn_tpu_torch.data.folds import get_folds
@@ -1590,12 +1598,11 @@ def epoch_runners(gs, model, n_tile, device, graphs):
     an epoch updates (parameters, optimizer state, generator states)."""
     from dgcnn_tpu_torch.batching.dense import build_dense_dataset, order_matrix
     from dgcnn_tpu_torch.data.folds import get_folds
-    from dgcnn_tpu_torch.models.dgcnn import (DGCNNFoldsNet, DGCNNNet, init_params,
-                                              stack_params)
+    from dgcnn_tpu_torch.models.dgcnn import DGCNNFoldsNet, init_params, stack_params
     from dgcnn_tpu_torch.train.cv import _stream_seed
     from dgcnn_tpu_torch.train.cv_vmap import fold_pattern, stacked_orders
     from dgcnn_tpu_torch.train.loop import (FoldAdam, make_dense_gather_run,
-                                            make_dense_lockstep_run, make_optimizer)
+                                            make_dense_lockstep_run)
 
     data = build_dense_dataset(gs, n_tile, device)
     folds = get_folds(gs.y, "", FOLDS, 324, data_type="NCI1")
@@ -1617,10 +1624,7 @@ def epoch_runners(gs, model, n_tile, device, graphs):
         net_f, adam_f, data, stacked_orders(test, 50, S, t_steps),
         fold_pattern([len(t) for t in train], 50, steps), gens, graphs)
 
-    net = DGCNNNet(model, init_params(
-        torch.Generator().manual_seed(_stream_seed(324, 1, 1)), model, device))
-    opt = make_optimizer(net)
-    gen = torch.Generator(device=device).manual_seed(_stream_seed(324, 1, 2))
+    net, opt, gen = fold_seeds(model, device)
     rng = np.random.default_rng(np.random.SeedSequence([324, 1]))
     one_orders = np.stack([order_matrix(train[0][rng.permutation(len(train[0]))], 50, S)
                            for _ in range(3)])
@@ -1631,23 +1635,14 @@ def epoch_runners(gs, model, n_tile, device, graphs):
         return [net_f.flat, adam_f.exp_avg, adam_f.exp_avg_sq, adam_f.steps,
                 *(g.get_state() for g in gens)]
 
-    def one_state():
-        return [*net.parameters(), *(st[k] for st in opt.state.values()
-                                     for k in ("step", "exp_avg", "exp_avg_sq")),
-                gen.get_state()]
-
     return {"lockstep": (lock, orders, lock_state, steps + t_steps),
-            "one fold": (one, one_orders, one_state,
+            "one fold": (one, one_orders, seq_state(net, opt, gen),
                          one_orders.shape[1] + -(-len(test[0]) // 50))}
 
 
-def check_runners(gs, model, n_tile, device):
-    """Phase 4a's runner checks, lockstep and one fold: one eager epoch of
-    each body under `set_sync_debug_mode("error")` (no host sync in it),
-    then 3 epochs eager against 3 graphed (warm-up, capture, 2 replays)
-    from the same seeds: rows, parameters, optimizer state and dropout
-    generators' states bitwise equal; the peak memory of each. Returns
-    the graphed runners for phase 6."""
+def new_stream_workspace(device):
+    """Log what a first matmul on a new stream allocates (cuBLAS's
+    workspace): the part of a runner's memory that is not its graph's."""
     side, a = torch.cuda.Stream(), torch.ones(64, 64, device=device)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -1656,13 +1651,22 @@ def check_runners(gs, model, n_tile, device):
     torch.cuda.synchronize()
     log(f"  a first matmul on a new stream allocates "
         f"{(torch.cuda.memory_allocated() - base) / 2**20:.1f} MiB (its cuBLAS workspace)")
-    del side, a
-    eager = epoch_runners(gs, model, n_tile, device, graphs=False)
-    graphed = epoch_runners(gs, model, n_tile, device, graphs=True)
+
+
+def check_runners(build):
+    """The runners `build(graphs)` gives (name → (runner, 3 epochs' orders,
+    `state()`, steps an epoch)), eager and graphed: one eager epoch of each
+    body under `set_sync_debug_mode("error")` (no host sync in it), then 3
+    epochs eager against 3 graphed (warm-up, capture, 2 replays) from the
+    same seeds: rows, parameters, optimizer state and dropout generators'
+    states bitwise equal; the peak memory of each above what was allocated
+    before. Returns the graphed runners for phase 6."""
+    eager = build(False)
+    graphed = build(True)
     out = {}
     for name, (run_e, orders, state_e, steps) in eager.items():
         run_g, _, state_g, _ = graphed[name]
-        run_e.order.copy_(torch.from_numpy(orders[0]).to(device))
+        run_e.order.copy_(torch.from_numpy(orders[0]).to(run_e.order.device))
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -1701,6 +1705,254 @@ def check_runners(gs, model, n_tile, device):
                      "capture_s": run_g.capture_seconds, "peak_eager_mib": peak_e / 2**20,
                      "peak_graphed_mib": peak_g / 2**20}
     return out
+
+
+# -- phases 4b and 4c: the block and COO layouts' fused runners -------------
+
+
+def bundles(cfg):
+    """Every fold's `epochs/` bundle (parameters and Adam's state) as the
+    run wrote it, one array a key."""
+    out = []
+    for f in range(1, cfg.num_folds + 1):
+        with np.load(os.path.join(cfg.epochs_dir, f"{cfg.data_type}_{f}.npz")) as z:
+            out.extend(z[k] for k in sorted(z.files))
+    return out
+
+
+def sparse_graphed_vs_eager(tmp, label, data_type, gs, folds_n, epochs, counters,
+                            used, want_layout, **kw):
+    """`run_cross_validation` of synthetic `data_type` on the card in
+    chunks of `max_fused_epochs` 2, graphed with every kernel's counts set
+    to 0 just before and read just after, then eager (`graphs=False`):
+    launches exactly 4 × (train + eval steps) forward and 4 × train steps
+    backward on `used` (a quarter of each of width 1), 0 on the others,
+    counted per replay; every fold's rows and `epochs/` bundle (parameters,
+    optimizer state) bitwise equal. Returns (launches of `used` (fwd,
+    bwd), of width 1, graphed and eager epoch events)."""
+    cfg = cv_config(tmp, label, data_type, folds_n, epochs, max_fused_epochs=2, **kw)
+    eager = cv_config(tmp, label + "_eager", data_type, folds_n, epochs,
+                      max_fused_epochs=2, **kw)
+    for c in counters.values():
+        c.reset()
+    _, wall = run_cv(cfg, True)
+    counts = {k: (c.fwd_launches, c.bwd_launches) for k, c in counters.items()}
+    f1 = (counters[used].f1_fwd, counters[used].f1_bwd)
+    tr_n, ev_n = count_steps(data_type, gs.y, folds_n, epochs, 50,
+                             os.path.join(tmp, "data", data_type, "10fold_idx"))
+    log(f"{label}: {data_type} {folds_n} x {epochs}, chunks of 2, graphed: {wall:.1f} s; "
+        f"train steps {tr_n}, eval steps {ev_n}; launches (fwd, bwd) {counts}, of "
+        f"width 1 on {used} {f1}")
+    want = {k: (4 * (tr_n + ev_n), 4 * tr_n) if k == used else (0, 0) for k in counters}
+    if counts != want or f1 != (tr_n + ev_n, tr_n):
+        raise AssertionError(f"{label}: launch counts {counts} (F=1 {f1}), expected "
+                             f"{want}, a quarter of width 1")
+    _, wall_e = run_cv(eager, False)
+    same_bits(f"{label}: graphed vs eager rows", fold_rows(cfg), fold_rows(eager))
+    same_bits(f"{label}: graphed vs eager epochs/ bundles", bundles(cfg), bundles(eager))
+    events = check_artifacts(os.path.join(tmp, label), data_type, folds_n, epochs)
+    start = events[0]
+    impl_key = "block_impl" if want_layout == "block" else "spmm_impl"
+    if start["kind"] != "run_start" or start["layout"] != want_layout:
+        raise AssertionError(f"run_start says {start}")
+    ev, ev_e = epoch_events(cfg), epoch_events(eager)
+    chunk2 = [(e["fold"], e["epoch_seconds"]) for e in ev if e["epoch"] > 2]
+    chunk2_e = [(e["fold"], e["epoch_seconds"]) for e in ev_e if e["epoch"] > 2]
+    log(f"  {label}: run_start layout {start['layout']}, {impl_key} {start[impl_key]}; "
+        f"eager run {wall_e:.1f} s; every fold's rows and epochs/ bundle bitwise "
+        f"equal, graphed and eager; fold-epoch seconds (fold, s) of chunk 2 and "
+        f"after: graphed {chunk2} vs eager {chunk2_e}; chunk 1 (warm-up + "
+        f"capture): graphed {[e['epoch_seconds'] for e in ev if e['epoch'] <= 2]} vs "
+        f"eager {[e['epoch_seconds'] for e in ev_e if e['epoch'] <= 2]}")
+    return counts[used], f1, ev, ev_e
+
+
+def fold_seeds(model, device):
+    """Fold 1's net, optimizer and dropout generator from `run_fold`'s
+    seeds (seed 324)."""
+    from dgcnn_tpu_torch.models.dgcnn import DGCNNNet, init_params
+    from dgcnn_tpu_torch.train.cv import _stream_seed
+    from dgcnn_tpu_torch.train.loop import make_optimizer
+
+    net = DGCNNNet(model, init_params(
+        torch.Generator().manual_seed(_stream_seed(324, 1, 1)), model, device))
+    gen = torch.Generator(device=device).manual_seed(_stream_seed(324, 1, 2))
+    return net, make_optimizer(net), gen
+
+
+def seq_state(net, opt, gen):
+    """What an epoch updates: parameters, optimizer state, generator state."""
+    return lambda: [*net.parameters(), *(st[k] for st in opt.state.values()
+                                         for k in ("step", "exp_avg", "exp_avg_sq")),
+                    gen.get_state()]
+
+
+def dd_fold_orders(gs, slots, epochs=3):
+    """Fold 1 of synthetic DD (2 folds, seed 324): its first `epochs`
+    epochs' orders as `run_fold` shuffles them, and its test order."""
+    from dgcnn_tpu_torch.batching.dense import order_matrix
+    from dgcnn_tpu_torch.data.folds import get_folds
+
+    tr, te = get_folds(gs.y, "", 2, 324, data_type="DD")[0]
+    tr = np.asarray(tr, np.int32)
+    rng = np.random.default_rng(np.random.SeedSequence([324, 1]))
+    orders = np.stack([order_matrix(tr[rng.permutation(len(tr))], 50, slots)
+                       for _ in range(epochs)])
+    return (tr, np.asarray(te, np.int32)), orders, order_matrix(te, 50, slots)
+
+
+def sparse_runners(ctx, dd_coo, model, device, graphs, impls=None):
+    """The fused runners of fold 1 of synthetic DD as the engines build
+    them, at the budgets of its first 3 epochs: the block layout's
+    (`make_block_run`, block_impl auto unless `impls` says) and the
+    device-assembled COO layout's (`make_device_coo_run`, spmm auto), each
+    with the 3 orders and a `state()`."""
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.train.loop import make_block_run, make_device_coo_run
+
+    block_impl, spmm_impl = impls or (Config().resolved_block_impl(),
+                                      Config().resolved_spmm_impl())
+    _, orders, test = dd_fold_orders(ctx.gs, S)
+    steps = orders.shape[1] + test.shape[0]
+    nb, w = ctx.engine.budget_for(orders, test)
+    bucket = dd_coo.engine.bucket_for(orders, test)
+    net, opt, gen = fold_seeds(model, device)
+    block = make_block_run(net, opt, ctx.engine.dev, test, nb, w, orders.shape[1], gen,
+                           block_impl, graphs)
+    out = {f"DD block ({block_impl})": (block, orders, seq_state(net, opt, gen), steps)}
+    net, opt, gen = fold_seeds(model, device)
+    coo = make_device_coo_run(net, opt, dd_coo.engine.dev, test, bucket, orders.shape[1],
+                              gen, spmm_impl, graphs)
+    out[f"DD COO ({spmm_impl})"] = (coo, orders, seq_state(net, opt, gen), steps)
+    return out
+
+
+def check_sync_only(ctx, dd_coo, nci1, model, nci1_model, device, impls):
+    """One eager epoch of the bodies `check_runners` does not build under
+    `set_sync_debug_mode("error")`: the other block kernel, the other
+    device-assembled SpMM kernel, and NCI1 `--spmm pallas` (`CooEngine`:
+    its first sub-chunk run once to stage a packed epoch, then the body
+    alone with epoch 0 staged again)."""
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.data.folds import get_folds
+    from dgcnn_tpu_torch.train.cv import CooEngine
+
+    order = torch.from_numpy(dd_fold_orders(ctx.gs, S)[1][0]).to(device)
+    bodies = [(name, r, lambda r=r: r.order.copy_(order)) for name, (r, _, _, _) in
+              sparse_runners(ctx, dd_coo, model, device, False, impls).items()]
+    cfg = Config(data_type="NCI1", batch_size=50, layout="coo", spmm_impl="pallas")
+    engine = CooEngine(cfg, nci1, device, graphs=False)
+    tr, te = get_folds(nci1.y, "", 2, 324, data_type="NCI1")[0]
+    engine.begin_fold(tr, te)
+    net, opt, gen = fold_seeds(nci1_model, device)
+    engine.run_epochs(net, opt, gen, np.stack([np.arange(len(tr))]))
+    host = engine.runners.runner
+    bodies.append(("NCI1 COO (pallas, CooEngine)", host, lambda: host.stage(0)))
+    for name, r, prepare in bodies:
+        prepare()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            r.body()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if not torch.isfinite(r.rows).all():
+            raise AssertionError(f"{name}: non-finite rows {r.rows}")
+        log(f"  {name}: one eager epoch of the body ran under "
+            f"set_sync_debug_mode('error'): no host sync")
+    engine.end_fold()
+
+
+def forced_growth(label, engine, gs, floors, model, device, counters):
+    """`engine` (a block or device-COO engine on the card, over synthetic
+    DD `gs`) on fold 1, graphed and then eager from the same seeds and from
+    the budget floors `floors` (attribute → a new engine's value):
+    chunk 1 (2 epochs) and chunk 2 (1 epoch, the same batches) at one
+    budget, chunk 3 with the fold's largest graphs in its first batch. The
+    budget grows at chunk 3 and only there; chunk 2 replays chunk 1's
+    runner; chunk 3 drops it (its CUDA graph destroyed, the memory it
+    held freed) and builds exactly one new runner, which captures once;
+    rows, parameters, optimizer state, generator state and every kernel's
+    launch counts equal, graphed and eager."""
+    (tr, te), _, _ = dd_fold_orders(gs, S, 1)
+    sizes = (engine._block_counts if hasattr(engine, "_block_counts")
+             else engine._edge_counts)[tr]
+    rng = np.random.default_rng(7)
+    p1 = np.stack([rng.permutation(len(tr)) for _ in range(2)])
+    chunks = [p1, p1[:1], np.stack([np.argsort(-sizes, kind="stable"), p1[0]])]
+    slot = engine.runners
+    saved = {f: getattr(engine, f) for f in floors}
+    got = {}
+    for graphs in (True, False):
+        for f, v in floors.items():
+            setattr(engine, f, v)
+        engine.graphs = graphs
+        engine.begin_fold(tr, te)
+        net, opt, gen = fold_seeds(model, device)
+        made, drops, keys = [], [], []
+        real_get, real_drop = slot.get, slot.drop
+
+        def get(key, make):
+            return real_get(key, lambda: made.append(key) or make())
+
+        def drop():
+            old = slot.runner
+            torch.cuda.synchronize()
+            before = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+            ref = (weakref.ref(old.graph.graph)
+                   if old is not None and old.graph is not None else None)
+            del old
+            real_drop()
+            gc.collect()
+            torch.cuda.empty_cache()
+            drops.append((ref, before, (torch.cuda.memory_allocated(),
+                                        torch.cuda.memory_reserved())))
+
+        slot.get, slot.drop = get, drop
+        for c in counters.values():
+            c.reset()
+        rows = []
+        try:
+            for perms in chunks:
+                rows.append(engine.run_epochs(net, opt, gen, perms))
+                keys.append(slot.key)
+                if graphs and slot.runner.graph is None:
+                    raise AssertionError(f"{label}: chunk {len(keys)}: no graph captured")
+            engine.end_fold()
+        finally:
+            del slot.get, slot.drop
+        counts = {k: (c.fwd_launches, c.bwd_launches, c.f1_fwd, c.f1_bwd)
+                  for k, c in counters.items()}
+        got[graphs] = (np.concatenate(rows), [t.detach().cpu().numpy()
+                                              for t in seq_state(net, opt, gen)()],
+                       counts, keys, made, drops)
+    for f, v in saved.items():
+        setattr(engine, f, v)
+    rows_g, state_g, counts_g, keys, made, drops = got[True]
+    rows_e, state_e, counts_e, keys_e, _, _ = got[False]
+    keys, keys_e = [k[1:] for k in keys], [k[1:] for k in keys_e]  # (fold, budget)
+    if not (keys[0] == keys[1] != keys[2]) or keys != keys_e:
+        raise AssertionError(f"{label}: budgets {keys} (eager {keys_e}): chunk 3 must "
+                             f"grow the budget and only chunk 3")
+    if [k[1:] for k in made] != [keys[0], keys[2]]:
+        raise AssertionError(f"{label}: runners built for {made}, want one a budget")
+    grown = [d for d in drops if d[0] is not None]
+    if len(grown) != 2 or grown[0][0]() is not None:
+        raise AssertionError(f"{label}: the old runner's graph outlived its drop")
+    (_, (a0, r0), (a1, r1)) = grown[0]
+    if not a1 < a0:
+        raise AssertionError(f"{label}: memory_allocated {a0} -> {a1} at the drop")
+    same_bits(f"{label}: forced growth, graphed vs eager rows", [rows_g], [rows_e])
+    same_bits(f"{label}: forced growth, graphed vs eager state", state_g, state_e)
+    if counts_g != counts_e:
+        raise AssertionError(f"{label}: launches graphed {counts_g} vs eager {counts_e}")
+    log(f"  {label} forced growth: budgets by chunk {keys[0]} → {keys[1]} → "
+        f"{keys[2]}; runners built {len(made)} (one a budget, each captured once); "
+        f"the old graph destroyed at the drop, memory_allocated {a0 / 2**20:.1f} → "
+        f"{a1 / 2**20:.1f} MiB, memory_reserved (after empty_cache) {r0 / 2**20:.1f} → "
+        f"{r1 / 2**20:.1f} MiB; 5 epochs' rows, parameters, optimizer and generator "
+        f"state bitwise eager; launches equal to eager's")
 
 
 # -- phase 6: one profiled train step ---------------------------------------
@@ -1893,7 +2145,9 @@ def main() -> int:
     nci1_model = DGCNN(num_features=nci1.num_features, num_classes=nci1.num_classes)
     lock = lockstep_main_path(nci1, t_main, dt)
     trunk_fwd_n, trunk_bwd_n = lock["trunk_launches"]
-    runners = check_runners(nci1, nci1_model, t_main, device)
+    new_stream_workspace(device)
+    runners = check_runners(lambda graphs: epoch_runners(nci1, nci1_model, t_main,
+                                                         device, graphs))
 
     lock_parts = lockstep_parts(nci1, t_main, "NCI1")
     lock_host = stack_batches(lock_parts)
@@ -1909,44 +2163,22 @@ def main() -> int:
     auto_impl = Config().resolved_block_impl()
     other_impl = {"pallas": "xla", "xla": "pallas"}[auto_impl]
     kernel_of = {"pallas": "block_csr", "xla": "block_resident"}
-    log(f"== phase 4b: main path, synthetic DD, --layout auto (block, "
-        f"block_impl auto = {auto_impl}), 2 folds x 2 epochs; then "
-        f"--block_impl {other_impl}, 1 fold x 1 epoch")
+    log(f"== phase 4b: main path, synthetic DD, layout auto (block, block_impl "
+        f"auto = {auto_impl}), 2 folds x 4 epochs in chunks of max_fused_epochs 2, "
+        f"graphed then eager; block_impl {other_impl}, 1 fold x 3 epochs, the same")
+    log(card)
     mods = {k: m for k, (m, _) in block_kernels().items()}
-    dd_launches = {}
-    for impl, extra, folds_n, epochs in (
-        (auto_impl, ["--layout", "auto"], 2, 2),
-        (other_impl, ["--block_impl", other_impl], 1, 1),
-    ):
-        with tempfile.TemporaryDirectory() as tmp:
-            for m in mods.values():
-                m.launches.reset()
-            _, wall = run_cli("DD", extra, folds_n, epochs, tmp)
-            counts = {k: (m.launches.fwd_launches, m.launches.bwd_launches)
-                      for k, m in mods.items()}
-            tr_n, ev_n = count_steps("DD", ctx.gs.y, folds_n, epochs, 50,
-                                     os.path.join(tmp, "data", "DD", "10fold_idx"))
+    dd_launches, dd_events = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for impl, folds_n, epochs in ((auto_impl, 2, 4), (other_impl, 1, 3)):
             used = kernel_of[impl]
-            idle = kernel_of[{"pallas": "xla", "xla": "pallas"}[impl]]
-            f1 = (mods[used].launches.f1_fwd, mods[used].launches.f1_bwd)
-            log(f"DD {' '.join(extra)}: {wall:.1f} s; train steps {tr_n}, eval "
-                f"steps {ev_n}; propagations (fwd, bwd) {counts}, of width 1 on "
-                f"{used} {f1}")
-            if (counts[used] != (4 * (tr_n + ev_n), 4 * tr_n) or counts[idle] != (0, 0)
-                    or f1 != (tr_n + ev_n, tr_n)):
-                raise AssertionError(
-                    f"block launch counts do not match the steps run on {used}")
-            dd_launches[used] = counts[used]
-            dd_launches[used + "_f1"] = f1
-            events = check_artifacts(tmp, "DD", folds_n, epochs)
-            start = events[0]
-            if (start["kind"] != "run_start" or start["layout"] != "block"
-                    or start["block_impl"] != impl):
-                raise AssertionError(f"run_start says {start}")
-            log(f"  run_start: layout {start['layout']}, block_impl {start['block_impl']}")
-            if impl == auto_impl:
-                dd_epoch_s = [e["epoch_seconds"] for e in events if e["kind"] == "epoch"]
-
+            n, f1, ev, ev_e = sparse_graphed_vs_eager(
+                tmp, f"DD block {impl}", "DD", ctx.gs, folds_n, epochs,
+                {k: m.launches for k, m in mods.items()}, used, "block",
+                **({} if impl == auto_impl else {"block_impl": impl}))
+            dd_launches[used], dd_launches[used + "_f1"] = n, f1
+            dd_events[impl] = (ev, ev_e)
+    dd_epoch_s = [e["epoch_seconds"] for e in dd_events[auto_impl][0]]
     from dgcnn_tpu_torch.batching.block_sparse import (
         block_graphset_to_device, build_block_graphset, gather_block_batch)
 
@@ -1970,47 +2202,42 @@ def main() -> int:
     spmm_auto = Config().resolved_spmm_impl()
     spmm_other = {"xla": "onehot", "onehot": "xla"}[spmm_auto]
     log(f"== phase 4c: main path, synthetic DD, --layout coo: --spmm auto "
-        f"(= {spmm_auto}) 2 folds x 2 epochs, then --spmm {spmm_other} and "
-        f"--spmm pallas 1 fold x 1 epoch; synthetic NCI1 --layout coo --spmm "
-        f"pallas 1 fold x 1 epoch")
+        f"(= {spmm_auto}) 2 folds x 4 epochs, --spmm {spmm_other} 1 x 3, --spmm "
+        f"pallas 1 x 2; synthetic NCI1 --layout coo --spmm pallas 1 x 2; each in "
+        f"chunks of max_fused_epochs 2, graphed then eager")
+    log(card)
     counters = spmm_counters()
     coo_launches, coo_epoch_s = {}, {}
-    for data_type, impl, name, folds_n, epochs in (
-        ("DD", spmm_auto, "auto", 2, 2),
-        ("DD", spmm_other, spmm_other, 1, 1),
-        ("DD", "pallas", "pallas", 1, 1),
-        ("NCI1", "pallas", "pallas", 1, 1),
-    ):
-        extra = ["--layout", "coo", "--spmm", name]
-        with tempfile.TemporaryDirectory() as tmp:
-            for c in counters.values():
-                c.reset()
-            _, wall = run_cli(data_type, extra, folds_n, epochs, tmp)
-            counts = {k: (c.fwd_launches, c.bwd_launches) for k, c in counters.items()}
-            gs = ctx.gs if data_type == "DD" else nci1
-            tr_n, ev_n = count_steps(data_type, gs.y, folds_n, epochs, 50,
-                                     os.path.join(tmp, "data", data_type, "10fold_idx"))
+    with tempfile.TemporaryDirectory() as tmp:
+        for data_type, impl, name, folds_n, epochs in (
+            ("DD", spmm_auto, "auto", 2, 4),
+            ("DD", spmm_other, spmm_other, 1, 3),
+            ("DD", "pallas", "pallas", 1, 2),
+            ("NCI1", "pallas", "pallas", 1, 2),
+        ):
             used = SPMM_KERNEL_OF[impl]
-            f1 = (counters[used].f1_fwd, counters[used].f1_bwd)
-            log(f"{data_type} {' '.join(extra)}: {wall:.1f} s; train steps {tr_n}, "
-                f"eval steps {ev_n}; launches (fwd, bwd) {counts}, of width 1 on "
-                f"{used} {f1}")
-            want = {k: (4 * (tr_n + ev_n), 4 * tr_n) if k == used else (0, 0)
-                    for k in SPMM_KERNELS}
-            if counts != want or f1 != (tr_n + ev_n, tr_n):
-                raise AssertionError(f"SpMM launch counts {counts} (F=1 {f1}), "
-                                     f"expected {want}, a quarter of width 1")
+            gs = ctx.gs if data_type == "DD" else nci1
+            n, f1, ev, ev_e = sparse_graphed_vs_eager(
+                tmp, f"{data_type} COO {name}", data_type, gs, folds_n, epochs, counters,
+                used, "coo", layout="coo", spmm_impl=name)
             if data_type == "DD" and used not in coo_launches:
-                coo_launches[used] = counts[used]
-                coo_launches[used + "_f1"] = f1
-            events = check_artifacts(tmp, data_type, folds_n, epochs)
-            start = events[0]
-            if (start["kind"] != "run_start" or start["layout"] != "coo"
-                    or start["spmm_impl"] != impl):
-                raise AssertionError(f"run_start says {start}")
-            log(f"  run_start: layout {start['layout']}, spmm_impl {start['spmm_impl']}")
-            coo_epoch_s[(data_type, name)] = [
-                e["epoch_seconds"] for e in events if e["kind"] == "epoch"]
+                coo_launches[used], coo_launches[used + "_f1"] = n, f1
+            coo_epoch_s[(data_type, name)] = ([e["epoch_seconds"] for e in ev],
+                                              [e["epoch_seconds"] for e in ev_e])
+
+    log("== phases 4b-4c: the block and COO fused runners built directly, a "
+        "forced budget growth")
+    log(card)
+    check_sync_only(ctx, dd_coo, nci1, dd_model, nci1_model, device,
+                    (other_impl, spmm_other))
+    runners.update(check_runners(lambda graphs: sparse_runners(
+        ctx, dd_coo, dd_model, device, graphs)))
+    forced_growth("DD block", ctx.engine, ctx.gs, {"floor_nb": 8, "floor_w": 64},
+                  dd_model, device, {k: m.launches for k, m in mods.items()})
+    forced_growth("DD COO", dd_coo.engine, ctx.gs,
+                  {"floor_nodes": dd_coo.engine.cfg.node_pad_multiple,
+                   "floor_edges": dd_coo.engine.cfg.edge_pad_multiple},
+                  dd_model, device, counters)
 
     from dgcnn_tpu_torch.batching.packer import batch_to_device as coo_to_device
 
@@ -2127,7 +2354,7 @@ def main() -> int:
     del flush
 
     log("== phase 6: one profiled train step (torch.profiler), then one epoch "
-        "of each dense epoch graph")
+        "of each epoch graph")
     log(card)
     from dgcnn_tpu_torch.models.dgcnn import DGCNNNet, init_params
     from dgcnn_tpu_torch.train.loop import FoldAdam, lockstep_train_step, make_optimizer, train_step
@@ -2153,19 +2380,21 @@ def main() -> int:
         f"{lock_step[1] / FOLDS:.4f} ms, {lock_step[2] / FOLDS:.1f} launches; the "
         f"sequential step: wall {nci1_step[0]:.3f} ms, device {nci1_step[1]:.4f} ms, "
         f"{nci1_step[2]} launches")
+    sparse_steps = {}
     for impl in (auto_impl, other_impl):
-        profile_step(f"DD block ({impl} = {kernel_of[impl]}, mean batch)",
-                     seq_step(dd_model, ctx.batch(ctx.mean_row), pool=ctx.pool,
-                              block_impl=impl))
-    profile_step(f"DD COO ({spmm_auto}, mean batch)",
-                 seq_step(dd_model, dd_coo.batch(dd_coo.mean_row), spmm_impl=spmm_auto))
+        sparse_steps[f"DD block ({impl})"] = profile_step(
+            f"DD block ({impl} = {kernel_of[impl]}, mean batch)",
+            seq_step(dd_model, ctx.batch(ctx.mean_row), pool=ctx.pool, block_impl=impl))
+    sparse_steps[f"DD COO ({spmm_auto})"] = profile_step(
+        f"DD COO ({spmm_auto}, mean batch)",
+        seq_step(dd_model, dd_coo.batch(dd_coo.mean_row), spmm_impl=spmm_auto))
     profile_step("DD COO (pallas, CooEngine mean batch; the slot order's sorts included)",
                  seq_step(dd_model, dd_host.batch(dd_host.mean_row), spmm_impl="pallas"))
     # the epoch graphs last, so that the step tables above are taken as in
     # earlier runs (one run that profiled the DD block step after them
     # recorded 62 of its launches)
-    epoch_graphs = {name: profile_epoch(name, r, lock_step if name == "lockstep"
-                                        else nci1_step)
+    eager_steps = {"lockstep": lock_step, "one fold": nci1_step, **sparse_steps}
+    epoch_graphs = {name: profile_epoch(name, r, eager_steps[name])
                     for name, r in runners.items()}
     del runners
 
@@ -2270,8 +2499,9 @@ def main() -> int:
         "shape": f"the abuild variant at the {probe_shapes[0].label}",
         "variants_ms": {v: t["ms"] for v, t in std["variants"].items()},
     })
-    log(f"DD epoch seconds (main path, block_impl {auto_impl}): {dd_epoch_s}")
-    log(f"COO epoch seconds: {coo_epoch_s}")
+    log(f"DD block fold-epoch seconds (main path, block_impl {auto_impl}): graphed "
+        f"{dd_epoch_s}, eager {[e['epoch_seconds'] for e in dd_events[auto_impl][1]]}")
+    log(f"COO fold-epoch seconds (graphed, eager): {coo_epoch_s}")
     log(f"NCI1 dense train step: wall {nci1_step[0]:.3f} ms, device {nci1_step[1]:.3f} "
         f"ms over {nci1_step[2]} kernel launches")
     log(f"NCI1 dense lockstep train step ({FOLDS} folds): wall {lock_step[0]:.3f} ms, "
@@ -2281,7 +2511,8 @@ def main() -> int:
         f"sequential (epoch 1, epoch 2 of each fold): graphed "
         f"{lock['sequential_epoch_s']}, eager {lock['sequential_eager_epoch_s']}")
     for name, g in epoch_graphs.items():
-        log(f"NCI1 {name} epoch graph: {json.dumps(g)}")
+        log(f"{name if name.startswith('DD') else 'NCI1 ' + name} epoch graph: "
+            f"{json.dumps(g)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -230,25 +230,57 @@ def add_blockcoo(batch: GraphBatch, eb: int = 0, pad_items_to: int = 0) -> Graph
     return dataclasses.replace(batch, blockcoo=(structure, w_pad, w_padT))
 
 
-def batch_to_device(batch: GraphBatch, device) -> GraphBatch:
-    """A host-packed batch (or stacked epoch) → tensors on `device`, one
-    transfer per array; the block structure's arrays too."""
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+def pad_blockcoo(epoch: GraphBatch, w: int) -> GraphBatch:
+    """A stacked epoch from `add_blockcoo` with both orientations' item axes
+    padded further to `w`: `pad_structure` appends sentinel items, and the
+    weights null slots (0), so the SpMM adds the same."""
+    from dgcnn_tpu_torch.kernels.spmm_block_coo import BlockCOO, pad_structure
 
-    out = {name: t(getattr(batch, name)) for name in ARRAY_FIELDS}
+    structure, w_pad, w_padT = epoch.blockcoo
+    structs = [pad_structure(structure.map(lambda a, i=i: np.asarray(a)[i]), w)
+               for i in range(len(w_pad))]
+    padded = BlockCOO(meta=structure.meta, **{
+        f: np.stack([getattr(s, f) for s in structs]) for f in BlockCOO.ARRAYS})
+    extra = ((0, 0), (0, w - w_pad.shape[1]), (0, 0))
+    return dataclasses.replace(
+        epoch, blockcoo=(padded, np.pad(w_pad, extra), np.pad(w_padT, extra)))
+
+
+def map_batch(batch: GraphBatch, fn) -> GraphBatch:
+    """`fn` applied to every array of a batch, the block structure's too."""
     bc = batch.blockcoo
     if bc is not None:
         structure, w_pad, w_padT = bc
-        bc = (structure.map(t), t(w_pad), t(w_padT))
-    return GraphBatch(**out, blockcoo=bc)
+        bc = (structure.map(fn), fn(w_pad), fn(w_padT))
+    return GraphBatch(**{name: fn(getattr(batch, name)) for name in ARRAY_FIELDS},
+                      blockcoo=bc)
+
+
+def batch_arrays(batch: GraphBatch) -> list:
+    """Every array of a batch in one fixed order (`map_batch`'s)."""
+    out = []
+    map_batch(batch, lambda a: out.append(a))
+    return out
+
+
+def batch_to_device(batch: GraphBatch, device) -> GraphBatch:
+    """A host-packed batch (or stacked epoch) → tensors on `device`, one
+    transfer per array; the block structure's arrays too."""
+    return map_batch(batch, lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device))
+
+
+def pin_batch(batch: GraphBatch) -> GraphBatch:
+    """A host-packed batch → CPU tensors in page-locked memory, from which
+    a copy to the card runs asynchronously."""
+    return map_batch(batch, lambda a: torch.from_numpy(np.ascontiguousarray(a)).pin_memory())
+
+
+def empty_batch_like(batch: GraphBatch, device) -> GraphBatch:
+    """Uninitialized tensors on `device` of a batch of tensors' shapes and
+    dtypes."""
+    return map_batch(batch, lambda t: torch.empty(t.shape, dtype=t.dtype, device=device))
 
 
 def batch_step(stacked: GraphBatch, i: int) -> GraphBatch:
     """Step `i` of a stacked epoch (views, no copies)."""
-    bc = stacked.blockcoo
-    if bc is not None:
-        structure, w_pad, w_padT = bc
-        bc = (structure.map(lambda a: a[i]), w_pad[i], w_padT[i])
-    return GraphBatch(**{name: getattr(stacked, name)[i] for name in ARRAY_FIELDS},
-                      blockcoo=bc)
+    return map_batch(stacked, lambda a: a[i])

@@ -26,14 +26,17 @@ ROADMAP item that ports them. What differs from the reference:
     with NumPy and ships one epoch at a time (`CooEngine`); `--spmm
     pallas` always packs on the host, where the structures are built;
   * `max_fused_epochs` bounds the epochs of one chunk, as in the
-    reference: the dense layout runs a chunk's epochs through the fused
-    runner (train/loop.py `FusedRun`: one host round trip a chunk; on the
-    card one CUDA-graph replay an epoch after the warm-up), the block
-    and COO layouts run them eagerly with one transfer a chunk; every
+    reference, on every layout: a chunk's epochs run through the layout's
+    fused runner (train/loop.py `FusedRun`: one host round trip a chunk;
+    on the card one CUDA-graph replay an epoch once the runner has
+    captured, at the chunk's budget on the block and COO layouts); every
     `epoch` event carries the chunk's `chunk_epochs` and its seconds
     over k;
-  * `xla_cache_dir` and `coo_fuse_bytes` are TPU dispatch knobs with no
-    effect here.
+  * `coo_fuse_bytes` has the reference's meaning for the host-packed COO
+    engine (`CooEngine`): a chunk runs in sub-chunks of
+    clip(`coo_fuse_bytes` // one packed epoch's bytes, 1, 64) epochs, one
+    host round trip each;
+  * `xla_cache_dir` is a TPU compile knob with no effect here.
 """
 
 from __future__ import annotations

@@ -40,7 +40,6 @@ from dgcnn_tpu_torch.batching.block_sparse import (
     block_graphset_bytes,
     block_graphset_to_device,
     build_block_graphset,
-    gather_block_batch,
 )
 from dgcnn_tpu_torch.batching.dense import (
     build_dense_dataset,
@@ -52,23 +51,29 @@ from dgcnn_tpu_torch.batching.device_coo import (
     batch_extents,
     build_device_graphset,
     device_graphset_to,
-    gather_coo_batch,
 )
 from dgcnn_tpu_torch.batching.multi_dense import multi_dense_bytes, plan_tiles
 from dgcnn_tpu_torch.batching.packer import (
     BucketSpec,
     add_blockcoo,
-    batch_step,
     batch_to_device,
     compute_bucket,
     pack_epoch,
+    pad_blockcoo,
+    pin_batch,
 )
 from dgcnn_tpu_torch.config import Config
 from dgcnn_tpu_torch.data.datasets import load_dataset
 from dgcnn_tpu_torch.data.folds import get_folds
 from dgcnn_tpu_torch.data.graphset import GraphSet
 from dgcnn_tpu_torch.models.dgcnn import DGCNN, DGCNNNet, init_params, num_params
-from dgcnn_tpu_torch.train.loop import epoch_rows, make_dense_gather_run, make_optimizer
+from dgcnn_tpu_torch.train.loop import (
+    make_block_run,
+    make_coo_run,
+    make_dense_gather_run,
+    make_device_coo_run,
+    make_optimizer,
+)
 from dgcnn_tpu_torch.train.metrics import EventLog, FoldMetrics, write_overall_csv
 from dgcnn_tpu_torch.utils.checkpoint import save_checkpoint
 
@@ -265,20 +270,28 @@ def _geom_round(x: int, multiple: int, ratio: float = 1.3) -> int:
     return v
 
 
-class EagerEpochs:
-    """`run_epochs` for the engines whose epochs run eagerly (block and
-    COO: their budgets grow with the batches, which one captured graph
-    could not follow): one `epoch_rows` after another, and the chunk's
-    rows brought to the host in one transfer, as the reference's
-    `EngineBase.run_epochs` (dgcnn_tpu/train/cv.py:237-246)."""
+class RunnerSlot:
+    """An engine's one fused runner (train/loop.py `FusedRun`), keyed by
+    what it was built for: the fold and the budget. `get(key, make)`
+    returns the runner for `key`; under another key it first drops the
+    old runner, and with it its CUDA graph and that graph's memory pool,
+    then builds the new one, which warms up and captures on its first
+    chunk. Budgets grow only, so a run builds one runner a fold and one
+    more each time a budget grows."""
 
-    def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
-        rows = torch.stack([self.epoch_rows(net, optimizer, dropout_gen, perm)
-                            for perm in perms])
-        return rows.cpu().double().numpy()
+    def __init__(self):
+        self.key = self.runner = None
 
-    def end_fold(self) -> None:
-        pass
+    def get(self, key, make):
+        if self.runner is None or key != self.key:
+            self.drop()
+            self.runner, self.key = make(), key
+        return self.runner
+
+    def drop(self) -> None:
+        """Release the runner: its graph holds the addresses of the fold's
+        net and optimizer."""
+        self.key = self.runner = None
 
 
 class DenseEngine:
@@ -298,42 +311,51 @@ class DenseEngine:
         self.n_tile = dense_tile(dataset)
         self.slots = _round_up(cfg.batch_size, cfg.graph_pad_multiple)
         self.data = build_dense_dataset(dataset, self.n_tile, device)
-        self._runner = None
+        self.runners = RunnerSlot()
+        self._fold = 0
 
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_idx = np.asarray(train_idx, dtype=np.int32)
         self._test_np = order_matrix(test_idx, self.cfg.batch_size, self.slots)
-        self._runner = None
+        self._fold += 1
 
     def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
         """Train + eval one epoch per permutation of the fold's training
         graphs; host rows [k, 4]."""
         orders = np.stack([order_matrix(self._train_idx[perm], self.cfg.batch_size,
                                         self.slots) for perm in perms])
-        if self._runner is None:
-            self._runner = make_dense_gather_run(
-                net, optimizer, self.data, self._test_np, orders.shape[1],
-                dropout_gen, self.graphs)
-        return self._runner.run_epochs(orders)
+        runner = self.runners.get(self._fold, lambda: make_dense_gather_run(
+            net, optimizer, self.data, self._test_np, orders.shape[1], dropout_gen,
+            self.graphs))
+        return runner.run_epochs(orders)
 
     def end_fold(self) -> None:
-        self._runner = None
+        self.runners.drop()
 
 
-class BlockSparseEngine(EagerEpochs):
+class BlockSparseEngine:
     """The block-sparse layout's epoch engine (batching/block_sparse.py):
     the dataset lives on the device as a pool of nonzero 128×128
     normalized-adjacency blocks plus block-row features, shipped once per
     run; a batch is assembled on the device from a [slots] graph-id row,
     and each GCN propagation runs one of the block kernels over its work
-    items (`cfg.resolved_block_impl()`). Budgets (block-rows, work items)
-    grow only, on a geometric grid (floors 8 and 64), sized by
-    `block_batch_extents` over each epoch's order matrix and the fold's
-    test order."""
+    items (`cfg.resolved_block_impl()`). A chunk of k epochs ships one
+    [k, steps, slots] index matrix and runs through the fused runner of
+    its budgets (train/loop.py `make_block_run`: on the card one
+    CUDA-graph replay an epoch once the runner has captured). The budgets
+    (block-rows, work items) are sized once a chunk by
+    `block_batch_extents` over the chunk's orders and the fold's test
+    order, as the reference's `_budget_for` (dgcnn_tpu/train/cv.py:477),
+    and grow only, on a geometric grid (floors 8 and 64), across chunks
+    and folds; a grown budget gets a new runner (`RunnerSlot`).
+    `graphs=False` runs every epoch eagerly on the card, for comparison
+    only."""
 
-    def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device):
+    def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device,
+                 graphs: bool = True):
         self.cfg = cfg
         self.device = device
+        self.graphs = graphs
         self.slots = _round_up(cfg.batch_size, cfg.graph_pad_multiple)
         host = build_block_graphset(dataset)
         self._nb = host.nb.astype(np.int64)
@@ -342,6 +364,8 @@ class BlockSparseEngine(EagerEpochs):
         self.block_impl = cfg.resolved_block_impl()
         self.floor_nb = 8
         self.floor_w = 64
+        self.runners = RunnerSlot()
+        self._fold = 0
 
     def budget_for(self, *order_mats: np.ndarray):
         """Grow-only (nb, W) budgets covering every batch row given."""
@@ -356,34 +380,43 @@ class BlockSparseEngine(EagerEpochs):
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_idx = np.asarray(train_idx, dtype=np.int32)
         self._test_np = order_matrix(test_idx, self.cfg.batch_size, self.slots)
-        self._test_order = torch.from_numpy(self._test_np).to(self.device)
+        self._fold += 1
 
-    def epoch_rows(self, net, optimizer, dropout_gen, perm: np.ndarray) -> torch.Tensor:
-        order2d = order_matrix(
-            self._train_idx[perm], self.cfg.batch_size, self.slots
-        )
-        nb, w = self.budget_for(order2d, self._test_np)
-        return epoch_rows(
-            net, optimizer,
-            lambda row: gather_block_batch(self.dev, row, nb, w),
-            torch.from_numpy(order2d).to(self.device), self._test_order,
-            dropout_gen, pool=self.dev.pool, block_impl=self.block_impl,
-        )
+    def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
+        """Train + eval one epoch per permutation of the fold's training
+        graphs at the chunk's budgets; host rows [k, 4]."""
+        orders = np.stack([order_matrix(self._train_idx[perm], self.cfg.batch_size,
+                                        self.slots) for perm in perms])
+        nb, w = self.budget_for(orders, self._test_np)
+        runner = self.runners.get((self._fold, nb, w), lambda: make_block_run(
+            net, optimizer, self.dev, self._test_np, nb, w, orders.shape[1],
+            dropout_gen, self.block_impl, self.graphs))
+        return runner.run_epochs(orders)
+
+    def end_fold(self) -> None:
+        self.runners.drop()
 
 
-class DeviceCooEngine(EagerEpochs):
+class DeviceCooEngine:
     """The COO layout with batches assembled on the device
-    (batching/device_coo.py): the flattened dataset is shipped once, an
-    epoch ships its int32 order matrix, and each batch is gathered on the
-    device from a [slots] graph-id row. Buckets grow only, on the
-    reference's geometric grid (`_geom_round`, multiples of the node and
-    edge pad), sized by `batch_extents` over each epoch's order and the
-    fold's test order. Each GCN aggregation runs the SpMM kernel
-    `cfg.resolved_spmm_impl()` names."""
+    (batching/device_coo.py): the flattened dataset is shipped once, a
+    chunk of k epochs ships its [k, steps, slots] int32 order matrix, and
+    each batch is gathered on the device from a [slots] graph-id row, the
+    chunk's epochs run through the fused runner of its bucket
+    (train/loop.py `make_device_coo_run`). The bucket is sized once a
+    chunk by `batch_extents` over the chunk's orders and the fold's test
+    order, as the reference's `_bucket_for` (dgcnn_tpu/train/cv.py:382),
+    and grows only, on its geometric grid (`_geom_round`, multiples of the
+    node and edge pad), across chunks and folds; a grown bucket gets a new
+    runner (`RunnerSlot`). Each GCN aggregation runs the SpMM kernel
+    `cfg.resolved_spmm_impl()` names. `graphs=False` runs every epoch
+    eagerly on the card, for comparison only."""
 
-    def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device):
+    def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device,
+                 graphs: bool = True):
         self.cfg = cfg
         self.device = device
+        self.graphs = graphs
         self.slots = _round_up(cfg.batch_size, cfg.graph_pad_multiple)
         self._node_counts = dataset.node_counts().astype(np.int64)
         self._edge_counts = dataset.edge_counts().astype(np.int64)
@@ -391,6 +424,8 @@ class DeviceCooEngine(EagerEpochs):
         self.spmm_impl = cfg.resolved_spmm_impl()
         self.floor_nodes = cfg.node_pad_multiple
         self.floor_edges = cfg.edge_pad_multiple
+        self.runners = RunnerSlot()
+        self._fold = 0
 
     def bucket_for(self, *order_mats: np.ndarray) -> BucketSpec:
         """Grow-only bucket covering every batch row given."""
@@ -408,69 +443,116 @@ class DeviceCooEngine(EagerEpochs):
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_idx = np.asarray(train_idx, dtype=np.int32)
         self._test_np = order_matrix(test_idx, self.cfg.batch_size, self.slots)
-        self._test_order = torch.from_numpy(self._test_np).to(self.device)
+        self._fold += 1
 
-    def epoch_rows(self, net, optimizer, dropout_gen, perm: np.ndarray) -> torch.Tensor:
-        order2d = order_matrix(
-            self._train_idx[perm], self.cfg.batch_size, self.slots
-        )
-        bucket = self.bucket_for(order2d, self._test_np)
-        return epoch_rows(
-            net, optimizer, lambda row: gather_coo_batch(self.dev, row, bucket),
-            torch.from_numpy(order2d).to(self.device), self._test_order,
-            dropout_gen, spmm_impl=self.spmm_impl,
-        )
+    def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
+        """Train + eval one epoch per permutation of the fold's training
+        graphs in the chunk's bucket; host rows [k, 4]."""
+        orders = np.stack([order_matrix(self._train_idx[perm], self.cfg.batch_size,
+                                        self.slots) for perm in perms])
+        bucket = self.bucket_for(orders, self._test_np)
+        runner = self.runners.get((self._fold, bucket), lambda: make_device_coo_run(
+            net, optimizer, self.dev, self._test_np, bucket, orders.shape[1],
+            dropout_gen, self.spmm_impl, self.graphs))
+        return runner.run_epochs(orders)
+
+    def end_fold(self) -> None:
+        self.runners.drop()
 
 
-class CooEngine(EagerEpochs):
-    """The COO layout packed on the host (batching/packer.py): every epoch
-    is packed with NumPy into the worst-case bucket (`compute_bucket`) and
-    shipped to the device as one stacked epoch; the fold's test batches are
-    packed and shipped once. Under `--spmm pallas` each batch also carries
-    its block-pair structure (`add_blockcoo`, item axes padded to the
-    stack's largest batch) for the block-COO kernel. (The reference pads
-    them to `blockcoo_item_bound` so that XLA compiles one shape; nothing
-    here recompiles, so the port ships no sentinel items past the stack's
-    own.)"""
+class CooEngine:
+    """The COO layout packed on the host (batching/packer.py), the port of
+    the reference's `CooEngine` (dgcnn_tpu/train/cv.py:249): every epoch
+    is packed with NumPy into the worst-case bucket (`compute_bucket`);
+    the fold's test batches are packed and shipped once. A chunk is cut
+    into sub-chunks of r = clip(`coo_fuse_bytes` // one packed epoch's
+    device bytes, 1, 64) epochs, as the reference cuts it (`_epoch_bytes`,
+    :285-310); a sub-chunk's r epochs are packed first, then run through
+    the fold's fused runner (train/loop.py `make_coo_run`), which holds
+    one packed epoch on the device and stages each epoch into it from
+    page-locked host memory before it runs: one host round trip a
+    sub-chunk. Under `--spmm pallas` each batch also carries its
+    block-pair structure (`add_blockcoo`) for the block-COO kernel, its
+    item axes padded to the sub-chunk's budget W: grow-only across
+    sub-chunks and folds on the block engine's grid (`_geom_round(·, 64)`)
+    over the sub-chunk's largest batch, so that W, and with it the
+    runner, changes only between sub-chunks. (The reference pads to
+    `blockcoo_item_bound`, one XLA shape a run; the padding appends only
+    sentinel items and null slots.) `graphs=False` runs every epoch
+    eagerly on the card, for comparison only."""
 
-    def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device):
+    def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device,
+                 graphs: bool = True):
         self.cfg = cfg
-        self.device = device
+        self.device = torch.device(device)
+        self.graphs = graphs
         self.dataset = dataset
+        self.slots = _round_up(cfg.batch_size, cfg.graph_pad_multiple)
         self.bucket = compute_bucket(
             dataset, cfg.batch_size, cfg.node_pad_multiple,
             cfg.edge_pad_multiple, cfg.graph_pad_multiple,
         )
         self.spmm_impl = cfg.resolved_spmm_impl()
+        self.floor_w = 64
+        self.runners = RunnerSlot()
+        self._fold = 0
+        self._staged = []  # the last sub-chunk's packed epochs, on the host
 
     def pack_host(self, ds: GraphSet, order: np.ndarray):
-        """`ds` in `order` as one stacked epoch of NumPy arrays, exactly as
-        the engine ships it."""
+        """`ds` in `order` as one stacked epoch of NumPy arrays, structures
+        padded to the epoch's largest batch."""
         epoch = pack_epoch(ds, order, self.cfg.batch_size, self.bucket)
         return add_blockcoo(epoch) if self.spmm_impl == "pallas" else epoch
 
-    def _pack(self, ds: GraphSet, order: np.ndarray):
-        return batch_to_device(self.pack_host(ds, order), self.device)
+    def epoch_bytes(self, n_train: int) -> int:
+        """Device bytes of one packed epoch (the reference's `_epoch_bytes`:
+        x dominates; the edge and node bookkeeping arrays included)."""
+        steps = -(-n_train // self.cfg.batch_size)
+        b = self.bucket
+        per_step = (b.num_nodes * (self.dataset.num_features * 4 + 8)
+                    + b.num_edges * 12 + b.num_graphs * 8 + 4)
+        return steps * per_step
 
-    @staticmethod
-    def _rows(which: int, steps: int) -> torch.Tensor:
-        """[steps, 2] host rows (stack, step) for `epoch_rows`' batch_fn."""
-        return torch.stack([torch.full((steps,), which), torch.arange(steps)], 1)
+    def items_for(self, epochs) -> int:
+        """Grow-only block-COO item budget W covering every batch of the
+        packed `epochs`."""
+        w = max(e.blockcoo[0].ls.shape[1] for e in epochs)
+        self.floor_w = max(self.floor_w, _geom_round(w, 64))
+        return self.floor_w
 
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_set = self.dataset.subset(train_idx)
         test_set = self.dataset.subset(test_idx)
-        self._test = self._pack(test_set, np.arange(test_set.num_graphs))
+        self._test = batch_to_device(
+            self.pack_host(test_set, np.arange(test_set.num_graphs)), self.device)
+        self.fuse_epochs = int(np.clip(
+            self.cfg.coo_fuse_bytes // max(self.epoch_bytes(len(train_idx)), 1), 1, 64))
+        self._fold += 1
 
-    def epoch_rows(self, net, optimizer, dropout_gen, perm: np.ndarray) -> torch.Tensor:
-        train = self._pack(self._train_set, perm)
-        stacks = (train, self._test)
-        return epoch_rows(
-            net, optimizer,
-            lambda row: batch_step(stacks[int(row[0])], int(row[1])),
-            self._rows(0, train.y.shape[0]), self._rows(1, self._test.y.shape[0]),
-            dropout_gen, spmm_impl=self.spmm_impl,
-        )
+    def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
+        """Train + eval one epoch per permutation of the fold's training
+        graphs, `fuse_epochs` of them a host round trip; host rows [k, 4]."""
+        rows = []
+        for i in range(0, len(perms), self.fuse_epochs):
+            sub = perms[i:i + self.fuse_epochs]
+            epochs = [self.pack_host(self._train_set, p) for p in sub]
+            w = 0
+            if self.spmm_impl == "pallas":
+                w = self.items_for(epochs)
+                epochs = [pad_blockcoo(e, w) for e in epochs]
+            to_host = pin_batch if self.device.type == "cuda" else (
+                lambda e: batch_to_device(e, "cpu"))
+            self._staged = [to_host(e) for e in epochs]
+            orders = np.stack([order_matrix(p, self.cfg.batch_size, self.slots)
+                               for p in sub])
+            runner = self.runners.get((self._fold, w), lambda: make_coo_run(
+                net, optimizer, lambda j: self._staged[j], self._test, self.slots,
+                dropout_gen, self.spmm_impl, self.graphs))
+            rows.append(runner.run_epochs(orders))
+        return np.concatenate(rows)
+
+    def end_fold(self) -> None:
+        self.runners.drop()
 
 
 PORTED_LAYOUTS = ("dense", "block", "coo")
@@ -480,12 +562,12 @@ def make_engine(cfg: Config, dataset: GraphSet, device: torch.device, layout: st
                 graphs: bool = True):
     """The layout's engine; COO picks as the reference's `make_engine`:
     `--spmm pallas` needs host-built structures (CooEngine), otherwise
-    `coo_assembly` decides. `graphs` goes to `DenseEngine`."""
+    `coo_assembly` decides. `graphs` goes to every engine."""
     if layout == "coo":
         host = cfg.resolved_spmm_impl() == "pallas" or cfg.coo_assembly == "host"
-        return (CooEngine if host else DeviceCooEngine)(cfg, dataset, device)
+        return (CooEngine if host else DeviceCooEngine)(cfg, dataset, device, graphs)
     if layout == "block":
-        return BlockSparseEngine(cfg, dataset, device)
+        return BlockSparseEngine(cfg, dataset, device, graphs)
     return DenseEngine(cfg, dataset, device, graphs)
 
 
@@ -582,9 +664,10 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
                          graphs: bool = True):
     """Full experiment on `device` (default `cuda`; `"cpu"` runs the plain
     PyTorch path). Returns per-fold and aggregate accuracies, as the
-    reference does. On the card the dense layout runs each epoch after a
-    fold's (lockstep: the run's) first as a CUDA-graph replay;
-    `graphs=False` runs them eagerly, for comparison only."""
+    reference does. On the card every layout runs each epoch after its
+    runner's first (a fold's, or a grown budget's; lockstep: the run's) as
+    a CUDA-graph replay; `graphs=False` runs them eagerly, for comparison
+    only."""
     device = resolve_device(device)
     fp32_only()
     check_supported(cfg)

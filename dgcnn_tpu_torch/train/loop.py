@@ -1,6 +1,8 @@
 """Training and evaluation loops — the port of dgcnn_tpu/train/loop.py
 (`nll_loss_and_correct` :38, the step :58-86, the fused multi-epoch
-runner `_fused_run` :89 and `make_dense_gather_run` :373), and the
+runner `_fused_run` :89 with `make_coo_run` :177,
+`make_device_coo_run` :236, `make_block_run` :270 and
+`make_dense_gather_run` :373), and the
 fold-lockstep step and epoch of dgcnn_tpu/train/cv_vmap.py:58
 `_make_lockstep_body` (`masked_update` :86, `real_folds` :97, the step
 and epoch reductions :106-152, run over k epochs by `make_dense_vmap_run`
@@ -15,26 +17,35 @@ Contract with the reference:
     lr·m̂/(√v̂ + ε) with bias-corrected moments and ε outside the root.
 
 One epoch body per driver: `epoch_body` (one model) and
-`lockstep_epoch_body` (F folds) train over a device order buffer,
-evaluate over the fixed test order and write the epoch's row into a
-device rows buffer. A body moves nothing between host and device and
-never waits for the device (no `.item()`, no `nonzero`, no boolean-mask
-indexing, no host tensor), as long as its `batch_fn` does not: the
-dense layout's gather does not. `epoch_rows` runs one eager epoch of
-`epoch_body` (the block and COO engines' epochs).
+`lockstep_epoch_body` (F folds) train over the rows of an order, each
+assembled into a batch by a `batch_fn`, evaluate over the fixed test
+order and write the epoch's row into a device rows buffer. A body moves
+nothing between host and device and never waits for the device (no
+`.item()`, no `nonzero`, no boolean-mask indexing, no host tensor), as
+long as its `batch_fn` does not: the dense, block and device-COO
+gathers do not, and the host-packed COO layout's `batch_step` only takes
+views of a static stack. `epoch_rows` runs one eager epoch of
+`epoch_body`.
 
-The fused runner (`FusedRun`, built by `make_dense_gather_run` and
-`make_dense_lockstep_run`) runs k epochs of a dense body per host round
+The fused runner (`FusedRun`) runs k epochs of a body per host round
 trip, as the reference's `_fused_run` runs k epochs in one program:
 `run_epochs` ships the chunk's k orders in one copy, runs each epoch
 from the static order buffer, gathers the k rows on the device and
 brings them back in one copy. On the card the first epoch a runner sees
 runs eagerly on the runner's own stream (the warm-up: kernel builds, the
-optimizer's state, cuBLAS set-up); the body is then captured once as a
-`torch.cuda.CUDAGraph`, every dropout generator registered with it, and
-every later epoch is one replay. On the CPU every epoch runs the body
-eagerly. The kernels and the order of operations are the same either
-way, so the rows are the eager loop's bits.
+optimizer's state, cuBLAS set-up, the kernels' scratch); the body is
+then captured once as a `torch.cuda.CUDAGraph`, every dropout generator
+registered with it, and every later epoch is one replay. On the CPU
+every epoch runs the body eagerly. The kernels and the order of
+operations are the same either way, so the rows are the eager loop's
+bits. One runner factory per layout, each named after the reference's:
+`make_dense_gather_run` and `make_dense_lockstep_run` (dense),
+`make_block_run` (block-sparse, at one (nb, W) budget),
+`make_device_coo_run` (COO assembled on the device, at one bucket) and
+`make_coo_run` (COO packed on the host: the body reads a static device
+stack of one epoch, which the runner's `stage(j)` fills with epoch j
+before it runs). A runner serves one budget: an engine whose budget
+grows drops it, with its graph, and builds another (train/cv.py).
 
 Fold-lockstep: F folds train as one model of fold-stacked parameters
 (`DGCNNFoldsNet`). A step backpropagates the sum of the F per-fold mean
@@ -57,7 +68,12 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dgcnn_tpu_torch.batching.block_sparse import BlockGraphSet, gather_block_batch
 from dgcnn_tpu_torch.batching.dense import DenseDataset, gather_dense_batch
+from dgcnn_tpu_torch.batching.device_coo import DeviceGraphSet, gather_coo_batch
+from dgcnn_tpu_torch.batching.packer import (
+    BucketSpec, GraphBatch, batch_arrays, batch_step, empty_batch_like,
+)
 from dgcnn_tpu_torch.kernels import block_csr, block_resident, dense_trunk
 from dgcnn_tpu_torch.kernels import spmm_block_coo, spmm_pallas
 from dgcnn_tpu_torch.models.dgcnn import DGCNNFoldsNet, DGCNNNet
@@ -112,19 +128,19 @@ def train_step(
     return loss.detach(), correct
 
 
-BatchFn = Callable[[torch.Tensor], object]
+BatchFn = Callable[[object], object]
 
 
-def epoch_body(net, optimizer, batch_fn: BatchFn, order2d: torch.Tensor,
-               test_order2d: torch.Tensor, dropout_gen, rows: torch.Tensor,
-               **fwd_kw) -> None:
+def epoch_body(net, optimizer, batch_fn: BatchFn, order2d, test_order2d,
+               dropout_gen, rows: torch.Tensor, **fwd_kw) -> None:
     """One epoch of train + eval over any layout (the epoch of the
-    reference's `_fused_run(batch_fn, ...)`): train over the rows of the
-    [steps, slots] index matrix `order2d`, each row assembled into a batch
-    by `batch_fn`, then evaluate over `test_order2d` with dropout off and
-    no gradients; `fwd_kw` goes to the forward. Writes (train_loss,
-    test_loss, train_correct, test_correct) into `rows` [4] on the
-    device: the losses are means of batch means, the counts sums."""
+    reference's `_fused_run(batch_fn, ...)`): train over the rows of
+    `order2d` (a [steps, slots] index matrix on the device, or any
+    sequence of rows), each row assembled into a batch by `batch_fn`, then
+    evaluate over `test_order2d` with dropout off and no gradients;
+    `fwd_kw` goes to the forward. Writes (train_loss, test_loss,
+    train_correct, test_correct) into `rows` [4] on the device: the losses
+    are means of batch means, the counts sums."""
     net.train()
     losses, corrects = [], []
     for row in order2d:
@@ -135,7 +151,7 @@ def epoch_body(net, optimizer, batch_fn: BatchFn, order2d: torch.Tensor,
     tr_loss, tr_correct = torch.stack(losses).mean(), torch.stack(corrects).sum()
     net.eval()
     with torch.no_grad():
-        if test_order2d.shape[0] == 0:
+        if len(test_order2d) == 0:
             te_loss = te_correct = torch.zeros((), device=rows.device)
         else:
             losses, corrects = [], []
@@ -150,8 +166,8 @@ def epoch_body(net, optimizer, batch_fn: BatchFn, order2d: torch.Tensor,
         rows.copy_(torch.stack([tr_loss, te_loss, tr_correct, te_correct]))
 
 
-def epoch_rows(net, optimizer, batch_fn: BatchFn, order2d: torch.Tensor,
-               test_order2d: torch.Tensor, dropout_gen, **fwd_kw) -> torch.Tensor:
+def epoch_rows(net, optimizer, batch_fn: BatchFn, order2d, test_order2d,
+               dropout_gen, **fwd_kw) -> torch.Tensor:
     """One eager `epoch_body`; its row [4] on the net's device."""
     rows = torch.empty(4, dtype=torch.float32, device=next(net.parameters()).device)
     epoch_body(net, optimizer, batch_fn, order2d, test_order2d, dropout_gen, rows,
@@ -333,14 +349,18 @@ class FusedRun:
     (F,) slots] and writes the epoch's row into `rows` [(F,) 4]; `pattern`
     [steps(, F)] is which steps (of which folds) hold a real graph in
     every epoch; `generators` are the dropout generators the body draws
-    from. `graphs=False` runs every epoch eagerly on the card, for
+    from; `stage(j)`, when given, fills the body's other static inputs with
+    epoch j of the chunk before it runs (on the current stream, after the
+    order's copy). `graphs=False` runs every epoch eagerly on the card, for
     comparison only; on the CPU every epoch is eager. A capture or replay
     that fails raises."""
 
     def __init__(self, body: Callable[[], None], order: torch.Tensor,
                  rows: torch.Tensor, pattern: np.ndarray,
-                 generators: Sequence[torch.Generator], graphs: bool = True):
+                 generators: Sequence[torch.Generator], graphs: bool = True,
+                 stage: Optional[Callable[[int], None]] = None):
         self.body = body
+        self.stage = stage
         self.order = order
         self.rows = rows
         self.pattern = np.asarray(pattern, dtype=bool)
@@ -374,6 +394,8 @@ class FusedRun:
                           device=dev)
         for j in range(len(orders_k)):
             self.order.copy_(orders[j])
+            if self.stage is not None:
+                self.stage(j)
             if not self.graphs:
                 self.body()
             elif self.graph is None:
@@ -399,25 +421,35 @@ class FusedRun:
         self.capture_seconds = time.perf_counter() - t0
 
 
+def _gather_run(net: DGCNNNet, optimizer, batch_fn: BatchFn, test_order2d: np.ndarray,
+                steps: int, dropout_gen, graphs: bool, held=(), **fwd_kw) -> FusedRun:
+    """The fused runner of one fold's `epoch_body` over batches gathered on
+    the device from [slots] graph-id rows by `batch_fn`: `steps` train
+    steps an epoch, every one holding a real graph, and the fold's fixed
+    test order [t_steps, slots]; `fwd_kw` goes to the forward. The body
+    keeps `held` (tensors a graph reads by address) alive."""
+    dev = next(net.parameters()).device
+    order = torch.full((steps, test_order2d.shape[1]), -1, dtype=torch.int32,
+                       device=dev)
+    test = torch.from_numpy(np.ascontiguousarray(test_order2d)).to(dev)
+    rows = torch.zeros(4, dtype=torch.float32, device=dev)
+
+    def body(_held=held):
+        epoch_body(net, optimizer, batch_fn, order, test, dropout_gen, rows, **fwd_kw)
+
+    return FusedRun(body, order, rows, np.ones(steps, dtype=bool), [dropout_gen],
+                    graphs)
+
+
 def make_dense_gather_run(net: DGCNNNet, optimizer, data: DenseDataset,
                           test_order2d: np.ndarray, steps: int, dropout_gen,
                           graphs: bool = True) -> FusedRun:
     """The port of `make_dense_gather_run` (dgcnn_tpu/train/loop.py:373):
     the fused runner of one fold's `epoch_body` over a dense dataset on
     the device, `steps` train steps an epoch, the fold's fixed test order
-    [t_steps, slots]. Every train step holds a real graph."""
-    dev = data.adj.device
-    order = torch.full((steps, test_order2d.shape[1]), -1, dtype=torch.int32,
-                       device=dev)
-    test = torch.from_numpy(np.ascontiguousarray(test_order2d)).to(dev)
-    rows = torch.zeros(4, dtype=torch.float32, device=dev)
-    batch_fn = functools.partial(gather_dense_batch, data)
-
-    def body():
-        epoch_body(net, optimizer, batch_fn, order, test, dropout_gen, rows)
-
-    return FusedRun(body, order, rows, np.ones(steps, dtype=bool), [dropout_gen],
-                    graphs)
+    [t_steps, slots]."""
+    return _gather_run(net, optimizer, functools.partial(gather_dense_batch, data),
+                       test_order2d, steps, dropout_gen, graphs)
 
 
 def make_dense_lockstep_run(net_f: DGCNNFoldsNet, adam_f: FoldAdam,
@@ -443,3 +475,92 @@ def make_dense_lockstep_run(net_f: DGCNNFoldsNet, adam_f: FoldAdam,
         lockstep_epoch_body(net_f, adam_f, batch_fn, order, test, step_gens, rows)
 
     return FusedRun(body, order, rows, pattern, dropout_gens, graphs)
+
+
+def _arrival_counters(device: torch.device, block_rows: int = 0,
+                      nodes: int = 0) -> list:
+    """The arrival counters the CSR block kernel (`block_rows`) and the
+    edge-block SpMM kernel (`nodes`) need at a runner's budget, sized when
+    the runner is built: a counter buffer first allocated inside a capture
+    would come from the graph's private pool. The runner's body holds
+    them, so that a graph's counters outlive a larger budget's."""
+    if device.type != "cuda":
+        return []
+    held = []
+    if block_rows:
+        held.append(block_csr._counters(device, block_rows))
+    if nodes:
+        held.append(spmm_pallas._counters(device, nodes))
+    return held
+
+
+def make_block_run(net: DGCNNNet, optimizer, dev: BlockGraphSet,
+                   test_order2d: np.ndarray, nb_budget: int, w_budget: int,
+                   steps: int, dropout_gen, block_impl: str = "pallas",
+                   graphs: bool = True) -> FusedRun:
+    """The port of `make_block_run` (dgcnn_tpu/train/loop.py:270): the
+    fused runner of one fold's `epoch_body` over a block-sparse graphset on
+    the device, every batch assembled by `gather_block_batch` at the
+    budgets (nb, W), `steps` train steps an epoch, the fold's fixed test
+    order [t_steps, slots]; each propagation runs the kernel `block_impl`
+    names over the resident pool."""
+    held = _arrival_counters(dev.pool.device,
+                             block_rows=nb_budget if block_impl == "pallas" else 0)
+    return _gather_run(
+        net, optimizer, lambda row: gather_block_batch(dev, row, nb_budget, w_budget),
+        test_order2d, steps, dropout_gen, graphs, held, pool=dev.pool,
+        block_impl=block_impl)
+
+
+def make_device_coo_run(net: DGCNNNet, optimizer, dev: DeviceGraphSet,
+                        test_order2d: np.ndarray, bucket: BucketSpec, steps: int,
+                        dropout_gen, spmm_impl: str = "xla",
+                        graphs: bool = True) -> FusedRun:
+    """The port of `make_device_coo_run` (dgcnn_tpu/train/loop.py:236): the
+    fused runner of one fold's `epoch_body` over a COO graphset on the
+    device, every batch assembled by `gather_coo_batch` into `bucket`,
+    `steps` train steps an epoch, the fold's fixed test order [t_steps,
+    slots]; each aggregation runs the SpMM kernel `spmm_impl` names."""
+    held = _arrival_counters(dev.x.device,
+                             nodes=bucket.num_nodes if spmm_impl == "onehot" else 0)
+    return _gather_run(
+        net, optimizer, lambda row: gather_coo_batch(dev, row, bucket), test_order2d,
+        steps, dropout_gen, graphs, held, spmm_impl=spmm_impl)
+
+
+def make_coo_run(net: DGCNNNet, optimizer, source: Callable[[int], GraphBatch],
+                 test: GraphBatch, slots: int, dropout_gen, spmm_impl: str = "xla",
+                 graphs: bool = True) -> FusedRun:
+    """The port of `make_coo_run` (dgcnn_tpu/train/loop.py:177): the fused
+    runner of one fold's `epoch_body` over host-packed COO epochs. The
+    device holds one packed epoch in a static stack of `source(0)`'s
+    shapes; `stage(j)` copies `source(j)`, epoch j of the chunk as CPU
+    tensors (page-locked on the card), into it, and the body takes step s
+    of the stack, then of the fold's packed test stack `test` on the
+    device, by `batch_step`. The order buffer [steps, slots] carries the
+    epoch's graph ids, which the stack holds packed. Each aggregation runs
+    the SpMM kernel `spmm_impl` names, the block-COO kernel on the
+    structures the stacks carry."""
+    device = test.x.device
+    stack = empty_batch_like(source(0), device)
+    steps = stack.y.shape[0]
+    order = torch.full((steps, slots), -1, dtype=torch.int32, device=device)
+    rows = torch.zeros(4, dtype=torch.float32, device=device)
+    held = _arrival_counters(device, nodes=stack.x.shape[1] if spmm_impl == "onehot"
+                             else 0)
+    train_steps = [(stack, s) for s in range(steps)]
+    test_steps = [(test, s) for s in range(test.y.shape[0])]
+
+    def batch_fn(step):
+        return batch_step(*step)
+
+    def body(_held=held):
+        epoch_body(net, optimizer, batch_fn, train_steps, test_steps, dropout_gen,
+                   rows, spmm_impl=spmm_impl)
+
+    def stage(j):
+        for dst, src in zip(batch_arrays(stack), batch_arrays(source(j))):
+            dst.copy_(src, non_blocking=True)
+
+    return FusedRun(body, order, rows, np.ones(steps, dtype=bool), [dropout_gen],
+                    graphs, stage=stage)

@@ -377,8 +377,8 @@ class _NoHostSync(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         name = func._schema.name.split("::")[-1]
-        masked = name.startswith("index") and any(
-            i is not None and i.dtype == torch.bool for i in args[1])
+        masked = (name.startswith("index") and isinstance(args[1], (list, tuple))
+                  and any(i is not None and i.dtype == torch.bool for i in args[1]))
         if name in self.BANNED or masked:
             if name == "_local_scalar_dense" and self.allow(args[0]):
                 self.excused += 1
@@ -457,10 +457,14 @@ def test_fold_pattern_is_every_epochs_and_the_runner_refuses_another(small):
     assert not torch.equal(before, net_f.flat)
 
 
-@pytest.mark.parametrize("cv_parallel", ["folds", "sequential"])
-def test_a_cpu_run_builds_no_cuda_graph(tmp_path, monkeypatch, cv_parallel):
-    """On the CPU every epoch runs the body eagerly: no CUDA graph, capture
-    or stream is ever made."""
+@pytest.mark.parametrize("cv_parallel,layout", [
+    ("folds", dict(layout="dense")), ("sequential", dict(layout="dense")),
+    ("sequential", dict(layout="block")), ("sequential", dict(layout="coo")),
+    ("sequential", dict(layout="coo", spmm_impl="pallas")),
+], ids=["folds", "sequential", "block", "coo", "coo-host"])
+def test_a_cpu_run_builds_no_cuda_graph(tmp_path, monkeypatch, cv_parallel, layout):
+    """On the CPU every epoch runs the body eagerly, on every layout: no
+    CUDA graph, capture or stream is ever made."""
     def refuse(*a, **k):
         raise AssertionError("a CPU run touched a CUDA graph")
 
@@ -468,7 +472,8 @@ def test_a_cpu_run_builds_no_cuda_graph(tmp_path, monkeypatch, cv_parallel):
         monkeypatch.setattr(torch.cuda, name, refuse)
     gs = synthesize_tu_dataset("MUTAG", num_graphs=30, seed=1)
     res = cv.run_cross_validation(
-        _cfg(tmp_path, "x", cv_parallel=cv_parallel, num_epochs=3, max_fused_epochs=2),
+        _cfg(tmp_path, "x", cv_parallel=cv_parallel, num_epochs=3, max_fused_epochs=2,
+             **layout),
         dataset=gs, device="cpu")
     assert len(res["test_accuracies"]) == F
 
