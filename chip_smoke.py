@@ -24,7 +24,9 @@ CUDA is absent or any phase fails. Phases:
         the lockstep step's trunk: the ten folds' first train batches of
         synthetic NCI1 (T=88, plan resident C=1) and PROTEINS (T=176, C=2)
         stacked on the slot axis, S = 560, K = 10, slot s on weight set
-        s // 56;
+        s // 56; the two tile classes of synthetic COLLAB's multi-tile
+        layout at fold 1's first batch that holds both (T=256 at the
+        engine's slot floor, resident; T=464 at S=4, streamed);
      b. both block-propagation kernels (CSR and item-parallel) on real
         synthetic-DD batches of 50 graphs (the main path's mean and
         largest batch and the batch holding the largest graph), with
@@ -116,6 +118,23 @@ CUDA is absent or any phase fails. Phases:
         runner captures, and 5 epochs' rows, state and launch counts are
         eager's; one DD and one NCI1 COO batch on the card against the CPU
         through each kernel (the block-COO kernel on a `CooEngine` batch);
+     d. synthetic COLLAB (5,000 graphs): `choose_layout` → multi, tiles
+        (256, 464), the graphs of each class; the engine's device densify
+        (seconds, peak memory), every class bitwise the host builder's
+        (`build_multi_dense`); `run_cross_validation` (layout auto,
+        `cv_parallel` sequential: at 2 folds the dense lockstep gate would
+        engage, at the default 10 it does not) for 2 folds × 4 epochs in
+        chunks of `max_fused_epochs` 2, graphed then eager: rows and
+        `epochs/` bundles bitwise equal, trunk calls exact per replay by regime (the T=256
+        class resident, the T=464 class streamed: L launches forward, L + 2
+        backward), the slot floors, chunk 2's fold-epoch seconds; fold 1's
+        runner built directly (one eager epoch under
+        `set_sync_debug_mode("error")`, 3 epochs graphed against eager); a
+        forced slot growth (the fold's largest graphs in one batch: the
+        T=464 class's slots grow there and only there, one new runner);
+        phase 3a's COLLAB batch on the card against the CPU; then
+        `--layout dense` (T=464, S=56, streamed), 1 fold × 4 epochs graphed, for the
+        record beside multi;
   5. device times (utils/profiling.py `device_ms`): each call captured
      10 times in one CUDA graph, the graph replayed and timed with CUDA
      events, so the host's launch rate is out of the number; warm
@@ -123,7 +142,9 @@ CUDA is absent or any phase fails. Phases:
      L2-flushing write (the write's own time, measured the same way,
      subtracted). The trunk at T = 88, 112, 176, 624 and each forced
      C at 88 and 176, and the lockstep step's trunk (S = 560, K = 10) at
-     T = 88 and 176, beside its bound (and its kind) and the plain chain.
+     T = 88 and 176, and COLLAB's two tile classes (T=256 resident, T=464
+     streamed) at that batch, beside its bound (and its kind)
+     and the plain chain.
      The block kernels at the DD mean and largest batch and the batch of
      the largest graph, F ∈ {32, 1}, each design (the CSR kernel at
      P ∈ {2, 4, 6} and one piece per row; the item-parallel one at
@@ -141,10 +162,11 @@ CUDA is absent or any phase fails. Phases:
      and its slot order's build also at every other batch of phase 3c;
   6. one `torch.profiler` table of a single eager train step for NCI1
      dense (one fold, and the lockstep step of all ten), DD block through
-     each `--block_impl`, DD COO and DD COO `--spmm pallas` (top 10 CUDA
-     kernels) and each step's wall time and launches; the same for one
-     epoch of each epoch graph (a replay): the NCI1 lockstep runner's,
-     fold 1's one-fold runner's, and DD's block and COO runners', with the
+     each `--block_impl`, DD COO, DD COO `--spmm pallas` and COLLAB multi
+     (top 10 CUDA kernels) and each step's wall time and launches; the
+     same for one epoch of each epoch graph (a replay): the NCI1 lockstep
+     runner's, fold 1's one-fold runner's, DD's block and COO runners' and
+     COLLAB's multi-tile runner's, with the
      replay's span between CUDA events, the per-step wall and device time,
      the device's idle share, the capture seconds and the peak memory;
   7. the block-COO cost-split probe (dgcnn_tpu_torch/tools/
@@ -154,7 +176,8 @@ CUDA is absent or any phase fails. Phases:
   8. one JSON line describing every kernel (the trunk at the lockstep
      step's shape with the lockstep main path's launches, replays
      counted, its one-fold
-     shape beside it; the block and SpMM kernels once per width, F=32 and
+     shape and the COLLAB multi path's calls, launches and class shapes
+     beside it; the block and SpMM kernels once per width, F=32 and
      `_f1`, with the graphed main path's launches of that width, replays
      counted), the card line
      again, and the final `{"ok": true, ...}` line.
@@ -288,8 +311,11 @@ def compare_trunk(name, adj, mask, device, dt, stats, dims=DIMS, plan=None,
         again = kernel_grads()
         ran = {key: v - before[key] for key, v in vars(dt.launches).items()}
         regime = want_plan.regime
+        per_fwd, per_bwd = dt.launches_per_call(want_plan, dims)
         if ran[f"{regime}_fwd"] < 1 or ran[f"{regime}_bwd"] != 2 or (
-                ran["resident_fwd"] + ran["streamed_fwd"] != ran["fwd_launches"]):
+                ran["resident_fwd"] + ran["streamed_fwd"] != ran["fwd_launches"]) or (
+                ran["kernel_fwd"] != per_fwd * ran["fwd_launches"]
+                or ran["kernel_bwd"] != per_bwd * 2):
             raise AssertionError(f"{name} K={k}: expected the {regime} kernels, "
                                  f"counts moved {ran}")
         names = ["d_hw1"] + [f"dW{i + 2}" for i in range(n - 1)] + [
@@ -1484,21 +1510,23 @@ def same_bits(name, got, want):
 
 def counted_run(cfg, graphs, dt, want):
     """`run_cv` with the trunk's counts set to 0 just before and read just
-    after; raises unless they are `want` (fwd, bwd), all resident.
-    Returns (result, wall seconds, (fwd, bwd))."""
+    after; raises unless they are `want` (fwd, bwd), all resident, each
+    call one kernel launch. Returns (result, wall seconds, (fwd, bwd)
+    kernel launches)."""
     dt.launches.reset()
     result, wall = run_cv(cfg, graphs)
     got = (dt.launches.fwd_launches, dt.launches.bwd_launches)
+    kern = (dt.launches.kernel_fwd, dt.launches.kernel_bwd)
     by_regime = (dt.launches.resident_fwd, dt.launches.resident_bwd,
                  dt.launches.streamed_fwd, dt.launches.streamed_bwd)
     log(f"  {cfg.data_type} {cfg.cv_parallel} {cfg.num_folds} x {cfg.num_epochs}, "
         f"max_fused_epochs {cfg.max_fused_epochs}, {'graphed' if graphs else 'eager'}: "
         f"{wall:.1f} s; trunk calls {got} (want {want}), by regime (resident fwd, "
         f"bwd, streamed fwd, bwd) {by_regime}")
-    if got != want or by_regime != (*want, 0, 0):
-        raise AssertionError(f"trunk launches {got} {by_regime}, expected {want} "
-                             f"all resident")
-    return result, wall, got
+    if got != want or by_regime != (*want, 0, 0) or kern != want:
+        raise AssertionError(f"trunk launches {got} {by_regime}, kernels {kern}, "
+                             f"expected {want} all resident")
+    return result, wall, kern
 
 
 def graphed_vs_eager(tmp, label, data_type, folds_n, epochs, dt, want, **kw):
@@ -1787,13 +1815,14 @@ def seq_state(net, opt, gen):
                     gen.get_state()]
 
 
-def dd_fold_orders(gs, slots, epochs=3):
-    """Fold 1 of synthetic DD (2 folds, seed 324): its first `epochs`
-    epochs' orders as `run_fold` shuffles them, and its test order."""
+def dd_fold_orders(gs, slots, epochs=3, data_type="DD"):
+    """Fold 1 of synthetic `data_type` (2 folds, seed 324): its first
+    `epochs` epochs' orders as `run_fold` shuffles them, and its test
+    order."""
     from dgcnn_tpu_torch.batching.dense import order_matrix
     from dgcnn_tpu_torch.data.folds import get_folds
 
-    tr, te = get_folds(gs.y, "", 2, 324, data_type="DD")[0]
+    tr, te = get_folds(gs.y, "", 2, 324, data_type=data_type)[0]
     tr = np.asarray(tr, np.int32)
     rng = np.random.default_rng(np.random.SeedSequence([324, 1]))
     orders = np.stack([order_matrix(tr[rng.permutation(len(tr))], 50, slots)
@@ -1864,20 +1893,22 @@ def check_sync_only(ctx, dd_coo, nci1, model, nci1_model, device, impls):
     engine.end_fold()
 
 
-def forced_growth(label, engine, gs, floors, model, device, counters):
-    """`engine` (a block or device-COO engine on the card, over synthetic
-    DD `gs`) on fold 1, graphed and then eager from the same seeds and from
-    the budget floors `floors` (attribute → a new engine's value):
-    chunk 1 (2 epochs) and chunk 2 (1 epoch, the same batches) at one
-    budget, chunk 3 with the fold's largest graphs in its first batch. The
-    budget grows at chunk 3 and only there; chunk 2 replays chunk 1's
-    runner; chunk 3 drops it (its CUDA graph destroyed, the memory it
-    held freed) and builds exactly one new runner, which captures once;
-    rows, parameters, optimizer state, generator state and every kernel's
-    launch counts equal, graphed and eager."""
-    (tr, te), _, _ = dd_fold_orders(gs, S, 1)
-    sizes = (engine._block_counts if hasattr(engine, "_block_counts")
-             else engine._edge_counts)[tr]
+def forced_growth(label, engine, gs, floors, sizes, model, device, counters,
+                  data_type="DD"):
+    """`engine` (a block, device-COO or multi-tile engine on the card, over
+    synthetic `data_type` `gs`) on fold 1, graphed and then eager from the
+    same seeds and from the budget floors `floors` (attribute → a new
+    engine's value): chunk 1 (2 epochs) and chunk 2 (1 epoch, the same
+    batches) at one budget, chunk 3 with the fold's largest graphs by
+    `sizes` (per graph of `gs`, what drives the budget: stored blocks,
+    edges or nodes) in its first batch. The budget grows at chunk
+    3 and only there; chunk 2 replays chunk 1's runner; chunk 3 drops it
+    (its CUDA graph destroyed, the memory it held freed) and builds
+    exactly one new runner, which captures once; rows, parameters,
+    optimizer state, generator state and every kernel's launch counts
+    equal, graphed and eager."""
+    (tr, te), _, _ = dd_fold_orders(gs, S, 1, data_type)
+    sizes = np.asarray(sizes)[tr]
     rng = np.random.default_rng(7)
     p1 = np.stack([rng.permutation(len(tr)) for _ in range(2)])
     chunks = [p1, p1[:1], np.stack([np.argsort(-sizes, kind="stable"), p1[0]])]
@@ -1922,8 +1953,7 @@ def forced_growth(label, engine, gs, floors, model, device, counters):
             engine.end_fold()
         finally:
             del slot.get, slot.drop
-        counts = {k: (c.fwd_launches, c.bwd_launches, c.f1_fwd, c.f1_bwd)
-                  for k, c in counters.items()}
+        counts = {k: dict(vars(c)) for k, c in counters.items()}
         got[graphs] = (np.concatenate(rows), [t.detach().cpu().numpy()
                                               for t in seq_state(net, opt, gen)()],
                        counts, keys, made, drops)
@@ -1953,6 +1983,246 @@ def forced_growth(label, engine, gs, floors, model, device, counters):
         f"{a1 / 2**20:.1f} MiB, memory_reserved (after empty_cache) {r0 / 2**20:.1f} → "
         f"{r1 / 2**20:.1f} MiB; 5 epochs' rows, parameters, optimizer and generator "
         f"state bitwise eager; launches equal to eager's")
+
+
+# -- phase 4d: the multi-tile dense layout (COLLAB) -------------------------
+
+
+class CollabContext:
+    """Synthetic COLLAB (5,000 graphs) as the multi-tile layout sees it:
+    the layout `choose_layout` gives, the tile ladder and its class sizes,
+    a `MultiDenseEngine` on the card (its device densify timed, with its
+    peak memory) and fold 1's first train batch that holds a graph of
+    every class (`run_fold`'s epoch-1 shuffle, seed 324; most batches
+    hold no T=464 graph) routed into the classes at the engine's slot
+    floors, packed on the host at each class's tile: the shapes phase 3a
+    checks and phase 5 times."""
+
+    def __init__(self, device):
+        from dgcnn_tpu_torch.batching.dense import pack_dense_batch
+        from dgcnn_tpu_torch.batching.multi_dense import class_batch_counts, route_order_rows
+        from dgcnn_tpu_torch.config import Config
+        from dgcnn_tpu_torch.data.folds import get_folds
+        from dgcnn_tpu_torch.data.synthetic import synthesize_tu_dataset
+        from dgcnn_tpu_torch.train.cv import MultiDenseEngine, choose_layout
+
+        t0 = time.perf_counter()
+        self.gs = synthesize_tu_dataset("COLLAB")
+        self.cfg = Config(data_type="COLLAB", batch_size=50)
+        self.layout = choose_layout(self.cfg, self.gs)
+        log(f"  synthetic COLLAB: {self.gs.num_graphs} graphs, {self.gs.total_edges} "
+            f"edges, largest {int(self.gs.node_counts().max())} nodes, made in "
+            f"{time.perf_counter() - t0:.1f} s; choose_layout -> {self.layout}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        self.engine = MultiDenseEngine(self.cfg, self.gs, device)
+        torch.cuda.synchronize()
+        self.densify_s = time.perf_counter() - t0
+        self.densify_peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+        self.held_mib = (torch.cuda.memory_allocated() - base) / 2**20
+        self.tiles = self.engine.tiles
+        r = self.engine.routing
+        self.sizes = [int((r.class_of == c).sum()) for c in range(len(self.tiles))]
+        log(f"  MultiDenseEngine on the card: tiles {self.tiles}, graphs by class "
+            f"{self.sizes}, slot floors {self.engine.slot_floor.tolist()}; engine "
+            f"build (graphset to the card + densify) {self.densify_s:.2f} s, peak "
+            f"{self.densify_peak_mib:.1f} MiB above what was allocated, held "
+            f"{self.held_mib:.1f} MiB")
+        tr, te = get_folds(self.gs.y, "", 2, 324, data_type="COLLAB")[0]
+        self.fold = (np.asarray(tr, np.int64), np.asarray(te, np.int64))
+        perm = np.random.default_rng(np.random.SeedSequence([324, 1])).permutation(len(tr))
+        order = self.fold[0][perm]
+        per_batch = class_batch_counts(r, order, 50)
+        self.step = int(np.flatnonzero((per_batch > 0).all(axis=1))[0])
+        ids = order[50 * self.step:50 * (self.step + 1)]
+        counts = per_batch[self.step]
+        self.slots = tuple(max(int(f), -(-int(n) // 4) * 4)
+                           for f, n in zip(self.engine.slot_floor, counts))
+        rows = route_order_rows(r, ids, self.slots)
+        self.host = []  # that batch, class by class
+        for c, (t, s) in enumerate(zip(self.tiles, self.slots)):
+            members = ids[r.class_of[ids] == c]
+            self.host.append(pack_dense_batch(self.gs, members, t, s))
+            assert (rows[c] >= 0).sum() == len(members)
+        log(f"  fold 1's first batch with every class (step {self.step} of epoch 1): "
+            f"{counts.tolist()} graphs by class in {list(self.slots)} slots")
+
+    def batch(self, device):
+        """That batch as a `MultiDenseBatch` on `device`."""
+        from dgcnn_tpu_torch.batching.dense import batch_to_device
+        from dgcnn_tpu_torch.batching.multi_dense import MultiDenseBatch
+
+        return MultiDenseBatch(tuple(batch_to_device(b, device) for b in self.host))
+
+    def shapes(self, device):
+        """(label, adj, mask) of each class of that batch on `device`."""
+        return [(f"COLLAB multi class T={t} S={s}", torch.from_numpy(b.adj).to(device),
+                 torch.from_numpy(b.node_mask).to(device))
+                for t, s, b in zip(self.tiles, self.slots, self.host)]
+
+
+def check_collab_trunk(collab, device, dt, stats):
+    """Phase 3a's COLLAB cases: each tile class of fold 1's first batch
+    with every class, at its tile and slot count, the plan's regime named (resident at T=256,
+    streamed at T=464 at dims (32,32,32,1))."""
+    for name, adj, mask in collab.shapes(device):
+        s, t = adj.shape[0], adj.shape[1]
+        plan = dt.trunk_plan(s, t, DIMS)
+        want = "resident" if t <= resident_cap() else "streamed"
+        log(f"  {name}: plan {plan}")
+        if plan.regime != want:
+            raise AssertionError(f"{name}: plan {plan}, expected {want}")
+        compare_trunk(f"{name} ({want})", adj, mask, device, dt, stats)
+
+
+def trunk_calls_want(dt, tiles, slot_sets, steps, train_steps):
+    """Trunk calls by regime of `steps` forwards and `train_steps` backwards
+    of every class: the counters' (resident_fwd, resident_bwd, streamed_fwd,
+    streamed_bwd), and the kernel launches (fwd, bwd) they make
+    (`launches_per_call`). Each class must keep one regime over
+    `slot_sets`."""
+    regimes = []
+    for c, t in enumerate(tiles):
+        plans = {dt.trunk_plan(sl[c], t, DIMS).regime for sl in slot_sets}
+        if len(plans) != 1:
+            raise AssertionError(f"class T={t}: regimes {plans} over slots {slot_sets}")
+        regimes.append(plans.pop())
+    n_res = regimes.count("resident")
+    n_str = regimes.count("streamed")
+    per = {r: dt.launches_per_call(dt.TrunkPlan(r, 1 if r == "resident" else 0, 0, 0),
+                                   DIMS) for r in ("resident", "streamed")}
+    calls = (n_res * steps, n_res * train_steps, n_str * steps, n_str * train_steps)
+    kernels = (n_res * per["resident"][0] * steps + n_str * per["streamed"][0] * steps,
+               n_res * per["resident"][1] * train_steps
+               + n_str * per["streamed"][1] * train_steps)
+    return calls, kernels, regimes
+
+
+def multi_main_path(collab, dt, device):
+    """Phase 4d's run: the device densify bitwise the host builder's, then
+    `run_cross_validation` of synthetic COLLAB (layout auto → multi, the
+    folds one after another) for 2 folds x 4 epochs in chunks of
+    `max_fused_epochs` 2, graphed (trunk calls counted per replay, by
+    regime) and eager: every fold's rows and `epochs/` bundle bitwise
+    equal; the fold-epoch seconds of chunk 2; then one fold x 4 epochs of
+    `--layout dense` (T=464, S=56, streamed), graphed, for the record.
+    Both runs say `cv_parallel="sequential"`: at 10 folds the dense
+    lockstep step (580 MB) is over its 128 MB gate and `auto` runs the
+    folds one after another, but the gate scales with the fold count, and
+    at the smoke's 2 folds (97 MB) `auto` would lockstep dense instead."""
+    from dgcnn_tpu_torch.batching.multi_dense import build_multi_dense
+
+    t0 = time.perf_counter()
+    host, _ = build_multi_dense(collab.gs, collab.tiles, device)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    for c, (a, b) in enumerate(zip(host, collab.engine.classes)):
+        for f in ("x", "adj", "node_mask", "y"):
+            u, v = getattr(a, f), getattr(b, f)
+            if u.dtype != v.dtype or u.shape != v.shape or not torch.equal(u, v):
+                where = ""
+                if u.shape == v.shape:
+                    d = (u.double() - v.double()).abs()
+                    at = tuple(int(i) for i in (d > 0).nonzero()[0])
+                    where = (f"largest difference {d.max().item():.3e} over {int((d > 0).sum())} "
+                             f"entries; first at {at}: host {u[at].item()!r}, device "
+                             f"{v[at].item()!r}")
+                raise AssertionError(f"class {c} {f}: device densify differs from the "
+                                     f"host builder ({where or 'shape or dtype'})")
+    del host
+    torch.cuda.empty_cache()
+    log(f"  device densify: every class's x, adj, node_mask, y bitwise the host "
+        f"builder's (host pack + copy {host_s:.1f} s against the device build "
+        f"{collab.densify_s:.2f} s)")
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(max_fused_epochs=2, cv_parallel="sequential")
+        cfg = cv_config(tmp, "collab", "COLLAB", 2, 4, **kw)
+        eager = cv_config(tmp, "collab_eager", "COLLAB", 2, 4, **kw)
+        dt.launches.reset()
+        _, wall = run_cv(cfg, True)
+        got = (dt.launches.resident_fwd, dt.launches.resident_bwd,
+               dt.launches.streamed_fwd, dt.launches.streamed_bwd)
+        kern = (dt.launches.kernel_fwd, dt.launches.kernel_bwd)
+        tr_n, ev_n = count_steps("COLLAB", collab.gs.y, 2, 4, 50,
+                                 os.path.join(tmp, "data", "COLLAB", "10fold_idx"))
+        events = check_artifacts(os.path.join(tmp, "collab"), "COLLAB", 2, 4)
+        start = events[0]
+        if start["kind"] != "run_start" or start["layout"] != "multi" or tuple(
+                start["tiles"]) != collab.tiles:
+            raise AssertionError(f"run_start says {start}")
+        want, want_kern, regimes = trunk_calls_want(
+            dt, collab.tiles, [start["slot_floors"]], tr_n + ev_n, tr_n)
+        log(f"  COLLAB multi 2 x 4, chunks of 2, graphed: {wall:.1f} s; train steps "
+            f"{tr_n}, eval steps {ev_n}; classes {collab.tiles} run {regimes}; slot "
+            f"floors at run start {start['slot_floors']}; trunk calls by regime "
+            f"(resident fwd, bwd, streamed fwd, bwd) {got} (want {want}), kernel "
+            f"launches counted (fwd, bwd) {kern} (want {want_kern})")
+        if got != want or (dt.launches.fwd_launches, dt.launches.bwd_launches) != (
+                want[0] + want[2], want[1] + want[3]) or kern != want_kern:
+            raise AssertionError(f"COLLAB multi: trunk calls {got}, kernels {kern}, "
+                                 f"expected {want}, {want_kern}")
+        _, wall_e = run_cv(eager, False)
+        same_bits("COLLAB multi: graphed vs eager rows", fold_rows(cfg), fold_rows(eager))
+        same_bits("COLLAB multi: graphed vs eager epochs/ bundles", bundles(cfg),
+                  bundles(eager))
+        ev, ev_e = epoch_events(cfg), epoch_events(eager)
+        chunk2 = [(e["fold"], e["epoch_seconds"]) for e in ev if e["epoch"] > 2]
+        chunk2_e = [(e["fold"], e["epoch_seconds"]) for e in ev_e if e["epoch"] > 2]
+        log(f"  COLLAB multi: eager run {wall_e:.1f} s; every fold's rows and epochs/ "
+            f"bundle bitwise equal, graphed and eager; fold-epoch seconds (fold, s) "
+            f"of chunk 2: graphed {chunk2} vs eager {chunk2_e}; chunk 1 (warm-up + "
+            f"capture): graphed {[e['epoch_seconds'] for e in ev if e['epoch'] <= 2]} "
+            f"vs eager {[e['epoch_seconds'] for e in ev_e if e['epoch'] <= 2]}")
+
+        dense = cv_config(tmp, "collab_dense", "COLLAB", 1, 4, max_fused_epochs=2,
+                          layout="dense", cv_parallel="sequential")
+        dt.launches.reset()
+        _, wall_d = run_cv(dense, True)
+        d_tr, d_ev = count_steps("COLLAB", collab.gs.y, 1, 4, 50,
+                                 os.path.join(tmp, "data", "COLLAB", "10fold_idx"))
+        d_calls = (dt.launches.resident_fwd, dt.launches.resident_bwd,
+                   dt.launches.streamed_fwd, dt.launches.streamed_bwd)
+        d_kern = (dt.launches.kernel_fwd, dt.launches.kernel_bwd)
+        d_want = trunk_calls_want(dt, collab.tiles[-1:], [(S,)], d_tr + d_ev, d_tr)
+        if (d_calls, d_kern, d_want[2]) != (*d_want[:2], ["streamed"]):
+            raise AssertionError(f"COLLAB dense: trunk calls {d_calls}, kernels "
+                                 f"{d_kern}, expected all streamed {d_want[:2]}")
+        d_ev_s = epoch_events(dense)
+        dense_chunk2 = [e["epoch_seconds"] for e in d_ev_s if e["epoch"] > 2]
+        log(f"  COLLAB --layout dense (T=464, S=56, streamed; host-built 4.32 GB "
+            f"adjacency), 1 x 4, graphed, for the record: {wall_d:.1f} s; trunk calls "
+            f"{d_calls}, kernel launches {d_kern}; fold-epoch seconds chunk 2 "
+            f"{dense_chunk2} (chunk 1 "
+            f"{[e['epoch_seconds'] for e in d_ev_s if e['epoch'] <= 2]}) against "
+            f"multi's {[s for f, s in chunk2 if f == 1]}")
+    return {"calls": got, "kernel_launches": kern, "regimes": regimes,
+            "slot_floors": start["slot_floors"], "steps": (tr_n, ev_n),
+            "epoch_s": chunk2, "eager_epoch_s": chunk2_e, "dense_epoch_s": dense_chunk2}
+
+
+def multi_runners(collab, model, device, graphs):
+    """Fold 1's multi-tile runner as `MultiDenseEngine` builds it, at the
+    slot tuple of its first 3 epochs and test order (from the engine's
+    initial floors), `run_fold`'s seeds, with the 3 orders and a
+    `state()`."""
+    from dgcnn_tpu_torch.train.loop import make_multi_dense_run
+
+    engine = collab.engine
+    floor = engine.slot_floor.copy()
+    tr, te = collab.fold
+    rng = np.random.default_rng(np.random.SeedSequence([324, 1]))
+    ids = [tr[rng.permutation(len(tr))] for _ in range(3)]
+    slots = engine.slots_for(*ids, te)
+    engine.slot_floor = floor
+    orders = np.stack([engine.epoch_order(i, slots) for i in ids])
+    test = engine.epoch_order(te, slots)
+    net, opt, gen = fold_seeds(model, device)
+    run = make_multi_dense_run(net, opt, engine.classes, slots, test, orders.shape[1],
+                               gen, graphs)
+    return {"COLLAB multi": (run, orders, seq_state(net, opt, gen),
+                             orders.shape[1] + test.shape[0])}
 
 
 # -- phase 6: one profiled train step ---------------------------------------
@@ -2088,6 +2358,11 @@ def main() -> int:
     t_main = dense_tile(datasets["NCI1"])
     shapes = check_trunk(datasets, device, dt, stats)
     lock_shapes = check_lockstep_trunk(datasets, device, dt, stats)
+    collab = CollabContext(device)
+    if collab.layout != "multi" or collab.tiles != (256, 464):
+        raise AssertionError(f"choose_layout gave {collab.layout}, tiles {collab.tiles} "
+                             f"for COLLAB, not multi at (256, 464)")
+    check_collab_trunk(collab, device, dt, stats)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -2233,11 +2508,12 @@ def main() -> int:
     runners.update(check_runners(lambda graphs: sparse_runners(
         ctx, dd_coo, dd_model, device, graphs)))
     forced_growth("DD block", ctx.engine, ctx.gs, {"floor_nb": 8, "floor_w": 64},
-                  dd_model, device, {k: m.launches for k, m in mods.items()})
+                  ctx.engine._block_counts, dd_model, device,
+                  {k: m.launches for k, m in mods.items()})
     forced_growth("DD COO", dd_coo.engine, ctx.gs,
                   {"floor_nodes": dd_coo.engine.cfg.node_pad_multiple,
                    "floor_edges": dd_coo.engine.cfg.edge_pad_multiple},
-                  dd_model, device, counters)
+                  dd_coo.engine._edge_counts, dd_model, device, counters)
 
     from dgcnn_tpu_torch.batching.packer import batch_to_device as coo_to_device
 
@@ -2256,6 +2532,24 @@ def main() -> int:
                         coo_batch(c, c.mean_row, impl), model)
         card_vs_cpu(f"{c.name} CooEngine batch (row {hc.mean_row}, spmm_impl pallas)",
                     host_coo_batch(hc, hc.mean_row), model)
+
+    log("== phase 4d: main path, synthetic COLLAB, layout auto (multi, tiles "
+        f"{collab.tiles}: the trunk resident at T=256, streamed at T=464), 2 folds x 4 "
+        "epochs in chunks of max_fused_epochs 2, graphed then eager; the runner "
+        "built directly; a forced slot growth; --layout dense 1 x 4 for the record")
+    log(card)
+    collab_model = DGCNN(num_features=collab.gs.num_features,
+                         num_classes=collab.gs.num_classes)
+    multi = multi_main_path(collab, dt, device)
+    runners.update(check_runners(lambda graphs: multi_runners(collab, collab_model,
+                                                              device, graphs)))
+    forced_growth("COLLAB multi", collab.engine, collab.gs,
+                  {"slot_floor": collab.engine.slot_floor.copy()}, collab.gs.node_counts(),
+                  collab_model, device,
+                  {"gcn_trunk": dt.launches}, data_type="COLLAB")
+    card_vs_cpu(f"COLLAB multi batch (fold 1's step {collab.step}, slots "
+                f"{list(collab.slots)})",
+                lambda dev: (collab.batch(dev), {}), collab_model)
 
     log("== phase 5: device times (CUDA-graph replay, CUDA events)")
     log(card)
@@ -2285,6 +2579,15 @@ def main() -> int:
             f"{row['bwd_flushed']:.4f}) plain {row['bwd_plain']:.4f} bound "
             f"{row['bound_bwd']:.4f} ({row['bound_bwd_by']}); per fold fwd + bwd "
             f"{(row['fwd'] + row['bwd']) / FOLDS:.4f} ms")
+    for name, adj, mask in collab.shapes(device):
+        row = trunk_times[("multi", adj.shape[1])] = time_trunk(dt, adj, mask, None,
+                                                                flush, device)
+        log(f"  trunk {name} {row['plan']}: fwd kernel {row['fwd']:.4f} ms (flushed "
+            f"{row['fwd_flushed']:.4f}) plain {row['fwd_plain']:.4f} bound "
+            f"{row['bound_fwd']:.4f} ({row['bound_fwd_by']}) | bwd kernel "
+            f"{row['bwd']:.4f} ms (flushed {row['bwd_flushed']:.4f}) plain "
+            f"{row['bwd_plain']:.4f} bound {row['bound_bwd']:.4f} "
+            f"({row['bound_bwd_by']})")
     for t in (t_main, 112, t_prot, 624):
         row = trunk_times[(t, None)]
         log(f"  trunk T={t}: below the plain chain forward "
@@ -2390,6 +2693,9 @@ def main() -> int:
         seq_step(dd_model, dd_coo.batch(dd_coo.mean_row), spmm_impl=spmm_auto))
     profile_step("DD COO (pallas, CooEngine mean batch; the slot order's sorts included)",
                  seq_step(dd_model, dd_host.batch(dd_host.mean_row), spmm_impl="pallas"))
+    sparse_steps["COLLAB multi"] = profile_step(
+        f"COLLAB multi (fold 1's step {collab.step}, slots {list(collab.slots)})",
+        seq_step(collab_model, collab.batch(device)))
     # the epoch graphs last, so that the step tables above are taken as in
     # earlier runs (one run that profiled the DD block step after them
     # recorded 62 of its launches)
@@ -2429,8 +2735,18 @@ def main() -> int:
                   f"T={t_main}",
          "sequential_shape": {"shape": f"S={S}, K=1, T={t_main}", "plan": ts["plan"],
                               "ms": ts[d], "plain_ms": ts[f"{d}_plain"],
-                              "bound_ms": ts[f"bound_{d}"]}}
-        for d, line, n in (("fwd", 232, trunk_fwd_n), ("bwd", 310, trunk_bwd_n))
+                              "bound_ms": ts[f"bound_{d}"]},
+         "multi_path": {
+             "main_path": "COLLAB multi, 2 folds x 4 epochs in chunks of 2, the folds "
+                          "one after another, launches counted per replay",
+             "calls_resident": multi["calls"][i], "calls_streamed": multi["calls"][2 + i],
+             "kernel_launches": multi["kernel_launches"][i],
+             "shapes": [{"shape": f"S={s}, K=1, T={t}", "plan": row["plan"],
+                         "ms": row[d], "plain_ms": row[f"{d}_plain"],
+                         "bound_ms": row[f"bound_{d}"], "bound_by": row[f"bound_{d}_by"]}
+                        for t, s in zip(collab.tiles, collab.slots)
+                        for row in [trunk_times[("multi", t)]]]}}
+        for i, (d, line, n) in enumerate((("fwd", 232, trunk_fwd_n), ("bwd", 310, trunk_bwd_n)))
     ]
     replaces = {"block_csr": "dgcnn_tpu/kernels/block_pallas.py:152",
                 "block_resident": "dgcnn_tpu/kernels/block_resident.py:130"}
@@ -2511,8 +2827,11 @@ def main() -> int:
         f"sequential (epoch 1, epoch 2 of each fold): graphed "
         f"{lock['sequential_epoch_s']}, eager {lock['sequential_eager_epoch_s']}")
     for name, g in epoch_graphs.items():
-        log(f"{name if name.startswith('DD') else 'NCI1 ' + name} epoch graph: "
-            f"{json.dumps(g)}")
+        log(f"{name if name.startswith(('DD', 'COLLAB')) else 'NCI1 ' + name} epoch "
+            f"graph: {json.dumps(g)}")
+    log(f"COLLAB fold-epoch seconds, chunk 2 (fold, s): multi graphed "
+        f"{multi['epoch_s']}, eager {multi['eager_epoch_s']}; --layout dense graphed "
+        f"{multi['dense_epoch_s']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,9 @@ equals `packer.pack_batch` byte for byte: per-graph edges are sorted at
 build time and slot offsets grow with the slot, so the concatenated stream
 is globally destination-sorted as the packer's stable argsort makes it.
 
-`densify_on_device` (the multi-tile layout's builder) is ROADMAP Queue 1
-item 7.
+`densify_on_device` / `densify_many_on_device` (:147, :243; the
+multi-tile layout's builder) turn the graphset into a `DenseDataset` on
+its device, in the host builder's arithmetic, so the two agree bitwise.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from dgcnn_tpu_torch.batching.block_sparse import segment_of
+from dgcnn_tpu_torch.batching.dense import DenseDataset
 from dgcnn_tpu_torch.batching.packer import BucketSpec, GraphBatch
 from dgcnn_tpu_torch.data.graphset import GraphSet
 
@@ -173,3 +175,74 @@ def gather_coo_batch(dev: DeviceGraphSet, idx_row: torch.Tensor,
         graph_mask=valid.to(torch.float32),
         num_graphs=valid.sum().to(i32),
     )
+
+
+# the normalize's chunk: ~256 MB of adjacency at a time; the scatter's:
+# 4M edges, whose index and sort buffers stay near 200 MB
+_NORMALIZE_CHUNK_BYTES = 256 << 20
+_SCATTER_CHUNK_EDGES = 1 << 22
+
+
+def densify_on_device(dev: DeviceGraphSet, n_tile: int) -> DenseDataset:
+    """A `DenseDataset` at tile `n_tile` (batching/dense.py layout: per-graph
+    GCN-normalized adjacency, features, node mask, labels) built on the
+    device of `dev` from the compact graphset, equal to the host builder
+    `build_dense_dataset` bit for bit. Only the graphset crossed the link;
+    the quadratic arrays are born on the device.
+
+    The raw adjacency holds exact integer counts: the self-loop-stripped
+    edge stream is added as 1.0s at (graph, dst, src) with
+    `index_put_(accumulate=True)` (exact below 2^24), 4M edges at a time,
+    then one self-loop on each real node. The normalization is the host
+    builder's arithmetic (`pack_dense_batch`): fp32 degrees, dinv =
+    1 / sqrt(deg), and `a * (dinv_i * dinv_j)` with the outer product
+    taken first, in graph chunks of ~256 MB, in place. The degrees are
+    integers, so dinv is read from a table of 1 / sqrt(k) that NumPy
+    computes as the host builder does: the bits then do not depend on the
+    device's square root and division, whose rounding torch does not pin
+    (its multi-threaded CPU kernels have given other bits than NumPy's)."""
+    g = int(dev.node_start.shape[0]) - 1
+    device = dev.x.device
+    pos = torch.arange(n_tile, device=device)
+    node_ok = pos[None, :] < dev.node_count[:g, None]
+    rows = dev.node_start[:g, None] + pos[None, :]
+    x = dev.x[torch.where(node_ok, rows, dev.x.shape[0] - 1)]
+    node_mask = node_ok.to(torch.float32)
+
+    adj = torch.zeros((g, n_tile, n_tile), dtype=torch.float32, device=device)
+    flat = adj.view(-1)
+    for e0 in range(0, int(dev.edge_src.shape[0]), _SCATTER_CHUNK_EDGES):
+        src = dev.edge_src[e0 : e0 + _SCATTER_CHUNK_EDGES]
+        epos = torch.arange(e0, e0 + src.shape[0], device=device)
+        graph = torch.searchsorted(dev.edge_start[1 : g + 1], epos, right=True)
+        at = (graph * n_tile + dev.edge_dst[e0 : e0 + src.shape[0]]) * n_tile + src
+        flat.index_put_((at,), torch.ones(src.shape[0], device=device), accumulate=True)
+    adj.diagonal(dim1=1, dim2=2).add_(node_mask)
+
+    deg = adj.sum(dim=2).long()
+    with np.errstate(divide="ignore"):
+        table = np.float32(1.0) / np.sqrt(np.arange(int(deg.max()) + 1 if deg.numel() else 1,
+                                                    dtype=np.float32))
+    table[0] = 0.0  # padded rows: no degree, no scale
+    dinv = torch.from_numpy(table).to(device)[deg]
+    chunk = max(1, _NORMALIZE_CHUNK_BYTES // (n_tile * n_tile * 4))
+    for i0 in range(0, g, chunk):
+        d = dinv[i0 : i0 + chunk]
+        adj[i0 : i0 + chunk].mul_(d[:, :, None] * d[:, None, :])
+    return DenseDataset(x=x, adj=adj, node_mask=node_mask,
+                        y=dev.y[:g].to(torch.int32))
+
+
+def densify_many_on_device(hosts, tiles, device):
+    """`densify_on_device` of several classes: each host graphset
+    (`build_device_graphset`) is moved to `device` and densified at its
+    tile, one class after another, its compact arrays dropped as soon as
+    its class is built."""
+    hosts = list(hosts)
+    out = []
+    for i, t in enumerate(tiles):
+        dev = device_graphset_to(hosts[i], device)
+        hosts[i] = None
+        out.append(densify_on_device(dev, int(t)))
+        del dev
+    return out

@@ -41,7 +41,10 @@ from the kernels' shared-memory formulas, mirrored here:
 `launches.fwd_launches` / `launches.bwd_launches` count one per trunk
 forward / backward that ran on the kernels, whatever the regime;
 `launches.resident_fwd`, `resident_bwd`, `streamed_fwd` and
-`streamed_bwd` split the same calls by regime. A call captured in a CUDA
+`streamed_bwd` split the same calls by regime; `kernel_fwd` / `kernel_bwd`
+count the kernels those calls launched, one beside each launch (a
+resident call launches one, a streamed forward L and a streamed backward
+L + 2). A call captured in a CUDA
 graph counts once, at capture; the fused runner's `CountedGraph`
 (train/loop.py) takes that back and adds it once per replay, so the
 counts are of calls run, replays included.
@@ -73,12 +76,14 @@ class LaunchCounts:
 
 
 class TrunkLaunchCounts(LaunchCounts):
-    """The per-call counts, and the same split by regime."""
+    """The per-call counts, the same split by regime, and the kernel
+    launches those calls made."""
 
     def reset(self) -> None:
         super().reset()
         self.resident_fwd = self.resident_bwd = 0
         self.streamed_fwd = self.streamed_bwd = 0
+        self.kernel_fwd = self.kernel_bwd = 0
 
     __init__ = reset
 
@@ -446,6 +451,7 @@ def _cuda_fwd(dims, adj, hw1, mask, wsel, ws, bs, k, plan=None) -> torch.Tensor:
                 a.b[i] = b.data_ptr()
             _ok(lib, lib.trunk_resident_f32(0, ctypes.byref(a), dpb, stream),
                 f"trunk forward (resident, C={plan.c})")
+            launches.kernel_fwd += 1
             launches.resident_fwd += 1
         else:
             hw, ld = hw1, dims[0]
@@ -461,6 +467,7 @@ def _cuda_fwd(dims, adj, hw1, mask, wsel, ws, bs, k, plan=None) -> torch.Tensor:
                     dpb, stream,
                 )
                 _ok(lib, rc, f"trunk forward layer {i + 1}")
+                launches.kernel_fwd += 1
                 hw, ld = hw_next, dpb
             launches.streamed_fwd += 1
     launches.fwd_launches += 1
@@ -488,6 +495,7 @@ def _cuda_bwd(dims, adj, mask, wsel, ws, cat, g, k, plan=None):
             a.dhw1, a.flat = d_hw1.data_ptr(), flat.data_ptr()
             _ok(lib, lib.trunk_resident_f32(1, ctypes.byref(a), dpb, stream),
                 f"trunk backward (resident, C={plan.c})")
+            launches.kernel_bwd += 1
             launches.resident_bwd += 1
         else:
             nblk = -(-t // SBM)
@@ -499,6 +507,7 @@ def _cuda_bwd(dims, adj, mask, wsel, ws, cat, g, k, plan=None):
                 offs[n - 1], p, dboff[n - 1], k, dpb, stream,
             )
             _ok(lib, rc, "trunk backward start")
+            launches.kernel_bwd += 1
             for i in range(n - 1, -1, -1):
                 dp = dims[i - 1] if i > 0 else 0
                 out = (torch.empty((s, t, dpb), dtype=torch.float32, device=dev)
@@ -513,11 +522,13 @@ def _cuda_bwd(dims, adj, mask, wsel, ws, cat, g, k, plan=None):
                     dpb, stream,
                 )
                 _ok(lib, rc, f"trunk backward layer {i + 1}")
+                launches.kernel_bwd += 1
                 dpre = out
             rc = lib.trunk_reduce_blocks_f32(
                 part.data_ptr(), flat.data_ptr(), s, nblk, p, stream
             )
             _ok(lib, rc, "trunk backward block reduction")
+            launches.kernel_bwd += 1
             launches.streamed_bwd += 1
     launches.bwd_launches += 1
     return d_hw1, flat

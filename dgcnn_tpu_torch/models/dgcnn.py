@@ -1,8 +1,8 @@
 """DGCNN — the port of dgcnn_tpu/models/dgcnn.py (`DGCNN` :41,
 `init_params` :88, the head :134, `apply_coo` :178, `_dense_trunk` :260,
-`apply_dense` :344, `apply_block` :930, the layout dispatch of `apply`
-:1035; the fold-lockstep forward, `apply` under `jax.vmap` in
-dgcnn_tpu/train/cv_vmap.py:180-203):
+`apply_dense` :344, `apply_multi_dense` :367, `apply_block` :930, the
+layout dispatch of `apply` :1035; the fold-lockstep forward, `apply`
+under `jax.vmap` in dgcnn_tpu/train/cv_vmap.py:180-203):
 
     4 × [GCNConv → tanh] with dims (F→32→32→32→1), skip-concat (97)
     SortPooling k=30
@@ -37,6 +37,7 @@ from torch import nn
 
 from dgcnn_tpu_torch.batching.block_sparse import BlockBatch
 from dgcnn_tpu_torch.batching.dense import DenseGraphBatch
+from dgcnn_tpu_torch.batching.multi_dense import MultiDenseBatch
 from dgcnn_tpu_torch.batching.packer import GraphBatch
 from dgcnn_tpu_torch.kernels.block_csr import block_propagate_csr
 from dgcnn_tpu_torch.kernels.block_csr import make_plan as block_csr_plan
@@ -167,8 +168,9 @@ def num_params(params: Params) -> int:
 class DGCNNNet(nn.Module):
     """The model as an `nn.Module`: owns the parameters (state_dict keys
     `gcn.<i>.w`, `gcn.<i>.b`, `conv5.w`, … in the reference layout) and
-    runs `apply_dense`, `apply_block` for a `BlockBatch` or `apply_coo`
-    for a `GraphBatch` in `forward`."""
+    runs `apply_dense`, `apply_multi_dense` for a `MultiDenseBatch`,
+    `apply_block` for a `BlockBatch` or `apply_coo` for a `GraphBatch` in
+    `forward`."""
 
     def __init__(self, model: DGCNN, params: Params):
         super().__init__()
@@ -192,12 +194,16 @@ class DGCNNNet(nn.Module):
                 return_activations: bool = False,
                 pool: Optional[torch.Tensor] = None,
                 block_impl: str = "pallas", spmm_impl: str = "xla"):
-        """`batch` is a DenseGraphBatch, a BlockBatch or a GraphBatch; a
-        BlockBatch also needs the engine's adjacency block `pool` and the
-        `block_impl` that propagates over it, a GraphBatch the `spmm_impl`
-        that aggregates its edges."""
+        """`batch` is a DenseGraphBatch, a MultiDenseBatch, a BlockBatch or
+        a GraphBatch; a BlockBatch also needs the engine's adjacency block
+        `pool` and the `block_impl` that propagates over it, a GraphBatch
+        the `spmm_impl` that aggregates its edges. A MultiDenseBatch gives
+        the log-probs of its classes' slots in class order, the order of
+        its `y` and `graph_mask`."""
         kw = dict(deterministic=deterministic, dropout_gen=dropout_gen,
                   return_activations=return_activations)
+        if isinstance(batch, MultiDenseBatch):
+            return apply_multi_dense(self.params(), self.model, batch.classes, **kw)
         if isinstance(batch, GraphBatch):
             return apply_coo(self.params(), self.model, batch,
                              spmm_impl=spmm_impl, **kw)
@@ -365,6 +371,40 @@ def apply_dense(
     pooled = _dense_trunk(params, model, batch, acts)
     log_probs = _pooled_to_log_probs(
         params, model, pooled, deterministic, dropout_gen, acts
+    )
+    if return_activations:
+        return log_probs, acts
+    return log_probs
+
+
+def apply_multi_dense(
+    params: Params,
+    model: DGCNN,
+    batches: Tuple[DenseGraphBatch, ...],
+    *,
+    deterministic: bool = True,
+    dropout_gen: Optional[torch.Generator] = None,
+    return_activations: bool = False,
+):
+    """Forward over one batch split by tile class (batching/multi_dense.py):
+    each class runs the dense trunk at its own tile (`_dense_trunk`: the
+    trunk kernel on the card), the pooled rows are concatenated in class
+    order, and the readout and head run once over the union, so dropout
+    draws one [ΣS_c, dense_dim] mask. A class with no graph in the batch
+    still runs (its slots are masked), so every batch has the same work.
+    Returns the log-probs of the class slots in class order, the order of
+    `MultiDenseBatch.y` and `.graph_mask` (the reference returns those two
+    beside the log-probs; here the batch carries them); with
+    `return_activations=True` also the per-stage tensors, a class's
+    tagged `_c<i>`."""
+    acts: dict = {}
+    pooled = []
+    for i, b in enumerate(batches):
+        class_acts: dict = {}
+        pooled.append(_dense_trunk(params, model, b, class_acts))
+        acts.update({f"{k}_c{i}": v for k, v in class_acts.items()})
+    log_probs = _pooled_to_log_probs(
+        params, model, torch.cat(pooled), deterministic, dropout_gen, acts
     )
     if return_activations:
         return log_probs, acts

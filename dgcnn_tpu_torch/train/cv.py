@@ -1,6 +1,7 @@
 """Cross-validation driver — the port of dgcnn_tpu/train/cv.py
 (`choose_layout` :141, `CooEngine` :249, `DeviceCooEngine` :339,
-`_geom_round` :373, `BlockSparseEngine` :434, `DenseEngine` :521, the
+`_geom_round` :373, `BlockSparseEngine` :434, `DenseEngine` :521,
+`MultiDenseEngine` :583, the
 engine choice of `make_engine` :1067, `run_fold` :1130,
 `run_cross_validation` :1301, with its lockstep dispatch :1355-1400).
 
@@ -11,14 +12,16 @@ both packages see the same batches), train then evaluate every epoch,
 and write the per-fold CSV, the `epochs/` bundle, the overall CSV and the
 event log under the reference's file names.
 
-The port serves the dense, block-sparse and COO layouts. On the dense
-layout the folds train in lockstep (train/cv_vmap.py) when the reference
-would lockstep them (`cv_parallel="folds"`, or "auto" and
-`_lockstep_would_engage`); otherwise, and on the other layouts, one after
-another. `choose_layout` answers as the reference does; the multi-tile
-and halo layouts, block lockstep, meshes, bf16, resume and the other
-options not ported yet raise NotImplementedError naming the ROADMAP item
-that ports them (`check_supported`, `check_lockstep_layout`).
+The port serves the dense, multi-tile dense, block-sparse and COO
+layouts. On the dense layout the folds train in lockstep
+(train/cv_vmap.py) when the reference would lockstep them
+(`cv_parallel="folds"`, or "auto" and `_lockstep_would_engage`);
+otherwise, and on the other layouts, one after another (on one device
+the reference runs multi-tile folds one after another too).
+`choose_layout` answers as the reference does; the halo layout, block
+and multi-tile lockstep, meshes, bf16, resume and the other options not
+ported yet raise NotImplementedError naming the ROADMAP item that ports
+them (`check_supported`, `check_lockstep_layout`).
 
 Randomness: weights come from a CPU `torch.Generator` and dropout from a
 generator on the run's device, each seeded from
@@ -52,7 +55,13 @@ from dgcnn_tpu_torch.batching.device_coo import (
     build_device_graphset,
     device_graphset_to,
 )
-from dgcnn_tpu_torch.batching.multi_dense import multi_dense_bytes, plan_tiles
+from dgcnn_tpu_torch.batching.multi_dense import (
+    build_multi_dense_on_device,
+    class_batch_counts,
+    multi_dense_bytes,
+    plan_tiles,
+    route_order_rows,
+)
 from dgcnn_tpu_torch.batching.packer import (
     BucketSpec,
     add_blockcoo,
@@ -72,6 +81,7 @@ from dgcnn_tpu_torch.train.loop import (
     make_coo_run,
     make_dense_gather_run,
     make_device_coo_run,
+    make_multi_dense_run,
     make_optimizer,
 )
 from dgcnn_tpu_torch.train.metrics import EventLog, FoldMetrics, write_overall_csv
@@ -124,8 +134,7 @@ def check_supported(cfg: Config) -> None:
 # ROADMAP item that ports each
 UNPORTED_LOCKSTEP = {
     "block": "block fold-lockstep is not ported yet (ROADMAP Queue 1 item 9)",
-    "multi": "the multi-tile layout and its fold-lockstep are not ported yet "
-             "(ROADMAP Queue 1 item 7)",
+    "multi": "multi-tile fold-lockstep is not ported yet (ROADMAP Queue 1 item 9)",
 }
 
 
@@ -145,7 +154,6 @@ def check_lockstep_layout(layout: str) -> None:
 
 
 _LAYOUT_ITEM = {
-    "multi": "ROADMAP Queue 1 item 7",
     "halo": "ROADMAP Queue 1 item 12",
 }
 
@@ -555,7 +563,82 @@ class CooEngine:
         self.runners.drop()
 
 
-PORTED_LAYOUTS = ("dense", "block", "coo")
+class MultiDenseEngine:
+    """The multi-tile dense layout's epoch engine (batching/multi_dense.py),
+    the port of the reference's `MultiDenseEngine` (dgcnn_tpu/train/cv.py:583):
+    every graph lives on the device in dense form at its tile class's tile
+    (`plan_tiles` from `multi_dense_min_tile`), built there from the compact
+    graphset (`build_multi_dense_on_device`). Each batch is routed into per-
+    class index rows (`route_order_rows`), laid side by side in one order
+    row [ΣS_c]; a chunk of k epochs ships one [k, steps, ΣS_c] matrix and
+    runs through the fused runner of its slot tuple
+    (train/loop.py `make_multi_dense_run`: on the card one CUDA-graph replay
+    an epoch once the runner has captured), and each class's GCN chain runs
+    on the trunk kernel at its own tile and slot count.
+
+    Slot floors, as the reference sets them (:616-640): 4 a class,
+    pre-grown over 40 permutations of the whole dataset from
+    `default_rng(SeedSequence([seed, 0]))`, capped at the batch size rounded
+    up to 4; then, once a chunk, grown only, to the largest class count of
+    the chunk's batches and the fold's test batches, rounded up to 4
+    (`slots_for`). A grown slot tuple gets a new runner (`RunnerSlot`,
+    keyed by fold and slots). `graphs=False` runs every epoch eagerly on
+    the card, for comparison only."""
+
+    def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device,
+                 graphs: bool = True):
+        self.cfg = cfg
+        self.device = device
+        self.graphs = graphs
+        self.tiles = plan_tiles(dataset.node_counts(), cfg.multi_dense_min_tile)
+        self.classes, self.routing = build_multi_dense_on_device(
+            dataset, self.tiles, device)
+        self.slot_floor = np.full(len(self.tiles), 4, dtype=np.int64)
+        warm_rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, 0]))
+        self.slots_for(*(warm_rng.permutation(dataset.num_graphs) for _ in range(40)))
+        self.slot_floor = np.minimum(self.slot_floor, _round_up(cfg.batch_size, 4))
+        self.runners = RunnerSlot()
+        self._fold = 0
+
+    def slots_for(self, *order_seqs: np.ndarray) -> tuple:
+        """Grow-only per-class slot counts covering every batch of the
+        given graph-id sequences (each cut into batches of the batch size)."""
+        need = self.slot_floor
+        for ids in order_seqs:
+            counts = class_batch_counts(self.routing, ids, self.cfg.batch_size)
+            need = np.maximum(need, counts.max(axis=0))
+        self.slot_floor = _round_up(need, 4)
+        return tuple(int(s) for s in self.slot_floor)
+
+    def epoch_order(self, ids: np.ndarray, slots: tuple) -> np.ndarray:
+        """One epoch's graph ids → [steps, ΣS_c]: each batch's per-class
+        index rows side by side, in class order."""
+        bs = self.cfg.batch_size
+        return np.stack([np.concatenate(route_order_rows(self.routing, ids[i:i + bs],
+                                                         slots))
+                         for i in range(0, len(ids), bs)]).astype(np.int32)
+
+    def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
+        self._train_idx = np.asarray(train_idx, dtype=np.int64)
+        self._test_idx = np.asarray(test_idx, dtype=np.int64)
+        self._fold += 1
+
+    def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
+        """Train + eval one epoch per permutation of the fold's training
+        graphs at the chunk's slot tuple; host rows [k, 4]."""
+        epoch_ids = [self._train_idx[p] for p in perms]
+        slots = self.slots_for(*epoch_ids, self._test_idx)
+        orders = np.stack([self.epoch_order(ids, slots) for ids in epoch_ids])
+        runner = self.runners.get((self._fold, slots), lambda: make_multi_dense_run(
+            net, optimizer, self.classes, slots, self.epoch_order(self._test_idx, slots),
+            orders.shape[1], dropout_gen, self.graphs))
+        return runner.run_epochs(orders)
+
+    def end_fold(self) -> None:
+        self.runners.drop()
+
+
+PORTED_LAYOUTS = ("dense", "multi", "block", "coo")
 
 
 def make_engine(cfg: Config, dataset: GraphSet, device: torch.device, layout: str,
@@ -568,6 +651,8 @@ def make_engine(cfg: Config, dataset: GraphSet, device: torch.device, layout: st
         return (CooEngine if host else DeviceCooEngine)(cfg, dataset, device, graphs)
     if layout == "block":
         return BlockSparseEngine(cfg, dataset, device, graphs)
+    if layout == "multi":
+        return MultiDenseEngine(cfg, dataset, device, graphs)
     return DenseEngine(cfg, dataset, device, graphs)
 
 
@@ -689,8 +774,8 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
     if layout not in PORTED_LAYOUTS:
         raise NotImplementedError(
             f"the {layout!r} layout (chosen for {cfg.data_type}) is not ported "
-            f"yet ({_LAYOUT_ITEM[layout]}); the port runs the dense, block "
-            f"and coo layouts"
+            f"yet ({_LAYOUT_ITEM[layout]}); the port runs the dense, multi, "
+            f"block and coo layouts"
         )
     use_lockstep = layout == "dense" and _lockstep_would_engage(
         cfg, dataset, dense_tile(dataset))
@@ -703,6 +788,7 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
     folds = get_folds(
         dataset.y, fold_dir, cfg.num_folds, cfg.seed, data_type=cfg.data_type
     )
+    engine = None if use_lockstep else make_engine(cfg, dataset, device, layout, graphs)
     events = EventLog(
         os.path.join(cfg.statistics_dir, f"{cfg.data_type}_events.jsonl")
     )
@@ -715,6 +801,8 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         layout=layout,
         **({"block_impl": cfg.resolved_block_impl()} if layout == "block" else {}),
         **({"spmm_impl": cfg.resolved_spmm_impl()} if layout == "coo" else {}),
+        **({"tiles": list(engine.tiles), "slot_floors": engine.slot_floor.tolist()}
+           if layout == "multi" else {}),
         num_params=num_params(init_params(torch.Generator().manual_seed(0), model)),
         device=str(device),
     )
@@ -724,7 +812,6 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         train_accs, test_accs = run_cv_folds_lockstep(
             cfg, dataset, model, folds, events, device, graphs)
         return _finalize_cv(cfg, events, train_accs, test_accs)
-    engine = make_engine(cfg, dataset, device, layout, graphs)
 
     train_accs, test_accs = [], []
     for fold_number, (train_idx, test_idx) in enumerate(folds, start=1):

@@ -1,8 +1,8 @@
 """Training and evaluation loops — the port of dgcnn_tpu/train/loop.py
 (`nll_loss_and_correct` :38, the step :58-86, the fused multi-epoch
 runner `_fused_run` :89 with `make_coo_run` :177,
-`make_device_coo_run` :236, `make_block_run` :270 and
-`make_dense_gather_run` :373), and the
+`make_multi_dense_run` :201, `make_device_coo_run` :236,
+`make_block_run` :270 and `make_dense_gather_run` :373), and the
 fold-lockstep step and epoch of dgcnn_tpu/train/cv_vmap.py:58
 `_make_lockstep_body` (`masked_update` :86, `real_folds` :97, the step
 and epoch reductions :106-152, run over k epochs by `make_dense_vmap_run`
@@ -40,6 +40,7 @@ every epoch runs the body eagerly. The kernels and the order of
 operations are the same either way, so the rows are the eager loop's
 bits. One runner factory per layout, each named after the reference's:
 `make_dense_gather_run` and `make_dense_lockstep_run` (dense),
+`make_multi_dense_run` (multi-tile dense, at one slot tuple),
 `make_block_run` (block-sparse, at one (nb, W) budget),
 `make_device_coo_run` (COO assembled on the device, at one bucket) and
 `make_coo_run` (COO packed on the host: the body reads a static device
@@ -71,6 +72,7 @@ import torch
 from dgcnn_tpu_torch.batching.block_sparse import BlockGraphSet, gather_block_batch
 from dgcnn_tpu_torch.batching.dense import DenseDataset, gather_dense_batch
 from dgcnn_tpu_torch.batching.device_coo import DeviceGraphSet, gather_coo_batch
+from dgcnn_tpu_torch.batching.multi_dense import MultiDenseBatch
 from dgcnn_tpu_torch.batching.packer import (
     BucketSpec, GraphBatch, batch_arrays, batch_step, empty_batch_like,
 )
@@ -450,6 +452,29 @@ def make_dense_gather_run(net: DGCNNNet, optimizer, data: DenseDataset,
     [t_steps, slots]."""
     return _gather_run(net, optimizer, functools.partial(gather_dense_batch, data),
                        test_order2d, steps, dropout_gen, graphs)
+
+
+def make_multi_dense_run(net: DGCNNNet, optimizer, classes: Sequence[DenseDataset],
+                         slots: Sequence[int], test_order2d: np.ndarray, steps: int,
+                         dropout_gen, graphs: bool = True) -> FusedRun:
+    """The port of `make_multi_dense_run` (dgcnn_tpu/train/loop.py:201): the
+    fused runner of one fold's `epoch_body` over the multi-tile dense
+    layout, `classes` one `DenseDataset` a tile class on the device. An
+    order row holds the classes' index rows side by side, [ΣS_c] with class
+    c's `slots[c]` at a static offset (−1 padded; train/cv.py
+    `MultiDenseEngine.epoch_order`); the batch gathers each class's slice
+    from its dataset (`gather_dense_batch`) into a `MultiDenseBatch`, and
+    the model runs the trunk once a class (`apply_multi_dense`). `steps`
+    train steps an epoch, the fold's fixed test order [t_steps, ΣS_c]."""
+    bounds = np.concatenate([[0], np.cumsum(slots)]).tolist()
+
+    def batch_fn(row):
+        return MultiDenseBatch(tuple(
+            gather_dense_batch(d, row[a:b])
+            for d, a, b in zip(classes, bounds[:-1], bounds[1:])))
+
+    return _gather_run(net, optimizer, batch_fn, test_order2d, steps, dropout_gen,
+                       graphs)
 
 
 def make_dense_lockstep_run(net_f: DGCNNFoldsNet, adam_f: FoldAdam,

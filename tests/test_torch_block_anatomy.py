@@ -13,6 +13,7 @@ import pytest
 
 from dgcnn_tpu_torch.kernels import _build
 from dgcnn_tpu_torch.tools import probe_block_anatomy as anat
+import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

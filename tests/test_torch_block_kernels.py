@@ -22,6 +22,7 @@ from dgcnn_tpu.models.dgcnn import block_propagate_chunked as j_chunked
 from dgcnn_tpu_torch.batching import block_sparse as tbs
 from dgcnn_tpu_torch.data.synthetic import synthesize_tu_dataset
 from dgcnn_tpu_torch.kernels import block_csr, block_prop, block_resident
+import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 # fp32 on the CPU, the same products summed in another order
 RTOL, ATOL = 1e-5, 1e-6

@@ -32,6 +32,7 @@ from dgcnn_tpu_torch.parity.convert import params_from_jax, state_to_params
 from dgcnn_tpu_torch.train import cv
 from dgcnn_tpu_torch.train.loop import make_optimizer, nll_loss_and_correct, train_step
 from dgcnn_tpu_torch.utils.checkpoint import load_checkpoint
+import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 ACTS = ("gcn1", "gcn2", "gcn3", "gcn4", "sort_pool", "log_probs")
 

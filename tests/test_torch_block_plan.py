@@ -36,6 +36,7 @@ from dgcnn_tpu.kernels.block_resident import block_propagate_resident as j_resid
 from dgcnn_tpu_torch.batching import block_sparse as tbs
 from dgcnn_tpu_torch.data.synthetic import synthesize_tu_dataset
 from dgcnn_tpu_torch.kernels import block_csr, block_prop, block_resident
+import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 RTOL, ATOL = 1e-5, 1e-6
 BS = 128

@@ -20,6 +20,7 @@ from dgcnn_tpu_torch.batching import block_sparse as tbs
 from dgcnn_tpu_torch.config import Config
 from dgcnn_tpu_torch.data.synthetic import synthesize_tu_dataset
 from dgcnn_tpu_torch.train import cv
+import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 
 @functools.lru_cache(maxsize=None)

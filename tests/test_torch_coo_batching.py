@@ -21,6 +21,7 @@ from dgcnn_tpu_torch.batching import packer as tpk
 from dgcnn_tpu_torch.data.graphset import GraphSet
 from dgcnn_tpu_torch.data.synthetic import synthesize_tu_dataset
 from dgcnn_tpu_torch.kernels import spmm_block_coo as tbc
+import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 
 def _jset(gs):

@@ -28,6 +28,7 @@ from dgcnn_tpu_torch.data import folds as tfolds
 from dgcnn_tpu_torch.data import synthetic as tsynth
 from dgcnn_tpu_torch.data import tu_parser as ttu
 from dgcnn_tpu_torch.train.cv import choose_layout
+import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 GS_FIELDS = ("x", "node_ptr", "edge_src", "edge_dst", "edge_ptr", "y")
 

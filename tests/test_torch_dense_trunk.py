@@ -14,6 +14,7 @@ import torch
 
 from dgcnn_tpu.kernels.dense_trunk import gcn_trunk_fused
 from dgcnn_tpu_torch.kernels import dense_trunk as dt
+import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 CASES = [
     pytest.param(t, dims, id=f"T{t}-{'x'.join(map(str, dims))}")
@@ -207,10 +208,12 @@ def test_plan_reads_the_kernels_constants():
 
 def test_launch_counts_reset_every_regime():
     dt.launches.resident_fwd = dt.launches.streamed_bwd = dt.launches.fwd_launches = 3
+    dt.launches.kernel_fwd = dt.launches.kernel_bwd = 3
     dt.launches.reset()
     assert set(vars(dt.launches).values()) == {0}
     assert set(vars(dt.launches)) == {"fwd_launches", "bwd_launches", "resident_fwd",
-                                      "resident_bwd", "streamed_fwd", "streamed_bwd"}
+                                      "resident_bwd", "streamed_fwd", "streamed_bwd",
+                                      "kernel_fwd", "kernel_bwd"}
 
 
 def _bands(t, c):

@@ -56,6 +56,7 @@ from dgcnn_tpu_torch.train.loop import (
     nll_loss_and_correct,
     train_step,
 )
+import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 F, BATCH, SLOTS = 3, 8, 8
 # a narrow model: every path of the full one at a few percent of its work

@@ -8,6 +8,7 @@ import subprocess
 import sys
 
 import pytest
+import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "dgcnn_tpu_torch"

@@ -47,6 +47,7 @@ from dgcnn_tpu_torch.train.loop import (
     nll_loss_and_correct,
 )
 from dgcnn_tpu_torch.utils.checkpoint import load_checkpoint
+import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 F, BATCH, SLOTS = 3, 8, 8
 
@@ -370,7 +371,7 @@ def test_auto_locksteps_exactly_when_the_reference_would(tmp_path, capsys, budge
 
 @pytest.mark.parametrize("layout, error, match", [
     ("block", NotImplementedError, "ROADMAP Queue 1 item 9"),
-    ("multi", NotImplementedError, "ROADMAP Queue 1 item 7"),
+    ("multi", NotImplementedError, "ROADMAP Queue 1 item 9"),
     ("coo", ValueError, "incompatible with: layout='coo'"),
     ("halo", ValueError, "incompatible with: layout='halo'"),
 ])

@@ -34,6 +34,7 @@ from dgcnn_tpu_torch.ops.readout import conv1d_readout
 from dgcnn_tpu_torch.ops.sort_pool import sort_pool_dense
 from dgcnn_tpu_torch.parity.convert import params_from_jax, params_to_jax, state_to_params
 from dgcnn_tpu_torch.train.loop import nll_loss_and_correct
+import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 ACTS = ("gcn1", "gcn2", "gcn3", "gcn4", "sort_pool", "readout", "log_probs")
 

@@ -23,6 +23,7 @@ from dgcnn_tpu.utils.profiling import _batch_edges as j_batch_edges
 from dgcnn_tpu_torch.kernels import spmm_block_coo as tbc
 from dgcnn_tpu_torch.tools import probe_kernel_anatomy as probe
 from dgcnn_tpu_torch.utils.profiling import _batch_edges
+import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 RTOL, ATOL = 1e-5, 1e-5  # test_torch_spmm.py's, the reference's own
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

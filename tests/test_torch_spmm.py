@@ -26,6 +26,7 @@ from dgcnn_tpu_torch.config import Config
 from dgcnn_tpu_torch.kernels import spmm_block_coo as tbc
 from dgcnn_tpu_torch.kernels import spmm_pallas as tsp
 from dgcnn_tpu_torch.ops import spmm as tspmm
+import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 RTOL, ATOL = 1e-5, 1e-5  # the reference's own (tests/test_spmm_block_coo.py)
 N, E = 256, 1024  # E a multiple of the reference kernels' edge blocks

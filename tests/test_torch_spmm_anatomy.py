@@ -14,6 +14,7 @@ import pytest
 
 from dgcnn_tpu_torch.kernels import _build
 from dgcnn_tpu_torch.tools import probe_spmm_anatomy as anat
+import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VARIANTS = [(k, v) for k, vs in anat.PATCHES.items() for v in vs]

@@ -26,6 +26,7 @@ from dgcnn_tpu_torch.parity.convert import params_from_jax, params_to_jax, state
 from dgcnn_tpu_torch.train import cv
 from dgcnn_tpu_torch.train.loop import make_optimizer, nll_loss_and_correct, train_step
 from dgcnn_tpu_torch.utils.checkpoint import load_checkpoint
+import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 
 def test_five_adam_steps_match_jax():
@@ -127,7 +128,8 @@ def test_cv_run_writes_reference_artifacts(tmp_path):
     {"cv_parallel": "folds", "layout": "block"}, {"mesh_shape": (2, 1)},
     {"checkpoint_resume": True}, {"checkpoint_every": 5},
     {"tensorboard_dir": "tb"}, {"opt_flatten": True},
-    {"layout": "multi"},
+    # the multi-tile layout is served; its lockstep is not (ROADMAP item 9)
+    {"layout": "multi", "cv_parallel": "folds"},
 ], ids=lambda kw: next(iter(kw)))
 def test_unserved_options_raise(tmp_path, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -137,9 +139,26 @@ def test_unserved_options_raise(tmp_path, kw):
 
 @pytest.mark.parametrize("layout", ["multi", "halo"])
 def test_unported_layouts_raise(tmp_path, layout):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        cv.run_cross_validation(_cfg(tmp_path, layout=layout),
-                                allow_synthetic=True, device="cpu")
+    """halo is not ported and raises, naming its ROADMAP item; multi is
+    ported: one fold x 1 epoch on the CPU through its engine (two tile
+    classes) writes the fold's CSV and its `epochs/` bundle."""
+    if layout == "halo":
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+            cv.run_cross_validation(_cfg(tmp_path, layout=layout),
+                                    allow_synthetic=True, device="cpu")
+        return
+    cfg = _cfg(tmp_path, layout=layout, num_epochs=1, multi_dense_min_tile=16)
+    gs = synthesize_tu_dataset("MUTAG", num_graphs=30, seed=2)
+    train, test = cv.get_folds(gs.y, "", 2, cfg.seed, data_type="MUTAG")[0]
+    engine = cv.make_engine(cfg, gs, torch.device("cpu"), layout)
+    assert isinstance(engine, cv.MultiDenseEngine) and len(engine.tiles) == 2
+    model = cv._model_from_config(cfg, gs.num_features, gs.num_classes)
+    cv.run_fold(cfg, gs, model, 1, train, test, engine,
+                cv.EventLog(str(tmp_path / "events.jsonl")))
+    rows = np.loadtxt(tmp_path / "statistics" / "MUTAG_results_1.csv", delimiter=",",
+                      skiprows=1, ndmin=2)
+    assert rows.shape == (1, 5) and np.isfinite(rows).all()
+    assert (tmp_path / "epochs" / "MUTAG_1.npz").exists()
 
 
 def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
