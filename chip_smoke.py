@@ -26,7 +26,9 @@ CUDA is absent or any phase fails. Phases:
         stacked on the slot axis, S = 560, K = 10, slot s on weight set
         s // 56; the two tile classes of synthetic COLLAB's multi-tile
         layout at fold 1's first batch that holds both (T=256 at the
-        engine's slot floor, resident; T=464 at S=4, streamed);
+        engine's slot floor, resident; T=464 at S=4, streamed), and the
+        same two classes repeated for 10 folds in lockstep (S = 10 × the
+        class's slots, K = 10, slot s on weight set s // (S / 10));
      b. both block-propagation kernels (CSR and item-parallel) on real
         synthetic-DD batches of 50 graphs (the main path's mean and
         largest batch and the batch holding the largest graph), with
@@ -39,7 +41,9 @@ CUDA is absent or any phase fails. Phases:
         into many pieces both ways) and a batch with num_items = 0; every
         design phase 5 times (pieces of P ∈ {2, 4, 6} and one piece per
         row, groups of G ∈ {2, 4, 8}) at the mean and
-        the stress batch, forward and transposed;
+        the stress batch, forward and transposed; and the 10-fold merged
+        stream of DD's mean lockstep step (`gather_block_batch_folds`,
+        nb' = 10 × nb block-rows), every design, F ∈ {32, 1};
      c. the three COO SpMM kernels (row-parallel CSR, edge-block,
         block-COO) on the DD COO main path's mean and largest batch and an
         NCI1 COO batch (device-assembled buckets, block-COO structures
@@ -85,7 +89,9 @@ CUDA is absent or any phase fails. Phases:
         lockstep batch (10 folds stacked) and one NCI1 batch on the card
         against the CPU;
      b. `run_cross_validation` trains synthetic DD (layout auto → block,
-        the kernel `block_impl` auto names) for 2 folds × 4 epochs in
+        the kernel `block_impl` auto names, `cv_parallel` sequential: the
+        folds one after another, where `auto` would lockstep them, phase
+        4e) for 2 folds × 4 epochs in
         chunks of `max_fused_epochs` 2 through the block layout's fused
         runner (each fold's chunk 1: a warm-up epoch, the capture and a
         replay; chunk 2: two replays), then 1 fold × 3 epochs with the
@@ -135,6 +141,27 @@ CUDA is absent or any phase fails. Phases:
         phase 3a's COLLAB batch on the card against the CPU; then
         `--layout dense` (T=464, S=56, streamed), 1 fold × 4 epochs graphed, for the
         record beside multi;
+     e. synthetic DD in block fold-lockstep, chunks of `max_fused_epochs`
+        2: `cv_parallel` folds at 2 folds × 4 epochs, graphed then eager
+        (rows, `epochs/` bundles and launch counts bitwise equal, launches
+        exactly 4 × (train + eval lockstep steps) forward and 4 × train
+        steps backward per replay, every fold's rows within rtol/atol
+        5e-4 of phase 4b's sequential run); the default, `auto` at 10
+        folds × 4 epochs graphed (every event `folds_in_lockstep` 10, the
+        merged budgets by chunk), 10 × 2 eager (epochs 1-2 bitwise), 10 ×
+        2 through the other `block_impl` (within 5e-4); the 10-fold
+        lockstep runner built directly (one eager epoch under
+        `set_sync_debug_mode("error")`, 3 epochs graphed against eager);
+        a forced budget growth over three chunks of the 10 folds (one new
+        runner, one capture a budget, rows, state and launches bitwise
+        eager); one 10-fold lockstep batch on the card against the CPU;
+     f. synthetic COLLAB in multi-tile fold-lockstep (`layout` multi,
+        `cv_parallel` folds), 2 folds × 4 epochs in chunks of 2, graphed
+        then eager: rows, `epochs/` bundles and counts bitwise equal,
+        trunk calls and kernel launches exact per replay by regime (each
+        class's trunk on 2 × S_c slots), the rows' distance from phase
+        4d's logged; one lockstep step of the 2 folds against each fold's
+        own step (log-probs, gradients within rel 1e-4, masks bitwise);
   5. device times (utils/profiling.py `device_ms`): each call captured
      10 times in one CUDA graph, the graph replayed and timed with CUDA
      events, so the host's launch rate is out of the number; warm
@@ -143,10 +170,11 @@ CUDA is absent or any phase fails. Phases:
      subtracted). The trunk at T = 88, 112, 176, 624 and each forced
      C at 88 and 176, and the lockstep step's trunk (S = 560, K = 10) at
      T = 88 and 176, and COLLAB's two tile classes (T=256 resident, T=464
-     streamed) at that batch, beside its bound (and its kind)
-     and the plain chain.
-     The block kernels at the DD mean and largest batch and the batch of
-     the largest graph, F ∈ {32, 1}, each design (the CSR kernel at
+     streamed) at that batch, one fold and 10 folds in lockstep, beside
+     its bound (and its kind) and the plain chain.
+     The block kernels at the DD mean and largest batch, the batch of
+     the largest graph and the 10-fold merged mean lockstep step (beside
+     10 × the one-fold mean batch), F ∈ {32, 1}, each design (the CSR kernel at
      P ∈ {2, 4, 6} and one piece per row; the item-parallel one at
      G ∈ {2, 4, 8}), each kernel's
      plan build, and one train step's propagations per kernel (the
@@ -162,11 +190,13 @@ CUDA is absent or any phase fails. Phases:
      and its slot order's build also at every other batch of phase 3c;
   6. one `torch.profiler` table of a single eager train step for NCI1
      dense (one fold, and the lockstep step of all ten), DD block through
-     each `--block_impl`, DD COO, DD COO `--spmm pallas` and COLLAB multi
+     each `--block_impl` (one fold, and the 10-fold lockstep step at the
+     merged mean step), DD COO, DD COO `--spmm pallas` and COLLAB multi
      (top 10 CUDA kernels) and each step's wall time and launches; the
      same for one epoch of each epoch graph (a replay): the NCI1 lockstep
-     runner's, fold 1's one-fold runner's, DD's block and COO runners' and
-     COLLAB's multi-tile runner's, with the
+     runner's, fold 1's one-fold runner's, DD's block and COO runners',
+     DD's 10-fold block lockstep runner's and COLLAB's multi-tile
+     runner's, with the
      replay's span between CUDA events, the per-step wall and device time,
      the device's idle share, the capture seconds and the peak memory;
   7. the block-COO cost-split probe (dgcnn_tpu_torch/tools/
@@ -176,10 +206,11 @@ CUDA is absent or any phase fails. Phases:
   8. one JSON line describing every kernel (the trunk at the lockstep
      step's shape with the lockstep main path's launches, replays
      counted, its one-fold
-     shape and the COLLAB multi path's calls, launches and class shapes
-     beside it; the block and SpMM kernels once per width, F=32 and
-     `_f1`, with the graphed main path's launches of that width, replays
-     counted), the card line
+     shape and the COLLAB multi path's and multi lockstep path's calls,
+     launches and class shapes beside it; the block and SpMM kernels once
+     per width, F=32 and `_f1`, with the graphed main path's launches of
+     that width, replays counted, the block kernels' DD lockstep path's
+     launches and merged-step times beside them), the card line
      again, and the final `{"ok": true, ...}` line.
 """
 
@@ -606,6 +637,59 @@ class DDContext:
         return gather_block_batch(self.engine.dev, row, nb or self.nb, w or self.w)
 
 
+class DDLockstepContext:
+    """Synthetic DD's default run, 10 folds in lockstep (seed 324, batch
+    50), as the block kernels see it: epoch 1's [steps, F, slots] orders
+    of every fold (each fold's shuffle stream, as the driver draws it)
+    and the folds' test orders, the merged stream's budgets (nb per fold,
+    W per step: `block_fold_extents` on the reference's grid, floors 8 and
+    64) and the train step whose merged items are nearest the mean: the
+    shape phase 3b checks and phase 5 times."""
+
+    def __init__(self, ctx):
+        from dgcnn_tpu_torch.batching.block_sparse import block_fold_extents
+        from dgcnn_tpu_torch.data.folds import get_folds
+        from dgcnn_tpu_torch.train.cv import _geom_round
+        from dgcnn_tpu_torch.train.cv_vmap import stacked_orders
+
+        self.ctx = ctx
+        folds = get_folds(ctx.gs.y, "", FOLDS, 324, data_type="DD")
+        train = [np.asarray(tr, np.int32) for tr, _ in folds]
+        test = [np.asarray(te, np.int32) for _, te in folds]
+        self.steps = max(-(-len(t) // 50) for t in train)
+        self.t_steps = max(-(-len(t) // 50) for t in test)
+        self.epochs = []  # 3 epochs' orders, each fold on its shuffle stream
+        rngs = [np.random.default_rng(np.random.SeedSequence([324, f]))
+                for f in range(1, FOLDS + 1)]
+        for _ in range(3):
+            self.epochs.append(stacked_orders(
+                [t[r.permutation(len(t))] for t, r in zip(train, rngs)], 50, S,
+                self.steps))
+        self.order = self.epochs[0]
+        self.test = stacked_orders(test, 50, S, self.t_steps)
+        nb, w = block_fold_extents(ctx.engine._nb, ctx.engine._block_counts,
+                                   np.concatenate([self.order, self.test]))
+        self.nb, self.w = _geom_round(nb, 8), _geom_round(w, 64)
+        counts = ctx.engine._block_counts
+        self.items = (counts[np.maximum(self.order, 0)] * (self.order >= 0)).sum((1, 2))
+        self.mean_step = int(np.argmin(np.abs(self.items - self.items.mean())))
+        log(f"DD lockstep ({FOLDS} folds): {self.steps} train + {self.t_steps} test "
+            f"steps an epoch; merged items a train step mean {self.items.mean():.1f} "
+            f"(one fold's mean batch {ctx.row_items[ctx.mean_row]}), max "
+            f"{self.items.max()}; budgets nb {self.nb} a fold (nb' = {FOLDS * self.nb} "
+            f"block-rows merged), W {self.w}; mean step {self.mean_step} "
+            f"({self.items[self.mean_step]} items)")
+
+    def batch(self, step=None, w=None):
+        """Step `step` of epoch 1 (the mean step by default) as a
+        `FoldBlockBatch` on the card."""
+        from dgcnn_tpu_torch.batching.block_sparse import gather_block_batch_folds
+
+        s = self.mean_step if step is None else step
+        row = torch.from_numpy(self.order[s]).to(self.ctx.pool.device)
+        return gather_block_batch_folds(self.ctx.engine.dev, row, self.nb, w or self.w)
+
+
 BLOCK_KERNELS = ("block_csr", "block_resident")
 BLOCK_WIDTHS = (1, 2, 31, 32, 64, 97, 128)  # every width bucket of the tile, both edges
 
@@ -751,6 +835,16 @@ def check_blocks(ctx, device, stats):
                   widths=(32, 1), need_padding=False)
 
 
+def check_lockstep_blocks(lctx, device, stats):
+    """Phase 3b's lockstep case: both kernels on the 10-fold merged stream
+    of DD's mean lockstep step (nb' = 10 × nb block-rows), 64 items of
+    headroom, F ∈ {32, 1}, each design phase 5 times."""
+    b = lctx.batch(w=lctx.w + 64)
+    compare_block(f"DD {FOLDS}-fold merged mean step (step {lctx.mean_step}, "
+                  f"{int(b.num_items)} items, nb' {FOLDS * lctx.nb})", b,
+                  FOLDS * lctx.nb, lctx.ctx.pool, device, stats, variants=True)
+
+
 def block_bounds(n_items, nb, f):
     """(least ms, by) of one propagation: each real item's block and
     source rows read once, the [nb, bs, F] output written once."""
@@ -778,14 +872,13 @@ def library_bsr(b, nb, pool, f, hb, transpose):
     return lambda: a @ x
 
 
-def time_block(ctx, r, flush, device):
+def time_block(b, nb, pool, flush, device):
     """Per kernel, design and F: warm and flushed device ms of the kernel
-    (its plan built outside the timed call), warm ms of the plain version
-    and of the library call, and the bound; each kernel's plan build."""
+    on batch `b` of `nb` block-rows (its plan built outside the timed
+    call), warm ms of the plain version and of the library call, and the
+    bound; each kernel's plan build."""
     from dgcnn_tpu_torch.kernels.block_prop import block_propagate_plain
 
-    b = ctx.batch(r)
-    nb = ctx.nb
     n_items = int(b.num_items)
     items = (b.item_pool, b.item_row, b.item_col, b.item_permT, b.item_colT)
     gen = torch.Generator(device=device).manual_seed(7)
@@ -799,17 +892,17 @@ def time_block(ctx, r, flush, device):
         bnd = block_bounds(n_items, nb, f)
 
         def plain_fwd():
-            return block_propagate_plain(hb, ctx.pool, b.item_pool, b.item_row, b.item_col)
+            return block_propagate_plain(hb, pool, b.item_pool, b.item_row, b.item_col)
 
         def plain_bwd():
-            return block_propagate_plain(hb, ctx.pool, tplan.ip, tplan.seg, tplan.src,
+            return block_propagate_plain(hb, pool, tplan.ip, tplan.seg, tplan.src,
                                          transpose=True)
 
         plain = {"fwd": device_ms(plain_fwd), "bwd": device_ms(plain_bwd)}
         lib = {}
         for d, tr in (("fwd", False), ("bwd", True)):
             try:
-                call = library_bsr(b, nb, ctx.pool, f, hb, tr)
+                call = library_bsr(b, nb, pool, f, hb, tr)
                 want = plain_bwd() if tr else plain_fwd()
                 err, _, ok = rel_err(call().reshape(nb, BS, f), want)
                 if not ok:
@@ -824,7 +917,7 @@ def time_block(ctx, r, flush, device):
                 for d, tr in (("fwd", False), ("bwd", True)):
                     dr = plan.bwd if tr else plan.fwd
                     fn = (lambda mod=mod, plan=plan, dr=dr, tr=tr:
-                          mod._cuda_prop(hb, ctx.pool, plan, dr, b.num_items, tr))
+                          mod._cuda_prop(hb, pool, plan, dr, b.num_items, tr))
                     row = {
                         "ms": device_ms(fn), "ms_l2_flushed": device_ms(fn, flush),
                         "plain_ms": plain[d], "library_ms": lib[d],
@@ -1418,7 +1511,7 @@ def card_vs_cpu(name, make_batch, model, folds=False):
         b, kw = make_batch(dev)
         if folds:
             net = folds_net(model, dev)
-            lp = net(b)
+            lp = net(b, **kw)
             loss, _ = nll_loss_and_correct(lp, b.y.view(FOLDS, -1),
                                            b.graph_mask.view(FOLDS, -1))
             loss = loss.sum()
@@ -1757,7 +1850,7 @@ def sparse_graphed_vs_eager(tmp, label, data_type, gs, folds_n, epochs, counters
     backward on `used` (a quarter of each of width 1), 0 on the others,
     counted per replay; every fold's rows and `epochs/` bundle (parameters,
     optimizer state) bitwise equal. Returns (launches of `used` (fwd,
-    bwd), of width 1, graphed and eager epoch events)."""
+    bwd), of width 1, graphed and eager epoch events, every fold's rows)."""
     cfg = cv_config(tmp, label, data_type, folds_n, epochs, max_fused_epochs=2, **kw)
     eager = cv_config(tmp, label + "_eager", data_type, folds_n, epochs,
                       max_fused_epochs=2, **kw)
@@ -1792,7 +1885,7 @@ def sparse_graphed_vs_eager(tmp, label, data_type, gs, folds_n, epochs, counters
         f"after: graphed {chunk2} vs eager {chunk2_e}; chunk 1 (warm-up + "
         f"capture): graphed {[e['epoch_seconds'] for e in ev if e['epoch'] <= 2]} vs "
         f"eager {[e['epoch_seconds'] for e in ev_e if e['epoch'] <= 2]}")
-    return counts[used], f1, ev, ev_e
+    return counts[used], f1, ev, ev_e, fold_rows(cfg)
 
 
 def fold_seeds(model, device):
@@ -1983,6 +2076,252 @@ def forced_growth(label, engine, gs, floors, sizes, model, device, counters,
         f"{a1 / 2**20:.1f} MiB, memory_reserved (after empty_cache) {r0 / 2**20:.1f} → "
         f"{r1 / 2**20:.1f} MiB; 5 epochs' rows, parameters, optimizer and generator "
         f"state bitwise eager; launches equal to eager's")
+
+
+# -- phase 4e: block fold-lockstep (DD) --------------------------------------
+
+
+class ChunkSpy:
+    """Records the runner key (budget or slot tuple) of every chunk the
+    lockstep driver runs, by wrapping `cv_vmap.lockstep_chunk`; a context
+    manager that puts the driver back."""
+
+    def __enter__(self):
+        from dgcnn_tpu_torch.train import cv_vmap
+
+        self.keys, self.mod, real = [], cv_vmap, cv_vmap.lockstep_chunk
+
+        def spy(engine, *a):
+            out = real(engine, *a)
+            self.keys.append(engine.runners.key)
+            return out
+
+        cv_vmap.lockstep_chunk, self.real = spy, real
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.lockstep_chunk = self.real
+
+
+def lockstep_events_ok(label, cfg, folds_n, epochs):
+    """Raise unless every epoch event is a chunked lockstep run's: epoch by
+    epoch, fold by fold, `folds_in_lockstep` the fold count, chunks of 2."""
+    ev = epoch_events(cfg)
+    if [(e["epoch"], e["fold"]) for e in ev] != [
+            (ep, f) for ep in range(1, epochs + 1) for f in range(1, folds_n + 1)] or any(
+            e.get("folds_in_lockstep") != folds_n or e["chunk_epochs"] != min(2, epochs)
+            for e in ev):
+        raise AssertionError(f"{label}: the epoch events are not a chunked lockstep run's")
+    return ev
+
+
+def counted_lockstep_run(label, cfg, graphs, counters, used, want):
+    """`run_cv` with every block kernel's counts set to 0 just before and
+    read just after; raises unless `used` launched `want` (fwd, bwd), a
+    quarter of each of width 1, and the other kernel nothing. Returns
+    (wall seconds, launches (fwd, bwd), of width 1, the chunks' budgets)."""
+    for c in counters.values():
+        c.reset()
+    with ChunkSpy() as spy:
+        _, wall = run_cv(cfg, graphs)
+    counts = {k: (c.fwd_launches, c.bwd_launches) for k, c in counters.items()}
+    f1 = (counters[used].f1_fwd, counters[used].f1_bwd)
+    log(f"  {label} ({'graphed' if graphs else 'eager'}): {wall:.1f} s; budgets (nb a "
+        f"fold, W a step) by chunk {spy.keys}; launches (fwd, bwd) {counts}, of width "
+        f"1 on {used} {f1} (want {want}, a quarter of width 1)")
+    if counts != {k: want if k == used else (0, 0) for k in counters} or (
+            4 * f1[0], 4 * f1[1]) != want:
+        raise AssertionError(f"{label}: launch counts {counts} (F=1 {f1}), expected "
+                             f"{want} on {used}")
+    return wall, counts[used], f1, spy.keys
+
+
+def block_lockstep_main_path(ctx, counters, seq_rows, auto_impl, other_impl):
+    """Phase 4e: `run_cross_validation` of synthetic DD on the block layout
+    in lockstep, chunks of `max_fused_epochs` 2. (i) `cv_parallel="folds"`
+    at 2 folds x 4 epochs, graphed then eager: rows, `epochs/` bundles and
+    launch counts bitwise equal, launches exact per replay, rows within
+    rtol/atol 5e-4 of phase 4b's sequential run (same seed and split).
+    (ii) The default: `auto` at 10 folds x 4 epochs graphed (budgets and
+    launches by replay), 10 x 2 eager (epochs 1-2 bitwise the graphed
+    run's: the same chunk, the same budget), and 10 x 2 with the other
+    `block_impl` (rows within 5e-4 of the auto run's). Returns the launch
+    counts and fold-epoch seconds."""
+    kernel_of = {"pallas": "block_csr", "xla": "block_resident"}
+    used = kernel_of[auto_impl]
+    out = {}
+
+    def props(steps, epochs):
+        """Propagations (fwd, bwd) of `epochs` lockstep epochs of (train,
+        eval) steps: one a layer, 4 a step, the backward on train steps."""
+        return 4 * epochs * sum(steps), 4 * epochs * steps[0]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "data", "DD", "10fold_idx")
+        steps2 = lockstep_steps("DD", ctx.gs.y, 2, 50, data_dir)
+        want = props(steps2, 4)
+        cfg = cv_config(tmp, "lock2", "DD", 2, 4, max_fused_epochs=2, cv_parallel="folds")
+        eager = cv_config(tmp, "lock2_eager", "DD", 2, 4, max_fused_epochs=2,
+                          cv_parallel="folds")
+        _, n, f1, keys = counted_lockstep_run(
+            f"DD block lockstep 2 x 4 ({auto_impl}), steps {steps2}", cfg, True, counters,
+            used, want)
+        counted_lockstep_run("  the same, eager", eager, False, counters, used, want)
+        same_bits("DD lockstep 2 x 4: graphed vs eager rows", fold_rows(cfg),
+                  fold_rows(eager))
+        same_bits("DD lockstep 2 x 4: graphed vs eager epochs/ bundles", bundles(cfg),
+                  bundles(eager))
+        ev = lockstep_events_ok("DD lockstep 2 x 4", cfg, 2, 4)
+        worst = 0.0
+        for f, (lock, one) in enumerate(zip(fold_rows(cfg), seq_rows), start=1):
+            if not np.allclose(lock, one, rtol=5e-4, atol=5e-4):
+                raise AssertionError(f"DD lockstep fold {f}: rows {lock} vs sequential {one}")
+            worst = max(worst, float(np.abs(lock - one).max()))
+        log(f"  DD block lockstep 2 x 4: rows, epochs/ bundles and launches bitwise "
+            f"graphed vs eager; every event folds_in_lockstep 2, chunk_epochs 2; every "
+            f"fold's rows within rtol/atol 5e-4 of phase 4b's sequential run (worst abs "
+            f"{worst:.3e}); fold-epoch seconds (epoch seconds / 2) "
+            f"{chunk_seconds(ev, 2)}")
+        out["two_folds"] = {"launches": n, "f1": f1, "budgets": keys,
+                            "epoch_s": chunk_seconds(ev, 2)}
+
+        steps10 = lockstep_steps("DD", ctx.gs.y, FOLDS, 50, data_dir)
+        cfg = cv_config(tmp, "lock10", "DD", FOLDS, 4, max_fused_epochs=2)
+        wall, n, f1, keys = counted_lockstep_run(
+            f"DD block lockstep {FOLDS} x 4 (cv_parallel auto, {auto_impl}), steps "
+            f"{steps10}", cfg, True, counters, used, props(steps10, 4))
+        ev = lockstep_events_ok(f"DD auto {FOLDS} x 4", cfg, FOLDS, 4)
+        start = check_artifacts(os.path.join(tmp, "lock10"), "DD", FOLDS, 4)[0]
+        if start["layout"] != "block" or start["block_impl"] != auto_impl:
+            raise AssertionError(f"run_start says {start}")
+        eager = cv_config(tmp, "lock10_eager", "DD", FOLDS, 2, max_fused_epochs=2)
+        wall_e, _, _, keys_e = counted_lockstep_run(
+            f"DD block lockstep {FOLDS} x 2 eager", eager, False, counters, used,
+            props(steps10, 2))
+        same_bits(f"DD lockstep {FOLDS}: epochs 1-2 graphed vs eager",
+                  [r[:2] for r in fold_rows(cfg)], fold_rows(eager))
+        ev_e = epoch_events(eager)
+        other = cv_config(tmp, "lock10_other", "DD", FOLDS, 2, max_fused_epochs=2,
+                          block_impl=other_impl)
+        counted_lockstep_run(f"DD block lockstep {FOLDS} x 2 (block_impl {other_impl})",
+                             other, True, counters, kernel_of[other_impl],
+                             props(steps10, 2))
+        worst = max(float(np.abs(a - b[:2]).max())
+                    for a, b in zip(fold_rows(other), fold_rows(cfg)))
+        if not all(np.allclose(a, b[:2], rtol=5e-4, atol=5e-4)
+                   for a, b in zip(fold_rows(other), fold_rows(cfg))):
+            raise AssertionError(f"DD lockstep, block_impl {other_impl}: rows off by {worst}")
+        graphed_s, eager_s = chunk_seconds(ev, FOLDS), chunk_seconds(ev_e, FOLDS)
+        other_s = chunk_seconds(epoch_events(other), FOLDS)
+        log(f"  DD block lockstep {FOLDS} folds (the default run): every event "
+            f"folds_in_lockstep {FOLDS}; epochs 1-2 bitwise eager; block_impl "
+            f"{other_impl} within 5e-4 (worst abs {worst:.3e}); fold-epoch seconds "
+            f"(epoch seconds / {FOLDS}): graphed {graphed_s} (chunk 1 holds the warm-up "
+            f"and the capture), eager {eager_s}, block_impl {other_impl} graphed "
+            f"{other_s}; against the sequential graphed fold-epoch of phase 4b")
+        out["ten_folds"] = {"launches": n, "f1": f1, "budgets": keys, "steps": steps10,
+                            "epoch_s": graphed_s, "eager_epoch_s": eager_s,
+                            "other_epoch_s": other_s, "wall_s": wall, "eager_wall_s": wall_e}
+    return out
+
+
+def dd_lockstep_runners(ctx, lctx, model, device, graphs):
+    """The 10-fold DD block lockstep runner as the driver builds it (the
+    driver's seeds; `block_impl` auto), at the budgets of its first 3
+    epochs and the test order, with the 3 orders and a `state()`."""
+    from dgcnn_tpu_torch.batching.block_sparse import block_fold_extents
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.models.dgcnn import DGCNNFoldsNet, init_params, stack_params
+    from dgcnn_tpu_torch.train.cv import _geom_round, _stream_seed
+    from dgcnn_tpu_torch.train.loop import FoldAdam, make_block_lockstep_run
+
+    orders = np.stack(lctx.epochs)
+    nb, w = block_fold_extents(ctx.engine._nb, ctx.engine._block_counts,
+                               np.concatenate([orders.reshape(-1, FOLDS, S), lctx.test]))
+    nb, w = _geom_round(nb, 8), _geom_round(w, 64)
+    net_f = DGCNNFoldsNet(model, stack_params([
+        init_params(torch.Generator().manual_seed(_stream_seed(324, f, 1)), model, device)
+        for f in range(1, FOLDS + 1)]))
+    adam_f = FoldAdam(net_f)
+    gens = [torch.Generator(device=device).manual_seed(_stream_seed(324, f, 2))
+            for f in range(1, FOLDS + 1)]
+    run = make_block_lockstep_run(net_f, adam_f, ctx.engine.dev, lctx.test, nb, w,
+                                  (orders[0] >= 0).any(-1), gens,
+                                  Config().resolved_block_impl(), graphs)
+
+    def state():
+        return [net_f.flat, adam_f.exp_avg, adam_f.exp_avg_sq, adam_f.steps,
+                *(g.get_state() for g in gens)]
+
+    return {"DD block lockstep": (run, orders, state, lctx.steps + lctx.t_steps)}
+
+
+def lockstep_forced_growth(ctx, lctx, model, device, counters):
+    """The block engine's lockstep budgets (`cv_vmap.lockstep_chunk`) over
+    three chunks of the 10 folds, graphed and then eager, from the floors
+    (8, 64) and the driver's seeds: chunk 1 (2 epochs of each fold's
+    smallest graphs first) and chunk 2 (1 epoch, the same) at one budget,
+    chunk 3 with each fold's largest graphs first. The budget grows at
+    chunk 3 and only there, exactly one new runner captures, and rows,
+    parameters, optimizer and generator state and every kernel's launch
+    counts equal, graphed and eager."""
+    from dgcnn_tpu_torch.data.folds import get_folds
+    from dgcnn_tpu_torch.models.dgcnn import DGCNNFoldsNet, init_params, stack_params
+    from dgcnn_tpu_torch.train.cv import _stream_seed
+    from dgcnn_tpu_torch.train.cv_vmap import lockstep_chunk
+    from dgcnn_tpu_torch.train.loop import FoldAdam
+
+    engine = ctx.engine
+    folds = get_folds(ctx.gs.y, "", FOLDS, 324, data_type="DD")
+    train = [np.asarray(tr, np.int32) for tr, _ in folds]
+    test = [np.asarray(te, np.int32) for _, te in folds]
+    sizes = engine._block_counts[:-1]
+    asc = [t[np.argsort(sizes[t], kind="stable")] for t in train]
+    desc = [t[np.argsort(-sizes[t], kind="stable")] for t in train]
+    saved = (engine.floor_nb, engine.floor_w, engine.graphs)
+    got = {}
+    for graphs in (True, False):
+        engine.floor_nb, engine.floor_w, engine.graphs = 8, 64, graphs
+        net_f = DGCNNFoldsNet(model, stack_params([
+            init_params(torch.Generator().manual_seed(_stream_seed(324, f, 1)), model,
+                        device) for f in range(1, FOLDS + 1)]))
+        adam_f = FoldAdam(net_f)
+        gens = [torch.Generator(device=device).manual_seed(_stream_seed(324, f, 2))
+                for f in range(1, FOLDS + 1)]
+        for c in counters.values():
+            c.reset()
+        keys, runners, rows = [], [], []
+        for ids_k in ([asc, asc], [asc], [desc, asc]):
+            runner, orders = lockstep_chunk(engine, net_f, adam_f, gens, ids_k, test)
+            rows.append(runner.run_epochs(orders))
+            keys.append(engine.runners.key)
+            if runner not in runners:
+                runners.append(runner)
+            if graphs and runner.graph is None:
+                raise AssertionError(f"lockstep chunk {len(keys)}: no graph captured")
+        captures = sum(r.capture_seconds is not None for r in runners)
+        engine.end_fold()
+        got[graphs] = (np.concatenate(rows), [
+            t.detach().cpu().numpy() for t in (net_f.flat, adam_f.exp_avg,
+                                               adam_f.exp_avg_sq, adam_f.steps)] +
+            [g.get_state().numpy() for g in gens],
+            {k: dict(vars(c)) for k, c in counters.items()}, keys, len(runners), captures)
+        del runners, runner
+    engine.floor_nb, engine.floor_w, engine.graphs = saved
+    rows_g, state_g, counts_g, keys, made, captures = got[True]
+    rows_e, state_e, counts_e, keys_e, _, _ = got[False]
+    if not (keys[0] == keys[1] != keys[2]) or keys != keys_e or made != 2 or captures != 2:
+        raise AssertionError(f"DD lockstep forced growth: budgets {keys} (eager {keys_e}), "
+                             f"{made} runners, {captures} captures; want a growth at "
+                             f"chunk 3 only, one runner and one capture a budget")
+    same_bits("DD lockstep forced growth: graphed vs eager rows", [rows_g], [rows_e])
+    same_bits("DD lockstep forced growth: graphed vs eager state", state_g, state_e)
+    if counts_g != counts_e:
+        raise AssertionError(f"DD lockstep forced growth: launches {counts_g} vs {counts_e}")
+    log(f"  DD block lockstep forced growth ({FOLDS} folds): budgets by chunk {keys}; "
+        f"{made} runners, {captures} captures (one a budget); 5 epochs' rows, "
+        f"parameters, optimizer and generator state bitwise eager; launches equal")
+    return keys
 
 
 # -- phase 4d: the multi-tile dense layout (COLLAB) -------------------------
@@ -2197,9 +2536,150 @@ def multi_main_path(collab, dt, device):
             f"{dense_chunk2} (chunk 1 "
             f"{[e['epoch_seconds'] for e in d_ev_s if e['epoch'] <= 2]}) against "
             f"multi's {[s for f, s in chunk2 if f == 1]}")
+        rows = fold_rows(cfg)
     return {"calls": got, "kernel_launches": kern, "regimes": regimes,
             "slot_floors": start["slot_floors"], "steps": (tr_n, ev_n),
-            "epoch_s": chunk2, "eager_epoch_s": chunk2_e, "dense_epoch_s": dense_chunk2}
+            "epoch_s": chunk2, "eager_epoch_s": chunk2_e, "dense_epoch_s": dense_chunk2,
+            "rows": rows}
+
+
+def check_collab_lockstep_trunk(collab, device, dt, stats):
+    """Phase 3a's multi-lockstep cases: each tile class of phase 3a's
+    COLLAB batch repeated for the default 10 folds on the class's slot
+    axis (T=256 at S = 10 × its slots, T=464 at 10 × 4), K = 10 with the
+    lockstep `wsel`; returns (label, adj, mask) of each."""
+    shapes = []
+    for name, adj, mask in collab.shapes(device):
+        adj, mask = adj.repeat(FOLDS, 1, 1), mask.repeat(FOLDS, 1)
+        s, t = adj.shape[0], adj.shape[1]
+        label = f"COLLAB multi lockstep class T={t} S={s} ({FOLDS} folds x {s // FOLDS})"
+        log(f"  {label}: plan {dt.trunk_plan(s, t, DIMS)}")
+        compare_trunk(label, adj, mask, device, dt, stats, folds=FOLDS)
+        shapes.append((label, adj, mask))
+    return shapes
+
+
+def check_multi_lockstep_step(collab, model, device):
+    """On the card, one multi-tile lockstep train step of 2 folds (each
+    fold's first batch of its epoch-1 shuffle, the driver's seeds, dropout
+    on) against the one-fold forward of each fold on its own batch:
+    log-probs and every parameter gradient within rel 1e-4, dropout masks
+    bitwise, generators in the same state. This holds the step to the
+    sequential step where the rows of 4 epochs cannot be held: rounding
+    differences grow over Adam's steps."""
+    from dgcnn_tpu_torch.batching.dense import gather_dense_batch
+    from dgcnn_tpu_torch.batching.multi_dense import (
+        MultiDenseBatch, class_batch_counts, route_order_rows)
+    from dgcnn_tpu_torch.data.folds import get_folds
+    from dgcnn_tpu_torch.models.dgcnn import (
+        DGCNNFoldsNet, DGCNNNet, init_params, stack_params)
+    from dgcnn_tpu_torch.parity.convert import state_to_params
+    from dgcnn_tpu_torch.train.cv import _stream_seed
+    from dgcnn_tpu_torch.train.loop import nll_loss_and_correct
+
+    engine = collab.engine
+    ids = []
+    for f, (tr, _) in enumerate(get_folds(collab.gs.y, "", 2, 324, data_type="COLLAB"),
+                                start=1):
+        perm = np.random.default_rng(np.random.SeedSequence([324, f])).permutation(len(tr))
+        ids.append(np.asarray(tr)[perm][:50])
+    need = np.max([class_batch_counts(engine.routing, i, 50)[0] for i in ids], axis=0)
+    slots = tuple(int(max(a, -(-b // 4) * 4)) for a, b in zip(engine.slot_floor, need))
+    rows = [route_order_rows(engine.routing, i, slots) for i in ids]
+    flat = [torch.from_numpy(np.concatenate([r[c] for r in rows])).to(device)
+            for c in range(len(slots))]
+    batch = MultiDenseBatch(tuple(gather_dense_batch(d, r)
+                                  for d, r in zip(engine.classes, flat)), num_folds=2)
+    net_f = DGCNNFoldsNet(model, stack_params([
+        init_params(torch.Generator().manual_seed(_stream_seed(324, f, 1)), model, device)
+        for f in (1, 2)]))
+    gens = [torch.Generator(device=device).manual_seed(_stream_seed(324, f, 2))
+            for f in (1, 2)]
+    lp, acts = net_f(batch, deterministic=False, dropout_gens=gens, return_activations=True)
+    nll_loss_and_correct(lp, batch.y.view(2, -1), batch.graph_mask.view(2, -1))[0].sum(
+        ).backward()
+    worst = 0.0
+    for f in range(2):
+        net = DGCNNNet(model, state_to_params(net_f.fold_state_dict(f)))
+        gen = torch.Generator(device=device).manual_seed(_stream_seed(324, f + 1, 2))
+        own = MultiDenseBatch(tuple(gather_dense_batch(d, torch.from_numpy(r).to(device))
+                                    for d, r in zip(engine.classes, rows[f])))
+        lp1, acts1 = net(own, deterministic=False, dropout_gen=gen, return_activations=True)
+        nll_loss_and_correct(lp1, own.y, own.graph_mask)[0].backward()
+        if not torch.equal(acts["dropout_keep"][f], acts1["dropout_keep"]) or not \
+                torch.equal(gens[f].get_state(), gen.get_state()):
+            raise AssertionError(f"COLLAB lockstep step, fold {f + 1}: dropout differs")
+        for a, b in [(lp[f], lp1)] + [(p_f.grad[f], p.grad) for p_f, p in
+                                      zip(net_f.parameters(), net.parameters())]:
+            err, rel, ok = rel_err(a.detach(), b.detach())
+            if not ok:
+                raise AssertionError(f"COLLAB lockstep step, fold {f + 1}: lockstep vs "
+                                     f"one-fold step differ (max abs {err:.3e})")
+            worst = max(worst, rel)
+    log(f"  COLLAB multi lockstep step (2 folds' first batches, slots {list(slots)}): "
+        f"each fold's log-probs and 16 parameter gradients within rel 1e-4 of its own "
+        f"step (worst rel {worst:.3e}), dropout masks bitwise, generators in the same "
+        f"state")
+
+
+def multi_lockstep_main_path(collab, dt, seq_rows):
+    """Phase 4f: `run_cross_validation` of synthetic COLLAB on the multi-tile
+    layout (`layout="multi"`: under `cv_parallel="folds"` the lockstep
+    gate holds and `auto` keeps dense, as in the reference) with
+    `cv_parallel="folds"` at 2 folds x 4 epochs in chunks of
+    `max_fused_epochs` 2, graphed (trunk calls and kernel launches counted
+    per replay, by regime: each class's trunk on its 2 × S_c slots) and
+    eager: rows, `epochs/` bundles and counts bitwise equal; the rows'
+    distance from phase 4d's sequential run is logged, not held: on the
+    card it leaves 5e-4 within the first epochs (the folds' batched
+    products and Adam round differently from the sequential step, and
+    Adam's steps on a loss near chance, ln 3, carry it on), so
+    `check_multi_lockstep_step` holds one step instead."""
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(max_fused_epochs=2, cv_parallel="folds", layout="multi")
+        runs = {}
+        for graphs, sub in ((True, "mlock"), (False, "mlock_eager")):
+            cfg = cv_config(tmp, sub, "COLLAB", 2, 4, **kw)
+            dt.launches.reset()
+            with ChunkSpy() as spy:
+                _, wall = run_cv(cfg, graphs)
+            runs[graphs] = (cfg, wall, spy.keys, (
+                dt.launches.resident_fwd, dt.launches.resident_bwd,
+                dt.launches.streamed_fwd, dt.launches.streamed_bwd),
+                (dt.launches.kernel_fwd, dt.launches.kernel_bwd))
+        cfg, wall, keys, got, kern = runs[True]
+        eager, wall_e, keys_e, got_e, kern_e = runs[False]
+        steps = lockstep_steps("COLLAB", collab.gs.y, 2, 50,
+                               os.path.join(tmp, "data", "COLLAB", "10fold_idx"))
+        want, want_kern, regimes = trunk_calls_want(
+            dt, collab.tiles, [tuple(2 * s for s in k) for k in keys], 4 * sum(steps),
+            4 * steps[0])
+        log(f"  COLLAB multi lockstep 2 x 4, chunks of 2: graphed {wall:.1f} s, eager "
+            f"{wall_e:.1f} s; lockstep steps {steps}; slot tuples by chunk {keys}; "
+            f"classes {collab.tiles} run {regimes} at 2 x S_c slots; trunk calls by "
+            f"regime {got} (want {want}), kernel launches {kern} (want {want_kern})")
+        if got != want or kern != want_kern or (got_e, kern_e, keys_e) != (got, kern, keys):
+            raise AssertionError(f"COLLAB multi lockstep: calls {got} / {got_e}, kernels "
+                                 f"{kern} / {kern_e}, expected {want}, {want_kern}")
+        same_bits("COLLAB multi lockstep: graphed vs eager rows", fold_rows(cfg),
+                  fold_rows(eager))
+        same_bits("COLLAB multi lockstep: graphed vs eager epochs/ bundles", bundles(cfg),
+                  bundles(eager))
+        ev = lockstep_events_ok("COLLAB multi lockstep", cfg, 2, 4)
+        with open(os.path.join(cfg.statistics_dir, "COLLAB_events.jsonl")) as fh:
+            start = json.loads(fh.readline())
+        if start["layout"] != "multi" or tuple(start["tiles"]) != collab.tiles:
+            raise AssertionError(f"run_start says {start}")
+        by_epoch = [[float(d) for d in np.abs(a - b).max(axis=1)]
+                    for a, b in zip(fold_rows(cfg), seq_rows)]
+        lock_s = chunk_seconds(ev, 2)
+        log(f"  COLLAB multi lockstep: rows, epochs/ bundles and counts bitwise graphed "
+            f"vs eager; distance from phase 4d's sequential rows by fold and epoch "
+            f"(largest of losses and accuracies in points; not held: see the step "
+            f"check below) {by_epoch}; fold-epoch seconds (epoch seconds / 2) graphed "
+            f"{lock_s}, eager {chunk_seconds(epoch_events(eager), 2)}")
+    return {"calls": got, "kernel_launches": kern, "slots": keys, "epoch_s": lock_s,
+            "regimes": regimes, "distance_by_epoch": by_epoch}
 
 
 def multi_runners(collab, model, device, graphs):
@@ -2363,6 +2843,7 @@ def main() -> int:
         raise AssertionError(f"choose_layout gave {collab.layout}, tiles {collab.tiles} "
                              f"for COLLAB, not multi at (256, 464)")
     check_collab_trunk(collab, device, dt, stats)
+    multi_lock_shapes = check_collab_lockstep_trunk(collab, device, dt, stats)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -2371,6 +2852,8 @@ def main() -> int:
     if ctx.layout != "block":
         raise AssertionError(f"choose_layout gave {ctx.layout} for DD, not block")
     check_blocks(ctx, device, stats)
+    lctx = DDLockstepContext(ctx)
+    check_lockstep_blocks(lctx, device, stats)
 
     log("== phase 3c: SpMM kernels vs plain version on the card")
     dd_coo = CooContext("DD", device, gs=ctx.gs)
@@ -2439,17 +2922,19 @@ def main() -> int:
     other_impl = {"pallas": "xla", "xla": "pallas"}[auto_impl]
     kernel_of = {"pallas": "block_csr", "xla": "block_resident"}
     log(f"== phase 4b: main path, synthetic DD, layout auto (block, block_impl "
-        f"auto = {auto_impl}), 2 folds x 4 epochs in chunks of max_fused_epochs 2, "
-        f"graphed then eager; block_impl {other_impl}, 1 fold x 3 epochs, the same")
+        f"auto = {auto_impl}), the folds one after another (cv_parallel sequential), "
+        f"2 folds x 4 epochs in chunks of max_fused_epochs 2, graphed then eager; "
+        f"block_impl {other_impl}, 1 fold x 3 epochs, the same")
     log(card)
     mods = {k: m for k, (m, _) in block_kernels().items()}
-    dd_launches, dd_events = {}, {}
+    dd_launches, dd_events, dd_rows = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for impl, folds_n, epochs in ((auto_impl, 2, 4), (other_impl, 1, 3)):
             used = kernel_of[impl]
-            n, f1, ev, ev_e = sparse_graphed_vs_eager(
+            n, f1, ev, ev_e, dd_rows[impl] = sparse_graphed_vs_eager(
                 tmp, f"DD block {impl}", "DD", ctx.gs, folds_n, epochs,
                 {k: m.launches for k, m in mods.items()}, used, "block",
+                cv_parallel="sequential",
                 **({} if impl == auto_impl else {"block_impl": impl}))
             dd_launches[used], dd_launches[used + "_f1"] = n, f1
             dd_events[impl] = (ev, ev_e)
@@ -2492,7 +2977,7 @@ def main() -> int:
         ):
             used = SPMM_KERNEL_OF[impl]
             gs = ctx.gs if data_type == "DD" else nci1
-            n, f1, ev, ev_e = sparse_graphed_vs_eager(
+            n, f1, ev, ev_e, _ = sparse_graphed_vs_eager(
                 tmp, f"{data_type} COO {name}", data_type, gs, folds_n, epochs, counters,
                 used, "coo", layout="coo", spmm_impl=name)
             if data_type == "DD" and used not in coo_launches:
@@ -2533,6 +3018,30 @@ def main() -> int:
         card_vs_cpu(f"{c.name} CooEngine batch (row {hc.mean_row}, spmm_impl pallas)",
                     host_coo_batch(hc, hc.mean_row), model)
 
+    log(f"== phase 4e: main path, synthetic DD, block fold-lockstep: cv_parallel folds "
+        f"2 folds x 4 epochs, then the default (auto) {FOLDS} folds x 4, in chunks of "
+        f"max_fused_epochs 2, graphed then eager; the other block_impl {FOLDS} x 2; the "
+        f"lockstep runner built directly; a forced budget growth")
+    log(card)
+    dd_counters = {k: m.launches for k, m in mods.items()}
+    dd_lock = block_lockstep_main_path(ctx, dd_counters, dd_rows[auto_impl], auto_impl,
+                                       other_impl)
+    runners.update(check_runners(lambda graphs: dd_lockstep_runners(
+        ctx, lctx, dd_model, device, graphs)))
+    lockstep_forced_growth(ctx, lctx, dd_model, device, dd_counters)
+
+    def dd_lock_batch(dev):
+        from dgcnn_tpu_torch.batching.block_sparse import gather_block_batch_folds
+
+        gsd = ctx.engine.dev if dev == "cuda" else block_graphset_to_device(
+            build_block_graphset(dd), "cpu")
+        row = torch.from_numpy(lctx.order[lctx.mean_step]).to(dev)
+        return (gather_block_batch_folds(gsd, row, lctx.nb, lctx.w),
+                {"pool": gsd.pool, "block_impl": auto_impl})
+
+    card_vs_cpu(f"DD block lockstep batch ({FOLDS} folds, merged mean step)",
+                dd_lock_batch, dd_model, folds=True)
+
     log("== phase 4d: main path, synthetic COLLAB, layout auto (multi, tiles "
         f"{collab.tiles}: the trunk resident at T=256, streamed at T=464), 2 folds x 4 "
         "epochs in chunks of max_fused_epochs 2, graphed then eager; the runner "
@@ -2550,6 +3059,13 @@ def main() -> int:
     card_vs_cpu(f"COLLAB multi batch (fold 1's step {collab.step}, slots "
                 f"{list(collab.slots)})",
                 lambda dev: (collab.batch(dev), {}), collab_model)
+
+    log("== phase 4f: main path, synthetic COLLAB, multi-tile fold-lockstep "
+        "(cv_parallel folds), 2 folds x 4 epochs in chunks of max_fused_epochs 2, "
+        "graphed then eager")
+    log(card)
+    multi_lock = multi_lockstep_main_path(collab, dt, multi["rows"])
+    check_multi_lockstep_step(collab, collab_model, device)
 
     log("== phase 5: device times (CUDA-graph replay, CUDA events)")
     log(card)
@@ -2579,6 +3095,15 @@ def main() -> int:
             f"{row['bwd_flushed']:.4f}) plain {row['bwd_plain']:.4f} bound "
             f"{row['bound_bwd']:.4f} ({row['bound_bwd_by']}); per fold fwd + bwd "
             f"{(row['fwd'] + row['bwd']) / FOLDS:.4f} ms")
+    for name, adj, mask in multi_lock_shapes:
+        row = trunk_times[("multi lockstep", adj.shape[1])] = time_trunk(
+            dt, adj, mask, None, flush, device, folds=FOLDS)
+        log(f"  trunk {name} {row['plan']}: fwd kernel {row['fwd']:.4f} ms (flushed "
+            f"{row['fwd_flushed']:.4f}) plain {row['fwd_plain']:.4f} bound "
+            f"{row['bound_fwd']:.4f} ({row['bound_fwd_by']}) | bwd kernel "
+            f"{row['bwd']:.4f} ms (flushed {row['bwd_flushed']:.4f}) plain "
+            f"{row['bwd_plain']:.4f} bound {row['bound_bwd']:.4f} "
+            f"({row['bound_bwd_by']})")
     for name, adj, mask in collab.shapes(device):
         row = trunk_times[("multi", adj.shape[1])] = time_trunk(dt, adj, mask, None,
                                                                 flush, device)
@@ -2593,11 +3118,25 @@ def main() -> int:
         log(f"  trunk T={t}: below the plain chain forward "
             f"{'yes' if row['fwd'] < row['fwd_plain'] else 'NO'}, backward "
             f"{'yes' if row['bwd'] < row['bwd_plain'] else 'NO'}")
+    for t in collab.tiles:
+        a, b = trunk_times[("multi", t)], trunk_times[("multi lockstep", t)]
+        log(f"  trunk T={t}: the {FOLDS}-fold lockstep class against {FOLDS} x the "
+            f"one-fold class: fwd {b['fwd']:.4f} vs {FOLDS * a['fwd']:.4f} ms, bwd "
+            f"{b['bwd']:.4f} vs {FOLDS * a['bwd']:.4f} ms")
     block_times = {}
     for label, r in (("mean", ctx.mean_row), ("max", ctx.max_row),
                      ("largest graph", ctx.big_row)):
         log(f"  DD {label} batch (row {r}):")
-        block_times[label] = time_block(ctx, r, flush, device)
+        block_times[label] = time_block(ctx.batch(r), ctx.nb, ctx.pool, flush, device)
+    lock_label = f"{FOLDS}-fold merged mean step"
+    log(f"  DD {lock_label} (step {lctx.mean_step}, nb' {FOLDS * lctx.nb}):")
+    block_times[lock_label] = time_block(lctx.batch(), FOLDS * lctx.nb, ctx.pool, flush,
+                                         device)
+    for k in BLOCK_KERNELS:
+        log(f"  {k} at the {lock_label} against {FOLDS} x the one-fold mean batch: " +
+            ", ".join(f"{d} F={f} {block_row(block_times[lock_label], k, d, f)['ms']:.4f}"
+                      f" vs {FOLDS * block_row(block_times['mean'], k, d, f)['ms']:.4f} ms"
+                      for d in ("fwd", "bwd") for f in (32, 1)))
     for label, rows in block_times.items():
         steps = {k: block_step_ms(rows, k) for k in BLOCK_KERNELS}
         log(f"  DD {label} batch, one train step's propagations (3 x F=32 + F=1, fwd + "
@@ -2693,6 +3232,14 @@ def main() -> int:
         seq_step(dd_model, dd_coo.batch(dd_coo.mean_row), spmm_impl=spmm_auto))
     profile_step("DD COO (pallas, CooEngine mean batch; the slot order's sorts included)",
                  seq_step(dd_model, dd_host.batch(dd_host.mean_row), spmm_impl="pallas"))
+    dd_net_f = folds_net(dd_model, device, seed=0)
+    dd_adam_f, dd_step_batch = FoldAdam(dd_net_f), lctx.batch()
+    dd_gens = [torch.Generator(device="cuda").manual_seed(f) for f in range(FOLDS)]
+    sparse_steps["DD block lockstep"] = profile_step(
+        f"DD block lockstep ({FOLDS} folds, {auto_impl}, merged mean step, "
+        f"{int(dd_step_batch.num_items)} items)",
+        lambda: lockstep_train_step(dd_net_f, dd_adam_f, dd_step_batch, real, dd_gens,
+                                    pool=ctx.pool, block_impl=auto_impl), by_op=True)
     sparse_steps["COLLAB multi"] = profile_step(
         f"COLLAB multi (fold 1's step {collab.step}, slots {list(collab.slots)})",
         seq_step(collab_model, collab.batch(device)))
@@ -2745,7 +3292,18 @@ def main() -> int:
                          "ms": row[d], "plain_ms": row[f"{d}_plain"],
                          "bound_ms": row[f"bound_{d}"], "bound_by": row[f"bound_{d}_by"]}
                         for t, s in zip(collab.tiles, collab.slots)
-                        for row in [trunk_times[("multi", t)]]]}}
+                        for row in [trunk_times[("multi", t)]]]},
+         "multi_lockstep_path": {
+             "main_path": "COLLAB multi lockstep (cv_parallel folds), 2 folds x 4 "
+                          "epochs in chunks of 2, launches counted per replay",
+             "calls_resident": multi_lock["calls"][i],
+             "calls_streamed": multi_lock["calls"][2 + i],
+             "kernel_launches": multi_lock["kernel_launches"][i],
+             "shapes": [{"shape": f"S={FOLDS * s}, K={FOLDS}, T={t}", "plan": row["plan"],
+                         "ms": row[d], "plain_ms": row[f"{d}_plain"],
+                         "bound_ms": row[f"bound_{d}"], "bound_by": row[f"bound_{d}_by"]}
+                        for t, s in zip(collab.tiles, collab.slots)
+                        for row in [trunk_times[("multi lockstep", t)]]]}}
         for i, (d, line, n) in enumerate((("fwd", 232, trunk_fwd_n), ("bwd", 310, trunk_bwd_n)))
     ]
     replaces = {"block_csr": "dgcnn_tpu/kernels/block_pallas.py:152",
@@ -2767,6 +3325,19 @@ def main() -> int:
                     "shape": (f"DD mean batch: {row['n_items']} items, nb {row['nb']}, "
                               f"F {f}; {row['design']}"),
                 })
+                lrow = block_row(block_times[lock_label], kname, d, f)
+                ln = dd_lock["ten_folds"]["launches"][i] if kname == kernel_of[auto_impl] \
+                    else 0
+                lf1 = dd_lock["ten_folds"]["f1"][i] if kname == kernel_of[auto_impl] else 0
+                kernels[-1]["lockstep_path"] = {
+                    "main_path": f"DD block lockstep, cv_parallel auto, {FOLDS} folds x 4 "
+                                 f"epochs in chunks of 2, launches counted per replay",
+                    "launches": ln - lf1 if f == 32 else lf1,
+                    "shape": (f"{FOLDS}-fold merged mean step: {lrow['n_items']} items, "
+                              f"nb' {lrow['nb']}, F {f}; {lrow['design']}"),
+                    "ms": lrow["ms"], "ms_l2_flushed": lrow["ms_l2_flushed"],
+                    "plain_ms": lrow["plain_ms"], "bound_ms": lrow["bound_ms"],
+                    "bound_by": lrow["bound_by"], "library_ms": lrow["library_ms"]}
     spmm_replaces = {
         "spmm_rows": "dgcnn_tpu/kernels/spmm_pallas.py:102",
         "spmm_edge_block": "dgcnn_tpu/kernels/spmm_pallas.py:170",
@@ -2817,6 +3388,12 @@ def main() -> int:
     })
     log(f"DD block fold-epoch seconds (main path, block_impl {auto_impl}): graphed "
         f"{dd_epoch_s}, eager {[e['epoch_seconds'] for e in dd_events[auto_impl][1]]}")
+    log(f"DD block lockstep fold-epoch seconds ({FOLDS} folds, cv_parallel auto, "
+        f"block_impl {auto_impl}, chunks of 2; epoch seconds / {FOLDS}): graphed "
+        f"{dd_lock['ten_folds']['epoch_s']}, eager {dd_lock['ten_folds']['eager_epoch_s']}, "
+        f"block_impl {other_impl} graphed {dd_lock['ten_folds']['other_epoch_s']}; "
+        f"budgets by chunk {dd_lock['ten_folds']['budgets']}; 2 folds (cv_parallel "
+        f"folds): {dd_lock['two_folds']['epoch_s']}")
     log(f"COO fold-epoch seconds (graphed, eager): {coo_epoch_s}")
     log(f"NCI1 dense train step: wall {nci1_step[0]:.3f} ms, device {nci1_step[1]:.3f} "
         f"ms over {nci1_step[2]} kernel launches")
@@ -2831,7 +3408,8 @@ def main() -> int:
             f"graph: {json.dumps(g)}")
     log(f"COLLAB fold-epoch seconds, chunk 2 (fold, s): multi graphed "
         f"{multi['epoch_s']}, eager {multi['eager_epoch_s']}; --layout dense graphed "
-        f"{multi['dense_epoch_s']}")
+        f"{multi['dense_epoch_s']}; multi lockstep (2 folds, epoch seconds / 2) "
+        f"{multi_lock['epoch_s']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""Block-sparse (BSR-style) device-resident layout — the port of the
-single-fold half of dgcnn_tpu/batching/block_sparse.py (`BlockGraphSet`
-:69, `BlockBatch` :115, `build_block_graphset` :216,
+"""Block-sparse (BSR-style) device-resident layout — the port of
+dgcnn_tpu/batching/block_sparse.py (`BlockGraphSet` :69, `BlockBatch`
+:115, `FoldBlockBatch` :165, `build_block_graphset` :216,
 `block_graphset_bytes` :302, `block_batch_extents` :320,
+`block_fold_extents` :334, `gather_block_batch_folds` :354,
 `gather_block_batch` :463).
 
 Each graph's normalized adjacency D̂^{-1/2}(A+I)D̂^{-1/2} is cut into a
@@ -21,8 +22,15 @@ same product over a col-major traversal of the items (`item_permT`,
 What differs from the reference: `x_blocks` is stored [ΣNb+1, bs, F]. The
 reference keeps [ΣNb+1, F, bs] only for the TPU's lane tiling; the
 port's gather wants the node axis first, so a batch's features are one
-leading-axis gather and a free reshape. Fold-lockstep
-(`FoldBlockBatch`, `gather_block_batch_folds`) is ROADMAP Queue 1 item 9.
+leading-axis gather and a free reshape.
+
+Fold-lockstep (`gather_block_batch_folds`): F folds' batches, each fold's
+nodes on its own [nb·bs] axis, and all folds' work items in ONE merged
+f-major stream whose row and column ids are f·nb + the fold's block-row
+(the reference writes rows as f·(nb+1) + block-row; no real item lands
+on the extra row). The merged stream is then exactly one batch's stream
+over nb' = F·nb block-rows, so the block kernels and their plans take it
+unchanged.
 
 The build is NumPy on the host, once per run; the batch assembly is
 torch tensor ops on the run's device from a [slots] graph-id row, so an
@@ -108,6 +116,42 @@ class BlockBatch:
     y: torch.Tensor
     graph_mask: torch.Tensor
     num_graphs: torch.Tensor
+    num_items: torch.Tensor
+
+
+@dataclasses.dataclass
+class FoldBlockBatch:
+    """F folds' batches for one lockstep step: node-side arrays per fold,
+    the work items of all folds in one merged f-major stream, packed
+    contiguously (padding only at the stream's tail). The item lists are
+    a `BlockBatch`'s over nb' = F·nb_budget block-rows, fold f's rows
+    being f·nb_budget + its own.
+
+    x:          [F, S, feat]  S = nb_budget·bs per fold
+    item_pool:  [W]     pool index per work item (sentinel P when padded)
+    item_row:   [W]     f·nb_budget + batch block-row; non-decreasing;
+                        F·nb_budget on padding
+    item_col:   [W]     f·nb_budget + batch block-col; 0 on padding
+    item_permT: [W]     the merged col-major traversal (identity on padding)
+    item_colT:  [W]     f·nb_budget + block-col in that order;
+                        non-decreasing; F·nb_budget on padding
+    node_graph: [F, S]  per-fold graph slot (slots on padding)
+    node_mask:  [F, S]
+    y:          [F, slots]
+    graph_mask: [F, slots]
+    num_items:  []      Σ_f real items
+    """
+
+    x: torch.Tensor
+    item_pool: torch.Tensor
+    item_row: torch.Tensor
+    item_col: torch.Tensor
+    item_permT: torch.Tensor
+    item_colT: torch.Tensor
+    node_graph: torch.Tensor
+    node_mask: torch.Tensor
+    y: torch.Tensor
+    graph_mask: torch.Tensor
     num_items: torch.Tensor
 
 
@@ -230,12 +274,89 @@ def block_batch_extents(
     return nbs, w
 
 
+def block_fold_extents(
+    nb: np.ndarray, block_count: np.ndarray, order_mat: np.ndarray
+) -> Tuple[int, int]:
+    """Budget sizing for the lockstep merged stream: `order_mat` is
+    [..., F, slots]; returns (max block-rows of one fold's batch, max work
+    items of one step summed over its folds)."""
+    mat = np.asarray(order_mat)
+    rows = mat.reshape(-1, *mat.shape[-2:])
+    safe = np.maximum(rows, 0)
+    valid = rows >= 0
+    nbs = int((np.asarray(nb)[safe] * valid).sum(axis=2).max())
+    w = int((np.asarray(block_count)[safe] * valid).sum(axis=(1, 2)).max())
+    return nbs, w
+
+
 def segment_of(cum_ends: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """`searchsorted(cum_ends, pos, side="right")` for a small sorted
     `cum_ends` (the batch's per-slot offsets): the count of segment ends
-    ≤ pos, as one [len(pos), slots] compare and row sum — the port's copy
-    of dgcnn_tpu/batching/device_coo.py:299."""
-    return (pos[:, None] >= cum_ends[None, :]).sum(dim=1)
+    ≤ pos, as one [..., len(pos), slots] compare and row sum — the port's
+    copy of dgcnn_tpu/batching/device_coo.py:299. Leading axes of
+    `cum_ends` batch it."""
+    return (pos[:, None] >= cum_ends[..., None, :]).sum(dim=-1)
+
+
+def _pack_nodes(dev: BlockGraphSet, g: torch.Tensor, nb_budget: int):
+    """The node side of F batches, each on its own block-row axis: graph g
+    of slot s occupies block-rows [Σ nb_before, +nb_g) and node rows
+    block-aligned under them. `g` [F, slots] are graph ids (G for an
+    empty slot). Returns (bo [F, slots+1] each slot's first block-row,
+    x [F, nb_budget·bs, feat], node_graph [F, nb_budget·bs] (slots on
+    padding), node_mask [F, nb_budget·bs]); padded node rows are exact
+    zeros (zero-padded at build time)."""
+    bs = dev.pool.shape[1]
+    f, slots = g.shape
+    sentinel_xb = dev.x_blocks.shape[0] - 1
+    bo = torch.nn.functional.pad(torch.cumsum(dev.nb[g], 1), (1, 0))
+    # block-row q belongs to the slot whose cumulative block range holds q
+    q = torch.arange(nb_budget, device=g.device)
+    slot_c = segment_of(bo[:, 1:], q).clamp(max=slots - 1)    # [F, nb]
+    q_ok = q < bo[:, slots:]
+    qin = q - torch.gather(bo, 1, slot_c)
+    gq = torch.gather(g, 1, slot_c)
+    xb_row = torch.where(q_ok, dev.bofs[gq] + qin, sentinel_xb)
+    x = dev.x_blocks[xb_row].reshape(f, nb_budget * bs, -1)
+    lane = torch.arange(bs, device=g.device)
+    n_of = dev.node_count[gq]
+    node_ok = q_ok[..., None] & ((qin[..., None] * bs + lane) < n_of[..., None])
+    node_graph = torch.where(node_ok, slot_c[..., None], slots)
+    return (bo, x, node_graph.reshape(f, -1).to(torch.int32),
+            node_ok.reshape(f, -1).to(torch.float32))
+
+
+def _pack_items(dev: BlockGraphSet, g: torch.Tensor, base: torch.Tensor,
+                w_budget: int, seg_pad: int):
+    """The work items of the graphs `g` [n] (G for an empty slot), packed
+    contiguously in slot order, each slot's block-rows and block-cols
+    rebased by `base` [n]: (item_pool, item_row, item_col, item_permT,
+    item_colT, num_items), padded to `w_budget` items with the sentinel
+    pool block and segment id `seg_pad`. item_row is non-decreasing
+    (blocks are (row, col)-sorted per graph, and `base` rises with the
+    slot), and item_permT/item_colT give the col-major traversal whose
+    segment ids are non-decreasing too."""
+    n = g.shape[0]
+    sentinel_pool = dev.pool.shape[0] - 1
+    wo = torch.nn.functional.pad(torch.cumsum(dev.block_count[g], 0), (1, 0))
+    wpos = torch.arange(w_budget, device=g.device)
+    ws = segment_of(wo[1:], wpos).clamp(max=n - 1)
+    j = wpos - wo[ws]
+    w_ok = wpos < wo[n]
+    gw = g[ws]
+    pool_id = torch.where(w_ok, dev.block_start[gw] + j, sentinel_pool)
+    b = base[ws]
+    item_row = torch.where(w_ok, b + dev.block_row[pool_id], seg_pad)
+    item_col = torch.where(w_ok, b + dev.block_col[pool_id], 0)
+    # col-major traversal: the w-th block in (slot, col, row) order is the
+    # item (wpos − j + trperm[j-th of graph]); identity on padding
+    jt = dev.trperm[pool_id]
+    permT = torch.where(w_ok, wpos - j + jt, wpos)
+    pool_idT = torch.where(w_ok, dev.block_start[gw] + jt, sentinel_pool)
+    item_colT = torch.where(w_ok, b + dev.block_col[pool_idT], seg_pad)
+    i32 = torch.int32
+    return (pool_id.to(i32), item_row.to(i32), item_col.to(i32), permT.to(i32),
+            item_colT.to(i32), wo[n].to(i32))
 
 
 def gather_block_batch(
@@ -247,73 +368,46 @@ def gather_block_batch(
     Graph g of slot s occupies batch block-rows [Σ nb_before, +nb_g) and
     node rows block-aligned under them; work items are each slot's stored
     blocks with row and col rebased by the slot's block-row offset.
-    item_row is non-decreasing (blocks are (row, col)-sorted per graph),
-    and item_permT/item_colT give the col-major traversal whose segment
-    ids are non-decreasing too. Everything is index math at block
-    granularity plus leading-axis block gathers; padded node rows are
-    exact zeros (zero-padded at build time)."""
-    bs = dev.pool.shape[1]
+    Everything is index math at block granularity plus leading-axis block
+    gathers (`_pack_nodes`, `_pack_items`)."""
     slots = idx_row.shape[0]
-    num_graphs_total = dev.block_start.shape[0] - 1
-    sentinel_pool = dev.pool.shape[0] - 1
-    sentinel_xb = dev.x_blocks.shape[0] - 1
-    device = idx_row.device
-
     valid = idx_row >= 0
-    g = torch.where(valid, idx_row.long(), num_graphs_total)
-    zero = torch.zeros(1, dtype=torch.long, device=device)
-
-    nbs = dev.nb[g]
-    bo = torch.cat([zero, torch.cumsum(nbs, 0)])  # [slots+1]
-
-    # nodes, per block-row: block-row q belongs to the slot whose
-    # cumulative block range contains q
-    q = torch.arange(nb_budget, device=device)
-    slot_c = segment_of(bo[1:], q).clamp(max=slots - 1)
-    q_ok = q < bo[slots]
-    qin = q - bo[slot_c]
-    gq = g[slot_c]
-    xb_row = torch.where(q_ok, dev.bofs[gq] + qin, sentinel_xb)
-    x = dev.x_blocks[xb_row].reshape(nb_budget * bs, -1)
-
-    lane = torch.arange(bs, device=device)
-    n_of = dev.node_count[gq]
-    node_ok = q_ok[:, None] & ((qin[:, None] * bs + lane[None, :]) < n_of[:, None])
-    node_graph = torch.where(node_ok, slot_c[:, None], slots)
-
-    # work items: the same mapping over the block counts
-    wc = dev.block_count[g]
-    wo = torch.cat([zero, torch.cumsum(wc, 0)])
-    wpos = torch.arange(w_budget, device=device)
-    wslot_c = segment_of(wo[1:], wpos).clamp(max=slots - 1)
-    j = wpos - wo[wslot_c]
-    w_ok = wpos < wo[slots]
-    gw = g[wslot_c]
-    own = dev.block_start[gw] + j
-    pool_id = torch.where(w_ok, own, sentinel_pool)
-    base = bo[wslot_c]
-    item_row = torch.where(w_ok, base + dev.block_row[pool_id], nb_budget)
-    item_col = torch.where(w_ok, base + dev.block_col[pool_id], 0)
-
-    # col-major traversal: the w-th block in (slot, col, row) order is the
-    # batch item (wpos − j + trperm[j-th of graph]); identity on padding
-    jt = dev.trperm[pool_id]
-    permT = torch.where(w_ok, wpos - j + jt, wpos)
-    pool_idT = torch.where(w_ok, dev.block_start[gw] + jt, sentinel_pool)
-    item_colT = torch.where(w_ok, base + dev.block_col[pool_idT], nb_budget)
-
-    i32 = torch.int32
+    g = torch.where(valid, idx_row.long(), dev.block_start.shape[0] - 1)
+    bo, x, node_graph, node_mask = _pack_nodes(dev, g[None], nb_budget)
+    items = _pack_items(dev, g, bo[0, :slots], w_budget, nb_budget)
     return BlockBatch(
-        x=x,
-        item_pool=pool_id.to(i32),
-        item_row=item_row.to(i32),
-        item_col=item_col.to(i32),
-        item_permT=permT.to(i32),
-        item_colT=item_colT.to(i32),
-        node_graph=node_graph.reshape(-1).to(i32),
-        node_mask=node_ok.reshape(-1).to(torch.float32),
-        y=torch.where(valid, dev.y[g], 0).to(i32),
+        x[0], *items[:5],
+        node_graph=node_graph[0],
+        node_mask=node_mask[0],
+        y=torch.where(valid, dev.y[g], 0).to(torch.int32),
         graph_mask=valid.to(torch.float32),
-        num_graphs=valid.sum().to(i32),
-        num_items=wo[slots].to(i32),
+        num_graphs=valid.sum().to(torch.int32),
+        num_items=items[5],
+    )
+
+
+def gather_block_batch_folds(
+    dev: BlockGraphSet, idx_rows: torch.Tensor, nb_budget: int, w_budget: int
+) -> FoldBlockBatch:
+    """Assemble F folds' batches as one FoldBlockBatch from [F, slots]
+    graph ids (−1 = empty slot). Node side: fold f's graphs pack onto its
+    own block-row axis [nb_budget], as `gather_block_batch` packs one
+    batch. Item side: the (fold, slot) grid flattens f-major and the items
+    pack contiguously, fold f's rows and cols offset by f·nb_budget, so
+    padding sits only at the stream's tail and `num_items` is the folds'
+    real items summed; padded items carry segment id F·nb_budget."""
+    f, slots = idx_rows.shape
+    valid = idx_rows >= 0
+    g = torch.where(valid, idx_rows.long(), dev.block_start.shape[0] - 1)
+    bo, x, node_graph, node_mask = _pack_nodes(dev, g, nb_budget)
+    fold_base = torch.arange(f, device=g.device)[:, None] * nb_budget
+    items = _pack_items(dev, g.reshape(-1), (bo[:, :slots] + fold_base).reshape(-1),
+                        w_budget, f * nb_budget)
+    return FoldBlockBatch(
+        x, *items[:5],
+        node_graph=node_graph,
+        node_mask=node_mask,
+        y=torch.where(valid, dev.y[g], 0).to(torch.int32),
+        graph_mask=valid.to(torch.float32),
+        num_items=items[5],
     )

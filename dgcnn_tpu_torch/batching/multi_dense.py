@@ -44,18 +44,25 @@ class MultiDenseRouting:
 @dataclasses.dataclass
 class MultiDenseBatch:
     """One batch split by tile class: `classes[c]` holds class c's slots.
-    `y` and `graph_mask` are the classes' concatenated in class order, the
-    order of `apply_multi_dense`'s log-probs."""
+    In fold-lockstep a class holds `num_folds` folds' slots, fold f's in
+    the f-th run of its S_c. `y` and `graph_mask` are fold-major: fold f's
+    classes concatenated in class order, the order of the log-probs of
+    `apply_multi_dense` (one fold) and `apply_multi_dense_folds`."""
 
     classes: Tuple[DenseGraphBatch, ...]
+    num_folds: int = 1
+
+    def _by_fold(self, field: str) -> torch.Tensor:
+        return torch.cat([getattr(b, field).view(self.num_folds, -1)
+                          for b in self.classes], dim=1).reshape(-1)
 
     @property
     def y(self) -> torch.Tensor:
-        return torch.cat([b.y for b in self.classes])
+        return self._by_fold("y")
 
     @property
     def graph_mask(self) -> torch.Tensor:
-        return torch.cat([b.graph_mask for b in self.classes])
+        return self._by_fold("graph_mask")
 
 
 def plan_tiles(

@@ -1,8 +1,9 @@
 """DGCNN — the port of dgcnn_tpu/models/dgcnn.py (`DGCNN` :41,
 `init_params` :88, the head :134, `apply_coo` :178, `_dense_trunk` :260,
-`apply_dense` :344, `apply_multi_dense` :367, `apply_block` :930, the
-layout dispatch of `apply` :1035; the fold-lockstep forward, `apply`
-under `jax.vmap` in dgcnn_tpu/train/cv_vmap.py:180-203):
+`apply_dense` :344, `apply_multi_dense` :367, `apply_multi_dense_folds`
+:683, `apply_block_folds` :864, `apply_block` :930, the layout dispatch of
+`apply` :1035; the dense fold-lockstep forward, `apply` under `jax.vmap`
+in dgcnn_tpu/train/cv_vmap.py:180-203):
 
     4 × [GCNConv → tanh] with dims (F→32→32→32→1), skip-concat (97)
     SortPooling k=30
@@ -17,11 +18,14 @@ on a nested dict of tensors shaped like the reference's pytree;
 `DGCNNNet` is the `nn.Module` that owns those tensors as parameters and
 dispatches on the batch's layout.
 
-Fold-lockstep: `apply_dense_folds` runs F folds' batches, stacked on one
-dense batch's slot axis, through F sets of weights (every leaf with a
-leading fold axis): one trunk-kernel call with K = F weight sets picked
-per slot by `wsel`, then the readout and head as batched products over
-the fold axis. `DGCNNFoldsNet` owns the stacked parameters.
+Fold-lockstep: F folds' batches run through F sets of weights (every
+leaf with a leading fold axis), the readout and head as batched products
+over the fold axis. `apply_dense_folds` stacks the folds on one dense
+batch's slot axis: one trunk-kernel call with K = F weight sets picked
+per slot by `wsel`; `apply_multi_dense_folds` does so once per tile
+class; `apply_block_folds` runs every fold's propagation as one call of
+the block kernel over the folds' merged work-item stream.
+`DGCNNFoldsNet` owns the stacked parameters and dispatches on the batch.
 
 fp32 only: bfloat16 compute is ROADMAP Queue 1 item 10.
 """
@@ -35,7 +39,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from dgcnn_tpu_torch.batching.block_sparse import BlockBatch
+from dgcnn_tpu_torch.batching.block_sparse import BlockBatch, FoldBlockBatch
 from dgcnn_tpu_torch.batching.dense import DenseGraphBatch
 from dgcnn_tpu_torch.batching.multi_dense import MultiDenseBatch
 from dgcnn_tpu_torch.batching.packer import GraphBatch
@@ -48,7 +52,7 @@ from dgcnn_tpu_torch.kernels.spmm_block_coo import block_coo_order
 from dgcnn_tpu_torch.ops.gcn import gcn_conv, gcn_degree
 from dgcnn_tpu_torch.ops.readout import conv1d_readout, linear
 from dgcnn_tpu_torch.ops.spmm import edge_order
-from dgcnn_tpu_torch.ops.sort_pool import sort_pool, sort_pool_dense
+from dgcnn_tpu_torch.ops.sort_pool import sort_pool, sort_pool_dense, sort_pool_folds
 from dgcnn_tpu_torch.parity.convert import fold_state
 
 Params = Dict[str, Any]
@@ -226,8 +230,8 @@ def _module_params(mod: nn.Module) -> Params:
 
 
 class DGCNNFoldsNet(nn.Module):
-    """F folds' models in one module, for fold-lockstep on the dense
-    layout: `DGCNNNet`'s parameters, each with a leading fold axis
+    """F folds' models in one module, for fold-lockstep: `DGCNNNet`'s
+    parameters, each with a leading fold axis
     (state_dict keys as `DGCNNNet`'s, shapes [F, ...]). Every parameter is
     a view of one flat buffer, `flat`, holding the parameters one after
     another in `parameters()` order, each a contiguous [F, ...] run, so
@@ -263,12 +267,27 @@ class DGCNNFoldsNet(nn.Module):
         """Fold `fold` (0-based) as a `DGCNNNet` state dict (copies)."""
         return fold_state(self.state_dict(), fold)
 
-    def forward(self, batch: DenseGraphBatch, *, deterministic: bool = True,
-                dropout_gens=None, return_activations: bool = False):
-        return apply_dense_folds(self.params(), self.model, batch, self.num_folds,
-                                 deterministic=deterministic,
-                                 dropout_gens=dropout_gens,
-                                 return_activations=return_activations)
+    def forward(self, batch, *, deterministic: bool = True, dropout_gens=None,
+                return_activations: bool = False, pool: Optional[torch.Tensor] = None,
+                block_impl: str = "pallas"):
+        """`batch` holds every fold's step: a DenseGraphBatch of F × slots
+        slots, a MultiDenseBatch of `num_folds` F, or a FoldBlockBatch,
+        which also needs the engine's block `pool` and the `block_impl`
+        that propagates over it. Log-probs [F, slots, C]."""
+        kw = dict(deterministic=deterministic, dropout_gens=dropout_gens,
+                  return_activations=return_activations)
+        if isinstance(batch, MultiDenseBatch):
+            if batch.num_folds != self.num_folds:
+                raise ValueError(f"a batch of {batch.num_folds} folds for "
+                                 f"{self.num_folds} folds' weights")
+            return apply_multi_dense_folds(self.params(), self.model, batch.classes,
+                                           self.num_folds, **kw)
+        if isinstance(batch, FoldBlockBatch):
+            if pool is None:
+                raise ValueError("a FoldBlockBatch needs the block pool")
+            return apply_block_folds(self.params(), self.model, batch, pool,
+                                     block_impl=block_impl, **kw)
+        return apply_dense_folds(self.params(), self.model, batch, self.num_folds, **kw)
 
 
 def _fold_uniform(h: torch.Tensor, gens) -> torch.Tensor:
@@ -411,6 +430,17 @@ def apply_multi_dense(
     return log_probs
 
 
+def _check_folds(params_f: Params, num_folds: int, deterministic: bool,
+                 dropout_gens) -> None:
+    if params_f["gcn"][0]["w"].shape[0] != num_folds:
+        raise ValueError(f"parameters hold {params_f['gcn'][0]['w'].shape[0]} "
+                         f"folds, not {num_folds}")
+    if not deterministic and (dropout_gens is None
+                              or len(dropout_gens) != num_folds):
+        raise ValueError(f"dropout needs {num_folds} generators (None for a "
+                         f"fold that draws nothing)")
+
+
 def apply_dense_folds(
     params_f: Params,
     model: DGCNN,
@@ -431,18 +461,48 @@ def apply_dense_folds(
     `dropout_gens[f]` draws fold f's [slots, dense_dim] mask exactly as
     the sequential driver's generator for that fold does; None for a fold
     with no real graph in the step (it draws nothing)."""
-    if params_f["gcn"][0]["w"].shape[0] != num_folds:
-        raise ValueError(f"parameters hold {params_f['gcn'][0]['w'].shape[0]} "
-                         f"folds, not {num_folds}")
-    if not deterministic and (dropout_gens is None
-                              or len(dropout_gens) != num_folds):
-        raise ValueError(f"dropout needs {num_folds} generators (None for a "
-                         f"fold that draws nothing)")
+    _check_folds(params_f, num_folds, deterministic, dropout_gens)
     acts: dict = {}
     pooled = _dense_trunk(params_f, model, batch, acts)
     pooled = pooled.reshape(num_folds, -1, *pooled.shape[1:])
     log_probs = _pooled_to_log_probs(
         params_f, model, pooled, deterministic, dropout_gens, acts
+    )
+    if return_activations:
+        return log_probs, acts
+    return log_probs
+
+
+def apply_multi_dense_folds(
+    params_f: Params,
+    model: DGCNN,
+    batches: Tuple[DenseGraphBatch, ...],
+    num_folds: int,
+    *,
+    deterministic: bool = True,
+    dropout_gens=None,
+    return_activations: bool = False,
+):
+    """Fold-lockstep forward over one batch split by tile class → log-probs
+    [F, ΣS_c, C]. Class c's batch holds F × S_c slots, fold f's in the
+    f-th run of S_c (`gather_dense_batch` of the class's flattened [F, S_c]
+    index rows); each class runs `_dense_trunk` once on its flat slot axis
+    with K = F weight sets (the trunk kernel on the card), the pooled rows
+    concatenate per fold in class order, and the readout and head run once
+    per fold over the union: fold f's log-probs are `apply_multi_dense` of
+    fold f's weights on its slots, in the order of `MultiDenseBatch.y` of
+    the folds. With dropout on, `dropout_gens[f]` draws fold f's
+    [ΣS_c, dense_dim] mask as the sequential driver's generator does."""
+    _check_folds(params_f, num_folds, deterministic, dropout_gens)
+    acts: dict = {}
+    pooled = []
+    for i, b in enumerate(batches):
+        class_acts: dict = {}
+        p = _dense_trunk(params_f, model, b, class_acts)
+        pooled.append(p.reshape(num_folds, -1, *p.shape[1:]))
+        acts.update({f"{k}_c{i}": v for k, v in class_acts.items()})
+    log_probs = _pooled_to_log_probs(
+        params_f, model, torch.cat(pooled, dim=1), deterministic, dropout_gens, acts
     )
     if return_activations:
         return log_probs, acts
@@ -460,6 +520,38 @@ BLOCK_PROPAGATE = {
 }
 
 
+def _block_chain(params: Params, batch, pool: torch.Tensor, block_impl: str,
+                 acts: dict) -> torch.Tensor:
+    """The four GCN layers over a block batch → their outputs concatenated
+    on the last axis. Each layer is `hw = h @ W` (a plain matmul, as the
+    reference leaves it to XLA), the propagation `block_impl` names over
+    the batch's work items, walking the kernel's plan built once here for
+    the four layers, forward and backward, then bias, tanh and the node
+    mask. A `FoldBlockBatch` (node arrays [F, S, ·], fold-stacked weights)
+    runs `h @ W` as one batched product and the propagation once over the
+    merged stream of nb' = F·nb block-rows."""
+    if block_impl not in BLOCK_PROPAGATE:
+        raise ValueError(f"unknown block_impl {block_impl!r}")
+    propagate, make_plan = BLOCK_PROPAGATE[block_impl]
+    bs = pool.shape[1]
+    nodes = batch.x.shape[:-1]  # [S] or [F, S]
+    nb = nodes.numel() // bs
+    mask = batch.node_mask[..., None]
+    items = (batch.item_pool, batch.item_row, batch.item_col,
+             batch.item_permT, batch.item_colT)
+    plan = make_plan(*items, nb)
+    h = batch.x
+    layer_outs = []
+    for i, layer in enumerate(params["gcn"]):
+        hb = torch.matmul(h, layer["w"]).reshape(nb, bs, -1)
+        agg = propagate(hb, pool, *items, batch.num_items, plan)
+        b = layer["b"] if len(nodes) == 1 else layer["b"][:, None, :]
+        h = torch.tanh(agg.reshape(*nodes, -1) + b) * mask
+        layer_outs.append(h)
+        acts[f"gcn{i + 1}"] = h
+    return torch.cat(layer_outs, dim=-1)
+
+
 def apply_block(
     params: Params,
     model: DGCNN,
@@ -472,42 +564,55 @@ def apply_block(
     block_impl: str = "pallas",
 ):
     """Forward pass on the block-sparse layout (batching/block_sparse.py)
-    → log-probabilities [slots, C]. Each GCN layer is `hw = h @ W` (a plain
-    matmul, as the reference leaves it to XLA), the block propagation
-    over the batch's work items (`block_impl`: "pallas" the CSR kernel,
-    "xla" the item-parallel kernel; on CPU tensors both run the plain
-    version) over the kernel's plan, built once per batch here, then bias,
-    tanh and the node mask. SortPooling is the global
-    lexicographic sort with the row-block prefilter (row_block = bs)."""
-    if block_impl not in BLOCK_PROPAGATE:
-        raise ValueError(f"unknown block_impl {block_impl!r}")
-    propagate, make_plan = BLOCK_PROPAGATE[block_impl]
-    bs = pool.shape[1]
-    s_nodes = batch.x.shape[0]
-    nb = s_nodes // bs
-    num_slots = batch.y.shape[0]
-    mask = batch.node_mask[:, None]
-
-    items = (batch.item_pool, batch.item_row, batch.item_col,
-             batch.item_permT, batch.item_colT)
-    plan = make_plan(*items, nb)
-
+    → log-probabilities [slots, C]. The GCN layers are `_block_chain`'s
+    (`block_impl`: "pallas" the CSR kernel, "xla" the item-parallel
+    kernel; on CPU tensors both run the plain version). SortPooling is the
+    global lexicographic sort with the row-block prefilter (row_block =
+    bs)."""
     acts: dict = {}
-    h = batch.x
-    layer_outs = []
-    for i, layer in enumerate(params["gcn"]):
-        hb = torch.matmul(h, layer["w"]).reshape(nb, bs, -1)
-        agg = propagate(hb, pool, *items, batch.num_items, plan)
-        h = torch.tanh(agg.reshape(s_nodes, -1) + layer["b"]) * mask
-        layer_outs.append(h)
-        acts[f"gcn{i + 1}"] = h
-
-    cat = torch.cat(layer_outs, dim=-1)
-    pooled = sort_pool(cat, batch.node_graph, num_slots, model.sort_pool_k,
-                       row_block=bs)
+    cat = _block_chain(params, batch, pool, block_impl, acts)
+    pooled = sort_pool(cat, batch.node_graph, batch.y.shape[0], model.sort_pool_k,
+                       row_block=pool.shape[1])
     acts["sort_pool"] = pooled
     log_probs = _pooled_to_log_probs(
         params, model, pooled, deterministic, dropout_gen, acts
+    )
+    if return_activations:
+        return log_probs, acts
+    return log_probs
+
+
+def apply_block_folds(
+    params_f: Params,
+    model: DGCNN,
+    batch: FoldBlockBatch,
+    pool: torch.Tensor,
+    *,
+    deterministic: bool = True,
+    dropout_gens=None,
+    return_activations: bool = False,
+    block_impl: str = "pallas",
+):
+    """Fold-lockstep forward on the block-sparse layout → log-probabilities
+    [F, slots, C]. `params_f` carries a leading fold axis F on every leaf;
+    each fold's node-side ops run on its own [S] axis with its own
+    weights, and every layer's propagation runs once for all folds over
+    the batch's merged work-item stream (`_block_chain`: one plan for the
+    four layers, both directions). SortPooling is `sort_pool_folds` with
+    the row-block prefilter, as `apply_block` pools one batch (the
+    reference's lockstep sorts without it: the same rows). Fold f's
+    log-probs are `apply_block` of fold f's weights on its batch; with
+    dropout on, `dropout_gens[f]` draws fold f's [slots, dense_dim] mask
+    as the sequential driver's generator does."""
+    num_folds, num_slots = batch.y.shape
+    _check_folds(params_f, num_folds, deterministic, dropout_gens)
+    acts: dict = {}
+    cat = _block_chain(params_f, batch, pool, block_impl, acts)
+    pooled = sort_pool_folds(cat, batch.node_graph, num_slots, model.sort_pool_k,
+                             row_block=pool.shape[1])
+    acts["sort_pool"] = pooled
+    log_probs = _pooled_to_log_probs(
+        params_f, model, pooled, deterministic, dropout_gens, acts
     )
     if return_activations:
         return log_probs, acts

@@ -1,7 +1,8 @@
 """SortPooling — the port of dgcnn_tpu/ops/sort_pool.py: `sort_pool_dense`
-(:233) for the dense layout, and the global lexicographic `sort_pool`
-(:64) with its row-block prefilter (:27) for the packed node axis of the
-block-sparse layout."""
+(:233) for the dense layout, the global lexicographic `sort_pool` (:64)
+with its row-block prefilter (:27) for the packed node axis of the
+block-sparse layout, and `sort_pool_folds` (:125) for the block layout's
+fold-lockstep."""
 
 from __future__ import annotations
 
@@ -115,3 +116,22 @@ def sort_pool(x: torch.Tensor, node_graph: torch.Tensor, num_graph_slots: int,
     valid = idx < n
     pooled = x[idx.clamp(max=n - 1)].reshape(slots, k, x.shape[1])
     return torch.where(valid.reshape(slots, k, 1), pooled, torch.zeros_like(pooled))
+
+
+def sort_pool_folds(x: torch.Tensor, node_graph: torch.Tensor, num_graph_slots: int,
+                    k: int, row_block: int = 0) -> torch.Tensor:
+    """Fold-lockstep SortPooling: [F, S, C] → [F, num_graph_slots, k, C],
+    fold f's slots pooled from its own nodes as `sort_pool` pools one
+    batch. One `sort_pool` over the flattened [F·S] nodes, fold f's slot
+    g regrouped as f·num_graph_slots + g and every padded node in one
+    group past the last: each group's nodes keep their node order, so
+    each (fold, slot) takes the rows the per-fold sort gives it.
+    `row_block` as in `sort_pool` (a row block never spans two folds when
+    it divides S)."""
+    f, s, c = x.shape
+    fold_base = torch.arange(f, device=x.device)[:, None] * num_graph_slots
+    gid = torch.where(node_graph < num_graph_slots, node_graph.long() + fold_base,
+                      f * num_graph_slots)
+    pooled = sort_pool(x.reshape(f * s, c), gid.reshape(-1), f * num_graph_slots, k,
+                       row_block=row_block)
+    return pooled.reshape(f, num_graph_slots, k, c)

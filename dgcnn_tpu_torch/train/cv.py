@@ -3,7 +3,7 @@
 `_geom_round` :373, `BlockSparseEngine` :434, `DenseEngine` :521,
 `MultiDenseEngine` :583, the
 engine choice of `make_engine` :1067, `run_fold` :1130,
-`run_cross_validation` :1301, with its lockstep dispatch :1355-1400).
+`run_cross_validation` :1301, with its lockstep dispatch :1361-1401).
 
 Protocol: for each fold, fresh weights and a fresh Adam, the fold's
 training graphs shuffled each epoch on numpy's
@@ -13,15 +13,16 @@ and write the per-fold CSV, the `epochs/` bundle, the overall CSV and the
 event log under the reference's file names.
 
 The port serves the dense, multi-tile dense, block-sparse and COO
-layouts. On the dense layout the folds train in lockstep
-(train/cv_vmap.py) when the reference would lockstep them
-(`cv_parallel="folds"`, or "auto" and `_lockstep_would_engage`);
-otherwise, and on the other layouts, one after another (on one device
-the reference runs multi-tile folds one after another too).
-`choose_layout` answers as the reference does; the halo layout, block
-and multi-tile lockstep, meshes, bf16, resume and the other options not
-ported yet raise NotImplementedError naming the ROADMAP item that ports
-them (`check_supported`, `check_lockstep_layout`).
+layouts. The folds train in lockstep (train/cv_vmap.py, over the
+layout's engine) where the reference would lockstep them
+(`lockstep_engages`): under `cv_parallel="folds"` on the dense, block
+and multi-tile layouts; under "auto" on the dense layout when
+`_lockstep_would_engage`, and always on the block layout (on one device
+the reference runs multi-tile folds one after another). Otherwise, and
+on the COO layout, the folds run one after another. `choose_layout`
+answers as the reference does; the halo layout, meshes, bf16, resume and
+the other options not ported yet raise NotImplementedError naming the
+ROADMAP item that ports them (`check_supported`).
 
 Randomness: weights come from a CPU `torch.Generator` and dropout from a
 generator on the run's device, each seeded from
@@ -40,6 +41,7 @@ import torch
 
 from dgcnn_tpu_torch.batching.block_sparse import (
     block_batch_extents,
+    block_fold_extents,
     block_graphset_bytes,
     block_graphset_to_device,
     build_block_graphset,
@@ -130,23 +132,13 @@ def check_supported(cfg: Config) -> None:
         )
 
 
-# the layouts the reference locksteps and the port does not yet, and the
-# ROADMAP item that ports each
-UNPORTED_LOCKSTEP = {
-    "block": "block fold-lockstep is not ported yet (ROADMAP Queue 1 item 9)",
-    "multi": "multi-tile fold-lockstep is not ported yet (ROADMAP Queue 1 item 9)",
-}
+LOCKSTEP_LAYOUTS = ("dense", "block", "multi")
 
 
 def check_lockstep_layout(layout: str) -> None:
-    """Fold-lockstep on a layout other than dense: NotImplementedError
-    naming the ROADMAP item for block and multi (the reference locksteps
-    them), the reference's ValueError for the layouts lockstep never runs
-    on (coo, halo)."""
-    if layout in UNPORTED_LOCKSTEP:
-        raise NotImplementedError(
-            f"cv_parallel='folds': {UNPORTED_LOCKSTEP[layout]}")
-    if layout != "dense":
+    """`cv_parallel="folds"` on a layout lockstep never runs on (coo,
+    halo): the reference's ValueError."""
+    if layout not in LOCKSTEP_LAYOUTS:
         raise ValueError(
             f"cv_parallel='folds' is incompatible with: layout={layout!r} "
             f"(lockstep runs on the dense, block-sparse or multi-tile layout; "
@@ -218,11 +210,32 @@ def _lockstep_would_engage(cfg: Config, dataset: GraphSet, n_tile: int) -> bool:
 
 
 def _batched_lockstep_would_engage(cfg: Config) -> bool:
+    """Whether the block or multi-tile layout's folds could train in
+    lockstep: the reference's gate (no byte budget: these batches scale
+    with graph structure, not with the largest tile squared)."""
     if cfg.cv_parallel == "folds":
         return True
     if cfg.cv_parallel != "auto":
         return False
     return fold_shard_devices(cfg.mesh_shape, cfg.num_folds) is not None
+
+
+def lockstep_engages(cfg: Config, dataset: GraphSet, layout: str) -> bool:
+    """Whether the folds train in lockstep on `layout`, as the reference
+    decides (dgcnn_tpu/train/cv.py:1361-1401): `cv_parallel="folds"` on
+    any lockstep layout; under "auto" the dense layout when its stacked
+    step fits the byte budget, the block layout always, and the
+    multi-tile layout only over a fold-sharding mesh of more than one
+    device (one card runs its folds one after another)."""
+    if layout == "dense":
+        return _lockstep_would_engage(cfg, dataset, dense_tile(dataset))
+    if layout == "block":
+        return _batched_lockstep_would_engage(cfg)
+    if layout == "multi":
+        d = fold_shard_devices(cfg.mesh_shape, cfg.num_folds)
+        return cfg.cv_parallel == "folds" or (
+            cfg.cv_parallel == "auto" and d is not None and d > 1)
+    return False
 
 
 def choose_layout(cfg: Config, dataset: GraphSet) -> str:
@@ -280,12 +293,13 @@ def _geom_round(x: int, multiple: int, ratio: float = 1.3) -> int:
 
 class RunnerSlot:
     """An engine's one fused runner (train/loop.py `FusedRun`), keyed by
-    what it was built for: the fold and the budget. `get(key, make)`
-    returns the runner for `key`; under another key it first drops the
-    old runner, and with it its CUDA graph and that graph's memory pool,
-    then builds the new one, which warms up and captures on its first
-    chunk. Budgets grow only, so a run builds one runner a fold and one
-    more each time a budget grows."""
+    what it was built for: the fold and the budget (in lockstep the
+    budget alone). `get(key, make)` returns the runner for `key`; under
+    another key it first drops the old runner, and with it its CUDA graph
+    and that graph's memory pool, then builds the new one, which warms up
+    and captures on its first chunk. Budgets grow only, so a run builds
+    one runner a fold (in lockstep one a run) and one more each time a
+    budget grows."""
 
     def __init__(self):
         self.key = self.runner = None
@@ -375,11 +389,16 @@ class BlockSparseEngine:
         self.runners = RunnerSlot()
         self._fold = 0
 
-    def budget_for(self, *order_mats: np.ndarray):
-        """Grow-only (nb, W) budgets covering every batch row given."""
+    def budget_for(self, *order_mats: np.ndarray, folds: bool = False):
+        """Grow-only (nb, W) budgets covering every batch row given; with
+        `folds`, every lockstep step [F, slots] of the orders given: nb
+        for one fold's batch, W for the step's merged stream
+        (`block_fold_extents`, as the reference's lockstep sizes them,
+        dgcnn_tpu/train/cv_vmap.py:489)."""
+        extents = block_fold_extents if folds else block_batch_extents
         nb = w = 1
         for m in order_mats:
-            bn, bw = block_batch_extents(self._nb, self._block_counts, m)
+            bn, bw = extents(self._nb, self._block_counts, m)
             nb, w = max(nb, bn), max(w, bw)
         self.floor_nb = max(self.floor_nb, _geom_round(nb, 8))
         self.floor_w = max(self.floor_w, _geom_round(w, 64))
@@ -777,10 +796,7 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
             f"yet ({_LAYOUT_ITEM[layout]}); the port runs the dense, multi, "
             f"block and coo layouts"
         )
-    use_lockstep = layout == "dense" and _lockstep_would_engage(
-        cfg, dataset, dense_tile(dataset))
-    if layout == "block" and _batched_lockstep_would_engage(cfg):
-        print(f"{UNPORTED_LOCKSTEP['block']}: folds run sequentially")
+    use_lockstep = lockstep_engages(cfg, dataset, layout)
 
     fold_dir = cfg.fold_index_dir or os.path.join(
         cfg.data_root, cfg.data_type, "10fold_idx"
@@ -788,7 +804,7 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
     folds = get_folds(
         dataset.y, fold_dir, cfg.num_folds, cfg.seed, data_type=cfg.data_type
     )
-    engine = None if use_lockstep else make_engine(cfg, dataset, device, layout, graphs)
+    engine = make_engine(cfg, dataset, device, layout, graphs)
     events = EventLog(
         os.path.join(cfg.statistics_dir, f"{cfg.data_type}_events.jsonl")
     )
@@ -810,7 +826,7 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         from dgcnn_tpu_torch.train.cv_vmap import run_cv_folds_lockstep
 
         train_accs, test_accs = run_cv_folds_lockstep(
-            cfg, dataset, model, folds, events, device, graphs)
+            cfg, dataset, model, folds, events, engine)
         return _finalize_cv(cfg, events, train_accs, test_accs)
 
     train_accs, test_accs = [], []

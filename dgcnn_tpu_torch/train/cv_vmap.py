@@ -1,12 +1,19 @@
-"""Fold-lockstep cross-validation on the dense layout — the port of
-dgcnn_tpu/train/cv_vmap.py (`_stacked_orders` :348 and the dense branch of
-`run_cv_folds_vmap`: :368-447, :598-620, :632-645, :714-790).
+"""Fold-lockstep cross-validation — the port of dgcnn_tpu/train/cv_vmap.py
+(`_stacked_orders` :348 and `run_cv_folds_vmap` :368 with its block
+branch :444-505, multi-tile branch :505-597 and dense branch :598-620;
+the chunk loop :714-790).
 
-All K folds train at once. Each step stacks the folds' batches on one
-dense batch's slot axis (F × slots slots, fold f's in the f-th run of
-`slots`), and the forward runs the trunk kernel once over all of them
-with K = F weight sets (`apply_dense_folds`). The per-fold protocol is
-the sequential driver's (train/cv.py `run_fold`):
+All K folds train at once, on the dense, block-sparse or multi-tile
+layout, over the layout's engine (train/cv.py), which holds the dataset
+on the device and the run's runner. Each step takes every fold's batch:
+the dense layout stacks them on one batch's slot axis (F × slots slots,
+fold f's in the f-th run of `slots`) and runs the trunk kernel once over
+all of them with K = F weight sets (`apply_dense_folds`); the block
+layout packs every fold's work items into one merged stream that each
+propagation walks in one kernel call (`apply_block_folds`); the
+multi-tile layout runs the trunk once a tile class on the class's
+F × S_c slots (`apply_multi_dense_folds`). The per-fold protocol is the
+sequential driver's (train/cv.py `run_fold`):
 
   * fold f keeps the sequential driver's streams: the shuffle
     `default_rng(SeedSequence([seed, f]))`, init from `_stream_seed(seed,
@@ -14,26 +21,34 @@ the sequential driver's (train/cv.py `run_fold`):
     the sequential driver's bits;
   * a fold with fewer train or test batches than the longest fold sees
     all-(−1) rows on the steps past its own: it draws no dropout, takes
-    no Adam step and adds nothing to its epoch row, so it performs
-    exactly its own updates;
+    no Adam step and adds nothing to its epoch row (nor items to the
+    block layout's merged stream), so it performs exactly its own
+    updates;
   * per-fold rows equal the sequential driver's within float tolerance
-    (batched products sum in another order; tests/test_torch_lockstep.py).
+    (batched products sum in another order; tests/test_torch_lockstep.py,
+    tests/test_torch_block_lockstep.py, tests/test_torch_multi_lockstep.py).
 
 Epochs run in chunks of k ≤ `max_fused_epochs`, cut as the reference's
 chunk loop cuts them (:714-760): the k epochs' orders are drawn from each
-fold's shuffle stream and run by the fused runner (train/loop.py
-`make_dense_lockstep_run`: on the card one CUDA-graph replay an epoch
-after the first), and their rows come back in one transfer.
+fold's shuffle stream and run by the fused runner of the chunk's budget
+(train/loop.py `make_dense_lockstep_run`, `make_block_lockstep_run`,
+`make_multi_lockstep_run`: on the card one CUDA-graph replay an epoch
+after the runner's first), and their rows come back in one transfer. The
+dense runner serves the whole run; the block layout's budgets (nb per
+fold, W per step over all folds: `block_fold_extents` over the chunk's
+orders and the test order) and the multi-tile layout's slot tuple grow
+only, as the sequential engines' do, and a grown one gets a new runner
+over the same weights and optimizer (the engine's `RunnerSlot`, keyed by
+the budget alone).
 
 Artifacts are the sequential driver's (per-fold CSVs, `epochs/` bundles
 in its format, the event log); the CSVs and bundles are written at run
 end, and the `epoch` events come epoch by epoch, fold by fold, each with
 `folds_in_lockstep`, `chunk_epochs` = k and the chunk's seconds over k.
 
-Not ported here: the block and multi-tile branches (ROADMAP Queue 1 items
-9 and 7), fold sharding over a mesh (item 12) and the in-flight lockstep
-checkpoint (item 11); `train/cv.py` refuses those settings before this
-module runs.
+Not ported here: fold sharding over a mesh (ROADMAP Queue 1 item 12) and
+the in-flight lockstep checkpoint (item 11); `train/cv.py` refuses those
+settings before this module runs.
 """
 
 from __future__ import annotations
@@ -45,30 +60,33 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from dgcnn_tpu_torch.batching.dense import (
-    build_dense_dataset,
-    dense_tile,
-    order_matrix,
-)
+from dgcnn_tpu_torch.batching.dense import order_matrix
 from dgcnn_tpu_torch.config import Config
 from dgcnn_tpu_torch.data.graphset import GraphSet
 from dgcnn_tpu_torch.models.dgcnn import DGCNN, DGCNNFoldsNet, init_params, stack_params
-from dgcnn_tpu_torch.train.cv import _stream_seed, fp32_only
-from dgcnn_tpu_torch.train.loop import FoldAdam, make_dense_lockstep_run
+from dgcnn_tpu_torch.train.cv import (
+    BlockSparseEngine, MultiDenseEngine, _stream_seed, fp32_only,
+)
+from dgcnn_tpu_torch.train.loop import (
+    FoldAdam, FusedRun, make_block_lockstep_run, make_dense_lockstep_run,
+    make_multi_lockstep_run,
+)
 from dgcnn_tpu_torch.train.metrics import EventLog, FoldMetrics
 from dgcnn_tpu_torch.utils.checkpoint import save_checkpoint
+
+
+def stack_folds(mats: List[np.ndarray], steps: int) -> np.ndarray:
+    """[steps, F, w]: the folds' order matrices [steps_f, w] side by side,
+    each −1-row padded up to the lockstep step count."""
+    return np.stack([np.concatenate([m, np.full((steps - len(m), m.shape[1]), -1,
+                                                np.int32)]) for m in mats], axis=1)
+
 
 def stacked_orders(idx_f: List[np.ndarray], batch_size: int, slots: int,
                    steps: int) -> np.ndarray:
     """[steps, F, slots]: each fold's order matrix of `idx_f[f]` (in that
     order), −1-row padded up to the lockstep step count."""
-    mats = []
-    for idx in idx_f:
-        m = order_matrix(idx, batch_size, slots)
-        if len(m) < steps:
-            m = np.concatenate([m, np.full((steps - len(m), slots), -1, np.int32)])
-        mats.append(m)
-    return np.stack(mats, axis=1)
+    return stack_folds([order_matrix(idx, batch_size, slots) for idx in idx_f], steps)
 
 
 def fold_pattern(n_f: List[int], batch_size: int, steps: int) -> np.ndarray:
@@ -80,26 +98,57 @@ def fold_pattern(n_f: List[int], batch_size: int, steps: int) -> np.ndarray:
     return np.arange(steps)[:, None] < own[None, :]
 
 
+def lockstep_chunk(engine, net_f: DGCNNFoldsNet, adam_f: FoldAdam, dropout_gens,
+                   ids_k: List[List[np.ndarray]], test_ids: List[np.ndarray]
+                   ) -> Tuple[FusedRun, np.ndarray]:
+    """The runner and the host orders [k, steps, F, ·] of one chunk of
+    lockstep epochs on `engine`'s layout: `ids_k[j][f]` is fold f's
+    training graphs in epoch j's order, `test_ids[f]` its test graphs. The
+    dense runner is built once; the block layout's runner is keyed by the
+    chunk's grow-only budgets (`budget_for(..., folds=True)`), the
+    multi-tile layout's by its grow-only slot tuple (`slots_for` over
+    every fold's epochs and test graphs), and `engine.runners` drops a
+    runner whose key grew."""
+    bs = engine.cfg.batch_size
+    steps = max(-(-len(ids) // bs) for ids in ids_k[0])
+    t_steps = max(-(-len(ids) // bs) for ids in test_ids)
+    pattern = fold_pattern([len(ids) for ids in ids_k[0]], bs, steps)
+    args = (net_f, adam_f)
+    if isinstance(engine, MultiDenseEngine):
+        slots = engine.slots_for(*(ids for ids_f in ids_k for ids in ids_f), *test_ids)
+
+        def stacked(ids_f, n):
+            return stack_folds([engine.epoch_order(ids, slots) for ids in ids_f], n)
+
+        orders = np.stack([stacked(ids_f, steps) for ids_f in ids_k])
+        return engine.runners.get(slots, lambda: make_multi_lockstep_run(
+            *args, engine.classes, slots, stacked(test_ids, t_steps), pattern,
+            dropout_gens, engine.graphs)), orders
+    orders = np.stack([stacked_orders(ids_f, bs, engine.slots, steps) for ids_f in ids_k])
+    test = stacked_orders(test_ids, bs, engine.slots, t_steps)
+    if isinstance(engine, BlockSparseEngine):
+        nb, w = engine.budget_for(orders, test, folds=True)
+        return engine.runners.get((nb, w), lambda: make_block_lockstep_run(
+            *args, engine.dev, test, nb, w, pattern, dropout_gens, engine.block_impl,
+            engine.graphs)), orders
+    return engine.runners.get("dense", lambda: make_dense_lockstep_run(
+        *args, engine.data, test, pattern, dropout_gens, engine.graphs)), orders
+
+
 def run_cv_folds_lockstep(cfg: Config, dataset: GraphSet, model: DGCNN,
                           folds: List[Tuple[np.ndarray, np.ndarray]],
-                          events: EventLog, device: torch.device,
-                          graphs: bool = True) -> Tuple[List[float], List[float]]:
-    """Run the whole K-fold experiment in fold-lockstep on the dense
-    layout. Returns (train_accs, test_accs) and writes the sequential
-    driver's artifact set. `graphs=False` runs every epoch eagerly on the
-    card (train/loop.py `FusedRun`), for comparison only."""
+                          events: EventLog, engine) -> Tuple[List[float], List[float]]:
+    """Run the whole K-fold experiment in fold-lockstep on the layout of
+    `engine` (a dense, block-sparse or multi-tile engine of train/cv.py,
+    whose device and `graphs` the run takes). Returns (train_accs,
+    test_accs) and writes the sequential driver's artifact set."""
     fp32_only()  # the trunk's per-weight-set gradient sum is an fp32 product
+    device = engine.device
     num_folds = len(folds)
-    slots = -(-cfg.batch_size // cfg.graph_pad_multiple) * cfg.graph_pad_multiple
-    data = build_dense_dataset(dataset, dense_tile(dataset), device)
-
     train_idx_f = [np.asarray(tr, np.int32) for tr, _ in folds]
     test_idx_f = [np.asarray(te, np.int32) for _, te in folds]
     n_train_f = [len(t) for t in train_idx_f]
     n_test_f = [len(t) for t in test_idx_f]
-    steps_max = max(-(-n // cfg.batch_size) for n in n_train_f)
-    t_steps_max = max(-(-n // cfg.batch_size) for n in n_test_f)
-    test_order = stacked_orders(test_idx_f, cfg.batch_size, slots, t_steps_max)
 
     fold_ids = range(1, num_folds + 1)
     shuffles = [np.random.default_rng(np.random.SeedSequence([cfg.seed, f]))
@@ -115,17 +164,15 @@ def run_cv_folds_lockstep(cfg: Config, dataset: GraphSet, model: DGCNN,
     edge_counts = dataset.edge_counts()
     train_edges = int(sum(edge_counts[idx].sum() for idx in train_idx_f))
     metrics_f = [FoldMetrics() for _ in fold_ids]
-    runner = make_dense_lockstep_run(
-        net_f, adam_f, data, test_order,
-        fold_pattern(n_train_f, cfg.batch_size, steps_max), dropout_gens, graphs)
     epoch = 1
     while epoch <= cfg.num_epochs:
         k = cfg.num_epochs - epoch + 1
         if cfg.max_fused_epochs:
             k = min(k, cfg.max_fused_epochs)
-        orders = np.stack([stacked_orders(
-            [idx[rng.permutation(len(idx))] for idx, rng in zip(train_idx_f, shuffles)],
-            cfg.batch_size, slots, steps_max) for _ in range(k)])
+        ids_k = [[idx[rng.permutation(len(idx))] for idx, rng in zip(train_idx_f, shuffles)]
+                 for _ in range(k)]
+        runner, orders = lockstep_chunk(engine, net_f, adam_f, dropout_gens, ids_k,
+                                        test_idx_f)
         t0 = time.perf_counter()
         rows = runner.run_epochs(orders)  # [k, F, 4]
         dt = (time.perf_counter() - t0) / k  # amortized over the chunk
@@ -154,6 +201,7 @@ def run_cv_folds_lockstep(cfg: Config, dataset: GraphSet, model: DGCNN,
                                 for f in range(num_folds))
                 print(f"[all folds] epoch {epoch + j}: test% [{accs}] ({dt:.2f}s)")
         epoch += k
+    engine.end_fold()  # drops the runner and its graph
 
     train_accs, test_accs = [], []
     for f in range(num_folds):

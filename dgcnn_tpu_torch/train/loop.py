@@ -6,7 +6,7 @@ runner `_fused_run` :89 with `make_coo_run` :177,
 fold-lockstep step and epoch of dgcnn_tpu/train/cv_vmap.py:58
 `_make_lockstep_body` (`masked_update` :86, `real_folds` :97, the step
 and epoch reductions :106-152, run over k epochs by `make_dense_vmap_run`
-:167).
+:167, `make_block_vmap_run` :207 and `make_multi_vmap_run` :270).
 
 Contract with the reference:
   * loss per batch = NLL mean over the batch's real graphs; the epoch
@@ -40,8 +40,9 @@ every epoch runs the body eagerly. The kernels and the order of
 operations are the same either way, so the rows are the eager loop's
 bits. One runner factory per layout, each named after the reference's:
 `make_dense_gather_run` and `make_dense_lockstep_run` (dense),
-`make_multi_dense_run` (multi-tile dense, at one slot tuple),
-`make_block_run` (block-sparse, at one (nb, W) budget),
+`make_multi_dense_run` and `make_multi_lockstep_run` (multi-tile dense,
+at one slot tuple), `make_block_run` and `make_block_lockstep_run`
+(block-sparse, at one (nb, W) budget),
 `make_device_coo_run` (COO assembled on the device, at one bucket) and
 `make_coo_run` (COO packed on the host: the body reads a static device
 stack of one epoch, which the runner's `stage(j)` fills with epoch j
@@ -69,7 +70,9 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dgcnn_tpu_torch.batching.block_sparse import BlockGraphSet, gather_block_batch
+from dgcnn_tpu_torch.batching.block_sparse import (
+    BlockGraphSet, gather_block_batch, gather_block_batch_folds,
+)
 from dgcnn_tpu_torch.batching.dense import DenseDataset, gather_dense_batch
 from dgcnn_tpu_torch.batching.device_coo import DeviceGraphSet, gather_coo_batch
 from dgcnn_tpu_torch.batching.multi_dense import MultiDenseBatch
@@ -241,14 +244,16 @@ class FoldAdam:
 
 
 def lockstep_train_step(net_f: DGCNNFoldsNet, adam_f: FoldAdam, batch,
-                        real: torch.Tensor, dropout_gens
+                        real: torch.Tensor, dropout_gens, **fwd_kw
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One lockstep update of all folds: forward with dropout (fold f
     draws from `dropout_gens[f]`, None for a fold with no real graph) →
     per-fold masked NLL → backward of their sum → `FoldAdam` on the `real`
-    folds. Returns the per-fold (loss [F], correct [F]) on the device."""
+    folds; `fwd_kw` goes to the forward (the block layout's `pool` and
+    `block_impl`). Returns the per-fold (loss [F], correct [F]) on the
+    device."""
     net_f.zero_grad(set_to_none=True)
-    log_probs = net_f(batch, deterministic=False, dropout_gens=dropout_gens)
+    log_probs = net_f(batch, deterministic=False, dropout_gens=dropout_gens, **fwd_kw)
     f = log_probs.shape[0]
     loss_f, correct_f = nll_loss_and_correct(
         log_probs, batch.y.view(f, -1), batch.graph_mask.view(f, -1))
@@ -267,15 +272,16 @@ def _fold_means(losses, corrects, real) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def lockstep_epoch_body(net_f, adam_f, batch_fn: BatchFn, order3d: torch.Tensor,
                         test_order3d: torch.Tensor, step_gens: Sequence[list],
-                        rows: torch.Tensor) -> None:
+                        rows: torch.Tensor, **fwd_kw) -> None:
     """One lockstep epoch of train + eval for every fold: train over the
     device [steps, F, slots] index matrix `order3d` (−1 padded; a fold's
     all-(−1) row is a step it skips), each step's flattened [F·slots] row
     assembled by `batch_fn`, step s drawing fold f's dropout from
     `step_gens[s][f]` (None where the fold skips the step); then evaluate
-    over `test_order3d`. Writes the per-fold rows [F, 4] (train_loss,
-    test_loss, train_correct, test_correct; each fold's means over its
-    own real steps) into `rows` on the device."""
+    over `test_order3d`; `fwd_kw` goes to the forward. Writes the
+    per-fold rows [F, 4] (train_loss, test_loss, train_correct,
+    test_correct; each fold's means over its own real steps) into `rows`
+    on the device."""
     if len(step_gens) != order3d.shape[0]:
         raise ValueError(f"{len(step_gens)} steps of generators for "
                          f"{order3d.shape[0]} train steps")
@@ -284,7 +290,7 @@ def lockstep_epoch_body(net_f, adam_f, batch_fn: BatchFn, order3d: torch.Tensor,
     losses, corrects = [], []
     for s, gens in enumerate(step_gens):
         loss_f, correct_f = lockstep_train_step(
-            net_f, adam_f, batch_fn(order3d[s].reshape(-1)), real[s], gens)
+            net_f, adam_f, batch_fn(order3d[s].reshape(-1)), real[s], gens, **fwd_kw)
         losses.append(loss_f)
         corrects.append(correct_f)
     tr_loss, tr_correct = _fold_means(losses, corrects, real)
@@ -294,7 +300,7 @@ def lockstep_epoch_body(net_f, adam_f, batch_fn: BatchFn, order3d: torch.Tensor,
         losses, corrects = [], []
         for row in test_order3d:
             batch = batch_fn(row.reshape(-1))
-            log_probs = net_f(batch, deterministic=True)
+            log_probs = net_f(batch, deterministic=True, **fwd_kw)
             f = log_probs.shape[0]
             loss_f, correct_f = nll_loss_and_correct(
                 log_probs, batch.y.view(f, -1), batch.graph_mask.view(f, -1))
@@ -477,29 +483,65 @@ def make_multi_dense_run(net: DGCNNNet, optimizer, classes: Sequence[DenseDatase
                        graphs)
 
 
-def make_dense_lockstep_run(net_f: DGCNNFoldsNet, adam_f: FoldAdam,
-                            data: DenseDataset, test_order3d: np.ndarray,
-                            pattern: np.ndarray, dropout_gens,
-                            graphs: bool = True) -> FusedRun:
-    """The fused runner of the dense lockstep epoch, the port of the epoch
-    scan of `_make_lockstep_body` (dgcnn_tpu/train/cv_vmap.py:106-152) as
-    `make_dense_vmap_run` (:167) runs it: `lockstep_epoch_body` over the
-    folds' fixed test order [t_steps, F, slots], `pattern` [steps, F] the
-    folds' real train steps (`train/cv_vmap.py fold_pattern`), fold f's
-    dropout from `dropout_gens[f]`."""
+def _lockstep_run(net_f: DGCNNFoldsNet, adam_f: FoldAdam, batch_fn: BatchFn,
+                  test_order3d: np.ndarray, pattern: np.ndarray, dropout_gens,
+                  graphs: bool, held=(), **fwd_kw) -> FusedRun:
+    """The fused runner of the lockstep epoch, the port of the epoch scan
+    of `_make_lockstep_body` (dgcnn_tpu/train/cv_vmap.py:106-152):
+    `lockstep_epoch_body` over steps [F, ·] rows, each step's flattened row
+    assembled by `batch_fn`, the folds' fixed test order [t_steps, F, ·],
+    `pattern` [steps, F] the folds' real train steps (`train/cv_vmap.py
+    fold_pattern`), fold f's dropout from `dropout_gens[f]`; `fwd_kw` goes
+    to the forward. The body keeps `held` alive."""
     dev = net_f.flat.device
     order = torch.full((len(pattern), *test_order3d.shape[1:]), -1,
                        dtype=torch.int32, device=dev)
     test = torch.from_numpy(np.ascontiguousarray(test_order3d)).to(dev)
     rows = torch.zeros((net_f.num_folds, 4), dtype=torch.float32, device=dev)
-    batch_fn = functools.partial(gather_dense_batch, data)
     step_gens = [[g if r else None for g, r in zip(dropout_gens, row)]
                  for row in pattern]
 
-    def body():
-        lockstep_epoch_body(net_f, adam_f, batch_fn, order, test, step_gens, rows)
+    def body(_held=held):
+        lockstep_epoch_body(net_f, adam_f, batch_fn, order, test, step_gens, rows,
+                            **fwd_kw)
 
     return FusedRun(body, order, rows, pattern, dropout_gens, graphs)
+
+
+def make_dense_lockstep_run(net_f: DGCNNFoldsNet, adam_f: FoldAdam,
+                            data: DenseDataset, test_order3d: np.ndarray,
+                            pattern: np.ndarray, dropout_gens,
+                            graphs: bool = True) -> FusedRun:
+    """The fused runner of the dense lockstep epoch, as `make_dense_vmap_run`
+    (dgcnn_tpu/train/cv_vmap.py:167) runs it: each step's [F·slots] row
+    gathered from the dense dataset on the device (`_lockstep_run`)."""
+    return _lockstep_run(net_f, adam_f, functools.partial(gather_dense_batch, data),
+                         test_order3d, pattern, dropout_gens, graphs)
+
+
+def make_multi_lockstep_run(net_f: DGCNNFoldsNet, adam_f: FoldAdam,
+                            classes: Sequence[DenseDataset], slots: Sequence[int],
+                            test_order3d: np.ndarray, pattern: np.ndarray,
+                            dropout_gens, graphs: bool = True) -> FusedRun:
+    """The port of `make_multi_vmap_run` (dgcnn_tpu/train/cv_vmap.py:270):
+    the fused runner of the lockstep epoch on the multi-tile dense layout
+    at one slot tuple. A step's order row is [F, ΣS_c], each fold's row
+    laid out as `make_multi_dense_run`'s; class c gathers its [F, S_c]
+    slice, flattened fold-major, from its dataset into one batch of F·S_c
+    slots, and the model runs the trunk once a class for all folds
+    (`apply_multi_dense_folds`); the folds' fixed test order [t_steps, F,
+    ΣS_c]."""
+    bounds = np.concatenate([[0], np.cumsum(slots)]).tolist()
+    f = net_f.num_folds
+
+    def batch_fn(row):
+        per_fold = row.view(f, -1)
+        return MultiDenseBatch(tuple(
+            gather_dense_batch(d, per_fold[:, a:b].reshape(-1))
+            for d, a, b in zip(classes, bounds[:-1], bounds[1:])), num_folds=f)
+
+    return _lockstep_run(net_f, adam_f, batch_fn, test_order3d, pattern, dropout_gens,
+                         graphs)
 
 
 def _arrival_counters(device: torch.device, block_rows: int = 0,
@@ -534,6 +576,28 @@ def make_block_run(net: DGCNNNet, optimizer, dev: BlockGraphSet,
     return _gather_run(
         net, optimizer, lambda row: gather_block_batch(dev, row, nb_budget, w_budget),
         test_order2d, steps, dropout_gen, graphs, held, pool=dev.pool,
+        block_impl=block_impl)
+
+
+def make_block_lockstep_run(net_f: DGCNNFoldsNet, adam_f: FoldAdam,
+                            dev: BlockGraphSet, test_order3d: np.ndarray,
+                            nb_budget: int, w_budget: int, pattern: np.ndarray,
+                            dropout_gens, block_impl: str = "pallas",
+                            graphs: bool = True) -> FusedRun:
+    """The port of `make_block_vmap_run` (dgcnn_tpu/train/cv_vmap.py:207):
+    the fused runner of the lockstep epoch on the block-sparse layout at
+    the budgets (nb per fold, W per step over all folds): each step's
+    [F, slots] row assembled by `gather_block_batch_folds`, every layer's
+    propagation one call of the kernel `block_impl` names over the folds'
+    merged stream of F·nb block-rows (`apply_block_folds`), the folds'
+    fixed test order [t_steps, F, slots]."""
+    f = net_f.num_folds
+    held = _arrival_counters(dev.pool.device,
+                             block_rows=f * nb_budget if block_impl == "pallas" else 0)
+    return _lockstep_run(
+        net_f, adam_f,
+        lambda row: gather_block_batch_folds(dev, row.view(f, -1), nb_budget, w_budget),
+        test_order3d, pattern, dropout_gens, graphs, held, pool=dev.pool,
         block_impl=block_impl)
 
 

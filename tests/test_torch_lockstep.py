@@ -370,17 +370,28 @@ def test_auto_locksteps_exactly_when_the_reference_would(tmp_path, capsys, budge
 
 
 @pytest.mark.parametrize("layout, error, match", [
-    ("block", NotImplementedError, "ROADMAP Queue 1 item 9"),
-    ("multi", NotImplementedError, "ROADMAP Queue 1 item 9"),
+    ("block", None, None),
+    ("multi", None, None),
     ("coo", ValueError, "incompatible with: layout='coo'"),
     ("halo", ValueError, "incompatible with: layout='halo'"),
 ])
 def test_explicit_folds_on_other_layouts(tmp_path, layout, error, match):
-    """(f) `cv_parallel="folds"` off the dense layout: block and multi name
-    the ROADMAP item that ports their lockstep; coo and halo raise the
-    reference's ValueError."""
+    """(f) `cv_parallel="folds"` off the dense layout: block and multi (two
+    tile classes) train all folds in lockstep, every epoch event carrying
+    `folds_in_lockstep`; coo and halo raise the reference's ValueError."""
     gs = synthesize_tu_dataset("MUTAG", num_graphs=30, seed=2)
-    with pytest.raises(error, match=match):
-        cv.run_cross_validation(
-            _cv_cfg(tmp_path, "x", cv_parallel="folds", layout=layout),
-            dataset=gs, device="cpu")
+    cfg = _cv_cfg(tmp_path, "x", cv_parallel="folds", layout=layout, num_epochs=1,
+                  multi_dense_min_tile=16)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            cv.run_cross_validation(cfg, dataset=gs, device="cpu")
+        return
+    res = cv.run_cross_validation(cfg, dataset=gs, device="cpu")
+    assert len(res["test_accuracies"]) == 3
+    events = [json.loads(ln) for ln in (tmp_path / "x" / "statistics" /
+                                        "MUTAG_events.jsonl").read_text().splitlines()]
+    assert events[0]["layout"] == layout
+    epochs = [e for e in events if e["kind"] == "epoch"]
+    assert [(e["epoch"], e["fold"]) for e in epochs] == [(1, f) for f in (1, 2, 3)]
+    assert all(e["folds_in_lockstep"] == 3 and np.isfinite(e["train_loss"])
+               for e in epochs)

@@ -3,8 +3,9 @@
 `make_multi_dense_run`) against the reference's (dgcnn_tpu/train/cv.py:583,
 train/loop.py:201): the slot floors, the rows against JAX's fused runner,
 chunked epochs bitwise equal to single eager epochs, one runner per slot
-tuple on a stand-in card, no host sync in the body, and `layout="auto"`
-resolving synthetic COLLAB to the engine, through the CLI too."""
+tuple on a stand-in card, no host sync in the body, `layout="auto"`
+resolving synthetic COLLAB to the engine, through the CLI too, and
+`cv_parallel="folds"` training its folds in lockstep."""
 
 import functools
 
@@ -329,9 +330,19 @@ def test_cli_collab_reaches_the_multi_engine(tmp_path, monkeypatch):
     assert reached == {"tiles": (256, 464), "bytes": 1_338_380_416}
 
 
-def test_multi_lockstep_raises_naming_item_9(tmp_path):
-    """`cv_parallel="folds"` on the multi-tile layout: NotImplementedError
-    naming ROADMAP Queue 1 item 9, which ports multi-tile lockstep."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        cv.run_cross_validation(_cv_cfg(tmp_path, layout="multi", cv_parallel="folds"),
-                                dataset=_collab(), device="cpu")
+def test_multi_folds_trains_in_lockstep(tmp_path):
+    """`cv_parallel="folds"` on the multi-tile layout trains both folds in
+    lockstep through the engine's classes: `run_start` names the layout,
+    tiles and slot floors, and every epoch event carries
+    `folds_in_lockstep`."""
+    import json
+
+    res = cv.run_cross_validation(_cv_cfg(tmp_path, layout="multi", cv_parallel="folds"),
+                                  dataset=_collab(), device="cpu")
+    assert len(res["test_accuracies"]) == 2
+    events = [json.loads(ln) for ln in (tmp_path / "statistics" /
+                                        "COLLAB_events.jsonl").read_text().splitlines()]
+    assert events[0]["layout"] == "multi" and events[0]["tiles"] == [32, 64, 128, 208]
+    epochs = [e for e in events if e["kind"] == "epoch"]
+    assert [(e["epoch"], e["fold"]) for e in epochs] == [(1, 1), (1, 2), (2, 1), (2, 2)]
+    assert all(e["folds_in_lockstep"] == 2 and e["chunk_epochs"] == 2 for e in epochs)

@@ -124,12 +124,9 @@ def test_cv_run_writes_reference_artifacts(tmp_path):
 
 @pytest.mark.parametrize("kw", [
     {"compute_dtype": "bfloat16"}, {"adj_dtype": "bfloat16"},
-    # dense lockstep is served; block lockstep is not (ROADMAP item 9)
-    {"cv_parallel": "folds", "layout": "block"}, {"mesh_shape": (2, 1)},
+    {"mesh_shape": (2, 1)},
     {"checkpoint_resume": True}, {"checkpoint_every": 5},
     {"tensorboard_dir": "tb"}, {"opt_flatten": True},
-    # the multi-tile layout is served; its lockstep is not (ROADMAP item 9)
-    {"layout": "multi", "cv_parallel": "folds"},
 ], ids=lambda kw: next(iter(kw)))
 def test_unserved_options_raise(tmp_path, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
