@@ -28,7 +28,14 @@ CUDA is absent or any phase fails. Phases:
         layout at fold 1's first batch that holds both (T=256 at the
         engine's slot floor, resident; T=464 at S=4, streamed), and the
         same two classes repeated for 10 folds in lockstep (S = 10 × the
-        class's slots, K = 10, slot s on weight set s // (S / 10));
+        class's slots, K = 10, slot s on weight set s // (S / 10)); the
+        bf16 mode (adjacency rounded to bf16; with and without `round_h`,
+        the bf16-compute flag; forward and backward against the plain
+        version within 5e-3, two runs bitwise, the regime by the counts,
+        every call a bf16 one) at NCI1 T=88, PROTEINS T=176, COLLAB's two
+        classes, the lockstep step S=560 K=10, T=624 (streamed) and the
+        bf16 resident cap ± 8, `trunk_plan`'s bytes at 2 bytes an element
+        against the kernels', the regime logged at each T;
      b. both block-propagation kernels (CSR and item-parallel) on real
         synthetic-DD batches of 50 graphs (the main path's mean and
         largest batch and the batch holding the largest graph), with
@@ -43,7 +50,12 @@ CUDA is absent or any phase fails. Phases:
         row, groups of G ∈ {2, 4, 8}) at the mean and
         the stress batch, forward and transposed; and the 10-fold merged
         stream of DD's mean lockstep step (`gather_block_batch_folds`,
-        nb' = 10 × nb block-rows), every design, F ∈ {32, 1};
+        nb' = 10 × nb block-rows), every design, F ∈ {32, 1}; the bf16
+        mode of both kernels (bf16 pool and hb) at the DD mean and
+        largest batch and the 10-fold merged step, F ∈ {32, 1}, forward
+        and transposed against the plain version within the fp32
+        tolerance, two runs bitwise, the autograd entry's output and
+        bf16 d_hb the launches' bits;
      c. the three COO SpMM kernels (row-parallel CSR, edge-block,
         block-COO) on the DD COO main path's mean and largest batch and an
         NCI1 COO batch (device-assembled buckets, block-COO structures
@@ -162,6 +174,18 @@ CUDA is absent or any phase fails. Phases:
         class's trunk on 2 × S_c slots), the rows' distance from phase
         4d's logged; one lockstep step of the 2 folds against each fold's
         own step (log-probs, gradients within rel 1e-4, masks bitwise);
+     g. mixed precision on the main paths, chunks of 2, graphed then
+        eager (rows and `epochs/` bundles bitwise, finite losses, launch
+        counts exact per replay and every one in bf16): synthetic NCI1
+        `--dtype bfloat16` (dense, 10-fold lockstep) 10 × 4, synthetic DD
+        `--dtype bfloat16` (block, 10-fold lockstep, the CSR kernel) 10 ×
+        4 and `--block_impl xla` 10 × 2 graphed, synthetic COLLAB
+        `--adj_dtype bfloat16` (multi, sequential) 2 × 4 (trunk calls by
+        regime at 2 bytes an element); each run's fold-epoch seconds and
+        peak memory beside the fp32 run of 4a, 4e or 4d; one batch of
+        each on the card against the CPU within rel 1e-2; the bf16
+        lockstep runners (NCI1, DD) built directly; `--layout coo
+        --dtype bfloat16` raises NotImplementedError;
   5. device times (utils/profiling.py `device_ms`): each call captured
      10 times in one CUDA graph, the graph replayed and timed with CUDA
      events, so the host's launch rate is out of the number; warm
@@ -171,7 +195,10 @@ CUDA is absent or any phase fails. Phases:
      C at 88 and 176, and the lockstep step's trunk (S = 560, K = 10) at
      T = 88 and 176, and COLLAB's two tile classes (T=256 resident, T=464
      streamed) at that batch, one fold and 10 folds in lockstep, beside
-     its bound (and its kind) and the plain chain.
+     its bound (and its kind) and the plain chain; the bf16 mode at the
+     lockstep step (round_h), S=56 at T=88 and 624 (round_h) and COLLAB's
+     classes (bf16 adjacency), beside the fp32 times, bounds at 2 bytes
+     an adjacency element.
      The block kernels at the DD mean and largest batch, the batch of
      the largest graph and the 10-fold merged mean lockstep step (beside
      10 × the one-fold mean batch), F ∈ {32, 1}, each design (the CSR kernel at
@@ -188,15 +215,19 @@ CUDA is absent or any phase fails. Phases:
      step's SpMMs on each (the measure `spmm_impl` auto is chosen by); the
      block-COO kernel, its earlier A-build design
      and its slot order's build also at every other batch of phase 3c;
+     the block kernels' bf16 mode (the wrapper's design) at the DD mean
+     batch and the merged step, beside fp32, bounds at 2 bytes an
+     element, the library call on the widened operands;
   6. one `torch.profiler` table of a single eager train step for NCI1
-     dense (one fold, and the lockstep step of all ten), DD block through
-     each `--block_impl` (one fold, and the 10-fold lockstep step at the
-     merged mean step), DD COO, DD COO `--spmm pallas` and COLLAB multi
+     dense (one fold, and the lockstep step of all ten, in fp32 and under
+     bf16 compute), DD block through each `--block_impl` (one fold, and
+     the 10-fold lockstep step at the merged mean step, in fp32 and under
+     bf16 compute), DD COO, DD COO `--spmm pallas` and COLLAB multi
      (top 10 CUDA kernels) and each step's wall time and launches; the
      same for one epoch of each epoch graph (a replay): the NCI1 lockstep
      runner's, fold 1's one-fold runner's, DD's block and COO runners',
-     DD's 10-fold block lockstep runner's and COLLAB's multi-tile
-     runner's, with the
+     DD's 10-fold block lockstep runner's, COLLAB's multi-tile
+     runner's and the bf16 NCI1 and DD lockstep runners', with the
      replay's span between CUDA events, the per-step wall and device time,
      the device's idle share, the capture seconds and the peak memory;
   7. the block-COO cost-split probe (dgcnn_tpu_torch/tools/
@@ -210,12 +241,14 @@ CUDA is absent or any phase fails. Phases:
      launches and class shapes beside it; the block and SpMM kernels once
      per width, F=32 and `_f1`, with the graphed main path's launches of
      that width, replays counted, the block kernels' DD lockstep path's
-     launches and merged-step times beside them), the card line
+     launches and merged-step times beside them; the three kernels' bf16
+     modes as `*_bf16_*` entries with phase 4g's launches), the card line
      again, and the final `{"ok": true, ...}` line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -229,7 +262,8 @@ import numpy as np
 import torch
 
 from dgcnn_tpu_torch.utils.profiling import (
-    FLUSH_BYTES, Flush, bound, card_line, device_ms, events_ms, rel_err, spmm_bound,
+    FLUSH_BYTES, Flush, block_bounds, card_line, device_ms, events_ms, rel_err,
+    spmm_bound, trunk_bounds,
 )
 
 S = 56  # graph slots: batch 50 rounded up to graph_pad_multiple 8
@@ -240,7 +274,12 @@ WIDE = ((64, 64, 64, 1), (128, 128, 128, 1))  # the two wider width buckets
 BS = 128
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("== phase"):
+        msg += f" [{time.perf_counter() - T0:.0f} s]"
     print(msg, flush=True)
 
 
@@ -400,14 +439,114 @@ def check_refusal(name, adj, mask, device, dt, stats, plan):
             raise AssertionError(f"{name} {what}: a plan over the shared memory ran")
 
 
-def resident_cap(dims=DIMS):
-    """The largest multiple of 8 that the plan keeps resident at S slots."""
+def resident_cap(dims=DIMS, es=4):
+    """The largest multiple of 8 that the plan keeps resident at S slots,
+    for an adjacency of `es` bytes an element."""
     from dgcnn_tpu_torch.kernels import dense_trunk as dt
 
     t = 8
-    while dt.trunk_plan(S, t + 8, dims).regime == "resident":
+    while dt.trunk_plan(S, t + 8, dims, es=es).regime == "resident":
         t += 8
     return t
+
+
+# bf16 trunk vs its plain version: both round hw, d_pre (and with round_h
+# each h) to bf16 where the kernel does, from fp32 sums taken in different
+# orders, so a value at a rounding boundary may round one bf16 ulp apart
+# (2^-8 relative) and carry that through the later layers: the reference's
+# own bf16 tolerance for its kernel (tests/test_dense_trunk.py:78).
+TRUNK_BF16_RTOL = 5e-3
+
+
+def bf16_err(got, want, rtol=TRUNK_BF16_RTOL):
+    """(max abs error, that over the largest |want|, within rtol of it)."""
+    err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
+    scale = want.double().abs().max().item() if want.numel() else 0.0
+    return err, err / max(scale, 1e-6), err <= 1e-6 + rtol * scale
+
+
+def compare_trunk_bf16(name, adj32, mask, device, dt, stats, dims=DIMS, plan=None,
+                       folds=None):
+    """The bf16 mode against its plain version: the adjacency rounded to
+    bf16, with and without `round_h` (then W_i passed rounded, as the
+    model passes them), K ∈ {1, 10} (or K = folds with the lockstep
+    `wsel`): forward, and the kernel's backward against the plain reverse
+    recurrence (`gcn_trunk_plain_bwd`, the same rounding points) within
+    `TRUNK_BF16_RTOL`, two backward runs bitwise equal, the planned regime
+    and the bf16 entries checked by the launch counts. `plan` forces a
+    regime or cluster size. Returns the plan that ran."""
+    adj = adj32.to(torch.bfloat16)
+    s, t = adj.shape[0], adj.shape[1]
+    want_plan = plan or dt.trunk_plan(s, t, dims, es=2)
+    n = len(dims)
+    for round_h in (False, True):
+        for k in (folds,) if folds else (1, 10):
+            hw1, wsel, ws, bs = trunk_inputs(adj32, mask, k, seed=29 + k, device=device,
+                                             dims=dims)
+            if folds:
+                wsel = lockstep_wsel(s, folds, device)
+            if round_h:
+                ws = [dt.round_bf16(w) for w in ws]
+            before = dict(vars(dt.launches))
+            with torch.no_grad():
+                if plan is None:
+                    cat_k = dt.gcn_trunk(dims, adj, hw1, mask, wsel, ws, bs, round_h)
+                else:
+                    cat_k = dt._cuda_fwd(dims, adj, hw1, mask, wsel, ws, bs, k, plan,
+                                         round_h=round_h)
+                cat_p = dt.gcn_trunk_plain(dims, adj, hw1, mask, wsel, ws, bs, round_h)
+            err, rel, ok = bf16_err(cat_k, cat_p)
+            stats["gcn_trunk_bf16_fwd"] = max(stats.get("gcn_trunk_bf16_fwd", 0.0), err)
+            tag = f"{name} bf16{' round_h' if round_h else ''} K={k}"
+            if not ok:
+                raise AssertionError(f"{tag}: forward disagrees (max abs {err:.3e}, "
+                                     f"rel {rel:.3e})")
+            g = torch.randn(cat_p.shape, generator=torch.Generator(device=device)
+                            .manual_seed(k), device=device)
+
+            def kernel_grads():
+                if plan is None:
+                    xs = [x.detach().clone().requires_grad_() for x in [hw1, *ws, *bs]]
+                    cat = dt.gcn_trunk(dims, adj, xs[0], mask, wsel, xs[1:n], xs[n:],
+                                       round_h)
+                    return list(torch.autograd.grad(cat, xs, g))
+                d_hw1, flat = dt._cuda_bwd(dims, adj, mask, wsel, ws, cat_k, g, k, plan)
+                dws, dbs = dt._split_grads(dt._segment_sum(flat, wsel, k), dims)
+                return [d_hw1, *dws, *dbs]
+
+            d_hw1, dws_slot, dbs_slot = dt.gcn_trunk_plain_bwd(dims, adj, mask, wsel,
+                                                               ws, cat_p, g)
+            flat = torch.cat([x.reshape(s, -1) for x in (*dws_slot, *dbs_slot)], 1)
+            dws, dbs = dt._split_grads(dt._segment_sum(flat, wsel, k), dims)
+            want = [d_hw1, *dws, *dbs]
+            got, again = kernel_grads(), kernel_grads()
+            ran = {key: v - before[key] for key, v in vars(dt.launches).items()}
+            regime = want_plan.regime
+            per_fwd, per_bwd = dt.launches_per_call(want_plan, dims)
+            if ran[f"{regime}_fwd"] < 1 or ran[f"{regime}_bwd"] != 2 or (
+                    ran["bf16_fwd"] != ran["fwd_launches"] or ran["bf16_bwd"] != 2) or (
+                    ran["kernel_fwd"] != per_fwd * ran["fwd_launches"]
+                    or ran["kernel_bwd"] != per_bwd * 2):
+                raise AssertionError(f"{tag}: expected the {regime} bf16 kernels, "
+                                     f"counts moved {ran}")
+            names = ["d_hw1"] + [f"dW{i + 2}" for i in range(n - 1)] + [
+                f"db{i + 1}" for i in range(n)]
+            worst = (0.0, 0.0, "")
+            for nm, a, b, c in zip(names, got, want, again):
+                e, r, ok = bf16_err(a, b)
+                if not ok:
+                    raise AssertionError(f"{tag} {nm}: backward disagrees "
+                                         f"(max abs {e:.3e}, rel {r:.3e})")
+                if not torch.equal(a, c):
+                    raise AssertionError(f"{tag} {nm}: two backward runs differ")
+                stats["gcn_trunk_bf16_bwd"] = max(stats.get("gcn_trunk_bf16_bwd", 0.0), e)
+                if r >= worst[1]:
+                    worst = (e, r, nm)
+            log(f"  {tag}: forward max abs {err:.3e} rel {rel:.3e}; backward worst "
+                f"{worst[2]} max abs {worst[0]:.3e} rel {worst[1]:.3e} (ok within "
+                f"{TRUNK_BF16_RTOL}; two runs bitwise equal; {regime}"
+                f"{f', C={want_plan.c}' if regime == 'resident' else ''})")
+    return want_plan
 
 
 def check_trunk(datasets, device, dt, stats):
@@ -469,6 +608,42 @@ def check_trunk(datasets, device, dt, stats):
     return shapes
 
 
+def check_trunk_bf16(shapes, lock_shapes, collab, t_main, t_prot, device, dt, stats):
+    """Phase 3a's bf16 cases (`compare_trunk_bf16`: with and without
+    `round_h`, forward and backward, two runs bitwise equal, the planned
+    regime by the launch counts): NCI1 T=t_main and PROTEINS T=t_prot at
+    S=56, COLLAB's two classes at fold 1's batch, the lockstep step S=560
+    K=10 at T=t_main, T=624 (streamed), and random cases at the bf16
+    resident cap and the cap + 8; `trunk_plan`'s bytes at 2 bytes an
+    element against the kernels'. Logs the regime the plan picks at every
+    T it checks. Returns the bf16 resident cap."""
+    cap = resident_cap(es=2)
+    log(f"  bf16 adjacency: the resident cap at S={S}, dims {DIMS} is T={cap} "
+        f"(fp32: {resident_cap()})")
+    for t in sorted(set(shapes) | {cap, cap + 8, *collab.tiles}):
+        for plan in [dt.trunk_plan(S, t, DIMS, c=c, es=2) for c in dt.CLUSTERS] + [
+                dt.trunk_plan(S, t, DIMS, regime="streamed", es=2)]:
+            if dt.kernel_smem(plan, t, DIMS, es=2) != (plan.fwd_smem, plan.bwd_smem):
+                raise AssertionError(f"bf16 plan {plan} at T={t}: the kernels count "
+                                     f"{dt.kernel_smem(plan, t, DIMS, es=2)}")
+    log("  trunk_plan's shared-memory bytes at 2 bytes an element equal the kernels'")
+    cases = [(f"NCI1 T={t_main}", *shapes[t_main], None),
+             (f"PROTEINS T={t_prot}", *shapes[t_prot], None),
+             *[(name, adj, mask, None) for name, adj, mask in collab.shapes(device)],
+             (f"lockstep S={SL} K={FOLDS} T={t_main}", *lock_shapes[t_main], FOLDS),
+             ("PROTEINS T=624", *shapes[624], None)]
+    for t in (cap, cap + 8):
+        cases.append((f"random T={t} ({'bf16 resident cap' if t == cap else 'cap + 8'})",
+                      *random_symmetric_case(t, seed=t + 1, device=device), None))
+    for name, adj, mask, folds in cases:
+        s, t = adj.shape[0], adj.shape[1]
+        p32, p16 = dt.trunk_plan(s, t, DIMS), dt.trunk_plan(s, t, DIMS, es=2)
+        log(f"  {name}: plan bf16 {p16.regime}{f' C={p16.c}' if p16.c else ''} (fp32 "
+            f"{p32.regime}{f' C={p32.c}' if p32.c else ''})")
+        compare_trunk_bf16(name, adj, mask, device, dt, stats, folds=folds)
+    return cap
+
+
 def dense_case(gs, n_tile, device):
     from dgcnn_tpu_torch.batching.dense import pack_dense_batch
 
@@ -527,34 +702,25 @@ def check_lockstep_trunk(datasets, device, dt, stats):
     return shapes
 
 
-def trunk_bounds(s, t, k):
-    """(fwd, bwd) least times in ms. Each input read once, each output
-    written once."""
-    sd = sum(DIMS)
-    pairs = sum(a * b for a, b in zip(DIMS[:-1], DIMS[1:]))
-    wbytes = 4 * k * (pairs + sd) + 4 * s
-    p = pairs + sd  # per-slot gradient values the backward writes
-    fwd_bytes = 4 * (s * t * t + s * t * DIMS[0] + s * t + s * t * sd) + wbytes
-    fwd_flops = 2 * s * t * t * sd + 2 * s * t * pairs
-    bwd_bytes = 4 * (s * t * t + s * t + 2 * s * t * sd + s * t * DIMS[0]
-                     + s * p) + wbytes
-    bwd_flops = 2 * s * t * t * sd + 4 * s * t * pairs
-    return bound(fwd_bytes, fwd_flops), bound(bwd_bytes, bwd_flops)
-
-
-def time_trunk(dt, adj, mask, plan, flush, device, folds=None):
+def time_trunk(dt, adj, mask, plan, flush, device, folds=None, round_h=False):
     """Phase 5's times of one trunk shape: kernel forward and backward warm
     and flushed, the plain chain (unforced plans), the bounds. K = 1, or
-    K = `folds` with the lockstep `wsel`."""
+    K = `folds` with the lockstep `wsel`. A bf16 `adj` times the bf16 mode
+    (`round_h`: bf16 compute, W_i rounded as the model passes them), its
+    bounds at 2 bytes an adjacency element."""
     k = folds or 1
     s, t = adj.shape[0], adj.shape[1]
+    es = adj.element_size()
     hw1, wsel, ws, bs = trunk_inputs(adj, mask, k, seed=1, device=device)
     if folds:
         wsel = lockstep_wsel(s, folds, device)
+    if round_h:
+        ws = [dt.round_bf16(w) for w in ws]
     with torch.no_grad():
-        cat = dt.gcn_trunk_plain(DIMS, adj, hw1, mask, wsel, ws, bs)
+        cat = dt.gcn_trunk_plain(DIMS, adj, hw1, mask, wsel, ws, bs, round_h)
     g = torch.randn_like(cat)
-    fwd = lambda: dt._cuda_fwd(DIMS, adj, hw1, mask, wsel, ws, bs, k, plan)  # noqa: E731
+    fwd = lambda: dt._cuda_fwd(DIMS, adj, hw1, mask, wsel, ws, bs, k, plan,  # noqa: E731
+                               round_h=round_h)
     bwd = lambda: dt._cuda_bwd(DIMS, adj, mask, wsel, ws, cat, g, k, plan)  # noqa: E731
     fits = plan is None or plan.bwd_smem <= dt.SMEM_MAX
     row = {
@@ -564,11 +730,11 @@ def time_trunk(dt, adj, mask, plan, flush, device, folds=None):
     }
     if plan is None:
         row["fwd_plain"] = device_ms(
-            lambda: dt.gcn_trunk_plain(DIMS, adj, hw1, mask, wsel, ws, bs))
+            lambda: dt.gcn_trunk_plain(DIMS, adj, hw1, mask, wsel, ws, bs, round_h))
         row["bwd_plain"] = device_ms(
             lambda: dt.gcn_trunk_plain_bwd(DIMS, adj, mask, wsel, ws, cat, g))
-    (fb, fby), (bb, bby) = trunk_bounds(s, t, k)
-    used = plan or dt.trunk_plan(s, t, DIMS)
+    (fb, fby), (bb, bby) = trunk_bounds(s, t, k, DIMS, es, round_h)
+    used = plan or dt.trunk_plan(s, t, DIMS, es=es)
     row.update(bound_fwd=fb, bound_fwd_by=fby, bound_bwd=bb, bound_bwd_by=bby,
                plan=f"{used.regime}" + (f" C={used.c}" if used.c else ""))
     return row
@@ -815,6 +981,62 @@ def compare_block(name, b, nb, pool, device, stats, widths=(32, 1), variants=Fal
     return n_items
 
 
+def compare_block_bf16(name, b, nb, pool16, device, stats, widths=(32, 1)):
+    """Both kernels' bf16 mode (bf16 pool and hb) against the plain
+    version at each width: the forward and the transposed launch, each
+    fp32 out, within the fp32 tolerance (the products of two bf16 values
+    are exact, so only the order of the fp32 sums differs); two runs
+    bitwise equal; through the autograd entry, the output is the forward
+    launch's bits and d_hb is the transposed launch on the cotangent
+    rounded to bf16, rounded to bf16 itself; the bf16 counts move."""
+    from dgcnn_tpu_torch.kernels.block_prop import block_propagate_plain
+
+    n_items = int(b.num_items)
+    gen = torch.Generator(device=device).manual_seed(3 * nb + n_items)
+    for f in widths:
+        hb = torch.randn((nb, BS, f), generator=gen, device=device).bfloat16()
+        g = torch.randn((nb, BS, f), generator=gen, device=device)
+        g16 = g.bfloat16()
+        for kname, (mod, fn) in block_kernels().items():
+            items = (b.item_pool, b.item_row, b.item_col, b.item_permT, b.item_colT)
+            plan = mod.make_plan(*items, nb)
+            want = block_propagate_plain(hb, pool16, plan.fwd.ip, plan.fwd.seg,
+                                         plan.fwd.src)
+            want_t = block_propagate_plain(g16, pool16, plan.bwd.ip, plan.bwd.seg,
+                                           plan.bwd.src, transpose=True)
+            before = dict(vars(mod.launches))
+            runs = [(mod._cuda_prop(hb, pool16, plan, plan.fwd, b.num_items, False),
+                     mod._cuda_prop(g16, pool16, plan, plan.bwd, b.num_items, True))
+                    for _ in range(2)]
+            x = hb.clone().requires_grad_()
+            out = fn(x, pool16, *items, b.num_items, plan)
+            out.backward(g)
+            ran = {key: v - before[key] for key, v in vars(mod.launches).items()}
+            got, got_t = runs[0]
+            err, rel, ok = rel_err(got, want)
+            terr, trel, tok = rel_err(got_t, want_t)
+            if not ok or not tok:
+                raise AssertionError(
+                    f"{name} bf16 F={f} {kname}: disagrees with the plain version "
+                    f"(fwd abs {err:.3e} rel {rel:.3e}; transposed abs {terr:.3e} "
+                    f"rel {trel:.3e})")
+            if not all(torch.equal(a, c) for a, c in zip(runs[0], runs[1])):
+                raise AssertionError(f"{name} bf16 F={f} {kname}: two runs differ")
+            if (out.dtype != torch.float32 or not torch.equal(out.detach(), got)
+                    or x.grad.dtype != torch.bfloat16
+                    or not torch.equal(x.grad, got_t.bfloat16())):
+                raise AssertionError(f"{name} bf16 F={f} {kname}: the autograd entry "
+                                     f"is not the launches' bits")
+            if ran["bf16_fwd"] != 3 or ran["bf16_bwd"] != 3:
+                raise AssertionError(f"{name} bf16 F={f} {kname}: counts moved {ran}")
+            stats[f"{kname}_bf16_fwd"] = max(stats.get(f"{kname}_bf16_fwd", 0.0), err)
+            stats[f"{kname}_bf16_bwd"] = max(stats.get(f"{kname}_bf16_bwd", 0.0), terr)
+            log(f"  {name} bf16 F={f} {kname}: fwd max abs {err:.3e} rel {rel:.3e}; "
+                f"transposed max abs {terr:.3e} rel {trel:.3e}; two runs bitwise "
+                f"equal; autograd entry = the launches' bits")
+    return n_items
+
+
 def check_blocks(ctx, device, stats):
     """Phase 3b: every case of both block kernels."""
     checked = {"mean": ctx.mean_row, "max": ctx.max_row, "largest graph": ctx.big_row}
@@ -845,11 +1067,19 @@ def check_lockstep_blocks(lctx, device, stats):
                   FOLDS * lctx.nb, lctx.ctx.pool, device, stats, variants=True)
 
 
-def block_bounds(n_items, nb, f):
-    """(least ms, by) of one propagation: each real item's block and
-    source rows read once, the [nb, bs, F] output written once."""
-    nbytes = n_items * (BS * BS * 4 + BS * f * 4) + nb * BS * f * 4
-    return bound(nbytes, 2.0 * n_items * BS * BS * f)
+def check_blocks_bf16(ctx, lctx, pool16, device, stats):
+    """Phase 3b's bf16 cases (`compare_block_bf16`: both kernels, forward
+    and transposed, F ∈ {32, 1}): DD's mean and largest batch and the
+    10-fold merged mean lockstep step, with headroom (padded items and
+    unvisited block-rows), over the pool rounded to bf16."""
+    nb, w = ctx.nb + 8, ctx.w + 64
+    for label, r in (("mean", ctx.mean_row), ("max", ctx.max_row)):
+        compare_block_bf16(f"DD {label} batch (row {r}, {ctx.row_items[r]} items)",
+                           ctx.batch(r, nb, w), nb, pool16, device, stats)
+    b = lctx.batch(w=lctx.w + 64)
+    compare_block_bf16(f"DD {FOLDS}-fold merged mean step ({int(b.num_items)} items, "
+                       f"nb' {FOLDS * lctx.nb})", b, FOLDS * lctx.nb, pool16, device,
+                       stats)
 
 
 def library_bsr(b, nb, pool, f, hb, transpose):
@@ -865,18 +1095,20 @@ def library_bsr(b, nb, pool, f, hb, transpose):
     else:
         seg, src, vals = b.item_row, b.item_col, pool[b.item_pool[:n].long()]
     a = torch.sparse_bsr_tensor(
-        row_ptr(seg, nb).long(), src[:n].long(), vals.contiguous(),
+        row_ptr(seg, nb).long(), src[:n].long(), vals.float().contiguous(),
         size=(nb * BS, nb * BS),
     )
-    x = hb.reshape(nb * BS, f)
+    x = hb.reshape(nb * BS, f).float()  # bf16 operands widen exactly: the same function
     return lambda: a @ x
 
 
-def time_block(b, nb, pool, flush, device):
+def time_block(b, nb, pool, flush, device, variants=True):
     """Per kernel, design and F: warm and flushed device ms of the kernel
     on batch `b` of `nb` block-rows (its plan built outside the timed
     call), warm ms of the plain version and of the library call, and the
-    bound; each kernel's plan build."""
+    bound; each kernel's plan build. A bf16 pool times the bf16 mode (hb
+    in bf16, the bound at 2 bytes an element, the library call on the
+    widened operands); `variants=False` times the wrapper's design only."""
     from dgcnn_tpu_torch.kernels.block_prop import block_propagate_plain
 
     n_items = int(b.num_items)
@@ -888,8 +1120,8 @@ def time_block(b, nb, pool, flush, device):
         log(f"  {kname} plan build (once per batch): {rows[(kname, 'plan')]:.4f} ms")
     tplan = block_kernels()["block_csr"][0].make_plan(*items, nb).bwd
     for f in (32, 1):
-        hb = torch.randn((nb, BS, f), generator=gen, device=device)
-        bnd = block_bounds(n_items, nb, f)
+        hb = torch.randn((nb, BS, f), generator=gen, device=device).to(pool.dtype)
+        bnd = block_bounds(n_items, nb, f, es=pool.element_size())
 
         def plain_fwd():
             return block_propagate_plain(hb, pool, b.item_pool, b.item_row, b.item_col)
@@ -912,7 +1144,7 @@ def time_block(b, nb, pool, flush, device):
                 log(f"  library BSR {d} F={f}: {type(e).__name__}: {str(e)[:200]} → null")
                 lib[d] = None
         for kname, (mod, _) in block_kernels().items():
-            for label, size in block_variants(kname):
+            for label, size in block_variants(kname)[:None if variants else 1]:
                 plan = variant_plan(mod, b, nb, size)
                 for d, tr in (("fwd", False), ("bwd", True)):
                     dr = plan.bwd if tr else plan.fwd
@@ -1498,11 +1730,14 @@ def folds_net(model, device, seed=3):
         for f in range(FOLDS)]))
 
 
-def card_vs_cpu(name, make_batch, model, folds=False):
+def card_vs_cpu(name, make_batch, model, folds=False, rtol=None):
     """log-probs and every parameter gradient of one batch on the card and
     on the CPU, the same weights; returns the worst relative error.
     `folds`: a lockstep batch of FOLDS folds through `DGCNNFoldsNet`, the
-    sum of the per-fold losses backpropagated."""
+    sum of the per-fold losses backpropagated. `rtol` (bf16 runs) holds
+    each tensor within rtol of its largest value instead of the fp32
+    tolerance: both sides round to bf16 at the same points, from fp32
+    sums taken in other orders."""
     from dgcnn_tpu_torch.models.dgcnn import DGCNNNet, init_params
     from dgcnn_tpu_torch.train.loop import nll_loss_and_correct
 
@@ -1521,13 +1756,15 @@ def card_vs_cpu(name, make_batch, model, folds=False):
             lp = net(b, **kw)
             loss, _ = nll_loss_and_correct(lp, b.y, b.graph_mask)
         loss.backward()
-        outs[dev] = [lp.detach()] + [p.grad for p in net.parameters()]
+        outs[dev] = [("log_probs", lp.detach())] + [(n, p.grad)
+                                                    for n, p in net.named_parameters()]
     worst = 0.0
-    for a, c in zip(outs["cuda"], outs["cpu"]):
-        err, rel, ok = rel_err(a.cpu(), c)
+    for (what, a), (_, c) in zip(outs["cuda"], outs["cpu"]):
+        err, rel, ok = rel_err(a.cpu(), c) if rtol is None else bf16_err(a.cpu(), c, rtol)
         worst = max(worst, rel)
         if not ok or not torch.isfinite(a).all():
-            raise AssertionError(f"{name}: card vs CPU disagree (max abs {err:.3e})")
+            raise AssertionError(f"{name}: card vs CPU disagree on {what} (max abs "
+                                 f"{err:.3e}, its largest value {c.abs().max().item():.3e})")
     log(f"  {name}: log_probs and {len(outs['cpu']) - 1} parameter gradients "
         f"agree, worst rel {worst:.3e}")
     return worst
@@ -1568,14 +1805,28 @@ def cv_config(tmp, sub, data_type, folds_n, epochs, **kw):
                   epochs_dir=os.path.join(tmp, sub, "epochs"), **kw)
 
 
+PEAK_MIB = {}  # a run's statistics_dir → its peak memory above what was allocated before
+# synthetic datasets the contexts have already made (the loader's own:
+# `synthesize_tu_dataset(name)`), handed to the runs so that each does not
+# synthesize its dataset again (COLLAB's takes ~7 s)
+SYNTH = {}
+
+
 def run_cv(cfg, graphs):
     """`run_cross_validation` on the card (`graphs=False`: every epoch
-    eager); (result, wall seconds)."""
+    eager), on the dataset in `SYNTH` or else the one the loader
+    synthesizes; (result, wall seconds). Records the run's peak memory
+    (engine, data and runners included) in `PEAK_MIB`."""
     from dgcnn_tpu_torch.train.cv import run_cross_validation
 
-    t0 = time.perf_counter()
-    result = run_cross_validation(cfg, allow_synthetic=True, graphs=graphs)
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = run_cross_validation(cfg, dataset=SYNTH.get(cfg.data_type),
+                                  allow_synthetic=True, graphs=graphs)
+    torch.cuda.synchronize()
+    PEAK_MIB[cfg.statistics_dir] = (torch.cuda.max_memory_allocated() - base) / 2**20
     return result, time.perf_counter() - t0
 
 
@@ -1709,14 +1960,15 @@ def lockstep_main_path(nci1, t_main, dt):
     return {"trunk_launches": trunk_n, "lockstep_epoch_s": lock_s,
             "lockstep_eager_epoch_s": lock_eager_s, "sequential_epoch_s": seq_s,
             "sequential_eager_epoch_s": seq_eager_s,
-            "steps": (steps_max, t_steps_max)}
+            "steps": (steps_max, t_steps_max), "peak_mib": PEAK_MIB[cfg.statistics_dir]}
 
 
-def epoch_runners(gs, model, n_tile, device, graphs):
+def epoch_runners(gs, model, n_tile, device, graphs, data=None):
     """The fused runners as the drivers build them, the drivers' seeds:
     synthetic NCI1's FOLDS-fold lockstep runner and fold 1's one-fold
     runner, each with its first 3 epochs' orders and a `state()` of what
-    an epoch updates (parameters, optimizer state, generator states)."""
+    an epoch updates (parameters, optimizer state, generator states), over
+    `data` (the fp32 dense dataset when None)."""
     from dgcnn_tpu_torch.batching.dense import build_dense_dataset, order_matrix
     from dgcnn_tpu_torch.data.folds import get_folds
     from dgcnn_tpu_torch.models.dgcnn import DGCNNFoldsNet, init_params, stack_params
@@ -1725,7 +1977,7 @@ def epoch_runners(gs, model, n_tile, device, graphs):
     from dgcnn_tpu_torch.train.loop import (FoldAdam, make_dense_gather_run,
                                             make_dense_lockstep_run)
 
-    data = build_dense_dataset(gs, n_tile, device)
+    data = build_dense_dataset(gs, n_tile, device) if data is None else data
     folds = get_folds(gs.y, "", FOLDS, 324, data_type="NCI1")
     train = [np.asarray(tr, np.int32) for tr, _ in folds]
     test = [np.asarray(te, np.int32) for _, te in folds]
@@ -2221,14 +2473,16 @@ def block_lockstep_main_path(ctx, counters, seq_rows, auto_impl, other_impl):
             f"{other_s}; against the sequential graphed fold-epoch of phase 4b")
         out["ten_folds"] = {"launches": n, "f1": f1, "budgets": keys, "steps": steps10,
                             "epoch_s": graphed_s, "eager_epoch_s": eager_s,
-                            "other_epoch_s": other_s, "wall_s": wall, "eager_wall_s": wall_e}
+                            "other_epoch_s": other_s, "wall_s": wall, "eager_wall_s": wall_e,
+                            "peak_mib": PEAK_MIB[cfg.statistics_dir]}
     return out
 
 
-def dd_lockstep_runners(ctx, lctx, model, device, graphs):
+def dd_lockstep_runners(ctx, lctx, model, device, graphs, dev=None):
     """The 10-fold DD block lockstep runner as the driver builds it (the
     driver's seeds; `block_impl` auto), at the budgets of its first 3
-    epochs and the test order, with the 3 orders and a `state()`."""
+    epochs and the test order, with the 3 orders and a `state()`, over the
+    graphset `dev` (the engine's, fp32, when None)."""
     from dgcnn_tpu_torch.batching.block_sparse import block_fold_extents
     from dgcnn_tpu_torch.config import Config
     from dgcnn_tpu_torch.models.dgcnn import DGCNNFoldsNet, init_params, stack_params
@@ -2245,7 +2499,8 @@ def dd_lockstep_runners(ctx, lctx, model, device, graphs):
     adam_f = FoldAdam(net_f)
     gens = [torch.Generator(device=device).manual_seed(_stream_seed(324, f, 2))
             for f in range(1, FOLDS + 1)]
-    run = make_block_lockstep_run(net_f, adam_f, ctx.engine.dev, lctx.test, nb, w,
+    run = make_block_lockstep_run(net_f, adam_f, ctx.engine.dev if dev is None else dev,
+                                  lctx.test, nb, w,
                                   (orders[0] >= 0).any(-1), gens,
                                   Config().resolved_block_impl(), graphs)
 
@@ -2416,15 +2671,15 @@ def check_collab_trunk(collab, device, dt, stats):
         compare_trunk(f"{name} ({want})", adj, mask, device, dt, stats)
 
 
-def trunk_calls_want(dt, tiles, slot_sets, steps, train_steps):
+def trunk_calls_want(dt, tiles, slot_sets, steps, train_steps, es=4):
     """Trunk calls by regime of `steps` forwards and `train_steps` backwards
     of every class: the counters' (resident_fwd, resident_bwd, streamed_fwd,
     streamed_bwd), and the kernel launches (fwd, bwd) they make
-    (`launches_per_call`). Each class must keep one regime over
-    `slot_sets`."""
+    (`launches_per_call`), for an adjacency of `es` bytes an element. Each
+    class must keep one regime over `slot_sets`."""
     regimes = []
     for c, t in enumerate(tiles):
-        plans = {dt.trunk_plan(sl[c], t, DIMS).regime for sl in slot_sets}
+        plans = {dt.trunk_plan(sl[c], t, DIMS, es=es).regime for sl in slot_sets}
         if len(plans) != 1:
             raise AssertionError(f"class T={t}: regimes {plans} over slots {slot_sets}")
         regimes.append(plans.pop())
@@ -2540,7 +2795,7 @@ def multi_main_path(collab, dt, device):
     return {"calls": got, "kernel_launches": kern, "regimes": regimes,
             "slot_floors": start["slot_floors"], "steps": (tr_n, ev_n),
             "epoch_s": chunk2, "eager_epoch_s": chunk2_e, "dense_epoch_s": dense_chunk2,
-            "rows": rows}
+            "rows": rows, "peak_mib": PEAK_MIB[cfg.statistics_dir]}
 
 
 def check_collab_lockstep_trunk(collab, device, dt, stats):
@@ -2705,6 +2960,173 @@ def multi_runners(collab, model, device, graphs):
                              orders.shape[1] + test.shape[0])}
 
 
+# -- phase 4g: mixed precision on the main paths -----------------------------
+
+
+def bf16_batch(b):
+    """A dense batch (or a MultiDenseBatch) with its adjacency, and under
+    bf16 compute its features, rounded to bf16, as the engines store them."""
+    from dgcnn_tpu_torch.batching.multi_dense import MultiDenseBatch
+
+    if isinstance(b, MultiDenseBatch):
+        return dataclasses.replace(b, classes=tuple(
+            dataclasses.replace(c, adj=c.adj.bfloat16()) for c in b.classes))
+    return dataclasses.replace(b, x=b.x.bfloat16(), adj=b.adj.bfloat16())
+
+
+def bf16_main_paths(ctx, collab, nci1, dt, fp32):
+    """Phase 4g: the slice's main paths at full width through
+    `run_cross_validation`, each in chunks of `max_fused_epochs` 2, graphed
+    with the counts set to 0 just before and read just after, then eager:
+    synthetic NCI1 `--dtype bfloat16` (dense, 10-fold lockstep under
+    `auto`) 10 × 4, the trunk's launches exact per replay, all resident,
+    every one bf16; synthetic DD `--dtype bfloat16` (block, 10-fold
+    lockstep under `auto`, the CSR kernel) 10 × 4, and `--block_impl xla`
+    10 × 2 graphed, the block kernels' launches exact per replay, every one
+    bf16; synthetic COLLAB `--adj_dtype bfloat16` (multi, the folds one
+    after another) 2 × 4, trunk calls by regime at 2 bytes an element.
+    Each: rows and `epochs/` bundles bitwise equal graphed and eager,
+    finite losses, fold-epoch seconds and peak memory beside the fp32 run
+    of the same path (`fp32`: label → (fold-epoch seconds, peak MiB));
+    `--layout coo --dtype bfloat16` raises NotImplementedError."""
+    from dgcnn_tpu_torch.kernels import block_csr, block_resident
+
+    counters = {"block_csr": block_csr.launches, "block_resident": block_resident.launches}
+    out = {}
+
+    def side_by_side(label, cfg, epoch_s):
+        peak = PEAK_MIB[cfg.statistics_dir]
+        s32, p32 = fp32[label]
+        log(f"  {label}: fold-epoch seconds graphed bf16 {epoch_s} against fp32 {s32}; "
+            f"peak memory of the run (engine and data included) bf16 {peak:.1f} MiB "
+            f"against fp32 {p32:.1f} MiB")
+        return peak
+
+    with tempfile.TemporaryDirectory() as tmp:
+        steps, t_steps = lockstep_steps("NCI1", nci1.y, FOLDS, 50,
+                                        os.path.join(tmp, "data", "NCI1", "10fold_idx"))
+        want = (4 * (steps + t_steps), 4 * steps)
+        kw = dict(max_fused_epochs=2, compute_dtype="bfloat16")
+        cfg = cv_config(tmp, "nci1_bf16", "NCI1", FOLDS, 4, **kw)
+        eager = cv_config(tmp, "nci1_bf16_eager", "NCI1", FOLDS, 4, **kw)
+        _, _, calls = counted_run(cfg, True, dt, want)
+        bf16 = (dt.launches.bf16_fwd, dt.launches.bf16_bwd)
+        if bf16 != want:
+            raise AssertionError(f"NCI1 bf16: {bf16} bf16 trunk calls, expected {want}")
+        run_cv(eager, False)
+        same_bits("NCI1 bf16: graphed vs eager rows", fold_rows(cfg), fold_rows(eager))
+        same_bits("NCI1 bf16: graphed vs eager epochs/ bundles", bundles(cfg),
+                  bundles(eager))
+        check_artifacts(os.path.join(tmp, "nci1_bf16"), "NCI1", FOLDS, 4)
+        ev = lockstep_events_ok("NCI1 bf16", cfg, FOLDS, 4)
+        epoch_s = chunk_seconds(ev, FOLDS)
+        peak = side_by_side("NCI1 lockstep", cfg, epoch_s)
+        log(f"  NCI1 --dtype bfloat16, {FOLDS} folds in lockstep: trunk calls {calls}, "
+            f"every one bf16 (round_h), all resident; rows and epochs/ bundles bitwise "
+            f"graphed and eager; losses finite")
+        out["nci1"] = {"calls": calls, "epoch_s": epoch_s, "peak_mib": peak}
+
+        dd_dir = os.path.join(tmp, "data", "DD", "10fold_idx")
+        steps10 = lockstep_steps("DD", ctx.gs.y, FOLDS, 50, dd_dir)
+
+        def props(epochs):
+            return 4 * epochs * sum(steps10), 4 * epochs * steps10[0]
+
+        kw = dict(max_fused_epochs=2, compute_dtype="bfloat16")
+        cfg = cv_config(tmp, "dd_bf16", "DD", FOLDS, 4, **kw)
+        eager = cv_config(tmp, "dd_bf16_eager", "DD", FOLDS, 4, **kw)
+        dd = {}
+        for label, c, graphs in (("graphed", cfg, True), ("eager", eager, False)):
+            _, n, f1, keys = counted_lockstep_run(
+                f"DD --dtype bfloat16 {FOLDS} x 4 (block lockstep, CSR kernel)", c, graphs,
+                counters, "block_csr", props(4))
+            bf16 = (block_csr.launches.bf16_fwd, block_csr.launches.bf16_bwd)
+            if bf16 != n:
+                raise AssertionError(f"DD bf16 {label}: {bf16} bf16 launches of {n}")
+            dd[label] = (n, f1, keys)
+        same_bits("DD bf16: graphed vs eager rows", fold_rows(cfg), fold_rows(eager))
+        same_bits("DD bf16: graphed vs eager epochs/ bundles", bundles(cfg), bundles(eager))
+        start = check_artifacts(os.path.join(tmp, "dd_bf16"), "DD", FOLDS, 4)[0]
+        if start["layout"] != "block":
+            raise AssertionError(f"run_start says {start}")
+        epoch_s = chunk_seconds(lockstep_events_ok("DD bf16", cfg, FOLDS, 4), FOLDS)
+        peak = side_by_side("DD block lockstep", cfg, epoch_s)
+        other = cv_config(tmp, "dd_bf16_xla", "DD", FOLDS, 2, block_impl="xla", **kw)
+        _, n_x, f1_x, _ = counted_lockstep_run(
+            f"DD --dtype bfloat16 --block_impl xla {FOLDS} x 2 (item-parallel kernel)",
+            other, True, counters, "block_resident", props(2))
+        if (block_resident.launches.bf16_fwd, block_resident.launches.bf16_bwd) != n_x:
+            raise AssertionError("DD bf16 xla: a launch of the item-parallel kernel "
+                                 "was not bf16")
+        log(f"  DD --dtype bfloat16: pool stored bf16 (the propagation dtype); every "
+            f"block-kernel launch bf16; rows and epochs/ bundles bitwise graphed and "
+            f"eager; losses finite")
+        out["dd"] = {"launches": dd["graphed"][0], "f1": dd["graphed"][1],
+                     "budgets": dd["graphed"][2], "epoch_s": epoch_s, "peak_mib": peak,
+                     "xla_launches": n_x, "xla_f1": f1_x}
+
+        kw = dict(max_fused_epochs=2, cv_parallel="sequential", adj_dtype="bfloat16")
+        cfg = cv_config(tmp, "collab_bf16", "COLLAB", 2, 4, **kw)
+        eager = cv_config(tmp, "collab_bf16_eager", "COLLAB", 2, 4, **kw)
+        dt.launches.reset()
+        _, wall = run_cv(cfg, True)
+        got = (dt.launches.resident_fwd, dt.launches.resident_bwd,
+               dt.launches.streamed_fwd, dt.launches.streamed_bwd)
+        kern = (dt.launches.kernel_fwd, dt.launches.kernel_bwd)
+        bf16 = (dt.launches.bf16_fwd, dt.launches.bf16_bwd)
+        tr_n, ev_n = count_steps("COLLAB", collab.gs.y, 2, 4, 50,
+                                 os.path.join(tmp, "data", "COLLAB", "10fold_idx"))
+        start = check_artifacts(os.path.join(tmp, "collab_bf16"), "COLLAB", 2, 4)[0]
+        if start["layout"] != "multi" or tuple(start["tiles"]) != collab.tiles:
+            raise AssertionError(f"run_start says {start}")
+        want, want_kern, regimes = trunk_calls_want(
+            dt, collab.tiles, [start["slot_floors"]], tr_n + ev_n, tr_n, es=2)
+        log(f"  COLLAB --adj_dtype bfloat16 2 x 4, graphed: {wall:.1f} s; classes "
+            f"{collab.tiles} run {regimes} at 2 bytes an element; trunk calls by regime "
+            f"{got} (want {want}), kernel launches {kern} (want {want_kern}), bf16 calls "
+            f"{bf16}")
+        if got != want or kern != want_kern or bf16 != (want[0] + want[2],
+                                                        want[1] + want[3]):
+            raise AssertionError(f"COLLAB bf16: trunk calls {got}, kernels {kern}, bf16 "
+                                 f"{bf16}, expected {want}, {want_kern}")
+        run_cv(eager, False)
+        same_bits("COLLAB bf16: graphed vs eager rows", fold_rows(cfg), fold_rows(eager))
+        same_bits("COLLAB bf16: graphed vs eager epochs/ bundles", bundles(cfg),
+                  bundles(eager))
+        ev = epoch_events(cfg)
+        epoch_s = [(e["fold"], e["epoch_seconds"]) for e in ev if e["epoch"] > 2]
+        peak = side_by_side("COLLAB multi", cfg, epoch_s)
+        out["collab"] = {"calls": got, "kernel_launches": kern, "regimes": regimes,
+                         "slot_floors": start["slot_floors"], "epoch_s": epoch_s,
+                         "peak_mib": peak}
+
+        coo = cv_config(tmp, "coo_bf16", "NCI1", 1, 1, layout="coo",
+                        compute_dtype="bfloat16")
+        try:
+            run_cv(coo, True)
+        except NotImplementedError as e:
+            if "item 20" not in str(e):
+                raise
+            log(f"  NCI1 --layout coo --dtype bfloat16: NotImplementedError ({e})")
+        else:
+            raise AssertionError("COO under bf16 compute ran")
+    return out
+
+
+def bf16_runners(nci1, nci1_model16, t_main, ctx, lctx, dd_model16, dd_dev16, device,
+                 graphs):
+    """Phase 6's bf16 epoch graphs, built as the drivers build them: NCI1's
+    10-fold lockstep runner over the dataset stored in bf16, and DD's
+    10-fold block lockstep runner over the bf16 pool (bf16 models)."""
+    from dgcnn_tpu_torch.batching.dense import build_dense_dataset
+
+    data = build_dense_dataset(nci1, t_main, device, "float32", "bfloat16")
+    return {"lockstep bf16": epoch_runners(nci1, nci1_model16, t_main, device, graphs,
+                                           data=data)["lockstep"],
+            "DD block lockstep bf16": dd_lockstep_runners(
+                ctx, lctx, dd_model16, device, graphs, dev=dd_dev16)["DD block lockstep"]}
+
+
 # -- phase 6: one profiled train step ---------------------------------------
 
 
@@ -2839,21 +3261,29 @@ def main() -> int:
     shapes = check_trunk(datasets, device, dt, stats)
     lock_shapes = check_lockstep_trunk(datasets, device, dt, stats)
     collab = CollabContext(device)
+    SYNTH["COLLAB"] = collab.gs
     if collab.layout != "multi" or collab.tiles != (256, 464):
         raise AssertionError(f"choose_layout gave {collab.layout}, tiles {collab.tiles} "
                              f"for COLLAB, not multi at (256, 464)")
     check_collab_trunk(collab, device, dt, stats)
     multi_lock_shapes = check_collab_lockstep_trunk(collab, device, dt, stats)
+    t_prot = dense_tile(datasets["PROTEINS"])
+    log("  -- the bf16 mode (a bf16 adjacency; round_h: bf16 compute)")
+    cap16 = check_trunk_bf16(shapes, lock_shapes, collab, t_main, t_prot, device, dt, stats)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
     log("== phase 3b: block kernels vs plain version on the card")
     ctx = DDContext(device)
+    SYNTH["DD"] = ctx.gs
     if ctx.layout != "block":
         raise AssertionError(f"choose_layout gave {ctx.layout} for DD, not block")
     check_blocks(ctx, device, stats)
     lctx = DDLockstepContext(ctx)
     check_lockstep_blocks(lctx, device, stats)
+    log("  -- the bf16 mode (bf16 pool and hb)")
+    pool16 = ctx.pool.to(torch.bfloat16)
+    check_blocks_bf16(ctx, lctx, pool16, device, stats)
 
     log("== phase 3c: SpMM kernels vs plain version on the card")
     dd_coo = CooContext("DD", device, gs=ctx.gs)
@@ -3067,12 +3497,49 @@ def main() -> int:
     multi_lock = multi_lockstep_main_path(collab, dt, multi["rows"])
     check_multi_lockstep_step(collab, collab_model, device)
 
+    log("== phase 4g: mixed precision on the main paths: synthetic NCI1 --dtype "
+        f"bfloat16 (dense, {FOLDS}-fold lockstep) {FOLDS} x 4, synthetic DD --dtype "
+        f"bfloat16 (block, {FOLDS}-fold lockstep) {FOLDS} x 4 and --block_impl xla "
+        f"{FOLDS} x 2, synthetic COLLAB --adj_dtype bfloat16 (multi, sequential) 2 x 4, "
+        "in chunks of max_fused_epochs 2, graphed then eager; card vs CPU; the bf16 "
+        "lockstep runners built directly; COO under bf16 compute refused")
+    log(card)
+    mp = bf16_main_paths(ctx, collab, nci1, dt, {
+        "NCI1 lockstep": (lock["lockstep_epoch_s"], lock["peak_mib"]),
+        "DD block lockstep": (dd_lock["ten_folds"]["epoch_s"],
+                              dd_lock["ten_folds"]["peak_mib"]),
+        "COLLAB multi": (multi["epoch_s"], multi["peak_mib"])})
+    nci1_model16 = DGCNN(num_features=nci1.num_features, num_classes=nci1.num_classes,
+                         compute_dtype="bfloat16")
+    dd_model16 = DGCNN(num_features=dd.num_features, num_classes=dd.num_classes,
+                       compute_dtype="bfloat16")
+    card_vs_cpu(f"NCI1 lockstep batch, bf16 compute ({FOLDS} folds x {S} slots)",
+                lambda dev: (bf16_batch(batch_to_device(lock_host, dev)), {}),
+                nci1_model16, folds=True, rtol=1e-2)
+    dd_cpu16 = block_graphset_to_device(build_block_graphset(dd), "cpu", "bfloat16")
+    dd_dev16 = dataclasses.replace(ctx.engine.dev, pool=pool16)
+
+    def dd_lock_batch16(dev):
+        from dgcnn_tpu_torch.batching.block_sparse import gather_block_batch_folds
+
+        gsd = dd_dev16 if dev == "cuda" else dd_cpu16
+        row = torch.from_numpy(lctx.order[lctx.mean_step]).to(dev)
+        return (gather_block_batch_folds(gsd, row, lctx.nb, lctx.w),
+                {"pool": gsd.pool, "block_impl": auto_impl})
+
+    card_vs_cpu(f"DD block lockstep batch, bf16 compute ({FOLDS} folds, merged mean "
+                f"step)", dd_lock_batch16, dd_model16, folds=True, rtol=1e-2)
+    del dd_cpu16
+    card_vs_cpu(f"COLLAB multi batch, bf16 adjacency (fold 1's step {collab.step})",
+                lambda dev: (bf16_batch(collab.batch(dev)), {}), collab_model, rtol=1e-2)
+    runners.update(check_runners(lambda graphs: bf16_runners(
+        nci1, nci1_model16, t_main, ctx, lctx, dd_model16, dd_dev16, device, graphs)))
+
     log("== phase 5: device times (CUDA-graph replay, CUDA events)")
     log(card)
     flush = Flush(device)
     log(f"  L2 flush: {FLUSH_BYTES >> 20} MB write, {flush.ms:.4f} ms")
     trunk_times = {}
-    t_prot = dense_tile(datasets["PROTEINS"])
     timed = [(t, None) for t in (t_main, 112, t_prot, 624)] + [
         (t, dt.trunk_plan(S, t, DIMS, c=c)) for t in (t_main, t_prot) for c in dt.CLUSTERS]
     for t, plan in timed:
@@ -3123,6 +3590,24 @@ def main() -> int:
         log(f"  trunk T={t}: the {FOLDS}-fold lockstep class against {FOLDS} x the "
             f"one-fold class: fwd {b['fwd']:.4f} vs {FOLDS * a['fwd']:.4f} ms, bwd "
             f"{b['bwd']:.4f} vs {FOLDS * a['bwd']:.4f} ms")
+    bf16_cases = [("bf16 lockstep", t_main, *lock_shapes[t_main], FOLDS, True),
+                  ("bf16", t_main, *shapes[t_main], None, True),
+                  ("bf16", 624, *shapes[624], None, True)] + [
+        ("bf16 multi", adj.shape[1], adj, mask, None, False)
+        for _, adj, mask in collab.shapes(device)]
+    for key, t, adj, mask, folds, round_h in bf16_cases:
+        row = trunk_times[(key, t)] = time_trunk(dt, adj.to(torch.bfloat16), mask, None,
+                                                 flush, device, folds=folds,
+                                                 round_h=round_h)
+        fp = trunk_times[{"bf16 lockstep": ("lockstep", t), "bf16": (t, None),
+                          "bf16 multi": ("multi", t)}[key]]
+        log(f"  trunk {key} S={adj.shape[0]} T={t}{' round_h' if round_h else ''} "
+            f"{row['plan']}: fwd kernel {row['fwd']:.4f} ms (flushed "
+            f"{row['fwd_flushed']:.4f}; fp32 {fp['fwd']:.4f}) plain "
+            f"{row['fwd_plain']:.4f} bound {row['bound_fwd']:.4f} "
+            f"({row['bound_fwd_by']}) | bwd kernel {row['bwd']:.4f} ms (flushed "
+            f"{row['bwd_flushed']:.4f}; fp32 {fp['bwd']:.4f}) plain "
+            f"{row['bwd_plain']:.4f} bound {row['bound_bwd']:.4f} ({row['bound_bwd_by']})")
     block_times = {}
     for label, r in (("mean", ctx.mean_row), ("max", ctx.max_row),
                      ("largest graph", ctx.big_row)):
@@ -3132,12 +3617,23 @@ def main() -> int:
     log(f"  DD {lock_label} (step {lctx.mean_step}, nb' {FOLDS * lctx.nb}):")
     block_times[lock_label] = time_block(lctx.batch(), FOLDS * lctx.nb, ctx.pool, flush,
                                          device)
+    for label, b, nb in (("bf16 mean", ctx.batch(ctx.mean_row), ctx.nb),
+                         (f"bf16 {lock_label}", lctx.batch(), FOLDS * lctx.nb)):
+        log(f"  DD {label} (bf16 pool and hb; the wrapper's design):")
+        block_times[label] = time_block(b, nb, pool16, flush, device, variants=False)
+        fp = block_times["mean" if label == "bf16 mean" else lock_label]
+        log(f"    against fp32 at the same batch: " + ", ".join(
+            f"{k} {d} F={f} {block_row(block_times[label], k, d, f)['ms']:.4f} vs "
+            f"{block_row(fp, k, d, f)['ms']:.4f} ms" for k in BLOCK_KERNELS
+            for d in ("fwd", "bwd") for f in (32, 1)))
     for k in BLOCK_KERNELS:
         log(f"  {k} at the {lock_label} against {FOLDS} x the one-fold mean batch: " +
             ", ".join(f"{d} F={f} {block_row(block_times[lock_label], k, d, f)['ms']:.4f}"
                       f" vs {FOLDS * block_row(block_times['mean'], k, d, f)['ms']:.4f} ms"
                       for d in ("fwd", "bwd") for f in (32, 1)))
     for label, rows in block_times.items():
+        if label.startswith("bf16"):
+            continue  # the wrapper's design only: no step or design comparison
         steps = {k: block_step_ms(rows, k) for k in BLOCK_KERNELS}
         log(f"  DD {label} batch, one train step's propagations (3 x F=32 + F=1, fwd + "
             f"bwd): " + ", ".join(f"{k} {v:.4f} ms" for k, v in steps.items())
@@ -3240,13 +3736,28 @@ def main() -> int:
         f"{int(dd_step_batch.num_items)} items)",
         lambda: lockstep_train_step(dd_net_f, dd_adam_f, dd_step_batch, real, dd_gens,
                                     pool=ctx.pool, block_impl=auto_impl), by_op=True)
+    lock_batch16 = bf16_batch(lock_batch)
+    net_f16 = folds_net(nci1_model16, device, seed=0)
+    adam_f16 = FoldAdam(net_f16)
+    lock_step16 = profile_step(
+        f"NCI1 dense lockstep, bf16 compute ({FOLDS} folds x {S} slots)",
+        lambda: lockstep_train_step(net_f16, adam_f16, lock_batch16, real, gens),
+        by_op=True)
+    dd_net_f16 = folds_net(dd_model16, device, seed=0)
+    dd_adam_f16 = FoldAdam(dd_net_f16)
+    sparse_steps["DD block lockstep bf16"] = profile_step(
+        f"DD block lockstep, bf16 compute ({FOLDS} folds, {auto_impl}, merged mean "
+        f"step, bf16 pool)",
+        lambda: lockstep_train_step(dd_net_f16, dd_adam_f16, dd_step_batch, real, dd_gens,
+                                    pool=pool16, block_impl=auto_impl), by_op=True)
     sparse_steps["COLLAB multi"] = profile_step(
         f"COLLAB multi (fold 1's step {collab.step}, slots {list(collab.slots)})",
         seq_step(collab_model, collab.batch(device)))
     # the epoch graphs last, so that the step tables above are taken as in
     # earlier runs (one run that profiled the DD block step after them
     # recorded 62 of its launches)
-    eager_steps = {"lockstep": lock_step, "one fold": nci1_step, **sparse_steps}
+    eager_steps = {"lockstep": lock_step, "one fold": nci1_step,
+                   "lockstep bf16": lock_step16, **sparse_steps}
     epoch_graphs = {name: profile_epoch(name, r, eager_steps[name])
                     for name, r in runners.items()}
     del runners
@@ -3338,6 +3849,68 @@ def main() -> int:
                     "ms": lrow["ms"], "ms_l2_flushed": lrow["ms_l2_flushed"],
                     "plain_ms": lrow["plain_ms"], "bound_ms": lrow["bound_ms"],
                     "bound_by": lrow["bound_by"], "library_ms": lrow["library_ms"]}
+    # the bf16 modes of the same three kernels, on phase 4g's main paths
+    tl16 = trunk_times[("bf16 lockstep", t_main)]
+    for i, (d, line) in enumerate((("fwd", 232), ("bwd", 310))):
+        ts16 = trunk_times[("bf16", t_main)]
+        kernels.append({
+            "name": f"gcn_trunk_bf16_{d}", "route": "cuda", "source": trunk_src,
+            "replaces": f"dgcnn_tpu/kernels/dense_trunk.py:{line}",
+            "launches": mp["nci1"]["calls"][i],
+            "max_abs_err": stats[f"gcn_trunk_bf16_{d}"],
+            "ms": tl16[d], "ms_l2_flushed": tl16[f"{d}_flushed"],
+            "plain_ms": tl16[f"{d}_plain"], "bound_ms": tl16[f"bound_{d}"],
+            "bound_by": tl16[f"bound_{d}_by"], "library_ms": None, "plan": tl16["plan"],
+            "main_path": f"NCI1 --dtype bfloat16, lockstep, {FOLDS} folds x 4 epochs in "
+                         f"chunks of 2, launches counted per replay (bf16 adjacency, "
+                         f"round_h)",
+            "shape": f"lockstep step: S={SL}, K={FOLDS}, T={t_main}, bf16 adjacency, "
+                     f"round_h; bound at 2 bytes an adjacency element",
+            "sequential_shape": {"shape": f"S={S}, K=1, T={t_main}, round_h",
+                                 "plan": ts16["plan"], "ms": ts16[d],
+                                 "plain_ms": ts16[f"{d}_plain"],
+                                 "bound_ms": ts16[f"bound_{d}"]},
+            "resident_cap_bf16": cap16,
+            "multi_path": {
+                "main_path": "COLLAB --adj_dtype bfloat16, multi, 2 folds x 4 epochs in "
+                             "chunks of 2, launches counted per replay",
+                "calls_resident": mp["collab"]["calls"][i],
+                "calls_streamed": mp["collab"]["calls"][2 + i],
+                "kernel_launches": mp["collab"]["kernel_launches"][i],
+                "shapes": [{"shape": f"S={s_}, K=1, T={t}", "plan": row["plan"],
+                            "ms": row[d], "plain_ms": row[f"{d}_plain"],
+                            "bound_ms": row[f"bound_{d}"], "bound_by": row[f"bound_{d}_by"]}
+                           for t, s_ in zip(collab.tiles, collab.slots)
+                           for row in [trunk_times[("bf16 multi", t)]]]}})
+    bf16_lock = f"bf16 {lock_label}"
+    for kname in BLOCK_KERNELS:
+        n_all, f1_all = ((mp["dd"]["launches"], mp["dd"]["f1"]) if kname == "block_csr"
+                         else (mp["dd"]["xla_launches"], mp["dd"]["xla_f1"]))
+        for i, d in enumerate(("fwd", "bwd")):
+            for f, suffix, n in ((32, "", n_all[i] - f1_all[i]), (1, "_f1", f1_all[i])):
+                row = block_row(block_times[bf16_lock], kname, d, f)
+                one = block_row(block_times["bf16 mean"], kname, d, f)
+                kernels.append({
+                    "name": f"{kname}_bf16_{d}{suffix}", "route": "cuda",
+                    "source": f"dgcnn_tpu_torch/csrc/{kname}.cu",
+                    "replaces": replaces[kname],
+                    "launches": n,
+                    "max_abs_err": stats[f"{kname}_bf16_{d}"],
+                    "ms": row["ms"], "ms_l2_flushed": row["ms_l2_flushed"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                    "main_path": (f"DD --dtype bfloat16, block lockstep, {FOLDS} folds x "
+                                  f"{4 if kname == 'block_csr' else 2} epochs"
+                                  f"{'' if kname == 'block_csr' else ', --block_impl xla'}, "
+                                  f"chunks of 2, launches counted per replay"),
+                    "shape": (f"{FOLDS}-fold merged mean step: {row['n_items']} items, "
+                              f"nb' {row['nb']}, F {f}, bf16 pool and hb; bound at 2 "
+                              f"bytes an element"),
+                    "one_fold_shape": {
+                        "shape": f"DD mean batch: {one['n_items']} items, nb {one['nb']}",
+                        "ms": one["ms"], "plain_ms": one["plain_ms"],
+                        "bound_ms": one["bound_ms"], "library_ms": one["library_ms"]},
+                })
     spmm_replaces = {
         "spmm_rows": "dgcnn_tpu/kernels/spmm_pallas.py:102",
         "spmm_edge_block": "dgcnn_tpu/kernels/spmm_pallas.py:170",
@@ -3406,6 +3979,13 @@ def main() -> int:
     for name, g in epoch_graphs.items():
         log(f"{name if name.startswith(('DD', 'COLLAB')) else 'NCI1 ' + name} epoch "
             f"graph: {json.dumps(g)}")
+    log(f"bf16 (phase 4g) fold-epoch seconds and run peak memory: NCI1 lockstep "
+        f"{mp['nci1']['epoch_s']}, {mp['nci1']['peak_mib']:.1f} MiB (fp32 "
+        f"{lock['lockstep_epoch_s']}, {lock['peak_mib']:.1f} MiB); DD block lockstep "
+        f"{mp['dd']['epoch_s']}, {mp['dd']['peak_mib']:.1f} MiB (fp32 "
+        f"{dd_lock['ten_folds']['epoch_s']}, {dd_lock['ten_folds']['peak_mib']:.1f} "
+        f"MiB); COLLAB multi {mp['collab']['epoch_s']}, {mp['collab']['peak_mib']:.1f} "
+        f"MiB (fp32 {multi['epoch_s']}, {multi['peak_mib']:.1f} MiB)")
     log(f"COLLAB fold-epoch seconds, chunk 2 (fold, s): multi graphed "
         f"{multi['epoch_s']}, eager {multi['eager_epoch_s']}; --layout dense graphed "
         f"{multi['dense_epoch_s']}; multi lockstep (2 folds, epoch seconds / 2) "

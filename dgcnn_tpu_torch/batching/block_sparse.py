@@ -231,13 +231,23 @@ def build_block_graphset(dataset: GraphSet, bs: int = BLOCK_SIZE) -> BlockGraphS
     )
 
 
-def block_graphset_to_device(host: BlockGraphSet, device) -> BlockGraphSet:
+def block_graphset_to_device(host: BlockGraphSet, device,
+                             pool_dtype: str = "float32") -> BlockGraphSet:
     """One transfer per array. Index tables become int64 (torch indexes
-    with them); pool and features stay float32."""
+    with them); features stay float32, and the pool is stored at
+    `pool_dtype`: the reference's engine stores it at the compute dtype
+    when that is bf16, else at the resolved adjacency dtype
+    (dgcnn_tpu/train/cv.py:457-469), i.e. at the propagation dtype. A bf16
+    pool is rounded on the host (round to nearest even, JAX's `astype`)
+    and crosses the link at half the bytes."""
+    if pool_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown pool_dtype {pool_dtype!r}")
     out = {}
     for fld in dataclasses.fields(BlockGraphSet):
         a = np.asarray(getattr(host, fld.name))
         t = torch.from_numpy(a)
+        if fld.name == "pool" and pool_dtype == "bfloat16":
+            t = t.to(torch.bfloat16)
         out[fld.name] = (t if a.dtype == np.float32 else t.long()).to(device)
     return BlockGraphSet(**out)
 

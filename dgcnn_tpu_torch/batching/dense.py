@@ -123,17 +123,41 @@ class DenseDataset:
     y: torch.Tensor  # [G] int32
 
 
-def build_dense_dataset(dataset: GraphSet, n_tile: int, device) -> DenseDataset:
+def store_dtypes(data: DenseDataset, adj_dtype: str = "float32",
+                 compute_dtype: str = "float32") -> DenseDataset:
+    """The dataset at its storage dtypes, as the reference's engines store
+    it (dgcnn_tpu/train/cv.py:536-546, :604-611): the adjacency at
+    `adj_dtype` (the resolved `Config.adj_dtype`), then under bf16 compute
+    every float32 array (x, adj, node_mask) in bf16. Rounding is round to
+    nearest even from the fp32 build, as JAX's `astype`; float32 stays the
+    same tensors."""
+    bf16 = torch.bfloat16
+    adj = data.adj.to(bf16) if adj_dtype == "bfloat16" else data.adj
+    if compute_dtype == "float32":
+        return dataclasses.replace(data, adj=adj)
+    if compute_dtype != "bfloat16":
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+    return DenseDataset(x=data.x.to(bf16), adj=adj.to(bf16),
+                        node_mask=data.node_mask.to(bf16), y=data.y)
+
+
+def build_dense_dataset(dataset: GraphSet, n_tile: int, device,
+                        adj_dtype: str = "float32",
+                        compute_dtype: str = "float32") -> DenseDataset:
     """Pack every graph once on the host, then one transfer per array to
-    `device`. The adjacency (G·n_tile² fp32) dominates the footprint."""
+    `device`, stored at `store_dtypes(adj_dtype, compute_dtype)` (rounded
+    on the host, so a bf16 array crosses the link at half the bytes). The
+    adjacency (G·n_tile² elements) dominates the footprint."""
     g = dataset.num_graphs
     batch = pack_dense_batch(dataset, np.arange(g), n_tile, g)
-    return DenseDataset(
-        x=torch.from_numpy(batch.x).to(device),
-        adj=torch.from_numpy(batch.adj).to(device),
-        node_mask=torch.from_numpy(batch.node_mask).to(device),
-        y=torch.from_numpy(batch.y).to(device),
-    )
+    host = store_dtypes(DenseDataset(
+        x=torch.from_numpy(batch.x),
+        adj=torch.from_numpy(batch.adj),
+        node_mask=torch.from_numpy(batch.node_mask),
+        y=torch.from_numpy(batch.y),
+    ), adj_dtype, compute_dtype)
+    return DenseDataset(**{f.name: getattr(host, f.name).to(device)
+                           for f in dataclasses.fields(DenseDataset)})
 
 
 def dense_dataset_bytes(

@@ -233,16 +233,19 @@ def densify_on_device(dev: DeviceGraphSet, n_tile: int) -> DenseDataset:
                         y=dev.y[:g].to(torch.int32))
 
 
-def densify_many_on_device(hosts, tiles, device):
+def densify_many_on_device(hosts, tiles, device, store=None):
     """`densify_on_device` of several classes: each host graphset
     (`build_device_graphset`) is moved to `device` and densified at its
     tile, one class after another, its compact arrays dropped as soon as
-    its class is built."""
+    its class is built. `store`, when given, maps each fp32 class to its
+    storage dtypes before the next class is built (batching/dense.py
+    `store_dtypes`), so at most one class is held in fp32."""
     hosts = list(hosts)
     out = []
     for i, t in enumerate(tiles):
         dev = device_graphset_to(hosts[i], device)
         hosts[i] = None
-        out.append(densify_on_device(dev, int(t)))
-        del dev
+        data = densify_on_device(dev, int(t))
+        out.append(store(data) if store is not None else data)
+        del dev, data
     return out

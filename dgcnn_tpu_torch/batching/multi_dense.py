@@ -27,7 +27,9 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from dgcnn_tpu_torch.batching.dense import DenseDataset, DenseGraphBatch, build_dense_dataset
+from dgcnn_tpu_torch.batching.dense import (
+    DenseDataset, DenseGraphBatch, build_dense_dataset, store_dtypes,
+)
 from dgcnn_tpu_torch.batching.device_coo import build_device_graphset, densify_many_on_device
 from dgcnn_tpu_torch.data.graphset import GraphSet
 
@@ -106,30 +108,39 @@ def build_routing(node_counts: np.ndarray, tiles: Sequence[int]) -> MultiDenseRo
 
 
 def build_multi_dense(
-    dataset: GraphSet, tiles: Sequence[int], device="cpu"
+    dataset: GraphSet, tiles: Sequence[int], device="cpu",
+    adj_dtype: str = "float32", compute_dtype: str = "float32",
 ) -> Tuple[Tuple[DenseDataset, ...], MultiDenseRouting]:
     """Host-side materialization: one `DenseDataset` per tile class over
     that class's graphs (rows in global graph-id order), packed on the
-    host and moved to `device`."""
+    host, stored at `store_dtypes(adj_dtype, compute_dtype)` and moved to
+    `device`."""
     routing = build_routing(dataset.node_counts(), tiles)
     classes = tuple(
         build_dense_dataset(dataset.subset(np.flatnonzero(routing.class_of == c)),
-                            t, device)
+                            t, device, adj_dtype, compute_dtype)
         for c, t in enumerate(routing.tiles))
     return classes, routing
 
 
 def build_multi_dense_on_device(
-    dataset: GraphSet, tiles: Sequence[int], device
+    dataset: GraphSet, tiles: Sequence[int], device,
+    adj_dtype: str = "float32", compute_dtype: str = "float32",
 ) -> Tuple[Tuple[DenseDataset, ...], MultiDenseRouting]:
     """Device-side materialization: per class, ship the compact COO subset
     and densify it on `device` (batching/device_coo.py
     `densify_many_on_device`): O(nodes + edges) crosses the link instead of
-    O(Σ G_c·t_c²). Bitwise equal to `build_multi_dense`."""
+    O(Σ G_c·t_c²). The densify is fp32 (bitwise `build_multi_dense`); each
+    class is then rounded to its storage dtypes (`store_dtypes`), as the
+    reference rounds its classes after its densify
+    (dgcnn_tpu/train/cv.py:604-611). Bitwise equal to `build_multi_dense`
+    at the same dtypes."""
     routing = build_routing(dataset.node_counts(), tiles)
     hosts = [build_device_graphset(dataset.subset(np.flatnonzero(routing.class_of == c)))
              for c in range(len(routing.tiles))]
-    return tuple(densify_many_on_device(hosts, routing.tiles, device)), routing
+    classes = densify_many_on_device(hosts, routing.tiles, device,
+                                     lambda d: store_dtypes(d, adj_dtype, compute_dtype))
+    return tuple(classes), routing
 
 
 def multi_dense_bytes(dataset: GraphSet, tiles: Sequence[int]) -> int:

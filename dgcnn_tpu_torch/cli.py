@@ -66,10 +66,17 @@ def get_args(argv=None):
                         help="pick SortPooling k as this quantile of graph sizes")
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"],
-                        help="compute dtype (the port runs float32 only)")
+                        help="compute dtype: bfloat16 runs matmul operands "
+                             "and layer outputs in bf16 with fp32 sums "
+                             "(parameters, the loss and Adam stay fp32) on "
+                             "the dense, multi and block layouts; the COO "
+                             "layout refuses it")
     parser.add_argument("--adj_dtype", default="auto",
                         choices=["auto", "float32", "bfloat16"],
-                        help="adjacency storage dtype (auto = float32 here)")
+                        help="adjacency and block-pool storage dtype (auto = "
+                             "float32 on the card); bfloat16 halves them and "
+                             "runs the kernels' bf16 modes; the COO layout "
+                             "ignores it")
     parser.add_argument("--block_impl", default="auto",
                         choices=["auto", "xla", "pallas"],
                         help="block-sparse propagation kernel on the card: "

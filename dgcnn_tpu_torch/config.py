@@ -7,7 +7,11 @@ ROADMAP item that ports them. What differs from the reference:
 
   * `adj_dtype="auto"` resolves to float32: the TPU's bf16 resolution
     rested on its matrix unit rounding fp32 operands anyway, which the
-    H100's fp32 path does not do;
+    H100's fp32 path does not do. `adj_dtype="bfloat16"` and
+    `compute_dtype="bfloat16"` run as in the reference on the dense,
+    multi-tile and block layouts (the kernels' bf16 modes); the COO
+    layout ignores `adj_dtype`, as the reference's COO engines do, and
+    refuses bf16 compute (train/cv.py `check_layout_dtype`);
   * `dense_trunk` is accepted for flag parity, but the port always runs
     its CUDA trunk kernel on the card (kernels/dense_trunk.py);
   * `block_impl` names the port's two block-propagation kernels:

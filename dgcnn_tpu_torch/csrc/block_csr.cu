@@ -84,6 +84,14 @@
 // was not tried: it costs a launch per propagation and a pass over every
 // row, where the handshake reads only the split rows' partials, from L2.
 //
+// The bf16 mode (block_csr_bf16, for a bf16 pool and bf16 hb; the
+// output and the partials stay fp32) is the same kernel over
+// block_tile.cuh's bf16 ring and its one-mma product: the TPU kernel stages
+// pool blocks and hb at their storage dtype and multiplies with fp32
+// accumulation (block_pallas.py:93, :132-133, :155), the transposed
+// direction taking the cotangent rounded to bf16 (:212). A call moves
+// half the fp32 mode's pool bytes: n*(bs^2*2 + bs*F*2) + nb*bs*F*4.
+//
 // Every entry returns cudaGetLastError() of its launch; the wrapper
 // checks shapes, types and contiguity before calling and raises on a
 // non-zero return.
@@ -120,9 +128,9 @@ __device__ __forceinline__ int find_piece(const Pieces& pc, int q, int& first,
   return r;
 }
 
-template <int FP, bool TRANS>
-__global__ void __launch_bounds__(NT, ring_blocks<FP>())
-    csr_tile(const float* __restrict__ pool, const float* __restrict__ hb,
+template <int FP, bool TRANS, typename T>
+__global__ void __launch_bounds__(NT, ring_blocks<FP, T>())
+    csr_tile(const T* __restrict__ pool, const T* __restrict__ hb,
              Pieces pc, const int* __restrict__ ip, const int* __restrict__ src,
              float* __restrict__ out, float* __restrict__ scratch,
              int* __restrict__ counters, int f) {
@@ -138,8 +146,8 @@ __global__ void __launch_bounds__(NT, ring_blocks<FP>())
   float acc[4][FP / 8];
   tile_zero<FP>(acc);
   if (n > 0)
-    walk_items<FP, TRANS>(smem, pool, hb, ip, src, first, n, f, acc,
-                          [](int, float(&)[4][FP / 8]) {});
+    walk_items<FP, TRANS>(reinterpret_cast<T*>(smem), pool, hb, ip, src, first,
+                          n, f, acc, [](int, float(&)[4][FP / 8]) {});
   if (pieces == 1) {
     mma3_store<FP>(acc, out + (size_t)r * len, f);
     return;
@@ -149,9 +157,9 @@ __global__ void __launch_bounds__(NT, ring_blocks<FP>())
     sum_parts(scratch, p0, p0 + pieces, len, out + (size_t)r * len);
 }
 
-template <bool TRANS>
+template <bool TRANS, typename T>
 __global__ void __launch_bounds__(NT) csr_f1(
-    const float* __restrict__ pool, const float* __restrict__ hb, Pieces pc,
+    const T* __restrict__ pool, const T* __restrict__ hb, Pieces pc,
     const int* __restrict__ ip, const int* __restrict__ src,
     float* __restrict__ out, float* __restrict__ scratch,
     int* __restrict__ counters) {
@@ -179,26 +187,26 @@ __global__ void __launch_bounds__(NT) csr_f1(
     sum_parts(scratch, p0, p0 + pieces, BS, out + (size_t)r * BS);
 }
 
-template <int FP, bool TRANS>
-cudaError_t launch_tile(const float* pool, const float* hb, const Pieces& pc,
+template <int FP, bool TRANS, typename T>
+cudaError_t launch_tile(const T* pool, const T* hb, const Pieces& pc,
                         const int* ip, const int* src, float* out,
                         float* scratch, int* counters, int f,
                         cudaStream_t stream) {
-  constexpr size_t smem = ring_smem<FP>();
-  static cudaError_t attr = allow_smem(csr_tile<FP, TRANS>, smem);
+  constexpr size_t smem = ring_smem<FP, T>();
+  static cudaError_t attr = allow_smem(csr_tile<FP, TRANS, T>, smem);
   if (attr != cudaSuccess) return attr;
-  csr_tile<FP, TRANS><<<pc.np, NT, smem, stream>>>(pool, hb, pc, ip, src, out,
-                                                    scratch, counters, f);
+  csr_tile<FP, TRANS, T><<<pc.np, NT, smem, stream>>>(pool, hb, pc, ip, src,
+                                                       out, scratch, counters, f);
   return cudaGetLastError();
 }
 
-template <bool TRANS>
-cudaError_t dispatch(const float* pool, const float* hb, const Pieces& pc,
+template <bool TRANS, typename T>
+cudaError_t dispatch(const T* pool, const T* hb, const Pieces& pc,
                      const int* ip, const int* src, float* out, float* scratch,
                      int* counters, int f, cudaStream_t stream) {
   if (f == 1) {
-    csr_f1<TRANS><<<pc.np, NT, 0, stream>>>(pool, hb, pc, ip, src, out,
-                                            scratch, counters);
+    csr_f1<TRANS, T><<<pc.np, NT, 0, stream>>>(pool, hb, pc, ip, src, out,
+                                               scratch, counters);
     return cudaGetLastError();
   }
   if (f <= 32)
@@ -211,17 +219,11 @@ cudaError_t dispatch(const float* pool, const float* hb, const Pieces& pc,
                                  f, stream);
 }
 
-}  // namespace
-
-// out [nb, 128, f] = CSR propagation of hb [.., 128, f] (see the header).
-// row_ptr, piece_ptr [nb+1] int32 (the plan); np = ceil(W / p) + nb, p
-// the items per piece; ip, src int32 item lists in segment order; scratch
-// [np, 128, f] fp32; counters [>= nb] int32, all 0 (left 0).
-extern "C" int block_csr_f32(const float* pool, const float* hb,
-                             const int* row_ptr, const int* piece_ptr,
-                             const int* ip, const int* src, float* out,
-                             float* scratch, int* counters, int nb, int np,
-                             int p, int f, int transpose, void* stream) {
+template <typename T>
+int run(const T* pool, const T* hb, const int* row_ptr, const int* piece_ptr,
+        const int* ip, const int* src, float* out, float* scratch,
+        int* counters, int nb, int np, int p, int f, int transpose,
+        void* stream) {
   if (nb <= 0) return cudaSuccess;
   if (f < 1 || f > 128 || np < nb || p < 1) return cudaErrorInvalidValue;
   const Pieces pc{row_ptr, piece_ptr, np, nb, p};
@@ -229,6 +231,32 @@ extern "C" int block_csr_f32(const float* pool, const float* hb,
   return transpose
              ? dispatch<true>(pool, hb, pc, ip, src, out, scratch, counters, f, s)
              : dispatch<false>(pool, hb, pc, ip, src, out, scratch, counters, f, s);
+}
+
+}  // namespace
+
+// out [nb, 128, f] fp32 = CSR propagation of hb [.., 128, f] (see the
+// header). row_ptr, piece_ptr [nb+1] int32 (the plan); np = ceil(W / p) +
+// nb, p the items per piece; ip, src int32 item lists in segment order;
+// scratch [np, 128, f] fp32; counters [>= nb] int32, all 0 (left 0). The
+// `_f32` entry takes fp32 pool and hb, the `_bf16` entry bf16 ones.
+extern "C" int block_csr_f32(const float* pool, const float* hb,
+                             const int* row_ptr, const int* piece_ptr,
+                             const int* ip, const int* src, float* out,
+                             float* scratch, int* counters, int nb, int np,
+                             int p, int f, int transpose, void* stream) {
+  return run(pool, hb, row_ptr, piece_ptr, ip, src, out, scratch, counters, nb,
+             np, p, f, transpose, stream);
+}
+
+extern "C" int block_csr_bf16(const __nv_bfloat16* pool,
+                              const __nv_bfloat16* hb,
+                              const int* row_ptr, const int* piece_ptr,
+                              const int* ip, const int* src, float* out,
+                              float* scratch, int* counters, int nb, int np,
+                              int p, int f, int transpose, void* stream) {
+  return run(pool, hb, row_ptr, piece_ptr, ip, src, out, scratch, counters, nb,
+             np, p, f, transpose, stream);
 }
 
 extern "C" const char* block_csr_error_string(int e) {

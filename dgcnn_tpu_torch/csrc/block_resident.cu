@@ -62,6 +62,12 @@
 //     segments before it ([W+1], 17 torch ops per plan): the step ran 158
 //     launches against 153 with the row pointers alone.
 //
+// The bf16 mode (block_resident_bf16, for a bf16 pool and bf16 hb; the
+// partials and the output stay fp32) runs the same two passes over
+// block_tile.cuh's bf16 ring and its one-mma product, as the TPU kernel
+// stages blocks and hb at their storage dtype (block_resident.py:72-80,
+// :193-198).
+//
 // Every entry returns cudaGetLastError() of its launches; the wrapper
 // checks shapes, types and contiguity before calling.
 
@@ -80,9 +86,9 @@ struct Groups {
   int g;                 // items per group
 };
 
-template <int FP, bool TRANS>
-__global__ void __launch_bounds__(NT, ring_blocks<FP>())
-    items_tile(const float* __restrict__ pool, const float* __restrict__ hb,
+template <int FP, bool TRANS, typename T>
+__global__ void __launch_bounds__(NT, ring_blocks<FP, T>())
+    items_tile(const T* __restrict__ pool, const T* __restrict__ hb,
                Groups gr, float* __restrict__ parts, int f) {
   extern __shared__ __align__(16) float smem[];
   const int first = blockIdx.x * gr.g;
@@ -96,7 +102,7 @@ __global__ void __launch_bounds__(NT, ring_blocks<FP>())
   float acc[4][FP / 8];
   tile_zero<FP>(acc);
   walk_items<FP, TRANS>(
-      smem, pool, hb, gr.ip, gr.src, first, n, f, acc,
+      reinterpret_cast<T*>(smem), pool, hb, gr.ip, gr.src, first, n, f, acc,
       [&](int k, float(&a)[4][FP / 8]) {
         if (k > 0 && seg[k] != seg[k - 1]) {  // the row changes: one segment ends
           mma3_store<FP>(a, parts + slot * len, f);
@@ -107,9 +113,9 @@ __global__ void __launch_bounds__(NT, ring_blocks<FP>())
   mma3_store<FP>(acc, parts + slot * len, f);
 }
 
-template <bool TRANS>
-__global__ void __launch_bounds__(NT) items_f1(const float* __restrict__ pool,
-                                               const float* __restrict__ hb,
+template <bool TRANS, typename T>
+__global__ void __launch_bounds__(NT) items_f1(const T* __restrict__ pool,
+                                               const T* __restrict__ hb,
                                                Groups gr,
                                                float* __restrict__ parts) {
   __shared__ __align__(16) float red[NT / 32 * BS];
@@ -122,8 +128,8 @@ __global__ void __launch_bounds__(NT) items_f1(const float* __restrict__ pool,
 #pragma unroll
   for (int mm = 0; mm < 16; ++mm) facc[mm] = 0.f;
   for (int w = first; w < last; ++w) {
-    const float* a = pool + (size_t)gr.ip[w] * BS * BS;
-    const float* b = hb + (size_t)gr.src[w] * BS;
+    const T* a = pool + (size_t)gr.ip[w] * BS * BS;
+    const T* b = hb + (size_t)gr.src[w] * BS;
     if (TRANS) {
       f1_trans_item(a, b, tacc);
     } else {
@@ -168,23 +174,23 @@ __global__ void __launch_bounds__(NT) rows_sum(const float* __restrict__ parts,
   }
 }
 
-template <int FP, bool TRANS>
-cudaError_t launch_items(const float* pool, const float* hb, const Groups& gr,
+template <int FP, bool TRANS, typename T>
+cudaError_t launch_items(const T* pool, const T* hb, const Groups& gr,
                          float* parts, int f, cudaStream_t stream) {
-  constexpr size_t smem = ring_smem<FP>();
-  static cudaError_t attr = allow_smem(items_tile<FP, TRANS>, smem);
+  constexpr size_t smem = ring_smem<FP, T>();
+  static cudaError_t attr = allow_smem(items_tile<FP, TRANS, T>, smem);
   if (attr != cudaSuccess) return attr;
   const int groups = (gr.w + gr.g - 1) / gr.g;
-  items_tile<FP, TRANS><<<groups, NT, smem, stream>>>(pool, hb, gr, parts, f);
+  items_tile<FP, TRANS, T><<<groups, NT, smem, stream>>>(pool, hb, gr, parts, f);
   return cudaGetLastError();
 }
 
-template <bool TRANS>
-cudaError_t dispatch(const float* pool, const float* hb, const Groups& gr,
+template <bool TRANS, typename T>
+cudaError_t dispatch(const T* pool, const T* hb, const Groups& gr,
                      float* parts, int f, cudaStream_t stream) {
   if (f == 1) {
     const int groups = (gr.w + gr.g - 1) / gr.g;
-    items_f1<TRANS><<<groups, NT, 0, stream>>>(pool, hb, gr, parts);
+    items_f1<TRANS, T><<<groups, NT, 0, stream>>>(pool, hb, gr, parts);
     return cudaGetLastError();
   }
   if (f <= 32) return launch_items<32, TRANS>(pool, hb, gr, parts, f, stream);
@@ -192,18 +198,11 @@ cudaError_t dispatch(const float* pool, const float* hb, const Groups& gr,
   return launch_items<128, TRANS>(pool, hb, gr, parts, f, stream);
 }
 
-}  // namespace
-
-// out [nb, 128, f] = item-parallel propagation (see the header). ip, src,
-// seg [w] int32 item lists in segment order; row_ptr [nb+1] int32 (the
-// plan); num_items a device int32 (the real item count); parts a
-// [w, 128, f] fp32 scratch.
-extern "C" int block_resident_f32(const float* pool, const float* hb,
-                                  const int* ip, const int* src, const int* seg,
-                                  const int* row_ptr,
-                                  const int* num_items, float* parts,
-                                  float* out, int nb, int w, int group, int f,
-                                  int transpose, void* stream) {
+template <typename T>
+int run(const T* pool, const T* hb, const int* ip, const int* src,
+        const int* seg, const int* row_ptr, const int* num_items, float* parts,
+        float* out, int nb, int w, int group, int f, int transpose,
+        void* stream) {
   if (nb <= 0) return cudaSuccess;
   if (f < 1 || f > 128 || group < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -216,6 +215,34 @@ extern "C" int block_resident_f32(const float* pool, const float* hb,
   }
   rows_sum<<<nb, NT, 0, s>>>(parts, row_ptr, out, group, f);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// out [nb, 128, f] fp32 = item-parallel propagation (see the header). ip,
+// src, seg [w] int32 item lists in segment order; row_ptr [nb+1] int32
+// (the plan); num_items a device int32 (the real item count); parts a
+// [w, 128, f] fp32 scratch. The `_f32` entry takes fp32 pool and hb, the
+// `_bf16` entry bf16 ones.
+extern "C" int block_resident_f32(const float* pool, const float* hb,
+                                  const int* ip, const int* src, const int* seg,
+                                  const int* row_ptr,
+                                  const int* num_items, float* parts,
+                                  float* out, int nb, int w, int group, int f,
+                                  int transpose, void* stream) {
+  return run(pool, hb, ip, src, seg, row_ptr, num_items, parts, out, nb, w,
+             group, f, transpose, stream);
+}
+
+extern "C" int block_resident_bf16(const __nv_bfloat16* pool,
+                                   const __nv_bfloat16* hb,
+                                   const int* ip, const int* src,
+                                   const int* seg, const int* row_ptr,
+                                   const int* num_items, float* parts,
+                                   float* out, int nb, int w, int group, int f,
+                                   int transpose, void* stream) {
+  return run(pool, hb, ip, src, seg, row_ptr, num_items, parts, out, nb, w,
+             group, f, transpose, stream);
 }
 
 extern "C" const char* block_resident_error_string(int e) {

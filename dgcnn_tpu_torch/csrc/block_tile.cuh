@@ -35,13 +35,33 @@
 // two stages (RING_KC, RING_STAGES), the next chunk's copies in flight
 // during this one's product. Shared memory in kB (1,000 bytes) at FP = 32 / 64 / 128:
 // 88 / 104 / 137, so two blocks share an SM at FP <= 64 and one at 128.
+//
+// The bf16 mode (element type T = bf16 for both A and B; the output and
+// the partials stay fp32): the ring stages the operands at 2 bytes an
+// element, so a stage halves (a whole block is 32 KB, not 64; 47 / 55 /
+// 72 kB of ring at FP = 32 / 64 / 128, two blocks an SM at every FP). A
+// bf16 value widened to fp32 is exact in TF32 (8 bits of TF32's 11 of
+// significand), so the split's low parts would be zero: one TF32 mma per
+// k-step, on the widened values, gives the exact products, accumulated in
+// fp32 as in the fp32 mode. The F = 1 forms read 8 bytes a lane (4 bf16)
+// where they read 16 (4 fp32).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include <type_traits>
+
 namespace blk {
+
+using bf16 = __nv_bfloat16;
+
+template <typename T>
+__host__ __device__ constexpr bool is_bf16() {
+  return std::is_same<T, bf16>::value;
+}
 
 constexpr int BS = 128;       // block size (rows and columns of A)
 constexpr int NT = 256;       // threads of one block
@@ -58,33 +78,42 @@ constexpr int LDA = BS + 4;   // shared row stride of a staged 128-wide
 // 4g + t: with a stride of 4 mod 32 the lanes fall in banks 4g + t, all
 // distinct; the transposed mode reads A at (row t, col g), banks 4t + g
 // with stride 132 (2-way conflicts) and 8t + g with stride 136 (none).
-template <bool TRANS, int KC = BS>
-__host__ __device__ constexpr int lda() { return TRANS ? BS + 8 : KC + 4; }
+// In the bf16 mode (strides in 2-byte elements) the forward's stride is
+// KC + 8: lanes (g, t) read the 32-bit word 36g + t/2 (mod 32: 4g + t/2),
+// distinct across g; the transposed mode's 136 puts lanes at 68t + g/2
+// (4t + g/2), distinct across t.
+template <bool TRANS, int KC = BS, typename T = float>
+__host__ __device__ constexpr int lda() {
+  return TRANS ? BS + 8 : KC + 16 / (int)sizeof(T);
+}
 
 constexpr int RING_KC = BS / 2;  // k indices per chunk of the copy ring
 constexpr int RING_STAGES = 2;   // chunks in the ring
 
-template <int FP, int KC = BS>
+// Strides and sizes of one stage, in elements of T (float or bf16).
+template <int FP, int KC = BS, typename T = float>
 struct TileShape {
   static constexpr int CN = FP / 8;                  // columns per thread (FMA)
-  static constexpr int LDB = FP + 4;                 // B's stride: fragment
+  static constexpr int LDB = FP + 16 / (int)sizeof(T);  // B's stride: fragment
                                                      // lanes 4t + g distinct
+                                                     // (bf16: words 4t + g/2)
   static constexpr int A_FLOATS =                    // staged A, either mode
-      BS * (KC + 4) > KC * (BS + 8) ? BS * (KC + 4) : KC * (BS + 8);
+      BS * lda<false, KC, T>() > KC * lda<true, KC, T>()
+          ? BS * lda<false, KC, T>() : KC * lda<true, KC, T>();
   static constexpr int B_FLOATS = KC * LDB;          // staged B
-  static constexpr int STAGE = A_FLOATS + B_FLOATS;  // one buffer, floats
+  static constexpr int STAGE = A_FLOATS + B_FLOATS;  // one buffer, elements
 };
 
 // Dynamic shared memory of the ring, and the blocks of 256 threads it
 // lets share an SM (227 KB a block, 228 KB an SM with 1 KB kept per block).
-template <int FP>
+template <int FP, typename T = float>
 __host__ __device__ constexpr size_t ring_smem() {
-  return (size_t)RING_STAGES * TileShape<FP, RING_KC>::STAGE * sizeof(float);
+  return (size_t)RING_STAGES * TileShape<FP, RING_KC, T>::STAGE * sizeof(T);
 }
 
-template <int FP>
+template <int FP, typename T = float>
 __host__ __device__ constexpr int ring_blocks() {
-  return 2 * (ring_smem<FP>() + 1024) <= 233472 ? 2 : 1;
+  return 2 * (ring_smem<FP, T>() + 1024) <= 233472 ? 2 : 1;
 }
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
@@ -110,34 +139,44 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Issue the asynchronous copies of one item's k-chunk kc .. kc+KC-1 of A
 // (128 x 128) and B (128 x f) into one stage buffer. The caller commits
-// and waits.
-template <int FP, bool TRANS, int KC>
-__device__ __forceinline__ void stage_load(float* stage,
-                                           const float* __restrict__ a,
-                                           const float* __restrict__ b, int kc,
+// and waits. (bf16 rows of B whose width is not a multiple of 8 are copied
+// element by element, synchronously: cp.async moves at least 4 bytes.)
+template <int FP, bool TRANS, int KC, typename T = float>
+__device__ __forceinline__ void stage_load(T* stage, const T* __restrict__ a,
+                                           const T* __restrict__ b, int kc,
                                            int f) {
-  constexpr int LD = lda<TRANS, KC>(), LDB = TileShape<FP, KC>::LDB;
-  float* sA = stage;
-  float* sB = stage + TileShape<FP, KC>::A_FLOATS;
+  constexpr int LD = lda<TRANS, KC, T>(), LDB = TileShape<FP, KC, T>::LDB;
+  constexpr int V = 16 / (int)sizeof(T);  // elements of a 16-byte copy
+  T* sA = stage;
+  T* sB = stage + TileShape<FP, KC, T>::A_FLOATS;
   if (TRANS) {  // rows kc .. kc+KC-1 of A, whole
-    for (int e = threadIdx.x; e < KC * BS / 4; e += NT) {
-      const int r = e >> 5, c4 = e & 31;  // 32 chunks of 16 bytes per row
-      cp_async16(sA + r * LD + c4 * 4, a + (size_t)(kc + r) * BS + c4 * 4);
+    constexpr int Q = BS / V;  // 16-byte chunks per row
+    for (int e = threadIdx.x; e < KC * Q; e += NT) {
+      const int r = e / Q, c = (e % Q) * V;
+      cp_async16(reinterpret_cast<float*>(sA + r * LD + c),
+                 reinterpret_cast<const float*>(a + (size_t)(kc + r) * BS + c));
     }
   } else {  // columns kc .. kc+KC-1 of every row of A
-    constexpr int Q = KC / 4;
+    constexpr int Q = KC / V;
     for (int e = threadIdx.x; e < BS * Q; e += NT) {
-      const int r = e / Q, c4 = e % Q;
-      cp_async16(sA + r * LD + c4 * 4, a + (size_t)r * BS + kc + c4 * 4);
+      const int r = e / Q, c = (e % Q) * V;
+      cp_async16(reinterpret_cast<float*>(sA + r * LD + c),
+                 reinterpret_cast<const float*>(a + (size_t)r * BS + kc + c));
     }
   }
   b += (size_t)kc * f;  // rows kc .. kc+KC-1 of B
-  if ((f & 3) == 0) {  // B rows are 16-byte aligned: b starts at a
-                       // multiple of 128 * f floats
-    const int q = f >> 2;
+  if (f % V == 0) {  // B rows are 16-byte aligned: b starts at a
+                     // multiple of 128 * f elements
+    const int q = f / V;
     for (int e = threadIdx.x; e < KC * q; e += NT) {
-      const int r = e / q, c4 = e - r * q;
-      cp_async16(sB + r * LDB + c4 * 4, b + r * f + c4 * 4);
+      const int r = e / q, c = (e - r * q) * V;
+      cp_async16(reinterpret_cast<float*>(sB + r * LDB + c),
+                 reinterpret_cast<const float*>(b + r * f + c));
+    }
+  } else if constexpr (is_bf16<T>()) {
+    for (int e = threadIdx.x; e < KC * f; e += NT) {
+      const int r = e / f, c = e - r * f;
+      sB[r * LDB + c] = b[e];
     }
   } else {
     for (int e = threadIdx.x; e < KC * f; e += NT) {
@@ -256,6 +295,45 @@ __device__ __forceinline__ void mma_tf32(float& c0, float& c1, float& c2,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// a bf16 value's bits widened to fp32: exact, and a TF32 operand as it is
+__device__ __forceinline__ unsigned tf32_bits(bf16 x) {
+  return (unsigned)__bfloat16_as_ushort(x) << 16;
+}
+
+// The bf16 mode's product: the same fragments, one TF32 mma per k-step
+// on the widened values (their products are exact).
+template <int FP, bool TRANS, int KC>
+__device__ __forceinline__ void mma1_mac(const bf16* stage,
+                                         float (&acc)[4][FP / 8]) {
+  constexpr int LD = lda<TRANS, KC, bf16>(), LDB = TileShape<FP, KC, bf16>::LDB;
+  const bf16* sA = stage;
+  const bf16* sB = stage + TileShape<FP, KC, bf16>::A_FLOATS;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (threadIdx.x >> 5) * 16;
+#pragma unroll 2
+  for (int k0 = 0; k0 < KC; k0 += 8) {
+    unsigned a[4];  // A fragment: (g, t), (g+8, t), (g, t+4), (g+8, t+4)
+    if (TRANS) {  // A^T[m][k] = A[k][m]
+      a[0] = tf32_bits(sA[(k0 + t) * LD + m0 + g]);
+      a[1] = tf32_bits(sA[(k0 + t) * LD + m0 + g + 8]);
+      a[2] = tf32_bits(sA[(k0 + t + 4) * LD + m0 + g]);
+      a[3] = tf32_bits(sA[(k0 + t + 4) * LD + m0 + g + 8]);
+    } else {
+      a[0] = tf32_bits(sA[(m0 + g) * LD + k0 + t]);
+      a[1] = tf32_bits(sA[(m0 + g + 8) * LD + k0 + t]);
+      a[2] = tf32_bits(sA[(m0 + g) * LD + k0 + t + 4]);
+      a[3] = tf32_bits(sA[(m0 + g + 8) * LD + k0 + t + 4]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < FP / 8; ++nt) {
+      const unsigned b0 = tf32_bits(sB[(k0 + t) * LDB + nt * 8 + g]);
+      const unsigned b1 = tf32_bits(sB[(k0 + t + 4) * LDB + nt * 8 + g]);
+      mma_tf32(acc[0][nt], acc[1][nt], acc[2][nt], acc[3][nt], a, b0, b1);
+    }
+  }
+}
+
 template <int FP, bool TRANS, int KC>
 __device__ __forceinline__ void mma3_mac(const float* stage,
                                          float (&acc)[4][FP / 8]) {
@@ -296,6 +374,16 @@ __device__ __forceinline__ void mma3_mac(const float* stage,
       mma_tf32(c0, c1, c2, c3, ah, bh0, bh1);
     }
   }
+}
+
+// acc += A @ B (or A^T @ B) over one staged k-chunk, in the tensor-core
+// form of the element type: 3xTF32 for fp32, one TF32 mma for bf16.
+template <int FP, bool TRANS, int KC, typename T>
+__device__ __forceinline__ void mma_mac(const T* stage, float (&acc)[4][FP / 8]) {
+  if constexpr (is_bf16<T>())
+    mma1_mac<FP, TRANS, KC>(stage, acc);
+  else
+    mma3_mac<FP, TRANS, KC>(stage, acc);
 }
 
 // Write the mma layout's accumulator into dst, a [128, f] row-major tile;
@@ -339,17 +427,28 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// four consecutive elements as fp32: one 16-byte load, or one 8-byte load
+// of four bf16 widened exactly
+__device__ __forceinline__ float4 ld4f(const float* __restrict__ p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4f(const bf16* __restrict__ p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
 // Forward: warp w owns rows w*16 .. w*16+15; acc[mm] (the same in every
 // lane) += A[w*16+mm, :] . b.
-__device__ __forceinline__ void f1_fwd_item(const float* __restrict__ a,
-                                            const float* __restrict__ b,
+template <typename T>
+__device__ __forceinline__ void f1_fwd_item(const T* __restrict__ a,
+                                            const T* __restrict__ b,
                                             float (&acc)[16]) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const float4 bv = *reinterpret_cast<const float4*>(b + lane * 4);
+  const float4 bv = ld4f(b + lane * 4);
   float4 av[16];
 #pragma unroll
-  for (int mm = 0; mm < 16; ++mm)
-    av[mm] = *reinterpret_cast<const float4*>(a + (w * 16 + mm) * BS + lane * 4);
+  for (int mm = 0; mm < 16; ++mm) av[mm] = ld4f(a + (w * 16 + mm) * BS + lane * 4);
 #pragma unroll
   for (int mm = 0; mm < 16; ++mm) {
     float v = av[mm].x * bv.x;
@@ -372,15 +471,15 @@ __device__ __forceinline__ void f1_fwd_store(const float (&acc)[16],
 
 // Transpose: out[j] = sum_i A[i, j] g[i]. Warp w takes rows
 // i = w*16 .. w*16+15, lane holds columns lane*4 .. lane*4+3.
-__device__ __forceinline__ void f1_trans_item(const float* __restrict__ a,
-                                              const float* __restrict__ g,
+template <typename T>
+__device__ __forceinline__ void f1_trans_item(const T* __restrict__ a,
+                                              const T* __restrict__ g,
                                               float4& acc) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const float4 gv = *reinterpret_cast<const float4*>(g + lane * 4);
+  const float4 gv = ld4f(g + lane * 4);
   float4 av[16];
 #pragma unroll
-  for (int mm = 0; mm < 16; ++mm)
-    av[mm] = *reinterpret_cast<const float4*>(a + (w * 16 + mm) * BS + lane * 4);
+  for (int mm = 0; mm < 16; ++mm) av[mm] = ld4f(a + (w * 16 + mm) * BS + lane * 4);
 #pragma unroll
   for (int mm = 0; mm < 16; ++mm) {
     // g[i] for i = w*16 + mm lives in lane i/4, component i%4 = mm%4
@@ -417,21 +516,21 @@ __device__ __forceinline__ void f1_trans_store(const float4& acc, float* red,
 // when the destination row changes). The next chunk is issued as soon as
 // every thread has finished with the slot it goes to (the barrier of
 // this step), so its copies run during this chunk's product.
-template <int FP, bool TRANS, typename Before>
+template <int FP, bool TRANS, typename T, typename Before>
 __device__ __forceinline__ void walk_items(
-    float* smem, const float* __restrict__ pool, const float* __restrict__ hb,
+    T* smem, const T* __restrict__ pool, const T* __restrict__ hb,
     const int* __restrict__ ip, const int* __restrict__ src, int first, int n,
     int f, float (&acc)[4][FP / 8], Before before) {
   constexpr int KC = RING_KC, STAGES = RING_STAGES;
   constexpr int CH = BS / KC;  // chunks per item
-  constexpr int STAGE = TileShape<FP, KC>::STAGE;
+  constexpr int STAGE = TileShape<FP, KC, T>::STAGE;
   const size_t hb_blk = (size_t)BS * f;
   const int steps = n * CH;
   auto load = [&](int s) {
     const int w = first + s / CH;
-    stage_load<FP, TRANS, KC>(smem + (s % STAGES) * STAGE,
-                              pool + (size_t)ip[w] * BS * BS,
-                              hb + src[w] * hb_blk, (s % CH) * KC, f);
+    stage_load<FP, TRANS, KC, T>(smem + (s % STAGES) * STAGE,
+                                 pool + (size_t)ip[w] * BS * BS,
+                                 hb + src[w] * hb_blk, (s % CH) * KC, f);
   };
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -444,7 +543,7 @@ __device__ __forceinline__ void walk_items(
     if (s + STAGES - 1 < steps) load(s + STAGES - 1);
     cp_async_commit();
     if (s % CH == 0) before(s / CH, acc);
-    mma3_mac<FP, TRANS, KC>(smem + (s % STAGES) * STAGE, acc);
+    mma_mac<FP, TRANS, KC, T>(smem + (s % STAGES) * STAGE, acc);
   }
 }
 

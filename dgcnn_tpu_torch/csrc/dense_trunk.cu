@@ -59,18 +59,42 @@
 //   per-element division), and W_{i+1} is staged in shared memory for the
 //   h @ W and chain epilogues.
 //
+// The bf16 mode (the `_bf16` entries) computes the TPU kernel's function
+// for a bf16-stored adjacency: every kernel is templated on the
+// adjacency's element type AT, and with AT = bf16 the adjacency is read at
+// 2 bytes an element (a resident band or a streamed K-tile takes half the
+// shared memory: the resident cap rises) and widened to fp32 on its shared
+// load, exactly. What enters an adjacency product beside it is rounded to
+// bf16 (round to nearest even), as the TPU kernel's `astype(adj.dtype)`
+// does (dense_trunk.py:93, :152): hw (hw1 where it is staged, the next
+// layer's hw where it is pushed; a streamed K-tile of hw rounded in shared
+// memory after it lands) and d_pre (the resident backward rounds its copy
+// of the whole d_pre after db has been summed from the unrounded values;
+// the streamed backward rounds its K-tiles). Products of two bf16 values
+// are exact in fp32, so each sum is one of exact products in fp32, in the
+// fp32 mode's order. dW, db, the chain and d_hw1 stay fp32. With RH (the
+// bf16-compute flag) the forward also rounds each layer's output h to
+// bf16 (cat and the h @ W operand), the point where the reference's
+// einsum chain rounds under compute_dtype=bfloat16; the caller passes
+// W_i already rounded. AT = float with RH off is the fp32 mode, bit for
+// bit what it was.
+//
 // Every entry returns cudaGetLastError() of its launch (or
 // cudaErrorInvalidValue for a plan that does not fit); the Python wrapper
 // checks shapes, types and contiguity before calling and raises on a
 // non-zero return.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
+using bf16 = __nv_bfloat16;
 
 constexpr int MAXL = 8;  // layers
 
@@ -80,7 +104,7 @@ constexpr int MAXL = 8;  // layers
 // Outside the anonymous namespace: the exported C entry takes a pointer
 // to it.
 struct TrunkArgs {
-  const float* adj;
+  const void* adj;  // float, or bf16 in the bf16 mode
   const float* hw1;
   const float* mask;
   const int* wsel;
@@ -110,44 +134,73 @@ __host__ __device__ __forceinline__ int rup(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-// -- shared-memory plans (floats); kernels/dense_trunk.py mirrors these ----
+// -- shared-memory plans (bytes); kernels/dense_trunk.py mirrors these -----
+// ES is the adjacency's element size: 4 (fp32) or 2 (bf16); everything
+// else in shared memory is fp32.
 
 __host__ __device__ __forceinline__ int band_rows(int T, int C) {
   return rup((T + C - 1) / C, 8);
 }
-// adjacency row pitch: 16-byte rows, and consecutive rows 4 banks apart
-__host__ __device__ __forceinline__ int adj_pitch(int T) {
-  return rup(T, 32) + 4;
+// adjacency row pitch (elements): 16-byte rows, and consecutive rows 16
+// bytes apart in the banks (4 mod 32 words)
+__host__ __device__ __forceinline__ int adj_pitch(int T, int ES) {
+  return rup(T, 32) + 16 / ES;
 }
 // resident forward: adj band + 2 full hw + h band + W
-__host__ __device__ __forceinline__ size_t resident_fwd_floats(int T, int C,
-                                                                int DP) {
+__host__ __device__ __forceinline__ size_t resident_fwd_bytes(int T, int C,
+                                                               int DP, int ES) {
   const int Tb = band_rows(T, C);
-  return (size_t)Tb * adj_pitch(T) + 2 * (size_t)rup(T, 4) * DP +
-         (size_t)Tb * (DP + 4) + (size_t)DP * DP;
+  return (size_t)Tb * adj_pitch(T, ES) * ES +
+         4 * (2 * (size_t)rup(T, 4) * DP + (size_t)Tb * (DP + 4) +
+              (size_t)DP * DP);
 }
 // resident backward: adj band + 2 full d_pre + d_hw band + h_prev band +
 // W^T + (C > 1) two layers of partials [dW | db]
-__host__ __device__ __forceinline__ size_t resident_bwd_floats(int T, int C,
-                                                                int DP) {
+__host__ __device__ __forceinline__ size_t resident_bwd_bytes(int T, int C,
+                                                               int DP, int ES) {
   const int Tb = band_rows(T, C);
-  return (size_t)Tb * adj_pitch(T) + 2 * (size_t)rup(T, 4) * DP +
-         2 * (size_t)Tb * (DP + 4) + (size_t)DP * DP +
-         (C > 1 ? 2 * ((size_t)DP * DP + DP) : 0);
+  return (size_t)Tb * adj_pitch(T, ES) * ES +
+         4 * (2 * (size_t)rup(T, 4) * DP + 2 * (size_t)Tb * (DP + 4) +
+              (size_t)DP * DP + (C > 1 ? 2 * ((size_t)DP * DP + DP) : 0));
 }
-// streamed: one K-stage = adj tile [SBM][SBK + 4] + hw tile [SBK][DP]; the
-// epilogue's row buffers reuse the two stages; W separate
-__host__ __device__ __forceinline__ size_t stream_stage_floats(int DP) {
-  return (size_t)SBM * (SBK + 4) + (size_t)SBK * DP;
+// streamed: one K-stage = adj tile [SBM][SBK + 16 / ES] + hw tile [SBK][DP];
+// the epilogue's row buffers reuse the two stages; W separate
+__host__ __device__ __forceinline__ size_t stream_stage_bytes(int DP, int ES) {
+  return (size_t)SBM * (SBK + 16 / ES) * ES + 4 * (size_t)SBK * DP;
 }
-__host__ __device__ __forceinline__ size_t stream_fwd_floats(int DP) {
-  const size_t st = 2 * stream_stage_floats(DP), ep = (size_t)SBM * (DP + 4);
-  return (st > ep ? st : ep) + (size_t)DP * DP;
+__host__ __device__ __forceinline__ size_t stream_fwd_bytes(int DP, int ES) {
+  const size_t st = 2 * stream_stage_bytes(DP, ES),
+               ep = 4 * (size_t)SBM * (DP + 4);
+  return (st > ep ? st : ep) + 4 * (size_t)DP * DP;
 }
-__host__ __device__ __forceinline__ size_t stream_bwd_floats(int DP) {
-  const size_t st = 2 * stream_stage_floats(DP),
-               ep = 3 * (size_t)SBM * (DP + 4);
-  return (st > ep ? st : ep) + (size_t)DP * DP;
+__host__ __device__ __forceinline__ size_t stream_bwd_bytes(int DP, int ES) {
+  const size_t st = 2 * stream_stage_bytes(DP, ES),
+               ep = 4 * 3 * (size_t)SBM * (DP + 4);
+  return (st > ep ? st : ep) + 4 * (size_t)DP * DP;
+}
+
+// -- the bf16 mode's conversions ---------------------------------------------
+
+template <typename AT>
+__host__ __device__ constexpr bool is_bf16() {
+  return std::is_same<AT, bf16>::value;
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <typename AT>
+__device__ __forceinline__ float4 prop4(float4 v) {  // the product's operand
+  if constexpr (is_bf16<AT>())
+    return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
+                       round_bf16(v.w));
+  return v;
+}
+
+// round n floats of shared memory to bf16 in place (the block's threads)
+__device__ __forceinline__ void round_smem(float* p, int n) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) p[e] = round_bf16(p[e]);
 }
 
 // -- copies ----------------------------------------------------------------
@@ -198,8 +251,39 @@ __device__ __forceinline__ void stage_rows(float* dst, int dp,
   }
 }
 
+// the bf16 form: rows of 2-byte elements, 16-byte copies (8 elements)
+// when the rows allow them, else plain copies (cp.async moves at least 4
+// bytes); dcols a multiple of 8
+__device__ __forceinline__ void stage_rows(bf16* dst, int dp, const bf16* src,
+                                           int sp, int nrows, int valid,
+                                           int cols, int dcols) {
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const bool vec = (sp % 8 == 0) && (cols % 8 == 0) &&
+                   ((uintptr_t)src % 16 == 0);
+  for (int r = threadIdx.x >> 5; r < nrows; r += nw) {
+    const bf16* srow = src + (size_t)r * sp;
+    bf16* drow = dst + (size_t)r * dp;
+    if (vec) {
+      for (int c = lane * 8; c < dcols; c += 256) {
+        const bool ok = r < valid && c < cols;
+        cp16(reinterpret_cast<float*>(drow + c),
+             reinterpret_cast<const float*>(ok ? srow + c : src), ok ? 16 : 0);
+      }
+    } else {
+      for (int c = lane; c < dcols; c += 32)
+        drow[c] = (r < valid && c < cols) ? srow[c] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
+}
+// four bf16 (8 bytes) widened to fp32, exactly
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
 __device__ __forceinline__ void fma4(float (&acc)[4], float a, float4 b) {
@@ -211,8 +295,8 @@ __device__ __forceinline__ void fma4(float (&acc)[4], float a, float4 b) {
 
 // acc[j][:] += sum_{q < n4} X[rows[j]][q] * Y[q][c0 .. c0+3], n4 a multiple
 // of 4: per 4 q, RT + 4 16-byte loads feed 16*RT FMAs.
-template <int RT>
-__device__ __forceinline__ void tile_mac(const float* X, int xp,
+template <int RT, typename XT>
+__device__ __forceinline__ void tile_mac(const XT* X, int xp,
                                          const int (&rows)[RT],
                                          const float* Y, int yp, int c0,
                                          int n4, float (&acc)[RT][4]) {
@@ -270,15 +354,16 @@ __device__ __forceinline__ void end_of_layer(cg::cluster_group& cl, int C) {
 
 // -- resident regime ---------------------------------------------------------
 
-template <int DP>
+template <int DP, typename AT, bool RH>
 __global__ void __launch_bounds__(RNT) trunk_resident_fwd(TrunkArgs p) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cl = cg::this_cluster();
   const int T = p.T, C = p.C, L = p.L, CS = p.offs[L];
-  const int Tb = band_rows(T, C), T4 = rup(T, 4), AP = adj_pitch(T);
+  const int Tb = band_rows(T, C), T4 = rup(T, 4);
+  const int AP = adj_pitch(T, sizeof(AT));
   constexpr int HP = DP + 4;
-  float* sA = smem;
-  float* sHW0 = sA + (size_t)Tb * AP;
+  AT* sA = reinterpret_cast<AT*>(smem);
+  float* sHW0 = reinterpret_cast<float*>(sA + (size_t)Tb * AP);
   float* sHW1 = sHW0 + (size_t)T4 * DP;
   float* sH = sHW1 + (size_t)T4 * DP;
   float* sW = sH + (size_t)Tb * HP;
@@ -290,8 +375,9 @@ __global__ void __launch_bounds__(RNT) trunk_resident_fwd(TrunkArgs p) {
   if (C > 1) cluster_arrive_relaxed();
 
   // (an empty last band points at row T - 1 and copies nothing)
-  stage_rows(sA, AP, p.adj + ((size_t)s * T + min(row0, T - 1)) * T, T, Tb,
-             T - row0, T, rup(T, 4));
+  stage_rows(sA, AP,
+             static_cast<const AT*>(p.adj) + ((size_t)s * T + min(row0, T - 1)) * T,
+             T, Tb, T - row0, T, rup(T, 16 / sizeof(AT)));
   stage_rows(sHW0, DP, p.hw1 + (size_t)s * T * p.dims[0], p.dims[0], T4, T,
              p.dims[0], DP);
   cp_commit();
@@ -299,6 +385,10 @@ __global__ void __launch_bounds__(RNT) trunk_resident_fwd(TrunkArgs p) {
     sHW1[T * DP + e] = 0.f;  // rows no peer writes
   cp_wait<0>();
   __syncthreads();
+  if constexpr (is_bf16<AT>()) {  // hw1 enters the product in bf16
+    round_smem(sHW0, T * DP);
+    __syncthreads();
+  }
   if (C > 1) cluster_wait();  // every peer has started: pushes may begin
 
   const int nrg = Tb / 4;
@@ -331,6 +421,7 @@ __global__ void __launch_bounds__(RNT) trunk_resident_fwd(TrunkArgs p) {
           float h = 0.f;
           if (col < d && gr < T) {
             h = bad ? NAN : tanhf(acc[j][u] + bias[col]) * m;
+            if (RH) h = round_bf16(h);
             p.cat[((size_t)s * T + gr) * CS + p.offs[i] + col] = h;
           }
           sH[rows[j] * HP + col] = h;
@@ -355,8 +446,8 @@ __global__ void __launch_bounds__(RNT) trunk_resident_fwd(TrunkArgs p) {
         const int gr = row0 + rows[j];
         if (gr >= T) continue;
         const float4 v = bad ? make_float4(NAN, NAN, NAN, NAN)
-                             : make_float4(acc[j][0], acc[j][1], acc[j][2],
-                                           acc[j][3]);
+                             : prop4<AT>(make_float4(acc[j][0], acc[j][1],
+                                                     acc[j][2], acc[j][3]));
         push4(cl, C, HWn + gr * DP + c0, v);
       }
     }
@@ -366,15 +457,16 @@ __global__ void __launch_bounds__(RNT) trunk_resident_fwd(TrunkArgs p) {
   // into it came before the last barrier: no peer touches it after exit
 }
 
-template <int DP>
+template <int DP, typename AT>
 __global__ void __launch_bounds__(RNT) trunk_resident_bwd(TrunkArgs p) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cl = cg::this_cluster();
   const int T = p.T, C = p.C, L = p.L, CS = p.offs[L];
-  const int Tb = band_rows(T, C), T4 = rup(T, 4), AP = adj_pitch(T);
+  const int Tb = band_rows(T, C), T4 = rup(T, 4);
+  const int AP = adj_pitch(T, sizeof(AT));
   constexpr int HP = DP + 4;
-  float* sA = smem;
-  float* sD0 = sA + (size_t)Tb * AP;
+  AT* sA = reinterpret_cast<AT*>(smem);
+  float* sD0 = reinterpret_cast<float*>(sA + (size_t)Tb * AP);
   float* sD1 = sD0 + (size_t)T4 * DP;
   float* sX = sD1 + (size_t)T4 * DP;  // d_hw band
   float* sY = sX + (size_t)Tb * HP;   // h_{i-1} band
@@ -392,8 +484,9 @@ __global__ void __launch_bounds__(RNT) trunk_resident_bwd(TrunkArgs p) {
   if (C > 1) cluster_arrive_relaxed();
 
   // (an empty last band points at row T - 1 and copies nothing)
-  stage_rows(sA, AP, p.adj + ((size_t)s * T + min(row0, T - 1)) * T, T, Tb,
-             T - row0, T, rup(T, 4));
+  stage_rows(sA, AP,
+             static_cast<const AT*>(p.adj) + ((size_t)s * T + min(row0, T - 1)) * T,
+             T, Tb, T - row0, T, rup(T, 16 / sizeof(AT)));
   cp_commit();
   for (int e = threadIdx.x; e < (T4 - T) * DP; e += RNT) {
     sD0[T * DP + e] = 0.f;  // rows no peer writes
@@ -454,6 +547,11 @@ __global__ void __launch_bounds__(RNT) trunk_resident_bwd(TrunkArgs p) {
         part[dp * d + a] = sum;
       else
         flat[p.dboff[i] + a] = bad ? NAN : sum;
+    }
+    if constexpr (is_bf16<AT>()) {  // d_pre_i enters the product in bf16,
+      __syncthreads();               // db has read it unrounded; no peer
+      round_smem(const_cast<float*>(D), T * DP);  // writes D this layer
+      __syncthreads();
     }
     // d_hw band = adj_band @ d_pre_i (adj^T = adj)
     for (int it = threadIdx.x; it < nrg * ncg; it += RNT) {
@@ -545,30 +643,37 @@ __global__ void __launch_bounds__(RNT) trunk_resident_bwd(TrunkArgs p) {
 // -- streamed regime ---------------------------------------------------------
 
 // One K-stage: adjacency rows [row0, row0 + SBM) x columns [k0, k0 + SBK)
-// into sA (pitch SBK + 4) and rows [k0, k0 + SBK) of B (pitch ld, width
-// d) into sB (pitch DP), zero outside the slot. Index arithmetic on
-// compile-time powers of two only.
-template <int DP>
-__device__ __forceinline__ void stream_stage(float* st, const float* A,
+// into sA (pitch SBK + 16 / sizeof(AT) elements) and rows [k0, k0 + SBK)
+// of B (pitch ld, width d) into sB (pitch DP), zero outside the slot.
+// Index arithmetic on compile-time powers of two only.
+template <int DP, typename AT>
+__device__ __forceinline__ void stream_stage(float* st, const AT* A,
                                              const float* B, int ld, int T,
                                              int d, int row0, int k0,
                                              bool avec, bool bvec) {
-  constexpr int NT = 2 * DP, AQ = SBK / 4, BQ = DP / 4;
-  float* sA = st;
-  float* sB = st + SBM * (SBK + 4);
-  if (avec) {  // T % 4 == 0: a 16-byte chunk is all in or all out
+  constexpr int NT = 2 * DP, V = 16 / sizeof(AT), AP = SBK + V;
+  constexpr int AQ = SBK / V, BQ = DP / 4;
+  AT* sA = reinterpret_cast<AT*>(st);
+  float* sB = reinterpret_cast<float*>(sA + SBM * AP);
+  if (avec) {  // T % V == 0: a 16-byte chunk is all in or all out
     for (int e = threadIdx.x; e < SBM * AQ; e += NT) {
-      const int r = e / AQ, c = (e % AQ) * 4, gr = row0 + r, gc = k0 + c;
+      const int r = e / AQ, c = (e % AQ) * V, gr = row0 + r, gc = k0 + c;
       const bool ok = gr < T && gc < T;
-      cp16(sA + r * (SBK + 4) + c, ok ? A + (size_t)gr * T + gc : A,
+      cp16(reinterpret_cast<float*>(sA + r * AP + c),
+           reinterpret_cast<const float*>(ok ? A + (size_t)gr * T + gc : A),
            ok ? 16 : 0);
+    }
+  } else if constexpr (is_bf16<AT>()) {  // 2-byte elements: plain copies
+    for (int e = threadIdx.x; e < SBM * SBK; e += NT) {
+      const int r = e / SBK, c = e % SBK, gr = row0 + r, gc = k0 + c;
+      sA[r * AP + c] = (gr < T && gc < T) ? A[(size_t)gr * T + gc]
+                                          : __float2bfloat16_rn(0.f);
     }
   } else {
     for (int e = threadIdx.x; e < SBM * SBK; e += NT) {
       const int r = e / SBK, c = e % SBK, gr = row0 + r, gc = k0 + c;
       const bool ok = gr < T && gc < T;
-      cp4(sA + r * (SBK + 4) + c, ok ? A + (size_t)gr * T + gc : A,
-          ok ? 4 : 0);
+      cp4(sA + r * AP + c, ok ? A + (size_t)gr * T + gc : A, ok ? 4 : 0);
     }
   }
   if (bvec) {  // ld % 4 == 0
@@ -599,17 +704,21 @@ __device__ __forceinline__ void stream_tile(int (&rows)[SRT], int& c0) {
 }
 
 // acc = A[row0 .. row0 + SBM, :] @ B[:, 0 .. DP) over k < T, K-tiles
-// double-buffered with cp.async. Callers may have committed copies of
-// their own before: the first wait covers them. Ends with a block barrier.
-template <int DP>
-__device__ __forceinline__ void stream_agg(const float* A, const float* B,
+// double-buffered with cp.async; with AT = bf16 each K-tile of B is
+// rounded to bf16 in shared memory once it has landed. Callers may have
+// committed copies of their own before: the first wait covers them. Ends
+// with a block barrier.
+template <int DP, typename AT>
+__device__ __forceinline__ void stream_agg(const AT* A, const float* B,
                                            int ld, int T, int d, int row0,
                                            float* stages,
                                            float (&acc)[SRT][4]) {
-  constexpr int STAGE = SBM * (SBK + 4) + SBK * DP;
+  constexpr int V = 16 / sizeof(AT), AP = SBK + V;
+  constexpr int A_BYTES = SBM * AP * sizeof(AT);
+  constexpr int STAGE = (A_BYTES + SBK * DP * 4) / 4;  // floats
   int rows[SRT], c0;
   stream_tile<DP>(rows, c0);
-  const bool avec = T % 4 == 0 && (uintptr_t)A % 16 == 0;
+  const bool avec = T % V == 0 && (uintptr_t)A % 16 == 0;
   const bool bvec = ld % 4 == 0 && (uintptr_t)B % 16 == 0;
   tile_zero<SRT>(acc);
   const int nk = (T + SBK - 1) / SBK;
@@ -625,26 +734,33 @@ __device__ __forceinline__ void stream_agg(const float* A, const float* B,
       cp_wait<0>();
     }
     __syncthreads();
-    const float* st = stages + (kt & 1) * STAGE;
-    tile_mac<SRT>(st, SBK + 4, rows, st + SBM * (SBK + 4), DP, c0, SBK, acc);
+    float* st = stages + (kt & 1) * STAGE;
+    const AT* sA = reinterpret_cast<const AT*>(st);
+    float* sB = st + A_BYTES / 4;
+    if constexpr (is_bf16<AT>()) {
+      round_smem(sB, SBK * DP);
+      __syncthreads();
+    }
+    tile_mac<SRT>(sA, AP, rows, sB, DP, c0, SBK, acc);
     __syncthreads();
   }
 }
 
 // Forward, one layer: cat[:, :, cat_off : cat_off + d] = h and, unless
 // w_next is null, hw_next = h @ w_next[k] ([S, T, DP], zero past dn).
-template <int DP>
+template <int DP, typename AT, bool RH>
 __global__ void __launch_bounds__(2 * DP) trunk_stream_fwd(
-    const float* __restrict__ adj, const float* __restrict__ hw, int ld,
+    const AT* __restrict__ adj, const float* __restrict__ hw, int ld,
     const float* __restrict__ mask, const int* __restrict__ wsel,
     const float* __restrict__ bias, const float* __restrict__ w_next,
     float* __restrict__ cat, float* __restrict__ hw_next, int T, int d,
     int dn, int cat_stride, int cat_off, int K) {
   constexpr int HP = DP + 4;
   extern __shared__ __align__(16) float smem[];
-  const size_t st_f = 2 * stream_stage_floats(DP), ep_f = (size_t)SBM * HP;
+  const size_t st_b = 2 * stream_stage_bytes(DP, sizeof(AT)),
+               ep_b = 4 * (size_t)SBM * HP;
   float* sH = smem;  // reuses the K-stages after the loop
-  float* sW = smem + (st_f > ep_f ? st_f : ep_f);
+  float* sW = smem + (st_b > ep_b ? st_b : ep_b) / 4;
   const int s = blockIdx.y, row0 = blockIdx.x * SBM;
   const int k_raw = wsel[s];
   const bool bad = k_raw < 0 || k_raw >= K;
@@ -666,6 +782,7 @@ __global__ void __launch_bounds__(2 * DP) trunk_stream_fwd(
       float h = 0.f;
       if (col < d && gr < T) {
         h = bad ? NAN : tanhf(acc[j][u] + bias[(size_t)k * d + col]) * m;
+        if (RH) h = round_bf16(h);
         cat[((size_t)s * T + gr) * cat_stride + cat_off + col] = h;
       }
       sH[rows[j] * HP + col] = h;
@@ -722,9 +839,9 @@ __global__ void __launch_bounds__(2 * DP) trunk_stream_bwd_first(
 // d_hw1 ([S, T, d]). Otherwise the block writes its partials of dW_i
 // ([dp, d] at dw_off) and db_{i-1} ([dp] at db_off), and the previous
 // layer's d_pre into out ([S, T, DP]).
-template <int DP>
+template <int DP, typename AT>
 __global__ void __launch_bounds__(2 * DP) trunk_stream_bwd(
-    const float* __restrict__ adj, const float* __restrict__ dpre_in,
+    const AT* __restrict__ adj, const float* __restrict__ dpre_in,
     const float* __restrict__ cat, const float* __restrict__ g,
     const float* __restrict__ mask, const int* __restrict__ wsel,
     const float* __restrict__ w, float* __restrict__ out,
@@ -732,12 +849,12 @@ __global__ void __launch_bounds__(2 * DP) trunk_stream_bwd(
     int off_prev, int K, int P, int dw_off, int db_off) {
   constexpr int NT = 2 * DP, HP = DP + 4;
   extern __shared__ __align__(16) float smem[];
-  const size_t st_f = 2 * stream_stage_floats(DP),
-               ep_f = 3 * (size_t)SBM * HP;
+  const size_t st_b = 2 * stream_stage_bytes(DP, sizeof(AT)),
+               ep_b = 4 * 3 * (size_t)SBM * HP;
   float* sX = smem;  // d_hw rows       (the three reuse the K-stages)
   float* sY = sX + SBM * HP;  // h_{i-1} rows
   float* sZ = sY + SBM * HP;  // d_pre_{i-1} rows
-  float* sW = smem + (st_f > ep_f ? st_f : ep_f);  // W_i^T [d][DP]
+  float* sW = smem + (st_b > ep_b ? st_b : ep_b) / 4;  // W_i^T [d][DP]
   const int s = blockIdx.y, blk = blockIdx.x, row0 = blk * SBM;
   const int k_raw = wsel[s];
   const bool bad = k_raw < 0 || k_raw >= K;
@@ -839,12 +956,12 @@ cudaError_t allow_smem(Kern kern, size_t bytes) {
                               (int)bytes);
 }
 
-template <int DP>
+template <int DP, typename AT, bool RH>
 cudaError_t launch_resident(int bwd, const TrunkArgs& p, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (bwd ? resident_bwd_floats(p.T, p.C, DP)
-                                           : resident_fwd_floats(p.T, p.C, DP));
+  const size_t smem = bwd ? resident_bwd_bytes(p.T, p.C, DP, sizeof(AT))
+                          : resident_fwd_bytes(p.T, p.C, DP, sizeof(AT));
   void (*kern)(TrunkArgs) =
-      bwd ? &trunk_resident_bwd<DP> : &trunk_resident_fwd<DP>;
+      bwd ? &trunk_resident_bwd<DP, AT> : &trunk_resident_fwd<DP, AT, RH>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
@@ -864,36 +981,36 @@ cudaError_t launch_resident(int bwd, const TrunkArgs& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch_stream_fwd(const float* adj, const float* hw, int ld,
+template <int DP, typename AT, bool RH>
+cudaError_t launch_stream_fwd(const AT* adj, const float* hw, int ld,
                               const float* mask, const int* wsel,
                               const float* bias, const float* w_next,
                               float* cat, float* hw_next, int S, int T, int d,
                               int dn, int cat_stride, int cat_off, int K,
                               cudaStream_t st) {
-  const size_t smem = sizeof(float) * stream_fwd_floats(DP);
-  cudaError_t e = allow_smem(trunk_stream_fwd<DP>, smem);
+  const size_t smem = stream_fwd_bytes(DP, sizeof(AT));
+  cudaError_t e = allow_smem(trunk_stream_fwd<DP, AT, RH>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((T + SBM - 1) / SBM, S);
-  trunk_stream_fwd<DP><<<grid, 2 * DP, smem, st>>>(
+  trunk_stream_fwd<DP, AT, RH><<<grid, 2 * DP, smem, st>>>(
       adj, hw, ld, mask, wsel, bias, w_next, cat, hw_next, T, d, dn,
       cat_stride, cat_off, K);
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch_stream_bwd(const float* adj, const float* dpre_in,
+template <int DP, typename AT>
+cudaError_t launch_stream_bwd(const AT* adj, const float* dpre_in,
                               const float* cat, const float* g,
                               const float* mask, const int* wsel,
                               const float* w, float* out, float* part, int S,
                               int T, int d, int dp, int cat_stride,
                               int off_prev, int K, int P, int dw_off,
                               int db_off, cudaStream_t st) {
-  const size_t smem = sizeof(float) * stream_bwd_floats(DP);
-  cudaError_t e = allow_smem(trunk_stream_bwd<DP>, smem);
+  const size_t smem = stream_bwd_bytes(DP, sizeof(AT));
+  cudaError_t e = allow_smem(trunk_stream_bwd<DP, AT>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((T + SBM - 1) / SBM, S);
-  trunk_stream_bwd<DP><<<grid, 2 * DP, smem, st>>>(
+  trunk_stream_bwd<DP, AT><<<grid, 2 * DP, smem, st>>>(
       adj, dpre_in, cat, g, mask, wsel, w, out, part, T, d, dp, cat_stride,
       off_prev, K, P, dw_off, db_off);
   return cudaGetLastError();
@@ -916,7 +1033,11 @@ cudaError_t launch_stream_bwd_first(const float* cat, const float* g,
 // Plain C interface, loaded with ctypes. `dp_bucket` is the register and
 // shared tile width for the whole trunk: 32, 64 or 128 (the widest layer
 // rounded up), chosen by the wrapper; any other value returns
-// cudaErrorInvalidValue.
+// cudaErrorInvalidValue. The `_f32` entries take an fp32 adjacency, the
+// `_bf16` entries a bf16 one (`round_h` 1: round each layer's h, the
+// bf16-compute flag); the backward's first and last launches
+// (`trunk_stream_bwd_first_f32`, `trunk_reduce_blocks_f32`) touch no
+// adjacency and serve both.
 
 #define TRUNK_DISPATCH(bucket, CALL)           \
   switch (bucket) {                            \
@@ -937,26 +1058,38 @@ cudaError_t launch_stream_bwd_first(const float* cat, const float* g,
   }
 
 // Shared-memory bytes of one block: regime 0 = resident, 1 = streamed;
-// bwd 0 = forward, 1 = backward (C is not read for the streamed regime).
+// bwd 0 = forward, 1 = backward (C is not read for the streamed regime);
+// es the adjacency's element size, 4 or 2.
 extern "C" long long trunk_smem_bytes(int regime, int bwd, int T, int C,
-                                      int dp_bucket) {
+                                      int dp_bucket, int es) {
   if (regime == 0)
-    return (long long)sizeof(float) *
-           (bwd ? resident_bwd_floats(T, C, dp_bucket)
-                : resident_fwd_floats(T, C, dp_bucket));
-  return (long long)sizeof(float) *
-         (bwd ? stream_bwd_floats(dp_bucket) : stream_fwd_floats(dp_bucket));
+    return (long long)(bwd ? resident_bwd_bytes(T, C, dp_bucket, es)
+                           : resident_fwd_bytes(T, C, dp_bucket, es));
+  return (long long)(bwd ? stream_bwd_bytes(dp_bucket, es)
+                         : stream_fwd_bytes(dp_bucket, es));
+}
+
+static bool resident_ok(const TrunkArgs* p) {
+  return (p->C == 1 || p->C == 2 || p->C == 4) && p->L >= 1 && p->L <= MAXL &&
+         p->S >= 1 && p->T >= 1;
 }
 
 // The whole trunk in one launch per direction (bwd 0: forward into
 // p->cat; 1: backward into p->dhw1 and p->flat).
 extern "C" int trunk_resident_f32(int bwd, const TrunkArgs* p, int dp_bucket,
                                   void* stream) {
-  if ((p->C != 1 && p->C != 2 && p->C != 4) || p->L < 1 || p->L > MAXL ||
-      p->S < 1 || p->T < 1)
-    return cudaErrorInvalidValue;
+  if (!resident_ok(p)) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  TRUNK_DISPATCH(dp_bucket, launch_resident<DP>(bwd, *p, st))
+  TRUNK_DISPATCH(dp_bucket, (launch_resident<DP, float, false>(bwd, *p, st)))
+}
+
+extern "C" int trunk_resident_bf16(int bwd, const TrunkArgs* p, int dp_bucket,
+                                   int round_h, void* stream) {
+  if (!resident_ok(p)) return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (round_h)
+    TRUNK_DISPATCH(dp_bucket, (launch_resident<DP, bf16, true>(bwd, *p, st)))
+  TRUNK_DISPATCH(dp_bucket, (launch_resident<DP, bf16, false>(bwd, *p, st)))
 }
 
 extern "C" int trunk_stream_fwd_f32(const float* adj, const float* hw, int ld,
@@ -967,10 +1100,29 @@ extern "C" int trunk_stream_fwd_f32(const float* adj, const float* hw, int ld,
                                     int cat_off, int K, int dp_bucket,
                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  TRUNK_DISPATCH(dp_bucket, launch_stream_fwd<DP>(
+  TRUNK_DISPATCH(dp_bucket, (launch_stream_fwd<DP, float, false>(
                                 adj, hw, ld, mask, wsel, bias, w_next, cat,
                                 hw_next, S, T, d, dn, cat_stride, cat_off, K,
-                                st))
+                                st)))
+}
+
+extern "C" int trunk_stream_fwd_bf16(const bf16* adj, const float* hw, int ld,
+                                     const float* mask, const int* wsel,
+                                     const float* bias, const float* w_next,
+                                     float* cat, float* hw_next, int S, int T,
+                                     int d, int dn, int cat_stride,
+                                     int cat_off, int K, int dp_bucket,
+                                     int round_h, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (round_h)
+    TRUNK_DISPATCH(dp_bucket, (launch_stream_fwd<DP, bf16, true>(
+                                  adj, hw, ld, mask, wsel, bias, w_next, cat,
+                                  hw_next, S, T, d, dn, cat_stride, cat_off,
+                                  K, st)))
+  TRUNK_DISPATCH(dp_bucket, (launch_stream_fwd<DP, bf16, false>(
+                                adj, hw, ld, mask, wsel, bias, w_next, cat,
+                                hw_next, S, T, d, dn, cat_stride, cat_off, K,
+                                st)))
 }
 
 extern "C" int trunk_stream_bwd_first_f32(const float* cat, const float* g,
@@ -994,10 +1146,25 @@ extern "C" int trunk_stream_bwd_f32(const float* adj, const float* dpre_in,
                                     int dw_off, int db_off, int dp_bucket,
                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  TRUNK_DISPATCH(dp_bucket, launch_stream_bwd<DP>(
+  TRUNK_DISPATCH(dp_bucket, (launch_stream_bwd<DP, float>(
                                 adj, dpre_in, cat, g, mask, wsel, w, out,
                                 part, S, T, d, dp, cat_stride, off_prev, K, P,
-                                dw_off, db_off, st))
+                                dw_off, db_off, st)))
+}
+
+extern "C" int trunk_stream_bwd_bf16(const bf16* adj, const float* dpre_in,
+                                     const float* cat, const float* g,
+                                     const float* mask, const int* wsel,
+                                     const float* w, float* out, float* part,
+                                     int S, int T, int d, int dp,
+                                     int cat_stride, int off_prev, int K,
+                                     int P, int dw_off, int db_off,
+                                     int dp_bucket, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  TRUNK_DISPATCH(dp_bucket, (launch_stream_bwd<DP, bf16>(
+                                adj, dpre_in, cat, g, mask, wsel, w, out,
+                                part, S, T, d, dp, cat_stride, off_prev, K, P,
+                                dw_off, db_off, st)))
 }
 
 extern "C" int trunk_reduce_blocks_f32(const float* part, float* out, int S,

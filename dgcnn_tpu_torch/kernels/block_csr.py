@@ -39,6 +39,7 @@ _CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {  # extern "C" entry → argtypes
     "block_csr_f32": [_P] * 9 + [_I] * 5 + [_P],
+    "block_csr_bf16": [_P] * 9 + [_I] * 5 + [_P],
     "block_csr_error_string": [_I],
 }
 
@@ -51,6 +52,7 @@ def _lib():
         for name, types in _SIGNATURES.items():
             getattr(lib, name).argtypes = types
         lib.block_csr_f32.restype = _I
+        lib.block_csr_bf16.restype = _I
         lib.block_csr_error_string.restype = ctypes.c_char_p
         lib._dgcnn_bound = True
     return lib
@@ -88,7 +90,9 @@ def _cuda_prop(hb, pool, plan, d, num_items, transpose: bool) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         out = torch.empty((nb, bs, f), dtype=torch.float32, device=dev)
         scratch = torch.empty((plan.parts, bs, f), dtype=torch.float32, device=dev)
-        rc = lib.block_csr_f32(
+        bf16 = hb.dtype == torch.bfloat16
+        entry = lib.block_csr_bf16 if bf16 else lib.block_csr_f32
+        rc = entry(
             pool.data_ptr(), hb.data_ptr(), d.row_ptr.data_ptr(),
             d.piece_ptr.data_ptr(), d.ip.data_ptr(), d.src.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), _counters(dev, nb).data_ptr(),
@@ -98,7 +102,7 @@ def _cuda_prop(hb, pool, plan, d, num_items, transpose: bool) -> torch.Tensor:
         msg = lib.block_csr_error_string(rc).decode()
         raise RuntimeError(f"block_csr {'backward' if transpose else 'forward'}: "
                            f"CUDA error {rc} ({msg})")
-    launches.count(transpose, f)
+    launches.count(transpose, f, bf16)
     return out
 
 

@@ -3,8 +3,15 @@ checks, the plain PyTorch version, the transposed item lists of the
 backward, and the autograd packaging.
 
     out[r] = Σ_{w : item_row[w] = r} pool[item_pool[w]] @ hb[item_col[w]]   r < nb
-    hb [nb, bs, F] fp32, pool [P+1, bs, bs] fp32 (row P = zeros), out [nb, bs, F]
+    hb [nb, bs, F], pool [P+1, bs, bs] (row P = zeros), out [nb, bs, F] fp32
     transpose:  out[c] = Σ_{w in col-major order, item_colT = c} pool[ipT_w]ᵀ @ g[rT_w]
+
+hb and pool share one dtype, float32 or bfloat16 (the engines store the
+pool at the propagation dtype, as the reference's do); the output is
+fp32 either way. In bf16 the products of two bf16 values are exact and
+sum in fp32 (the reference's `preferred_element_type=float32`), and the
+backward rounds its cotangent to bf16 before the transposed product and
+returns d_hb in hb's dtype (dgcnn_tpu/models/dgcnn.py:449-463).
 
 bs = 128 and F = 1..128. `item_row` is non-decreasing; padded items carry
 segment id ≥ nb and fall outside every row; rows no item visits are exact
@@ -46,9 +53,9 @@ def check_inputs(hb, pool, item_pool, item_row, item_col, item_permT,
         )
     if pool.dim() != 3 or tuple(pool.shape[1:]) != (BS, BS) or pool.shape[0] < 1:
         raise ValueError(f"pool must be [P+1, {BS}, {BS}], got {tuple(pool.shape)}")
-    for t in (hb, pool):
-        if t.dtype != torch.float32:
-            raise TypeError(f"hb and pool must be float32, got {t.dtype}")
+    if hb.dtype != pool.dtype or hb.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"hb and pool must share a dtype, float32 or bfloat16; "
+                        f"got {hb.dtype} and {pool.dtype}")
     items = (item_pool, item_row, item_col, item_permT, item_colT)
     for t in (*items, num_items):
         if t.dtype != torch.int32:
@@ -80,13 +87,15 @@ def block_propagate_plain(hb: torch.Tensor, pool: torch.Tensor,
                           ) -> torch.Tensor:
     """The kernels' function in plain PyTorch: gather the items' blocks,
     one batched product, then a segment sum over `seg` (ids ≥ nb are
-    dropped). `transpose` multiplies by each block's transpose."""
+    dropped). `transpose` multiplies by each block's transpose. bf16
+    operands are widened to fp32 (exactly) and multiplied there; the
+    result is fp32."""
     nb, bs, f = hb.shape
-    blocks = pool[item_pool.long()]
+    blocks = pool[item_pool.long()].float()
     if transpose:
         blocks = blocks.mT
-    parts = torch.bmm(blocks, hb[src.long()])
-    out = hb.new_zeros((nb + 1, bs, f))
+    parts = torch.bmm(blocks, hb[src.long()].float())
+    out = torch.zeros((nb + 1, bs, f), dtype=torch.float32, device=hb.device)
     out.index_add_(0, seg.long().clamp(max=nb), parts)
     return out[:nb]
 
@@ -205,21 +214,25 @@ def check_plan(plan: BlockPlan, kind: str, nb: int, w: int, device) -> None:
 
 class BlockLaunchCounts:
     """Plain integer counts of the calls run on a kernel (block
-    propagations, SpMMs), and those of width F = 1 among them."""
+    propagations, SpMMs), those of width F = 1 among them and those in
+    bf16 (block kernels)."""
 
     def reset(self) -> None:
         self.fwd_launches = self.bwd_launches = 0
         self.f1_fwd = self.f1_bwd = 0
+        self.bf16_fwd = self.bf16_bwd = 0
 
     __init__ = reset
 
-    def count(self, transpose: bool, f: int) -> None:
+    def count(self, transpose: bool, f: int, bf16: bool = False) -> None:
         if transpose:
             self.bwd_launches += 1
             self.f1_bwd += f == 1
+            self.bf16_bwd += bf16
         else:
             self.fwd_launches += 1
             self.f1_fwd += f == 1
+            self.bf16_fwd += bf16
 
 
 Launch = Callable[..., torch.Tensor]
@@ -233,7 +246,9 @@ def make_block_prop(name: str, kind: str, planner: Planner, launch: Launch
     autograd Function whose forward and backward walk that plan.
     `launch(hb, pool, plan, direction, num_items, transpose)` runs the
     kernel on CUDA tensors (and counts the launch); CPU tensors run
-    `block_propagate_plain`. Gradients flow to hb only."""
+    `block_propagate_plain`. Gradients flow to hb only: the cotangent is
+    taken in the pool's dtype (rounded to bf16 for a bf16 pool) and d_hb
+    is returned in hb's."""
 
     def forward(hb, pool, num_items, plan):
         if hb.is_cuda:
@@ -242,19 +257,20 @@ def make_block_prop(name: str, kind: str, planner: Planner, launch: Launch
         return block_propagate_plain(hb, pool, d.ip, d.seg, d.src)
 
     def setup_context(ctx, inputs, output):
-        _hb, pool, num_items, ctx.plan = inputs
+        hb, pool, num_items, ctx.plan = inputs
+        ctx.hb_dtype = hb.dtype
         ctx.save_for_backward(pool, num_items)
 
     def backward(ctx, g):
         pool, num_items = ctx.saved_tensors
-        g = g.contiguous()
+        g = g.to(pool.dtype).contiguous()
         d = ctx.plan.bwd
         if g.is_cuda:
             d_hb = launch(g, pool, ctx.plan, d, num_items, True)
         else:
             d_hb = block_propagate_plain(g, pool, d.ip, d.seg, d.src,
                                          transpose=True)
-        return d_hb, None, None, None
+        return d_hb.to(ctx.hb_dtype), None, None, None
 
     fn = type(name, (torch.autograd.Function,), {
         "forward": staticmethod(forward),

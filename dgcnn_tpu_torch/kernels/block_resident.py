@@ -39,6 +39,7 @@ _CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {  # extern "C" entry → argtypes
     "block_resident_f32": [_P] * 9 + [_I] * 5 + [_P],
+    "block_resident_bf16": [_P] * 9 + [_I] * 5 + [_P],
     "block_resident_error_string": [_I],
 }
 
@@ -51,6 +52,7 @@ def _lib():
         for name, types in _SIGNATURES.items():
             getattr(lib, name).argtypes = types
         lib.block_resident_f32.restype = _I
+        lib.block_resident_bf16.restype = _I
         lib.block_resident_error_string.restype = ctypes.c_char_p
         lib._dgcnn_bound = True
     return lib
@@ -73,7 +75,9 @@ def _cuda_prop(hb, pool, plan, d, num_items, transpose: bool) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         parts = torch.empty((plan.parts, bs, f), dtype=torch.float32, device=dev)
         out = torch.empty((nb, bs, f), dtype=torch.float32, device=dev)
-        rc = lib.block_resident_f32(
+        bf16 = hb.dtype == torch.bfloat16
+        entry = lib.block_resident_bf16 if bf16 else lib.block_resident_f32
+        rc = entry(
             pool.data_ptr(), hb.data_ptr(), d.ip.data_ptr(), d.src.data_ptr(),
             d.seg.data_ptr(), d.row_ptr.data_ptr(),
             num_items.data_ptr(), parts.data_ptr(), out.data_ptr(),
@@ -85,7 +89,7 @@ def _cuda_prop(hb, pool, plan, d, num_items, transpose: bool) -> torch.Tensor:
             f"block_resident {'backward' if transpose else 'forward'}: "
             f"CUDA error {rc} ({msg})"
         )
-    launches.count(transpose, f)
+    launches.count(transpose, f, bf16)
     return out
 
 

@@ -10,6 +10,21 @@ For every graph slot s, with weight set k = wsel[s]:
 as the reference leaves it to XLA), and autograd carries d_W1 and d_x
 through it once `d_hw1` flows out of `GcnTrunkFn`.
 
+The adjacency is float32 or bfloat16; everything else is float32. A bf16
+adjacency is the TPU kernel's bf16 mode (dgcnn_tpu/kernels/
+dense_trunk.py:93, :152): each operand that meets it in a product, hw in
+the forward and d_pre in the backward, is rounded to bf16 (round to
+nearest even), the products are exact in fp32 and summed in fp32; dW, db,
+the chain and d_hw1 stay fp32. `round_h=True` (bf16 compute; needs a bf16
+adjacency) also rounds each layer's output h to bf16, in cat and as the
+h @ W operand: with W_i passed already rounded by the caller, that is the
+reference's einsum chain under compute_dtype=bfloat16 (models/dgcnn.py
+:266-293), which its own fused kernel never runs. The backward is the
+same in both bf16 forms (the reference's autodiff of its chain rounds
+d_hw after the adjacency product and the chain cotangents between layers;
+the kernel rounds d_pre before it, as the TPU kernel does, and keeps the
+rest fp32: the two agree within bf16 tolerance).
+
 Symmetry contract: `adj` must be symmetric (adjᵀ = adj). The normalized
 adjacency D̂^{-1/2}(A+I)D̂^{-1/2} of an undirected graph is, and the
 backward — of the CUDA kernel and of `gcn_trunk_plain_bwd` alike — uses
@@ -39,7 +54,8 @@ from the kernels' shared-memory formulas, mirrored here:
 `_cuda_fwd` / `_cuda_bwd` take a forced plan for measurement only.
 
 `launches.fwd_launches` / `launches.bwd_launches` count one per trunk
-forward / backward that ran on the kernels, whatever the regime;
+forward / backward that ran on the kernels, whatever the regime
+(`bf16_fwd` / `bf16_bwd`: those with a bf16 adjacency);
 `launches.resident_fwd`, `resident_bwd`, `streamed_fwd` and
 `streamed_bwd` split the same calls by regime; `kernel_fwd` / `kernel_bwd`
 count the kernels those calls launched, one beside each launch (a
@@ -81,6 +97,7 @@ class TrunkLaunchCounts(LaunchCounts):
 
     def reset(self) -> None:
         super().reset()
+        self.bf16_fwd = self.bf16_bwd = 0
         self.resident_fwd = self.resident_bwd = 0
         self.streamed_fwd = self.streamed_bwd = 0
         self.kernel_fwd = self.kernel_bwd = 0
@@ -98,7 +115,7 @@ def _offsets(dims: Sequence[int]) -> List[int]:
     return out
 
 
-def _check(dims, adj, hw1, mask, wsel, ws, bs) -> int:
+def _check(dims, adj, hw1, mask, wsel, ws, bs, round_h=False) -> int:
     """Validate everything the kernel relies on; returns K."""
     dims = tuple(int(d) for d in dims)
     n = len(dims)
@@ -107,17 +124,17 @@ def _check(dims, adj, hw1, mask, wsel, ws, bs) -> int:
             f"dims {dims}: the trunk takes 1..{MAX_LAYERS} layers of width "
             f"1..{MAX_WIDTH}"
         )
-    if adj.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "bf16 adjacency is not ported yet (ROADMAP Queue 1 item 10, "
-            "mixed precision)"
-        )
     if len(ws) != n - 1 or len(bs) != n:
         raise ValueError(f"need {n - 1} weights and {n} biases for dims {dims}")
+    if adj.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"adj must be float32 or bfloat16, got {adj.dtype}")
+    if round_h and adj.dtype != torch.bfloat16:
+        raise ValueError("round_h (bf16 compute) needs a bf16 adjacency")
     tensors = (adj, hw1, mask, *ws, *bs)
-    for t in tensors:
+    for t in (hw1, mask, *ws, *bs):
         if t.dtype != torch.float32:
-            raise TypeError(f"trunk tensors must be float32, got {t.dtype}")
+            raise TypeError(f"trunk tensors other than adj must be float32, "
+                            f"got {t.dtype}")
     if wsel.dtype != torch.int32:
         raise TypeError(f"wsel must be int32, got {wsel.dtype}")
     dev = adj.device
@@ -154,14 +171,33 @@ def _check(dims, adj, hw1, mask, wsel, ws, bs) -> int:
 # -- plain PyTorch version -----------------------------------------------
 
 
-def gcn_trunk_plain(dims, adj, hw1, mask, wsel, ws, bs) -> torch.Tensor:
-    """The `bmm`/tanh chain: cat [S, T, Σdims]."""
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (round to nearest even) and widened back: the
+    value a bf16 operand carries into an fp32 product."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _prop(adj: torch.Tensor):
+    """(the adjacency as fp32, the rounding of what meets it): a bf16
+    adjacency widens exactly and rounds its partner operand to bf16."""
+    if adj.dtype == torch.bfloat16:
+        return adj.float(), round_bf16
+    return adj, lambda t: t
+
+
+def gcn_trunk_plain(dims, adj, hw1, mask, wsel, ws, bs, round_h=False) -> torch.Tensor:
+    """The `bmm`/tanh chain: cat [S, T, Σdims] (fp32; with a bf16
+    adjacency hw rounds to bf16 where it meets it, and with `round_h`
+    each h too)."""
     sel = wsel.long()
     m = mask[..., None]
+    a, rnd = _prop(adj)
     hw = hw1
     outs = []
     for i in range(len(dims)):
-        h = torch.tanh(torch.bmm(adj, hw) + bs[i][sel][:, None, :]) * m
+        h = torch.tanh(torch.bmm(a, rnd(hw)) + bs[i][sel][:, None, :]) * m
+        if round_h:
+            h = round_bf16(h)
         outs.append(h)
         if i + 1 < len(dims):
             hw = torch.bmm(h, ws[i][sel])
@@ -172,12 +208,14 @@ def gcn_trunk_plain_bwd(
     dims, adj, mask, wsel, ws, cat, g
 ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
     """The kernel's reverse recurrence written out in PyTorch (uses
-    adjᵀ = adj). Returns (d_hw1 [S,T,d1], per-slot dW_i [S,d_{i-1},d_i]
-    for i = 2..L, per-slot db_i [S,d_i] for i = 1..L)."""
+    adjᵀ = adj; with a bf16 adjacency d_pre rounds to bf16 where it meets
+    it). Returns (d_hw1 [S,T,d1], per-slot dW_i [S,d_{i-1},d_i] for i =
+    2..L, per-slot db_i [S,d_i] for i = 1..L)."""
     offs = _offsets(dims)
     n = len(dims)
     sel = wsel.long()
     m = mask[..., None]
+    a, rnd = _prop(adj)
     d_chain = torch.zeros_like(cat[..., offs[n - 1] : offs[n]])
     dws: List[torch.Tensor] = [None] * (n - 1)
     dbs: List[torch.Tensor] = [None] * n
@@ -185,7 +223,7 @@ def gcn_trunk_plain_bwd(
     for i in range(n - 1, -1, -1):
         h = cat[..., offs[i] : offs[i + 1]]
         d_pre = (g[..., offs[i] : offs[i + 1]] + d_chain) * m * (1.0 - h * h)
-        d_hw = torch.bmm(adj, d_pre)  # adjᵀ = adj
+        d_hw = torch.bmm(a, rnd(d_pre))  # adjᵀ = adj
         dbs[i] = d_pre.sum(dim=1)
         if i > 0:
             h_prev = cat[..., offs[i - 1] : offs[i]]
@@ -268,52 +306,59 @@ def _rup(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-# Shared-memory plans, formula for formula as csrc/dense_trunk.cu (floats).
+# Shared-memory plans, formula for formula as csrc/dense_trunk.cu (bytes;
+# `es` is the adjacency's element size, 4 for fp32 and 2 for bf16).
 def band_rows(t: int, c: int) -> int:
     return _rup(-(-t // c), 8)
 
 
-def _adj_pitch(t: int) -> int:
-    # adjacency row pitch: 16-byte rows, and consecutive rows 4 banks apart
-    return _rup(t, 32) + 4
+def _adj_pitch(t: int, es: int) -> int:
+    # adjacency row pitch (elements): 16-byte rows, consecutive rows 16
+    # bytes apart in the banks
+    return _rup(t, 32) + 16 // es
 
 
-def _resident_fwd_floats(t: int, c: int, dp: int) -> int:
+def _resident_fwd_bytes(t: int, c: int, dp: int, es: int) -> int:
     # resident forward: adj band + 2 full hw + h band + W
     tb = band_rows(t, c)
-    return tb * _adj_pitch(t) + 2 * _rup(t, 4) * dp + tb * (dp + 4) + dp * dp
+    return (tb * _adj_pitch(t, es) * es
+            + 4 * (2 * _rup(t, 4) * dp + tb * (dp + 4) + dp * dp))
 
 
-def _resident_bwd_floats(t: int, c: int, dp: int) -> int:
+def _resident_bwd_bytes(t: int, c: int, dp: int, es: int) -> int:
     # resident backward: adj band + 2 full d_pre + d_hw band + h_prev band +
     # W^T + (C > 1) two layers of partials [dW | db]
     tb = band_rows(t, c)
-    return (tb * _adj_pitch(t) + 2 * _rup(t, 4) * dp + 2 * tb * (dp + 4)
-            + dp * dp + (2 * (dp * dp + dp) if c > 1 else 0))
+    return (tb * _adj_pitch(t, es) * es
+            + 4 * (2 * _rup(t, 4) * dp + 2 * tb * (dp + 4) + dp * dp
+                   + (2 * (dp * dp + dp) if c > 1 else 0)))
 
 
-def _stream_stage_floats(dp: int) -> int:
-    # streamed: one K-stage = adj tile [SBM][SBK + 4] + hw tile [SBK][DP]; the
-    # epilogue's row buffers reuse the two stages; W separate
-    return SBM * (SBK + 4) + SBK * dp
+def _stream_stage_bytes(dp: int, es: int) -> int:
+    # streamed: one K-stage = adj tile [SBM][SBK + 16/es] + hw tile [SBK][DP];
+    # the epilogue's row buffers reuse the two stages; W separate
+    return SBM * (SBK + 16 // es) * es + 4 * SBK * dp
 
 
-def _stream_fwd_floats(dp: int) -> int:
-    return max(2 * _stream_stage_floats(dp), SBM * (dp + 4)) + dp * dp
+def _stream_fwd_bytes(dp: int, es: int) -> int:
+    return max(2 * _stream_stage_bytes(dp, es), 4 * SBM * (dp + 4)) + 4 * dp * dp
 
 
-def _stream_bwd_floats(dp: int) -> int:
-    return max(2 * _stream_stage_floats(dp), 3 * SBM * (dp + 4)) + dp * dp
+def _stream_bwd_bytes(dp: int, es: int) -> int:
+    return max(2 * _stream_stage_bytes(dp, es), 4 * 3 * SBM * (dp + 4)) + 4 * dp * dp
 
 
-def resident_smem(t: int, c: int, dims) -> Tuple[int, int]:
-    """(forward, backward) shared-memory bytes of one resident block."""
+def resident_smem(t: int, c: int, dims, es: int = 4) -> Tuple[int, int]:
+    """(forward, backward) shared-memory bytes of one resident block, for
+    an adjacency of `es` bytes an element."""
     dp = _bucket(dims)
-    return 4 * _resident_fwd_floats(t, c, dp), 4 * _resident_bwd_floats(t, c, dp)
+    return _resident_fwd_bytes(t, c, dp, es), _resident_bwd_bytes(t, c, dp, es)
 
 
-def trunk_plan(s: int, t: int, dims, c: int = None, regime: str = None) -> TrunkPlan:
-    """The regime for S slots of T rows at layer widths `dims`. Resident
+def trunk_plan(s: int, t: int, dims, c: int = None, regime: str = None,
+               es: int = 4) -> TrunkPlan:
+    """The regime for S slots of T rows at layer widths `dims`, for an
+    adjacency of `es` bytes an element (4 fp32, 2 bf16). Resident
     when both directions fit SMEM_MAX for some C in CLUSTERS whose bands
     all hold rows: the smallest such C with S·C ≥ NUM_SMS / 2, else the
     largest. A resident call's time is one block's serial chain of
@@ -323,20 +368,20 @@ def trunk_plan(s: int, t: int, dims, c: int = None, regime: str = None) -> Trunk
     forces a plan, for measurement; a forced resident plan that does not
     fit is returned as it is and refused by the kernel."""
     dp = _bucket(dims)
-    streamed = TrunkPlan("streamed", 0, 4 * _stream_fwd_floats(dp),
-                         4 * _stream_bwd_floats(dp))
+    streamed = TrunkPlan("streamed", 0, _stream_fwd_bytes(dp, es),
+                         _stream_bwd_bytes(dp, es))
     if regime == "streamed":
         return streamed
     if c is not None:
-        return TrunkPlan("resident", c, *resident_smem(t, c, dims))
+        return TrunkPlan("resident", c, *resident_smem(t, c, dims, es))
     fits = [c for c in CLUSTERS
             if (c - 1) * band_rows(t, c) < t
-            and max(resident_smem(t, c, dims)) <= SMEM_MAX]
+            and max(resident_smem(t, c, dims, es)) <= SMEM_MAX]
     if not fits:
         return streamed
     full = [c for c in fits if 2 * s * c >= NUM_SMS]
     c = full[0] if full else fits[-1]
-    return TrunkPlan("resident", c, *resident_smem(t, c, dims))
+    return TrunkPlan("resident", c, *resident_smem(t, c, dims, es))
 
 
 def launches_per_call(plan: TrunkPlan, dims) -> Tuple[int, int]:
@@ -372,11 +417,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # argument types of csrc/dense_trunk.cu's C entries, in order
 _SIGNATURES = {
     "trunk_resident_f32": [_I, ctypes.POINTER(_TrunkArgs), _I, _P],
+    "trunk_resident_bf16": [_I, ctypes.POINTER(_TrunkArgs), _I, _I, _P],
     "trunk_stream_fwd_f32": [_P, _P, _I] + [_P] * 6 + [_I] * 8 + [_P],
+    "trunk_stream_fwd_bf16": [_P, _P, _I] + [_P] * 6 + [_I] * 9 + [_P],
     "trunk_stream_bwd_first_f32": [_P] * 6 + [_I] * 9 + [_P],
     "trunk_stream_bwd_f32": [_P] * 9 + [_I] * 11 + [_P],
+    "trunk_stream_bwd_bf16": [_P] * 9 + [_I] * 11 + [_P],
     "trunk_reduce_blocks_f32": [_P, _P, _I, _I, _I, _P],
-    "trunk_smem_bytes": [_I] * 5,
+    "trunk_smem_bytes": [_I] * 6,
     "trunk_error_string": [_I],
 }
 
@@ -395,12 +443,12 @@ def _lib():
     return lib
 
 
-def kernel_smem(plan: TrunkPlan, t: int, dims) -> Tuple[int, int]:
+def kernel_smem(plan: TrunkPlan, t: int, dims, es: int = 4) -> Tuple[int, int]:
     """(forward, backward) shared-memory bytes as the compiled kernels
     count them (needs the built library); equal to `plan`'s own."""
     lib, dp = _lib(), _bucket(dims)
     reg = 0 if plan.regime == "resident" else 1
-    return tuple(int(lib.trunk_smem_bytes(reg, b, t, plan.c, dp)) for b in (0, 1))
+    return tuple(int(lib.trunk_smem_bytes(reg, b, t, plan.c, dp, es)) for b in (0, 1))
 
 
 def _ok(lib, rc: int, what: str) -> None:
@@ -433,10 +481,12 @@ def _args(dims, plan, adj, mask, wsel, ws, k) -> _TrunkArgs:
     return a
 
 
-def _cuda_fwd(dims, adj, hw1, mask, wsel, ws, bs, k, plan=None) -> torch.Tensor:
+def _cuda_fwd(dims, adj, hw1, mask, wsel, ws, bs, k, plan=None,
+              round_h=False) -> torch.Tensor:
     lib = _lib()
     s, t = adj.shape[0], adj.shape[1]
-    plan = plan or trunk_plan(s, t, dims)
+    bf16 = adj.dtype == torch.bfloat16
+    plan = plan or trunk_plan(s, t, dims, es=adj.element_size())
     offs = _offsets(dims)
     cdim = offs[-1]
     dpb = _bucket(dims)
@@ -449,8 +499,9 @@ def _cuda_fwd(dims, adj, hw1, mask, wsel, ws, bs, k, plan=None) -> torch.Tensor:
             a.hw1, a.cat = hw1.data_ptr(), cat.data_ptr()
             for i, b in enumerate(bs):
                 a.b[i] = b.data_ptr()
-            _ok(lib, lib.trunk_resident_f32(0, ctypes.byref(a), dpb, stream),
-                f"trunk forward (resident, C={plan.c})")
+            rc = (lib.trunk_resident_bf16(0, ctypes.byref(a), dpb, int(round_h), stream)
+                  if bf16 else lib.trunk_resident_f32(0, ctypes.byref(a), dpb, stream))
+            _ok(lib, rc, f"trunk forward (resident, C={plan.c})")
             launches.kernel_fwd += 1
             launches.resident_fwd += 1
         else:
@@ -460,17 +511,18 @@ def _cuda_fwd(dims, adj, hw1, mask, wsel, ws, bs, k, plan=None) -> torch.Tensor:
                 # intermediate hw rows padded to the tile width, zero past dn
                 hw_next = (torch.empty((s, t, dpb), dtype=torch.float32, device=dev)
                            if dn else None)
-                rc = lib.trunk_stream_fwd_f32(
-                    adj.data_ptr(), hw.data_ptr(), ld, mask.data_ptr(),
-                    wsel.data_ptr(), bs[i].data_ptr(), _ptr(ws[i] if dn else None),
-                    cat.data_ptr(), _ptr(hw_next), s, t, d, dn, cdim, offs[i], k,
-                    dpb, stream,
-                )
+                args = (adj.data_ptr(), hw.data_ptr(), ld, mask.data_ptr(),
+                        wsel.data_ptr(), bs[i].data_ptr(),
+                        _ptr(ws[i] if dn else None), cat.data_ptr(), _ptr(hw_next),
+                        s, t, d, dn, cdim, offs[i], k, dpb)
+                rc = (lib.trunk_stream_fwd_bf16(*args, int(round_h), stream) if bf16
+                      else lib.trunk_stream_fwd_f32(*args, stream))
                 _ok(lib, rc, f"trunk forward layer {i + 1}")
                 launches.kernel_fwd += 1
                 hw, ld = hw_next, dpb
             launches.streamed_fwd += 1
     launches.fwd_launches += 1
+    launches.bf16_fwd += bf16
     return cat
 
 
@@ -478,7 +530,8 @@ def _cuda_bwd(dims, adj, mask, wsel, ws, cat, g, k, plan=None):
     """Returns (d_hw1, per-slot gradient rows [S, P])."""
     lib = _lib()
     s, t = adj.shape[0], adj.shape[1]
-    plan = plan or trunk_plan(s, t, dims)
+    bf16 = adj.dtype == torch.bfloat16
+    plan = plan or trunk_plan(s, t, dims, es=adj.element_size())
     offs = _offsets(dims)
     cdim = offs[-1]
     n = len(dims)
@@ -493,8 +546,9 @@ def _cuda_bwd(dims, adj, mask, wsel, ws, cat, g, k, plan=None):
             a = _args(dims, plan, adj, mask, wsel, ws, k)
             a.cat_in, a.g = cat.data_ptr(), g.data_ptr()
             a.dhw1, a.flat = d_hw1.data_ptr(), flat.data_ptr()
-            _ok(lib, lib.trunk_resident_f32(1, ctypes.byref(a), dpb, stream),
-                f"trunk backward (resident, C={plan.c})")
+            rc = (lib.trunk_resident_bf16(1, ctypes.byref(a), dpb, 0, stream)
+                  if bf16 else lib.trunk_resident_f32(1, ctypes.byref(a), dpb, stream))
+            _ok(lib, rc, f"trunk backward (resident, C={plan.c})")
             launches.kernel_bwd += 1
             launches.resident_bwd += 1
         else:
@@ -512,7 +566,8 @@ def _cuda_bwd(dims, adj, mask, wsel, ws, cat, g, k, plan=None):
                 dp = dims[i - 1] if i > 0 else 0
                 out = (torch.empty((s, t, dpb), dtype=torch.float32, device=dev)
                        if i > 0 else d_hw1)
-                rc = lib.trunk_stream_bwd_f32(
+                entry = lib.trunk_stream_bwd_bf16 if bf16 else lib.trunk_stream_bwd_f32
+                rc = entry(
                     adj.data_ptr(), dpre.data_ptr(), cat.data_ptr(), g.data_ptr(),
                     mask.data_ptr(), wsel.data_ptr(),
                     _ptr(ws[i - 1] if i > 0 else None), out.data_ptr(),
@@ -531,6 +586,7 @@ def _cuda_bwd(dims, adj, mask, wsel, ws, cat, g, k, plan=None):
             launches.kernel_bwd += 1
             launches.streamed_bwd += 1
     launches.bwd_launches += 1
+    launches.bf16_bwd += bf16
     return d_hw1, flat
 
 
@@ -538,22 +594,23 @@ def _cuda_bwd(dims, adj, mask, wsel, ws, cat, g, k, plan=None):
 
 
 class GcnTrunkFn(torch.autograd.Function):
-    """cat = trunk(adj, hw1, mask, wsel, W2..WL, b1..bL). Gradients flow to
-    hw1, the weights and the biases; `adj`, `mask` and `wsel` get none
-    (the adjacency is data). Saves `cat` for the backward."""
+    """cat = trunk(adj, hw1, mask, wsel, W2..WL, b1..bL), `round_h` the
+    bf16-compute flag. Gradients flow to hw1, the weights and the biases;
+    `adj`, `mask` and `wsel` get none (the adjacency is data). Saves `cat`
+    for the backward."""
 
     @staticmethod
-    def forward(dims, adj, hw1, mask, wsel, *wb):
+    def forward(dims, round_h, adj, hw1, mask, wsel, *wb):
         n = len(dims)
         ws, bs = wb[: n - 1], wb[n - 1 :]
-        k = _check(dims, adj, hw1, mask, wsel, ws, bs)
+        k = _check(dims, adj, hw1, mask, wsel, ws, bs, round_h)
         if adj.is_cuda:
-            return _cuda_fwd(dims, adj, hw1, mask, wsel, ws, bs, k)
-        return gcn_trunk_plain(dims, adj, hw1, mask, wsel, ws, bs)
+            return _cuda_fwd(dims, adj, hw1, mask, wsel, ws, bs, k, round_h=round_h)
+        return gcn_trunk_plain(dims, adj, hw1, mask, wsel, ws, bs, round_h)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        dims, adj, _hw1, mask, wsel, *wb = inputs
+        dims, _round_h, adj, _hw1, mask, wsel, *wb = inputs
         n = len(dims)
         ctx.dims = tuple(int(d) for d in dims)
         ctx.k = wb[n - 1].shape[0]
@@ -575,20 +632,22 @@ class GcnTrunkFn(torch.autograd.Function):
                 dim=1,
             )
         dws, dbs = _split_grads(_segment_sum(flat, wsel, k), dims)
-        return (None, None, d_hw1, None, None, *dws, *dbs)
+        return (None, None, None, d_hw1, None, None, *dws, *dbs)
 
 
-def gcn_trunk(dims, adj, hw1, mask, wsel, ws, bs) -> torch.Tensor:
-    """cat [S, T, Σdims] — see the module docstring.
+def gcn_trunk(dims, adj, hw1, mask, wsel, ws, bs, round_h=False) -> torch.Tensor:
+    """cat [S, T, Σdims] float32 — see the module docstring.
 
     dims  layer widths, e.g. (32, 32, 32, 1): 1..8 layers, each 1..128
-    adj   [S, T, T] float32, SYMMETRIC normalized adjacency
+    adj   [S, T, T] float32 or bfloat16, SYMMETRIC normalized adjacency
     hw1   [S, T, d1] = x @ W1 (computed by the caller)
     mask  [S, T] node mask
     wsel  [S] int32 weight-set id per slot (zeros when K == 1)
     ws    L−1 tensors [K, d_{i-1}, d_i] (W2..WL)
     bs    L tensors [K, d_i]
 
+    round_h  bf16 compute: round each layer's h to bf16 (bf16 adj only)
+
     CPU tensors run the plain version; CUDA tensors run the kernels."""
-    return GcnTrunkFn.apply(tuple(int(d) for d in dims), adj, hw1, mask,
-                            wsel, *ws, *bs)
+    return GcnTrunkFn.apply(tuple(int(d) for d in dims), bool(round_h), adj, hw1,
+                            mask, wsel, *ws, *bs)

@@ -27,7 +27,18 @@ class; `apply_block_folds` runs every fold's propagation as one call of
 the block kernel over the folds' merged work-item stream.
 `DGCNNFoldsNet` owns the stacked parameters and dispatches on the batch.
 
-fp32 only: bfloat16 compute is ROADMAP Queue 1 item 10.
+Mixed precision, the reference's policy (`DGCNN.compute_dtype`,
+dgcnn_tpu/models/dgcnn.py:53-57): parameters, biases, the loss, Adam and
+log_softmax stay fp32; under compute_dtype="bfloat16" node features,
+weights at their products and each layer's output run in bf16, every
+product multiplies its operands widened to fp32 with fp32 sums (the
+reference's `preferred_element_type=float32`; `ops/readout.matmul_f32`),
+and the propagation dtype is bf16 whenever the compute or the stored
+adjacency (dense) or pool (block) is bf16 (:275-283, :967-973): the
+trunk kernel and the block kernels then run their bf16 modes. The dense
+layouts keep the trunk kernel under bf16 compute, with its `round_h`
+flag, where the reference runs its einsum chain. The COO layout runs
+fp32 only (`apply_coo` refuses bf16 compute: ROADMAP Queue 1 item 20).
 """
 
 from __future__ import annotations
@@ -50,7 +61,7 @@ from dgcnn_tpu_torch.kernels.block_resident import make_plan as block_resident_p
 from dgcnn_tpu_torch.kernels.dense_trunk import gcn_trunk
 from dgcnn_tpu_torch.kernels.spmm_block_coo import block_coo_order
 from dgcnn_tpu_torch.ops.gcn import gcn_conv, gcn_degree
-from dgcnn_tpu_torch.ops.readout import conv1d_readout, linear
+from dgcnn_tpu_torch.ops.readout import conv1d_readout, linear, matmul_f32
 from dgcnn_tpu_torch.ops.spmm import edge_order
 from dgcnn_tpu_torch.ops.sort_pool import sort_pool, sort_pool_dense, sort_pool_folds
 from dgcnn_tpu_torch.parity.convert import fold_state
@@ -70,6 +81,23 @@ class DGCNN:
     conv1d_kernel: int = 5
     dense_dim: int = 128
     dropout_rate: float = 0.5
+    # matmul operands and layer outputs in this dtype, products summed in
+    # fp32; parameters, biases, softmax and the loss stay fp32
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+    def prop_dtype(self, stored: torch.dtype) -> torch.dtype:
+        """The propagation dtype next to an adjacency or pool stored in
+        `stored`: bf16 when either it or the compute dtype is."""
+        return (torch.bfloat16 if torch.bfloat16 in (stored, self.dtype)
+                else torch.float32)
 
     @property
     def concat_dim(self) -> int:
@@ -311,14 +339,19 @@ def _pooled_to_log_probs(
 ) -> torch.Tensor:
     """conv1d readout → MLP head → log_softmax. With fold-stacked
     parameters `pooled` is [F, B, k, C] and `dropout_gen` a list of F
-    generators (None for a fold that draws nothing)."""
+    generators (None for a fold that draws nothing). Runs in `pooled`'s
+    dtype (the compute dtype) at every product's operands: the weights
+    are cast to it, the biases stay fp32, dropout acts on the fp32 h and
+    the logits are fp32."""
+    dt = pooled.dtype
     feats = conv1d_readout(
         pooled,
-        params["conv5"]["w"], params["conv5"]["b"],
-        params["conv6"]["w"], params["conv6"]["b"],
+        params["conv5"]["w"].to(dt), params["conv5"]["b"],
+        params["conv6"]["w"].to(dt), params["conv6"]["b"],
     )
     acts["readout"] = feats
-    h = torch.relu(linear(feats, params["lin1"]["w"], params["lin1"]["b"]))
+    h = torch.relu(linear(feats.to(dt), params["lin1"]["w"].to(dt),
+                          params["lin1"]["b"]))
     if not deterministic:
         if dropout_gen is None:
             raise ValueError("dropout_gen required when deterministic=False")
@@ -330,7 +363,7 @@ def _pooled_to_log_probs(
         mask = u < keep
         acts["dropout_keep"] = mask
         h = torch.where(mask, h / keep, torch.zeros_like(h))
-    logits = linear(h, params["lin2"]["w"], params["lin2"]["b"])
+    logits = linear(h.to(dt), params["lin2"]["w"].to(dt), params["lin2"]["b"])
     log_probs = torch.log_softmax(logits, dim=-1)
     acts["log_probs"] = log_probs
     return log_probs
@@ -338,32 +371,38 @@ def _pooled_to_log_probs(
 
 def _dense_trunk(params: Params, model: DGCNN, batch: DenseGraphBatch,
                  acts: dict) -> torch.Tensor:
-    """GCN stack + SortPooling → pooled [S, k, Σdims]. `x @ W1` is a plain
-    matmul; the adjacency-coupled chain runs in `gcn_trunk` (the CUDA
-    kernel on the card, its plain version on the CPU). Fold-stacked
-    parameters (leaves [F, ...]) take the S slots as F runs of S/F, one
-    per fold: `x @ W1` per fold as one batched product, and one trunk call
-    with K = F weight sets, slot s reading set s // (S/F)."""
+    """GCN stack + SortPooling → pooled [S, k, Σdims] in the compute dtype.
+    `x @ W1` is a plain matmul (`matmul_f32`); the adjacency-coupled chain
+    runs in `gcn_trunk` (the CUDA kernel on the card, its plain version
+    on the CPU) at the propagation dtype, and under bf16 compute with W_i
+    rounded to bf16 and `round_h` (each layer's h rounded, where the
+    reference's chain rounds). Fold-stacked parameters (leaves [F, ...])
+    take the S slots as F runs of S/F, one per fold: `x @ W1` per fold as
+    one batched product, and one trunk call with K = F weight sets, slot s
+    reading set s // (S/F)."""
     gcn = params["gcn"]
     dims = tuple(model.hidden_dims)
-    s, dev = batch.adj.shape[0], batch.adj.device
+    dt = model.dtype
+    adj = batch.adj.to(model.prop_dtype(batch.adj.dtype))
+    x = batch.x.to(dt)
+    s, dev = adj.shape[0], adj.device
     if gcn[0]["w"].dim() == 3:
         f = gcn[0]["w"].shape[0]
         if s % f:
             raise ValueError(f"{s} slots do not split into {f} folds")
-        x = batch.x
-        hw1 = torch.matmul(x.reshape(f, -1, x.shape[-1]), gcn[0]["w"]).reshape(
+        hw1 = matmul_f32(x.reshape(f, -1, x.shape[-1]), gcn[0]["w"].to(dt)).reshape(
             s, x.shape[1], -1)
         wsel = torch.arange(f, dtype=torch.int32, device=dev)[:, None].expand(
             f, s // f).reshape(-1)
-        ws = tuple(layer["w"] for layer in gcn[1:])
+        ws = tuple(layer["w"].to(dt).float() for layer in gcn[1:])
         bs = tuple(layer["b"] for layer in gcn)
     else:
-        hw1 = torch.matmul(batch.x, gcn[0]["w"])
+        hw1 = matmul_f32(x, gcn[0]["w"].to(dt))
         wsel = torch.zeros(s, dtype=torch.int32, device=dev)
-        ws = tuple(layer["w"].unsqueeze(0) for layer in gcn[1:])
+        ws = tuple(layer["w"].to(dt).float().unsqueeze(0) for layer in gcn[1:])
         bs = tuple(layer["b"].unsqueeze(0) for layer in gcn)
-    cat = gcn_trunk(dims, batch.adj, hw1, batch.node_mask, wsel, ws, bs)
+    cat = gcn_trunk(dims, adj, hw1, batch.node_mask.float(), wsel, ws, bs,
+                    round_h=dt == torch.bfloat16).to(dt)
     off = 0
     for i, d in enumerate(dims):
         acts[f"gcn{i + 1}"] = cat[:, :, off : off + d]
@@ -520,18 +559,26 @@ BLOCK_PROPAGATE = {
 }
 
 
-def _block_chain(params: Params, batch, pool: torch.Tensor, block_impl: str,
-                 acts: dict) -> torch.Tensor:
+def _block_chain(params: Params, model: DGCNN, batch, pool: torch.Tensor,
+                 block_impl: str, acts: dict) -> torch.Tensor:
     """The four GCN layers over a block batch → their outputs concatenated
-    on the last axis. Each layer is `hw = h @ W` (a plain matmul, as the
-    reference leaves it to XLA), the propagation `block_impl` names over
-    the batch's work items, walking the kernel's plan built once here for
-    the four layers, forward and backward, then bias, tanh and the node
-    mask. A `FoldBlockBatch` (node arrays [F, S, ·], fold-stacked weights)
-    runs `h @ W` as one batched product and the propagation once over the
-    merged stream of nb' = F·nb block-rows."""
+    on the last axis, in the compute dtype. Each layer is `hw = h @ W` (a
+    plain matmul in fp32 from compute-dtype operands, as the reference
+    leaves it to XLA), rounded to the propagation dtype, the propagation
+    `block_impl` names over the batch's work items, walking the kernel's
+    plan built once here for the four layers, forward and backward, then
+    bias, tanh and the node mask. The pool must be stored at the
+    propagation dtype (the engines store it so; the kernels take hb and
+    the pool in one dtype). A `FoldBlockBatch` (node arrays [F, S, ·],
+    fold-stacked weights) runs `h @ W` as one batched product and the
+    propagation once over the merged stream of nb' = F·nb block-rows."""
     if block_impl not in BLOCK_PROPAGATE:
         raise ValueError(f"unknown block_impl {block_impl!r}")
+    dt, prop = model.dtype, model.prop_dtype(pool.dtype)
+    if pool.dtype != prop:
+        raise TypeError(f"a {pool.dtype} pool under compute_dtype="
+                        f"{model.compute_dtype!r}: store the pool at the propagation "
+                        f"dtype, {prop}")
     propagate, make_plan = BLOCK_PROPAGATE[block_impl]
     bs = pool.shape[1]
     nodes = batch.x.shape[:-1]  # [S] or [F, S]
@@ -540,13 +587,13 @@ def _block_chain(params: Params, batch, pool: torch.Tensor, block_impl: str,
     items = (batch.item_pool, batch.item_row, batch.item_col,
              batch.item_permT, batch.item_colT)
     plan = make_plan(*items, nb)
-    h = batch.x
+    h = batch.x.to(dt)
     layer_outs = []
     for i, layer in enumerate(params["gcn"]):
-        hb = torch.matmul(h, layer["w"]).reshape(nb, bs, -1)
+        hb = matmul_f32(h, layer["w"].to(dt)).to(prop).reshape(nb, bs, -1)
         agg = propagate(hb, pool, *items, batch.num_items, plan)
         b = layer["b"] if len(nodes) == 1 else layer["b"][:, None, :]
-        h = torch.tanh(agg.reshape(*nodes, -1) + b) * mask
+        h = (torch.tanh(agg.reshape(*nodes, -1) + b) * mask).to(dt)
         layer_outs.append(h)
         acts[f"gcn{i + 1}"] = h
     return torch.cat(layer_outs, dim=-1)
@@ -570,7 +617,7 @@ def apply_block(
     global lexicographic sort with the row-block prefilter (row_block =
     bs)."""
     acts: dict = {}
-    cat = _block_chain(params, batch, pool, block_impl, acts)
+    cat = _block_chain(params, model, batch, pool, block_impl, acts)
     pooled = sort_pool(cat, batch.node_graph, batch.y.shape[0], model.sort_pool_k,
                        row_block=pool.shape[1])
     acts["sort_pool"] = pooled
@@ -607,7 +654,7 @@ def apply_block_folds(
     num_folds, num_slots = batch.y.shape
     _check_folds(params_f, num_folds, deterministic, dropout_gens)
     acts: dict = {}
-    cat = _block_chain(params_f, batch, pool, block_impl, acts)
+    cat = _block_chain(params_f, model, batch, pool, block_impl, acts)
     pooled = sort_pool_folds(cat, batch.node_graph, num_slots, model.sort_pool_k,
                              row_block=pool.shape[1])
     acts["sort_pool"] = pooled
@@ -639,7 +686,12 @@ def apply_coo(
     four layers' SpMMs, forward and backward, and a block-pair structure
     the packer attached serves "pallas", with its slot order
     (`block_coo_order`) built once here. SortPooling is the global
-    lexicographic sort."""
+    lexicographic sort. fp32 only: bf16 compute on this layout needs the
+    bf16 modes of the SpMM kernels (ROADMAP Queue 1 item 20)."""
+    if model.compute_dtype != "float32":
+        raise NotImplementedError(
+            "bfloat16 compute on the COO layout is not ported yet (ROADMAP "
+            "Queue 1 item 20: the SpMM kernels' bf16 modes)")
     num_nodes = batch.x.shape[0]
     num_slots = batch.y.shape[0]
     deg_hat = gcn_degree(batch.edge_dst, batch.edge_mask, num_nodes)

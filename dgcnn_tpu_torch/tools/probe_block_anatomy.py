@@ -40,7 +40,7 @@ import torch
 from dgcnn_tpu_torch.kernels import _build
 
 VARIANTS = ("base", "no_mac", "no_reload", "neither")
-_MAC = "    mma3_mac<FP, TRANS, KC>(smem + (s % STAGES) * STAGE, acc);"
+_MAC = "    mma_mac<FP, TRANS, KC, T>(smem + (s % STAGES) * STAGE, acc);"
 _RELOAD = ("    if (s + STAGES - 1 < steps) load(s + STAGES - 1);",
            "    if (s + STAGES - 1 < CH) load(s + STAGES - 1);")
 
@@ -51,7 +51,7 @@ def variant_source(name: str, src: str) -> str:
     out = src
     patches = []
     if name in ("no_mac", "neither"):
-        patches.append((_MAC, _MAC.replace("mma3_mac", "if (s < 0) mma3_mac", 1)))
+        patches.append((_MAC, _MAC.replace("mma_mac", "if (s < 0) mma_mac", 1)))
     if name in ("no_reload", "neither"):
         patches.append(_RELOAD)
     for old, new in patches:

@@ -20,9 +20,13 @@ and multi-tile layouts; under "auto" on the dense layout when
 `_lockstep_would_engage`, and always on the block layout (on one device
 the reference runs multi-tile folds one after another). Otherwise, and
 on the COO layout, the folds run one after another. `choose_layout`
-answers as the reference does; the halo layout, meshes, bf16, resume and
-the other options not ported yet raise NotImplementedError naming the
-ROADMAP item that ports them (`check_supported`).
+answers as the reference does; the halo layout, meshes, bf16 compute
+on the COO layout (`check_layout_dtype`), resume and the other options
+not ported yet raise NotImplementedError naming the ROADMAP item that
+ports them (`check_supported`). Each engine stores its data at the
+reference's dtypes: the dense and multi-tile datasets at
+`store_dtypes(resolved_adj_dtype, compute_dtype)`, the block pool at
+`pool_dtype(cfg)`; the COO engines in fp32.
 
 Randomness: weights come from a CPU `torch.Generator` and dropout from a
 generator on the run's device, each seeded from
@@ -107,7 +111,12 @@ def resolve_device(device=None) -> torch.device:
 def fp32_only() -> None:
     """Full fp32 products at the entry points: cuDNN runs fp32
     convolutions in TF32 by default, and the port is held to the fp32
-    reference. (The readout does not use cuDNN; this pins it anyway.)"""
+    reference. (The readout does not use cuDNN; this pins it anyway.)
+    Under bf16 compute no product runs in bf16: every matmul takes its
+    bf16 operands widened to fp32 (`ops/readout.matmul_f32`), so neither
+    a bf16 result nor cuBLAS's reduced-precision bf16 reduction
+    (`allow_bf16_reduced_precision_reduction`) can enter, and the fp32
+    settings here cover them."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -116,8 +125,6 @@ def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for every setting this slice does not
     serve, naming the ROADMAP item that ports it."""
     unserved = []
-    if cfg.compute_dtype != "float32" or cfg.adj_dtype == "bfloat16":
-        unserved.append("bfloat16 compute or adjacency (ROADMAP Queue 1 item 10)")
     if tuple(cfg.mesh_shape) != (1, 1):
         unserved.append("a device mesh (ROADMAP Queue 1 item 12)")
     if cfg.checkpoint_resume or cfg.checkpoint_every:
@@ -130,6 +137,24 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(unserved)
         )
+
+
+def check_layout_dtype(cfg: Config, layout: str) -> None:
+    """bf16 compute on the COO layout needs the SpMM kernels' bf16 modes:
+    NotImplementedError naming their ROADMAP item. (A bf16 `adj_dtype`
+    runs COO in fp32, as the reference's COO engines, which never read
+    it.)"""
+    if layout == "coo" and cfg.compute_dtype == "bfloat16":
+        raise NotImplementedError(
+            "not ported yet: bfloat16 compute on the COO layout (ROADMAP Queue 1 "
+            "item 20: the bf16 modes of the SpMM kernels)")
+
+
+def pool_dtype(cfg: Config) -> str:
+    """The block pool's storage dtype, the reference's rule
+    (dgcnn_tpu/train/cv.py:457-469): the compute dtype when it is not
+    float32, else the resolved adjacency dtype."""
+    return cfg.compute_dtype if cfg.compute_dtype != "float32" else cfg.resolved_adj_dtype()
 
 
 LOCKSTEP_LAYOUTS = ("dense", "block", "multi")
@@ -175,6 +200,7 @@ def _model_from_config(cfg: Config, num_features: int, num_classes: int,
         conv1d_kernel=cfg.conv1d_kernel,
         dense_dim=cfg.dense_dim,
         dropout_rate=cfg.dropout_rate,
+        compute_dtype=cfg.compute_dtype,
     )
 
 
@@ -332,7 +358,8 @@ class DenseEngine:
         self.graphs = graphs
         self.n_tile = dense_tile(dataset)
         self.slots = _round_up(cfg.batch_size, cfg.graph_pad_multiple)
-        self.data = build_dense_dataset(dataset, self.n_tile, device)
+        self.data = build_dense_dataset(dataset, self.n_tile, device,
+                                        cfg.resolved_adj_dtype(), cfg.compute_dtype)
         self.runners = RunnerSlot()
         self._fold = 0
 
@@ -382,7 +409,7 @@ class BlockSparseEngine:
         host = build_block_graphset(dataset)
         self._nb = host.nb.astype(np.int64)
         self._block_counts = host.block_count.astype(np.int64)
-        self.dev = block_graphset_to_device(host, device)
+        self.dev = block_graphset_to_device(host, device, pool_dtype(cfg))
         self.block_impl = cfg.resolved_block_impl()
         self.floor_nb = 8
         self.floor_w = 64
@@ -611,7 +638,7 @@ class MultiDenseEngine:
         self.graphs = graphs
         self.tiles = plan_tiles(dataset.node_counts(), cfg.multi_dense_min_tile)
         self.classes, self.routing = build_multi_dense_on_device(
-            dataset, self.tiles, device)
+            dataset, self.tiles, device, cfg.resolved_adj_dtype(), cfg.compute_dtype)
         self.slot_floor = np.full(len(self.tiles), 4, dtype=np.int64)
         warm_rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, 0]))
         self.slots_for(*(warm_rng.permutation(dataset.num_graphs) for _ in range(40)))
@@ -665,6 +692,7 @@ def make_engine(cfg: Config, dataset: GraphSet, device: torch.device, layout: st
     """The layout's engine; COO picks as the reference's `make_engine`:
     `--spmm pallas` needs host-built structures (CooEngine), otherwise
     `coo_assembly` decides. `graphs` goes to every engine."""
+    check_layout_dtype(cfg, layout)
     if layout == "coo":
         host = cfg.resolved_spmm_impl() == "pallas" or cfg.coo_assembly == "host"
         return (CooEngine if host else DeviceCooEngine)(cfg, dataset, device, graphs)
@@ -788,6 +816,7 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         cfg, dataset.num_features, dataset.num_classes, dataset.node_counts()
     )
     layout = choose_layout(cfg, dataset)
+    check_layout_dtype(cfg, layout)
     if cfg.cv_parallel == "folds":
         check_lockstep_layout(layout)
     if layout not in PORTED_LAYOUTS:

@@ -14,9 +14,10 @@ import subprocess
 import numpy as np
 import torch
 
-# published H100 SXM peaks: fp32 outside the tensor cores, and HBM
-# bandwidth
+# published H100 SXM peaks: fp32 outside the tensor cores, bf16 in them
+# (dense), and HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 REPS = 10  # calls per captured graph
 FLUSH_BYTES = 64 << 20  # over the H100's 50 MB L2
@@ -73,11 +74,44 @@ def _batch_edges(rng, num_nodes: int, num_edges: int, avg_graph_nodes: int = 30)
     return src[order], dst[order], w[order]
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, bf16_flops: float = 0.0):
     """(least ms, "bytes" or "operations"): max(bytes / HBM rate, fp32
-    operations / fp32 peak)."""
-    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    operations / fp32 peak + operations on bf16 operands / bf16 peak)."""
+    by_bytes = nbytes / PEAK_BYTES * 1e3
+    by_ops = (flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def trunk_bounds(s: int, t: int, k: int, dims, es: int = 4, round_h: bool = False):
+    """(fwd, bwd) (least ms, by) of one GCN-trunk call on S slots of T rows,
+    K weight sets, an adjacency of `es` bytes an element: each input read
+    once, each output written once. The adjacency products are counted at
+    the bf16 peak when the adjacency is bf16 (both operands are), the
+    h @ W and chain products at the fp32 peak, or, with `round_h`, the
+    forward's h @ W at the bf16 peak."""
+    sd = sum(dims)
+    pairs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    wbytes = 4 * k * (pairs + sd) + 4 * s
+    p = pairs + sd  # per-slot gradient values the backward writes
+    adj = es * s * t * t
+    fwd_bytes = adj + 4 * (s * t * dims[0] + s * t + s * t * sd) + wbytes
+    bwd_bytes = adj + 4 * (s * t + 2 * s * t * sd + s * t * dims[0] + s * p) + wbytes
+    prop = 2.0 * s * t * t * sd
+    hw = 2.0 * s * t * pairs
+    on16 = es == 2
+    return (bound(fwd_bytes, (0 if on16 else prop) + (0 if round_h else hw),
+                  (prop if on16 else 0) + (hw if round_h else 0)),
+            bound(bwd_bytes, (0 if on16 else prop) + 2 * hw, prop if on16 else 0))
+
+
+def block_bounds(n_items: int, nb: int, f: int, es: int = 4, bs: int = 128):
+    """(least ms, by) of one block propagation: each real item's block
+    and source rows read once (`es` bytes an element, 2 in the bf16 mode),
+    the [nb, bs, F] fp32 output written once; the products at the fp32
+    peak, or the bf16 peak when the operands are bf16."""
+    nbytes = n_items * (bs * bs * es + bs * f * es) + nb * bs * f * 4
+    ops = 2.0 * n_items * bs * bs * f
+    return bound(nbytes, 0.0, ops) if es == 2 else bound(nbytes, ops)
 
 
 def spmm_bound(e_real, n, rows_read, f):

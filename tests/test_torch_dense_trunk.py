@@ -132,7 +132,7 @@ def _args(dims=(32, 32, 32, 1), t=8):
 @pytest.mark.parametrize("mutate,exc", [
     (lambda a: a.__setitem__(0, (32,) * 9), ValueError),
     (lambda a: a.__setitem__(0, (129, 1)), ValueError),
-    (lambda a: a.__setitem__(1, a[1].to(torch.bfloat16)), NotImplementedError),
+    (lambda a: a.__setitem__(2, a[2].to(torch.bfloat16)), TypeError),
     (lambda a: a.__setitem__(2, a[2].double()), TypeError),
     (lambda a: a.__setitem__(4, a[4].long()), TypeError),
     (lambda a: a.__setitem__(1, a[1].transpose(1, 2)), ValueError),
@@ -213,7 +213,7 @@ def test_launch_counts_reset_every_regime():
     assert set(vars(dt.launches).values()) == {0}
     assert set(vars(dt.launches)) == {"fwd_launches", "bwd_launches", "resident_fwd",
                                       "resident_bwd", "streamed_fwd", "streamed_bwd",
-                                      "kernel_fwd", "kernel_bwd"}
+                                      "kernel_fwd", "kernel_bwd", "bf16_fwd", "bf16_bwd"}
 
 
 def _bands(t, c):

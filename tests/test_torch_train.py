@@ -123,7 +123,10 @@ def test_cv_run_writes_reference_artifacts(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    {"compute_dtype": "bfloat16"}, {"adj_dtype": "bfloat16"},
+    # bf16 compute is served on the dense, multi and block layouts; the COO
+    # layout refuses it, whatever the adjacency dtype
+    {"compute_dtype": "bfloat16", "layout": "coo"},
+    {"adj_dtype": "bfloat16", "compute_dtype": "bfloat16", "layout": "coo"},
     {"mesh_shape": (2, 1)},
     {"checkpoint_resume": True}, {"checkpoint_every": 5},
     {"tensorboard_dir": "tb"}, {"opt_flatten": True},
