@@ -78,7 +78,13 @@ CUDA is absent or any phase fails. Phases:
         kernels also on an unsorted stream with one row over ≥ 3 blocks of
         256 positions both ways, and on the same stream with no real edge;
   4. the main paths, each with its launch counts set to 0 just before
-     and read just after:
+     and read just after. "A batch on the card against the CPU" holds
+     the log-probs and every parameter gradient of one batch within rel
+     1e-4 of each tensor's largest value (1e-2 under bf16), the CPU run
+     on the branches the card took (`Branches`: each ReLU, max-pool
+     select and sort-pool order; one the CPU's own values would take
+     otherwise passes only as a near-tie, its deciding values within
+     that tolerance of the boundary):
      a. `run_cross_validation` trains synthetic NCI1 (layout auto →
         dense, batch 50, `cv_parallel` auto → fold-lockstep) for 10 folds
         × 4 epochs with `max_fused_epochs` 2, through the fused runner
@@ -186,6 +192,22 @@ CUDA is absent or any phase fails. Phases:
         each on the card against the CPU within rel 1e-2; the bf16
         lockstep runners (NCI1, DD) built directly; `--layout coo
         --dtype bfloat16` raises NotImplementedError;
+     h. resume and inference: phase 4a's NCI1 dense lockstep run (10 × 4),
+        phase 4e's DD block lockstep run (10 × 4) and phase 4c's DD
+        `--layout coo` run (2 × 4) again with `--ckpt_every 2`, graphed,
+        crashed by the event log (the lockstep runs at epoch 4, their
+        bundle on disk epoch 2's; the COO run in fold 2, once at epoch 3
+        and once at epoch 1, before fold 2's first in-flight bundle) and
+        resumed: every fold's CSV byte for byte, its rows and `epochs/`
+        bundle bitwise the uninterrupted run's, no in-flight bundle or
+        floors file left, each in-flight save timed, fold 1's fold-epoch
+        seconds with `--ckpt_every 2` beside the uninterrupted runs';
+        `predict_dataset` of synthetic NCI1 (4,110 graphs) and DD (1,178)
+        from fold 1's bundle of 4a and 4e: the row kernel's launches
+        counted (3 at F=32 and 1 at F=1 a batch, exact per replay, none on
+        the other kernels), graphed bitwise eager, the card within rel
+        1e-4 of the CPU, one replay under `set_sync_debug_mode("error")`,
+        graphs/s over a pass of replays and over a whole call;
   5. device times (utils/profiling.py `device_ms`): each call captured
      10 times in one CUDA graph, the graph replayed and timed with CUDA
      events, so the host's launch rate is out of the number; warm
@@ -217,7 +239,8 @@ CUDA is absent or any phase fails. Phases:
      and its slot order's build also at every other batch of phase 3c;
      the block kernels' bf16 mode (the wrapper's design) at the DD mean
      batch and the merged step, beside fp32, bounds at 2 bytes an
-     element, the library call on the widened operands;
+     element, the library call on the widened operands; the row kernel
+     at phase 4h's median inference batch of NCI1 and DD;
   6. one `torch.profiler` table of a single eager train step for NCI1
      dense (one fold, and the lockstep step of all ten, in fp32 and under
      bf16 compute), DD block through each `--block_impl` (one fold, and
@@ -242,17 +265,23 @@ CUDA is absent or any phase fails. Phases:
      per width, F=32 and `_f1`, with the graphed main path's launches of
      that width, replays counted, the block kernels' DD lockstep path's
      launches and merged-step times beside them; the three kernels' bf16
-     modes as `*_bf16_*` entries with phase 4g's launches), the card line
+     modes as `*_bf16_*` entries with phase 4g's launches; the row
+     kernel's entries carry phase 4h's inference launches and graphs/s),
+     the resume and inference numbers with the card line, the card line
      again, and the final `{"ok": true, ...}` line.
 """
 
 from __future__ import annotations
 
+import atexit
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -262,8 +291,8 @@ import numpy as np
 import torch
 
 from dgcnn_tpu_torch.utils.profiling import (
-    FLUSH_BYTES, Flush, block_bounds, card_line, device_ms, events_ms, rel_err,
-    spmm_bound, trunk_bounds,
+    ATOL, FLUSH_BYTES, RTOL, Flush, block_bounds, card_line, device_ms, events_ms,
+    rel_err, spmm_bound, trunk_bounds,
 )
 
 S = 56  # graph slots: batch 50 rounded up to graph_pad_multiple 8
@@ -1730,43 +1759,231 @@ def folds_net(model, device, seed=3):
         for f in range(FOLDS)]))
 
 
+def host_cpu():
+    """The host CPU's model name as Linux reports it, and its architecture."""
+    import platform
+
+    name = "model name not reported"
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                if key.strip() in ("model name", "Model", "Hardware", "vendor_id"):
+                    name = value.strip()
+                    if key.strip() == "model name":
+                        break
+    except OSError:
+        pass
+    return f"{name} ({platform.machine()})"
+
+
+class _TorchWith:
+    """`torch` with some functions replaced (`Branches.taken`)."""
+
+    def __init__(self, **fns):
+        self.__dict__.update(fns)
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+
+def _inversion(v):
+    """How far the sequence v breaks descending order: the largest
+    v[j] − v[i] over i < j along the last axis (0 if it is sorted)."""
+    lo = torch.cummin(v, dim=-1).values
+    return torch.where(v == lo, torch.zeros_like(v), v - lo).max().item()
+
+
+class Branches:
+    """The branches one forward takes, so that a card-vs-CPU check holds
+    both devices' gradients on the same ones. Autodiff of ReLU, of the
+    max-pool's pairwise select and of SortPooling's order is piecewise:
+    where a deciding value lies within rounding of its boundary (a ReLU
+    input at 0, two equal pooled values, two equal sort keys), the card
+    and the CPU, whose fp32 sums run in other orders, may take different
+    branches, and a gradient then flows through another unit: the
+    forward moves by the gap, the gradients by a unit's share. `record`
+    (the card's run) notes each decision; `replay` (the CPU's) takes the
+    card's, and raises unless every one the CPU's own values would make
+    otherwise is a near-tie: its deciding values within `tol` of the
+    boundary, `tol(t)` the tolerance the check holds a tensor t to. The
+    decisions are the ReLUs of ops/readout.py and models/dgcnn.py, the
+    max-pool select of ops/readout.py, `top_k_order` (the dense layout's
+    per-slot order and the block layout's row-block prefilter) and the
+    float sort of ops/sort_pool.py `sort_pool`."""
+
+    def __init__(self, tol):
+        self.tol = tol
+        self.log = []
+        self.at = 0
+        self.mode = None
+        self.inside = 0
+        self.near = {}  # kind → [near-ties replayed, the worst gap over tol]
+
+    @contextlib.contextmanager
+    def taken(self, mode):
+        import importlib
+
+        ro = importlib.import_module("dgcnn_tpu_torch.ops.readout")
+        md = importlib.import_module("dgcnn_tpu_torch.models.dgcnn")
+        sp = importlib.import_module("dgcnn_tpu_torch.ops.sort_pool")
+        saved = ro.torch, md.torch, sp.torch, sp.top_k_order
+        top_k = sp.top_k_order
+        self.mode, self.at = mode, 0
+        ro.torch = _TorchWith(relu=self.relu, where=self.select)
+        md.torch = _TorchWith(relu=self.relu)
+        sp.torch = _TorchWith(sort=self.sort)
+        sp.top_k_order = lambda key, k: self.top_k(top_k, key, k)
+        try:
+            yield self
+            if mode == "replay" and self.at != len(self.log):
+                raise AssertionError(f"the CPU took {self.at} decisions, the card "
+                                     f"{len(self.log)}")
+        finally:
+            ro.torch, md.torch, sp.torch, sp.top_k_order = saved
+
+    def _take(self, kind, own):
+        if self.mode == "record":
+            self.log.append((kind, own))
+            return own
+        if self.at >= len(self.log) or self.log[self.at][0] != kind or \
+                self.log[self.at][1].shape != own.shape:
+            raise AssertionError(f"decision {self.at} ({kind}, {tuple(own.shape)}) is "
+                                 f"not the card's")
+        self.at += 1
+        return self.log[self.at - 1][1].cpu()
+
+    def _near(self, kind, n, gap, t):
+        """n decisions of `kind` differ from the CPU's own, the worst `gap`
+        from its boundary, against the tolerance t."""
+        if n and gap > t:
+            raise AssertionError(f"{kind}: the card decides {n} cases otherwise than "
+                                 f"the CPU, one {gap:.3e} from its boundary, over the "
+                                 f"tolerance {t:.3e}")
+        seen = self.near.setdefault(kind, [0, 0.0])
+        seen[0] += n
+        seen[1] = max(seen[1], gap / t if n else 0.0)
+
+    def relu(self, x):
+        m = self._take("ReLU", x > 0)
+        if self.mode == "record":
+            return torch.relu(x)
+        off = m != (x > 0)
+        n = int(off.sum())
+        self._near("ReLU", n, x[off].abs().max().item() if n else 0.0, self.tol(x))
+        return torch.where(m, x, torch.zeros_like(x))
+
+    def select(self, c, a, b):  # readout's max-pool: where(h0 >= h1, h0, h1)
+        m = self._take("max-pool", c)
+        if self.mode == "record":
+            return torch.where(c, a, b)
+        off = m != c
+        n = int(off.sum())
+        self._near("max-pool", n, (a - b)[off].abs().max().item() if n else 0.0,
+                   self.tol(torch.maximum(a.abs(), b.abs())))
+        return torch.where(m, a, b)
+
+    def top_k(self, top_k, key, k):
+        self.inside += 1  # its sorts are its own decision
+        try:
+            vals, idx = top_k(key, k)
+        finally:
+            self.inside -= 1
+        forced = self._take("sort-pool top-k", idx)
+        if self.mode == "record":
+            return vals, idx
+        v = torch.gather(key, 1, forced)
+        n = int((forced != idx).any(dim=1).sum())
+        gap = 0.0
+        if n:  # the forced rows out of order, or a key left out above them
+            rest = key.scatter(1, forced, float("-inf")).max(dim=1).values
+            last = v[:, -1]
+            over = torch.where(rest == last, torch.zeros_like(last), rest - last)
+            gap = max(_inversion(v), over.max().item(), 0.0)
+        fin = key[torch.isfinite(key)]
+        self._near("sort-pool top-k", n, gap, self.tol(fin))
+        return v, forced
+
+    def sort(self, x, *args, **kw):
+        out = torch.sort(x, *args, **kw)
+        if self.inside or not x.is_floating_point():
+            return out
+        if x.dim() != 1 or not kw.get("descending"):
+            raise AssertionError("sort_pool's key sort is one descending axis")
+        forced = self._take("sort-pool order", out.indices)
+        if self.mode == "record":
+            return out
+        v = x[forced]
+        n = int((forced != out.indices).sum())
+        self._near("sort-pool order", n, _inversion(v) if n else 0.0,
+                   self.tol(x[torch.isfinite(x)]))
+        return torch.return_types.sort((v, forced))
+
+    def summary(self):
+        return ", ".join(f"{kind} {n} (worst {w:.3g} of the tolerance)"
+                         for kind, (n, w) in self.near.items() if n) or "none"
+
+
 def card_vs_cpu(name, make_batch, model, folds=False, rtol=None):
     """log-probs and every parameter gradient of one batch on the card and
-    on the CPU, the same weights; returns the worst relative error.
-    `folds`: a lockstep batch of FOLDS folds through `DGCNNFoldsNet`, the
-    sum of the per-fold losses backpropagated. `rtol` (bf16 runs) holds
-    each tensor within rtol of its largest value instead of the fp32
-    tolerance: both sides round to bf16 at the same points, from fp32
-    sums taken in other orders."""
+    on the CPU, the same weights, the CPU on the card's branches
+    (`Branches`); returns the worst relative error. `folds`: a lockstep
+    batch of FOLDS folds through `DGCNNFoldsNet`, the sum of the per-fold
+    losses backpropagated. `rtol` (bf16 runs) holds each tensor within
+    rtol of its largest value instead of the fp32 tolerance: both sides
+    round to bf16 at the same points, from fp32 sums taken in other
+    orders."""
     from dgcnn_tpu_torch.models.dgcnn import DGCNNNet, init_params
+    from dgcnn_tpu_torch.tools.probe_repeat import digest
     from dgcnn_tpu_torch.train.loop import nll_loss_and_correct
 
-    outs = {}
-    for dev in ("cpu", "cuda"):
+    def err_of(got, want):
+        return rel_err(got, want) if rtol is None else bf16_err(got, want, rtol)
+
+    def tol(t):
+        t = t.detach().cpu()
+        scale = t.double().abs().max().item() if t.numel() else 0.0
+        return ATOL + RTOL * scale if rtol is None else 1e-6 + rtol * scale
+
+    branches = Branches(tol)
+
+    def run(dev, mode):
         b, kw = make_batch(dev)
-        if folds:
-            net = folds_net(model, dev)
+        net = folds_net(model, dev) if folds else DGCNNNet(
+            model, init_params(torch.Generator().manual_seed(3), model, dev))
+        with branches.taken(mode) if mode else contextlib.nullcontext():
             lp = net(b, **kw)
+        if folds:
             loss, _ = nll_loss_and_correct(lp, b.y.view(FOLDS, -1),
                                            b.graph_mask.view(FOLDS, -1))
             loss = loss.sum()
         else:
-            net = DGCNNNet(model, init_params(torch.Generator().manual_seed(3), model,
-                                              dev))
-            lp = net(b, **kw)
             loss, _ = nll_loss_and_correct(lp, b.y, b.graph_mask)
         loss.backward()
-        outs[dev] = [("log_probs", lp.detach())] + [(n, p.grad)
-                                                    for n, p in net.named_parameters()]
-    worst = 0.0
-    for (what, a), (_, c) in zip(outs["cuda"], outs["cpu"]):
-        err, rel, ok = rel_err(a.cpu(), c) if rtol is None else bf16_err(a.cpu(), c, rtol)
-        worst = max(worst, rel)
+        return [("log_probs", lp.detach())] + [(n, p.grad.cpu())
+                                               for n, p in net.named_parameters()]
+
+    card = run("cuda", "record")
+    cpu = run("cpu", "replay")
+    worst, worst_at = 0.0, None
+    for (what, a), (_, c) in zip(card, cpu):
+        err, rel, ok = err_of(a.cpu(), c)
+        if worst_at is None or rel > worst:
+            worst, worst_at = rel, what
         if not ok or not torch.isfinite(a).all():
             raise AssertionError(f"{name}: card vs CPU disagree on {what} (max abs "
                                  f"{err:.3e}, its largest value {c.abs().max().item():.3e})")
-    log(f"  {name}: log_probs and {len(outs['cpu']) - 1} parameter gradients "
-        f"agree, worst rel {worst:.3e}")
+    # what the check saw before it replayed the card's branches (reported only)
+    cpu_own = run("cpu", None)
+    own = [(what, *err_of(a.cpu(), c)) for (what, a), (_, c) in zip(card, cpu_own)]
+    own_worst = max(own, key=lambda e: e[2])
+    beyond = [what for what, _, _, ok in own if not ok]
+    log(f"  {name}: log_probs and {len(cpu) - 1} parameter gradients agree on the "
+        f"card's branches, worst rel {worst:.3e} ({worst_at}); near-ties the CPU would "
+        f"have branched otherwise: {branches.summary()}; on its own branches the CPU "
+        f"is at worst rel {own_worst[2]:.3e} ({own_worst[0]}), beyond the tolerance in "
+        f"{beyond or 'no tensor'}; bits (tools/probe_repeat.py digest) card "
+        f"{digest([(n, t.cpu()) for n, t in card])}, CPU {digest(cpu_own)}")
     return worst
 
 
@@ -1806,6 +2023,23 @@ def cv_config(tmp, sub, data_type, folds_n, epochs, **kw):
 
 
 PEAK_MIB = {}  # a run's statistics_dir → its peak memory above what was allocated before
+# the graphed runs phase 4h resumes against: name → a copy of the run's
+# artifacts (its config, statistics_dir and epochs_dir in the copy)
+KEPT = {}
+
+
+def keep_run(name, cfg):
+    """Copy a finished run's artifacts out of its phase's temporary
+    directory (phase 4h's reference); removed when the script exits."""
+    if not KEPT:
+        root = tempfile.mkdtemp(prefix="chip_smoke_kept_")
+        atexit.register(shutil.rmtree, root, True)
+        KEPT[None] = root
+    dst = os.path.join(KEPT[None], name.replace(" ", "_"))
+    shutil.copytree(cfg.statistics_dir, os.path.join(dst, "statistics"))
+    shutil.copytree(cfg.epochs_dir, os.path.join(dst, "epochs"))
+    KEPT[name] = dataclasses.replace(cfg, statistics_dir=os.path.join(dst, "statistics"),
+                                     epochs_dir=os.path.join(dst, "epochs"))
 # synthetic datasets the contexts have already made (the loader's own:
 # `synthesize_tu_dataset(name)`), handed to the runs so that each does not
 # synthesize its dataset again (COLLAB's takes ~7 s)
@@ -1908,6 +2142,7 @@ def lockstep_main_path(nci1, t_main, dt):
         cfg, trunk_n, ev, ev_eager = graphed_vs_eager(
             tmp, "lockstep", "NCI1", FOLDS, 4, dt,
             (4 * (steps_max + t_steps_max), 4 * steps_max), max_fused_epochs=2)
+        keep_run("NCI1 lockstep", cfg)
         result = {"train_accuracies": [r[-1, 3] for r in fold_rows(cfg)],
                   "test_accuracies": [r[-1, 4] for r in fold_rows(cfg)]}
         events = check_artifacts(os.path.join(tmp, "lockstep"), "NCI1", FOLDS, 4)
@@ -2094,15 +2329,16 @@ def bundles(cfg):
 
 
 def sparse_graphed_vs_eager(tmp, label, data_type, gs, folds_n, epochs, counters,
-                            used, want_layout, **kw):
+                            used, want_layout, keep=None, **kw):
     """`run_cross_validation` of synthetic `data_type` on the card in
     chunks of `max_fused_epochs` 2, graphed with every kernel's counts set
     to 0 just before and read just after, then eager (`graphs=False`):
     launches exactly 4 × (train + eval steps) forward and 4 × train steps
     backward on `used` (a quarter of each of width 1), 0 on the others,
     counted per replay; every fold's rows and `epochs/` bundle (parameters,
-    optimizer state) bitwise equal. Returns (launches of `used` (fwd,
-    bwd), of width 1, graphed and eager epoch events, every fold's rows)."""
+    optimizer state) bitwise equal; `keep` names the graphed run for phase
+    4h (`keep_run`). Returns (launches of `used` (fwd, bwd), of width 1,
+    graphed and eager epoch events, every fold's rows)."""
     cfg = cv_config(tmp, label, data_type, folds_n, epochs, max_fused_epochs=2, **kw)
     eager = cv_config(tmp, label + "_eager", data_type, folds_n, epochs,
                       max_fused_epochs=2, **kw)
@@ -2120,6 +2356,8 @@ def sparse_graphed_vs_eager(tmp, label, data_type, gs, folds_n, epochs, counters
     if counts != want or f1 != (tr_n + ev_n, tr_n):
         raise AssertionError(f"{label}: launch counts {counts} (F=1 {f1}), expected "
                              f"{want}, a quarter of width 1")
+    if keep:
+        keep_run(keep, cfg)
     _, wall_e = run_cv(eager, False)
     same_bits(f"{label}: graphed vs eager rows", fold_rows(cfg), fold_rows(eager))
     same_bits(f"{label}: graphed vs eager epochs/ bundles", bundles(cfg), bundles(eager))
@@ -2443,6 +2681,7 @@ def block_lockstep_main_path(ctx, counters, seq_rows, auto_impl, other_impl):
             f"DD block lockstep {FOLDS} x 4 (cv_parallel auto, {auto_impl}), steps "
             f"{steps10}", cfg, True, counters, used, props(steps10, 4))
         ev = lockstep_events_ok(f"DD auto {FOLDS} x 4", cfg, FOLDS, 4)
+        keep_run("DD block lockstep", cfg)
         start = check_artifacts(os.path.join(tmp, "lock10"), "DD", FOLDS, 4)[0]
         if start["layout"] != "block" or start["block_impl"] != auto_impl:
             raise AssertionError(f"run_start says {start}")
@@ -3127,6 +3366,265 @@ def bf16_runners(nci1, nci1_model16, t_main, ctx, lctx, dd_model16, dd_dev16, de
                 ctx, lctx, dd_model16, device, graphs, dev=dd_dev16)["DD block lockstep"]}
 
 
+# -- phase 4h: resume and inference on the card -------------------------------
+
+
+class Crash(RuntimeError):
+    """Raised by phase 4h's event log to crash a run at an epoch."""
+
+
+@contextlib.contextmanager
+def crash_and_time_saves(epoch, fold, saves):
+    """Within: the event log raises `Crash` at the `epoch` event (of
+    `fold`; events come before the chunk's in-flight bundle), and every
+    bundle the drivers write is timed into `saves` as (name, seconds)."""
+    from dgcnn_tpu_torch.train import cv, cv_vmap
+
+    real_write, real_saves = cv.EventLog.write, {m: m.save_checkpoint for m in (cv, cv_vmap)}
+
+    def write(self, **event):
+        if event.get("kind") == "epoch" and event["epoch"] == epoch and (
+                fold is None or event["fold"] == fold):
+            raise Crash(f"epoch {epoch}")
+        return real_write(self, **event)
+
+    def timed(real):
+        def save(path, bundle):
+            t0 = time.perf_counter()
+            real(path, bundle)
+            saves.append((os.path.basename(path), time.perf_counter() - t0))
+        return save
+
+    cv.EventLog.write = write
+    for m, real in real_saves.items():
+        m.save_checkpoint = timed(real)
+    try:
+        yield
+    finally:
+        cv.EventLog.write = real_write
+        for m, real in real_saves.items():
+            m.save_checkpoint = real
+
+
+def resumed_run(tmp, label, ref, crash_epoch, crash_fold=None):
+    """The run of `KEPT[ref]` again with `checkpoint_every` 2, crashed at
+    the `crash_epoch` event (of `crash_fold`), then resumed
+    (`checkpoint_resume`), graphed: every fold's CSV byte for byte and its
+    `epochs/` bundle bit for bit the uninterrupted graphed run's, the
+    in-flight bundle and the floors file gone. Returns the in-flight saves'
+    seconds and the crashed run's fold-epoch seconds of fold 1's chunks
+    1 and 2 (those it logged before the crash)."""
+    want = KEPT[ref]
+    cfg = dataclasses.replace(want, statistics_dir=os.path.join(tmp, label, "statistics"),
+                              epochs_dir=os.path.join(tmp, label, "epochs"),
+                              checkpoint_every=2)
+    saves = []
+    with crash_and_time_saves(crash_epoch, crash_fold, saves):
+        try:
+            run_cv(cfg, True)
+        except Crash:
+            pass
+        else:
+            raise AssertionError(f"{label}: the run did not crash")
+    crashed = epoch_events(cfg)
+    inflight = [n for n in os.listdir(cfg.epochs_dir) if "inflight" in n]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _, wall = run_cv(dataclasses.replace(cfg, checkpoint_resume=True), True)
+    said = [ln for ln in out.getvalue().splitlines() if "resumed" in ln]
+    if not said:
+        raise AssertionError(f"{label}: the resumed run said nothing of a resume")
+    for f in range(1, cfg.num_folds + 1):
+        name = f"{cfg.data_type}_results_{f}.csv"
+        with open(os.path.join(cfg.statistics_dir, name), "rb") as a, \
+                open(os.path.join(want.statistics_dir, name), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{label}: fold {f}'s CSV differs from the "
+                                     f"uninterrupted run's")
+    same_bits(f"{label}: resumed vs uninterrupted rows", fold_rows(cfg), fold_rows(want))
+    same_bits(f"{label}: resumed vs uninterrupted epochs/ bundles", bundles(cfg),
+              bundles(want))
+    left = sorted(n for n in os.listdir(cfg.epochs_dir) if "inflight" in n or "floors" in n)
+    if left:
+        raise AssertionError(f"{label}: {left} left behind")
+    fold_epoch_s = {c: [e["epoch_seconds"] / e.get("folds_in_lockstep", 1)
+                        for e in crashed if e["fold"] == 1 and (e["epoch"] + 1) // 2 == c]
+                    for c in (1, 2)}
+    inflight_s = [t for n, t in saves if "inflight" in n]
+    log(f"  {label}: crashed at epoch {crash_epoch}"
+        f"{'' if crash_fold is None else f' of fold {crash_fold}'} with {inflight} on "
+        f"disk; resumed ({'; '.join(said)}) in {wall:.1f} s: every fold's CSV byte for "
+        f"byte, rows and epochs/ bundles bitwise the uninterrupted graphed run's ({ref}); "
+        f"in-flight saves {[round(t, 4) for t in inflight_s]} s; fold 1's fold-epoch "
+        f"seconds with --ckpt_every 2, chunk 1 {fold_epoch_s[1]}, chunk 2 "
+        f"{fold_epoch_s[2]}")
+    return {"inflight_save_s": inflight_s, "epoch_s": fold_epoch_s}
+
+
+def sort_tie_flips(name, params, model, gs, graphs):
+    """Raise unless the card's and the CPU's log-probs of each graph in
+    `graphs` part only where the sort-pool order of near-tied keys does:
+    on the graph's batch, every GCN layer's output over its nodes agrees
+    within rel 1e-4 of its largest value, and at every rank below k where
+    the two devices' stable orders of its keys differ, the CPU's keys of
+    the two nodes there are within 4 ulp of each other (which of two
+    nearly equal keys sorts first is decided by their last bit's
+    rounding, and a swap moves whole rows of the pooled tensor). Returns
+    the (graph, rank, the two keys on the CPU, the layers' worst rel) of
+    each first difference."""
+    from dgcnn_tpu_torch.batching.dense import order_matrix
+    from dgcnn_tpu_torch.batching.device_coo import (
+        build_device_graphset, device_graphset_to, gather_coo_batch)
+    from dgcnn_tpu_torch.batching.packer import compute_bucket
+    from dgcnn_tpu_torch.models.dgcnn import _map, apply_coo
+
+    if not len(graphs):
+        return []
+    bucket = compute_bucket(gs, 50)
+    order = order_matrix(np.arange(gs.num_graphs, dtype=np.int32), 50, bucket.num_graphs)
+    host = build_device_graphset(gs)
+    sets = {dev: device_graphset_to(host, dev) for dev in ("cpu", "cuda")}
+    flips = []
+    for g in graphs:
+        acts = {}
+        for dev in ("cpu", "cuda"):
+            batch = gather_coo_batch(sets[dev], torch.from_numpy(order[g // 50]).to(dev),
+                                     bucket)
+            with torch.no_grad():
+                _, a = apply_coo(_map(params, lambda t: t.to(dev)), model, batch,
+                                 return_activations=True)
+            acts[dev] = {k: v.cpu() for k, v in a.items()}
+            nodes = (batch.node_graph.cpu() == int(np.flatnonzero(order[g // 50] == g)[0])
+                     ).nonzero().flatten()
+        worst = 0.0
+        for layer in ("gcn1", "gcn2", "gcn3", "gcn4"):
+            err, rel, ok = rel_err(acts["cuda"][layer][nodes], acts["cpu"][layer][nodes])
+            worst = max(worst, rel)
+            if not ok:
+                raise AssertionError(f"{name} inference, graph {g}: {layer} card vs CPU "
+                                     f"max abs {err:.3e}")
+        kc, kg = acts["cpu"]["gcn4"][nodes, -1], acts["cuda"]["gcn4"][nodes, -1]
+        oc = torch.sort(kc, descending=True, stable=True).indices[:model.sort_pool_k]
+        og = torch.sort(kg, descending=True, stable=True).indices[:model.sort_pool_k]
+        where = (oc != og).nonzero().flatten().tolist()
+        if not where:
+            raise AssertionError(f"{name} inference, graph {g}: log-probs differ with the "
+                                 f"same sort-pool order")
+        for i in where:
+            a, b = kc[oc[i]].item(), kc[og[i]].item()
+            if abs(a - b) > 4 * np.spacing(np.float32(abs(a))):
+                raise AssertionError(f"{name} inference, graph {g}: rank {i} holds node "
+                                     f"{oc[i].item()} (key {a!r}) on the CPU and node "
+                                     f"{og[i].item()} (key {b!r}) on the card")
+        flips.append((int(g), where[0], kc[oc[where[0]]].item(), kc[og[where[0]]].item(),
+                      worst))
+    return flips
+
+
+def card_inference(name, gs, bundle, counters):
+    """`predict_dataset` of synthetic `name` from a fold bundle of phase 4's
+    runs, on the card: graphed (the row kernel's counts set to 0 just
+    before and read just after: 3 launches at F=32 and 1 at F=1 a batch,
+    nothing on the other kernels) against eager (bitwise) and the CPU
+    (every graph within rel 1e-4 of the largest log-prob, or its
+    difference a sort-pool near-tie that `sort_tie_flips` finds); then
+    the runner built directly: one replay under
+    `set_sync_debug_mode("error")`, and the steady rate of a pass of
+    replays. Returns the launches and rates."""
+    from dgcnn_tpu_torch.infer import load_fold_params, make_infer_run, predict_dataset
+    from dgcnn_tpu_torch.models.dgcnn import DGCNN
+
+    model = DGCNN(num_features=gs.num_features, num_classes=gs.num_classes)
+    params = load_fold_params(bundle, model)
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp, labels = predict_dataset(params, model, gs, 50, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = {k: (c.fwd_launches, c.bwd_launches, c.f1_fwd) for k, c in counters.items()}
+    steps = -(-gs.num_graphs // 50)
+    want = {k: (4 * steps, 0, steps) if k == "spmm_rows" else (0, 0, 0) for k in counters}
+    if counts != want:
+        raise AssertionError(f"{name} inference: launches (fwd, bwd, F=1 fwd) {counts}, "
+                             f"expected {want}")
+    lp_e, _ = predict_dataset(params, model, gs, 50, device="cuda", graphs=False)
+    same_bits(f"{name} inference: graphed vs eager log-probs", [lp], [lp_e])
+    lp_c, labels_c = predict_dataset(params, model, gs, 50, device="cpu")
+    if not np.isfinite(lp).all() or lp.shape != (gs.num_graphs, gs.num_classes):
+        raise AssertionError(f"{name} inference: log-probs of shape {lp.shape}, finite "
+                             f"{np.isfinite(lp).all()}")
+    off = np.abs(lp - lp_c).max(axis=-1) > ATOL + RTOL * np.abs(lp_c).max()
+    flips = sort_tie_flips(name, params, model, gs, np.flatnonzero(off))
+    err, rel, _ = rel_err(torch.from_numpy(lp[~off]), torch.from_numpy(lp_c[~off]))
+    runner, order2d = make_infer_run(params, model, gs, 50, device="cuda")
+    runner.run_epochs(order2d[:1])  # the warm-up and the capture
+    runner.order.copy_(torch.from_numpy(order2d[0]).cuda())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runner.graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rows = runner.graph.per_replay[[c is counters["spmm_rows"] for c in
+                                    runner.graph.counters].index(True)]
+    if (rows["fwd_launches"], rows["f1_fwd"], rows["bwd_launches"]) != (4, 1, 0):
+        raise AssertionError(f"{name} inference: row-kernel launches per replay {rows}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.run_epochs(order2d)  # every batch a replay
+    steady = time.perf_counter() - t0
+    from dgcnn_tpu_torch.batching.device_coo import (
+        build_device_graphset, device_graphset_to, gather_coo_batch)
+    from dgcnn_tpu_torch.batching.packer import compute_bucket
+
+    # the median batch by edges, for phase 5's times of the row kernel
+    edges = [int(gs.edge_counts()[r[r >= 0]].sum()) for r in order2d]
+    median = int(np.argsort(edges, kind="stable")[len(edges) // 2])
+    dset = device_graphset_to(build_device_graphset(gs), "cuda")
+    case = SpmmCase(gather_coo_batch(dset, torch.from_numpy(order2d[median]).cuda(),
+                                     compute_bucket(gs, 50)), seed=median, device="cuda")
+    out = {"graphs": gs.num_graphs, "batches": steps, "launches": counts["spmm_rows"],
+           "call_s": wall, "graphs_per_s_call": gs.num_graphs / wall,
+           "replays_s": steady, "graphs_per_s": gs.num_graphs / steady,
+           "card_vs_cpu_rel": rel, "sort_tie_flips": flips,
+           "labels_agree": float((labels == labels_c).mean()),
+           "median_batch": median, "case": case}
+    log(f"  {name} inference ({gs.num_graphs} graphs, {steps} batches of 50, fold 1's "
+        f"bundle): row-kernel launches (fwd, bwd, F=1) {counts['spmm_rows']}, 3 at F=32 "
+        f"and 1 at F=1 a replay, none on the other kernels; graphed bitwise eager; card "
+        f"vs CPU worst rel {rel:.3e} over {gs.num_graphs - len(flips)} graphs; {len(flips)} "
+        f"graphs apart by a sort-pool near-tie (graph, rank, the two keys on the CPU, "
+        f"its GCN layers' worst rel card vs CPU): "
+        f"{flips}; labels agree on {out['labels_agree']:.4f}; one "
+        f"replay ran under set_sync_debug_mode('error'); {gs.num_graphs / steady:.0f} "
+        f"graphs/s over a pass of replays ({steady:.4f} s), {gs.num_graphs / wall:.0f} "
+        f"graphs/s for the whole call ({wall:.3f} s: graphset, warm-up, capture)")
+    return out
+
+
+def resume_and_infer(nci1, dd):
+    """Phase 4h: the resumed runs (`resumed_run`) against phases 4a, 4e
+    and 4c's graphed runs, then inference from their bundles
+    (`card_inference`)."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # crashed at epoch 4: the events of epoch 3 (chunk 2) are logged,
+        # the bundle on disk is still epoch 2's
+        out["NCI1 lockstep"] = resumed_run(tmp, "nci1_lockstep", "NCI1 lockstep", 4)
+        out["DD block lockstep"] = resumed_run(tmp, "dd_lockstep", "DD block lockstep", 4)
+        out["DD COO mid-fold"] = resumed_run(tmp, "dd_coo_mid", "DD COO", 3, crash_fold=2)
+        out["DD COO fresh fold"] = resumed_run(tmp, "dd_coo_fresh", "DD COO", 1,
+                                               crash_fold=2)
+    counters = spmm_counters()
+    out["infer"] = {
+        "NCI1": card_inference("NCI1", nci1, os.path.join(
+            KEPT["NCI1 lockstep"].epochs_dir, "NCI1_1"), counters),
+        "DD": card_inference("DD", dd, os.path.join(
+            KEPT["DD block lockstep"].epochs_dir, "DD_1"), counters)}
+    return out
+
+
 # -- phase 6: one profiled train step ---------------------------------------
 
 
@@ -3239,6 +3737,8 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
         f"count {torch.cuda.device_count()}")
+    log(f"host CPU (the CPU side of the card-vs-CPU checks): {host_cpu()}, "
+        f"{os.cpu_count()} cores, {torch.get_num_threads()} torch threads")
 
     log("== phase 2: build kernels")
     _build.build_all()
@@ -3409,7 +3909,8 @@ def main() -> int:
             gs = ctx.gs if data_type == "DD" else nci1
             n, f1, ev, ev_e, _ = sparse_graphed_vs_eager(
                 tmp, f"{data_type} COO {name}", data_type, gs, folds_n, epochs, counters,
-                used, "coo", layout="coo", spmm_impl=name)
+                used, "coo", keep="DD COO" if (data_type, name) == ("DD", "auto") else None,
+                layout="coo", spmm_impl=name)
             if data_type == "DD" and used not in coo_launches:
                 coo_launches[used], coo_launches[used + "_f1"] = n, f1
             coo_epoch_s[(data_type, name)] = ([e["epoch_seconds"] for e in ev],
@@ -3534,6 +4035,17 @@ def main() -> int:
                 lambda dev: (bf16_batch(collab.batch(dev)), {}), collab_model, rtol=1e-2)
     runners.update(check_runners(lambda graphs: bf16_runners(
         nci1, nci1_model16, t_main, ctx, lctx, dd_model16, dd_dev16, device, graphs)))
+
+    log("== phase 4h: resume and inference on the card: NCI1 dense lockstep and DD "
+        f"block lockstep {FOLDS} x 4 (crashed at epoch 4) and DD --layout coo 2 x 4 "
+        "(crashed in fold 2 at epoch 3 and at epoch 1, before its first bundle), each "
+        "with --ckpt_every 2, crashed and "
+        "resumed, graphed, against phases 4a, 4e and 4c's runs; predict_dataset of "
+        "synthetic NCI1 and DD from their fold 1 bundles")
+    log(card)
+    t4h = time.perf_counter()
+    h = resume_and_infer(nci1, dd)
+    log(f"  phase 4h took {time.perf_counter() - t4h:.1f} s")
 
     log("== phase 5: device times (CUDA-graph replay, CUDA events)")
     log(card)
@@ -3689,6 +4201,11 @@ def main() -> int:
                     < rows[("spmm_block_coo", d, 32)]["library_ms"] for d in ("fwd", "bwd"))
         log(f"  {label}: block-COO F=32 fwd and bwd below cuSPARSE: "
             f"{'yes' if beats else 'no'}")
+    infer_times = {}
+    for ds, inf in h["infer"].items():
+        log(f"  {ds} inference batch {inf['median_batch']} (the median batch by edges; "
+            f"the row kernel, which inference runs forward only):")
+        infer_times[ds] = time_spmm(inf["case"], flush, device, kernels=("spmm_rows",))
     del flush
 
     log("== phase 6: one profiled train step (torch.profiler), then one epoch "
@@ -3945,6 +4462,24 @@ def main() -> int:
                 else:
                     kernels[-1]["earlier_design_ms"] = spmm_times[where][
                         (kname + "_earlier", d, f)]["ms"]
+                if kname == "spmm_rows":  # inference runs the row kernel's forward
+                    kernels[-1]["infer_path"] = {
+                        "main_path": "predict_dataset of synthetic NCI1 and DD from a "
+                                     "fold bundle, batches of 50, one CUDA-graph replay "
+                                     "a batch, launches counted per replay",
+                        "launches": {
+                            ds: (0 if d == "bwd" else
+                                 inf["launches"][0] - inf["launches"][2] if f == 32
+                                 else inf["launches"][2])
+                            for ds, inf in h["infer"].items()},
+                        "graphs_per_s": {ds: inf["graphs_per_s"]
+                                         for ds, inf in h["infer"].items()}}
+                    if d == "fwd":
+                        kernels[-1]["infer_path"]["median_batch"] = {
+                            ds: {k: t[("spmm_rows", "fwd", f)][k] for k in (
+                                "edges", "n", "ms", "ms_l2_flushed", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")}
+                            for ds, t in infer_times.items()}
     std = probe_result["shapes"][probe_shapes[0].label]
     kernels.append({
         "name": "probe_kernel_anatomy", "route": "cuda",
@@ -3968,6 +4503,17 @@ def main() -> int:
         f"budgets by chunk {dd_lock['ten_folds']['budgets']}; 2 folds (cv_parallel "
         f"folds): {dd_lock['two_folds']['epoch_s']}")
     log(f"COO fold-epoch seconds (graphed, eager): {coo_epoch_s}")
+    log(f"resume (phase 4h; {card}): in-flight save seconds " + "; ".join(
+        f"{k} {[round(t, 4) for t in v['inflight_save_s']]}" for k, v in h.items()
+        if k != "infer") + "; fold 1's fold-epoch seconds with --ckpt_every 2, chunks 1 "
+        "and 2: " + "; ".join(f"{k} {v['epoch_s']}" for k, v in h.items() if k != "infer")
+        + f"; without (phases 4a, 4e, 4c): NCI1 lockstep {lock['lockstep_epoch_s']}, DD "
+        f"block lockstep {dd_lock['ten_folds']['epoch_s']}, DD COO fold 1 "
+        f"{coo_epoch_s[('DD', 'auto')][0][:4]}")
+    log(f"inference (phase 4h; {card}): " + "; ".join(
+        f"{ds} {inf['graphs_per_s']:.0f} graphs/s over a pass of replays, "
+        f"{inf['graphs_per_s_call']:.0f} graphs/s a whole call, card vs CPU rel "
+        f"{inf['card_vs_cpu_rel']:.3e}" for ds, inf in h["infer"].items()))
     log(f"NCI1 dense train step: wall {nci1_step[0]:.3f} ms, device {nci1_step[1]:.3f} "
         f"ms over {nci1_step[2]} kernel launches")
     log(f"NCI1 dense lockstep train step ({FOLDS} folds): wall {lock_step[0]:.3f} ms, "

@@ -11,7 +11,9 @@ GCN-trunk kernel (kernels/dense_trunk.py, csrc/dense_trunk.cu) and on the
 block-sparse layout through two hand-written CUDA block-propagation
 kernels (kernels/block_csr.py, kernels/block_resident.py), and on the COO
 layout through three hand-written CUDA SpMM kernels
-(kernels/spmm_pallas.py, kernels/spmm_block_coo.py). Entry points
+(kernels/spmm_pallas.py, kernels/spmm_block_coo.py); it resumes a
+crashed run from its in-flight bundles (train/cv.py) and classifies
+graphs from a fold bundle (infer.py). Entry points
 run on `cuda` unless the caller passes `device="cpu"`; on a CPU tensor
 every kernel wrapper runs its plain PyTorch version instead.
 """

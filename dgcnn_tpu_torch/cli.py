@@ -7,6 +7,9 @@ NotImplementedError naming the ROADMAP item that ports them.
     python -m dgcnn_tpu_torch.cli --data_type DD --synthetic   # block layout
     python -m dgcnn_tpu_torch.cli --data_type DD --synthetic --layout coo \
         [--spmm xla|onehot|pallas]
+    python -m dgcnn_tpu_torch.cli --data_type MUTAG --synthetic --ckpt_every 5
+    python -m dgcnn_tpu_torch.cli --data_type MUTAG --synthetic --ckpt_every 5 \
+        --resume   # after a crash: skips complete folds, continues the rest
 """
 
 from __future__ import annotations
@@ -92,20 +95,25 @@ def get_args(argv=None):
                         help="smallest tile of the multi-tile ladder (read by "
                              "the layout choice)")
     parser.add_argument("--opt_flatten", action="store_true",
-                        help="flattened Adam update (not ported)")
+                        help="one Adam update over the raveled parameter "
+                             "vector (the same bits; vector-shaped bundles)")
     parser.add_argument("--synthetic", action="store_true",
                         help="allow synthetic profile data when the real "
                              "dataset is unavailable offline")
     parser.add_argument("--resume", action="store_true",
-                        help="resume a partial run (not ported)")
+                        help="resume a partial run: skip complete folds, "
+                             "continue the others from their in-flight bundles")
     parser.add_argument("--ckpt_every", default=0, type=int,
-                        help="in-flight resume bundle every N epochs (not ported)")
+                        help="write an in-flight resume bundle every N epochs "
+                             "(epochs/<DS>_<fold>_inflight; lockstep: "
+                             "epochs/<DS>_lockstep_inflight)")
     parser.add_argument("--log_every", default=0, type=int,
                         help="print metrics every N epochs (0 = per-fold only)")
     parser.add_argument("--out_root", default=None, type=str, metavar="DIR",
                         help="write artifacts under DIR/statistics and DIR/epochs")
     parser.add_argument("--tensorboard", default=None, type=str, metavar="DIR",
-                        help="TensorBoard export (not ported)")
+                        help="export the run's events as TensorBoard scalars "
+                             "under DIR at run end (needs tensorboardX)")
     parser.add_argument("--profile", default=None, type=str, metavar="DIR",
                         help="device trace (not ported)")
     parser.add_argument("--platform", default="auto",

@@ -3,7 +3,9 @@
 `_geom_round` :373, `BlockSparseEngine` :434, `DenseEngine` :521,
 `MultiDenseEngine` :583, the
 engine choice of `make_engine` :1067, `run_fold` :1130,
-`run_cross_validation` :1301, with its lockstep dispatch :1361-1401).
+`run_cross_validation` :1301, with its lockstep dispatch :1361-1401,
+its resume :1409-1443 and its fold loop :1461-1504, and `_finalize_cv`
+:1508).
 
 Protocol: for each fold, fresh weights and a fresh Adam, the fold's
 training graphs shuffled each epoch on numpy's
@@ -11,6 +13,23 @@ training graphs shuffled each epoch on numpy's
 both packages see the same batches), train then evaluate every epoch,
 and write the per-fold CSV, the `epochs/` bundle, the overall CSV and the
 event log under the reference's file names.
+
+Resume (`checkpoint_every`, `checkpoint_resume`, the reference's
+:1158-1190, :1196-1207, :1256-1285): chunks are cut at the checkpoint
+cadence, and every `checkpoint_every` epochs a fold writes its in-flight
+bundle `epochs/<DS>_<fold>_inflight` (parameters, Adam's state, the
+dropout generator's state, the epoch, the metric rows, and the engine's
+grow-only floors, `engine_floors`); a resumed fold loads it in place,
+replays its shuffle stream and continues, its rows the uninterrupted
+run's bits; a complete fold (its CSV full and its bundle written) is
+skipped, and the fold after it starts from the floors the engine had
+after it (`epochs/<DS>_floors`, written at every fold's end, removed at
+run end). The lockstep driver keeps one stacked bundle for all folds
+(train/cv_vmap.py); a partly complete run that `auto` would lockstep is
+demoted to the sequential driver for its missing folds. The run tail
+draws the curves (train/plots.py, at chunk boundaries on a throttle and
+at run end) and exports TensorBoard events (train/tensorboard.py), both
+best-effort on the host.
 
 The port serves the dense, multi-tile dense, block-sparse and COO
 layouts. The folds train in lockstep (train/cv_vmap.py, over the
@@ -20,10 +39,10 @@ and multi-tile layouts; under "auto" on the dense layout when
 `_lockstep_would_engage`, and always on the block layout (on one device
 the reference runs multi-tile folds one after another). Otherwise, and
 on the COO layout, the folds run one after another. `choose_layout`
-answers as the reference does; the halo layout, meshes, bf16 compute
-on the COO layout (`check_layout_dtype`), resume and the other options
-not ported yet raise NotImplementedError naming the ROADMAP item that
-ports them (`check_supported`). Each engine stores its data at the
+answers as the reference does; the halo layout, meshes and bf16
+compute on the COO layout (`check_layout_dtype`) raise
+NotImplementedError naming the ROADMAP item that ports them
+(`check_supported`). Each engine stores its data at the
 reference's dtypes: the dense and multi-tile datasets at
 `store_dtypes(resolved_adj_dtype, compute_dtype)`, the block pool at
 `pool_dtype(cfg)`; the COO engines in fp32.
@@ -90,8 +109,13 @@ from dgcnn_tpu_torch.train.loop import (
     make_multi_dense_run,
     make_optimizer,
 )
-from dgcnn_tpu_torch.train.metrics import EventLog, FoldMetrics, write_overall_csv
-from dgcnn_tpu_torch.utils.checkpoint import save_checkpoint
+from dgcnn_tpu_torch.train.metrics import (
+    EventLog, FoldMetrics, completed_fold_accuracies, write_overall_csv,
+)
+from dgcnn_tpu_torch.utils.checkpoint import (
+    adam_state, checkpoint_exists, load_checkpoint, load_into, remove_checkpoint,
+    save_checkpoint,
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -127,12 +151,6 @@ def check_supported(cfg: Config) -> None:
     unserved = []
     if tuple(cfg.mesh_shape) != (1, 1):
         unserved.append("a device mesh (ROADMAP Queue 1 item 12)")
-    if cfg.checkpoint_resume or cfg.checkpoint_every:
-        unserved.append("resume and in-flight checkpoints (ROADMAP Queue 1 item 11)")
-    if cfg.tensorboard_dir:
-        unserved.append("TensorBoard export (ROADMAP Queue 1 item 11)")
-    if cfg.opt_flatten:
-        unserved.append("opt_flatten (ROADMAP Queue 1 item 11)")
     if unserved:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(unserved)
@@ -351,6 +369,8 @@ class DenseEngine:
     replays), dropped at the fold's end with its graph. `graphs=False`
     runs every epoch eagerly on the card, for comparison only."""
 
+    FLOORS = ()  # no grow-only budget: one runner a fold
+
     def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device,
                  graphs: bool = True):
         self.cfg = cfg
@@ -362,6 +382,7 @@ class DenseEngine:
                                         cfg.resolved_adj_dtype(), cfg.compute_dtype)
         self.runners = RunnerSlot()
         self._fold = 0
+
 
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_idx = np.asarray(train_idx, dtype=np.int32)
@@ -400,6 +421,8 @@ class BlockSparseEngine:
     `graphs=False` runs every epoch eagerly on the card, for comparison
     only."""
 
+    FLOORS = ("floor_nb", "floor_w")
+
     def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device,
                  graphs: bool = True):
         self.cfg = cfg
@@ -415,6 +438,7 @@ class BlockSparseEngine:
         self.floor_w = 64
         self.runners = RunnerSlot()
         self._fold = 0
+
 
     def budget_for(self, *order_mats: np.ndarray, folds: bool = False):
         """Grow-only (nb, W) budgets covering every batch row given; with
@@ -466,6 +490,8 @@ class DeviceCooEngine:
     `cfg.resolved_spmm_impl()` names. `graphs=False` runs every epoch
     eagerly on the card, for comparison only."""
 
+    FLOORS = ("floor_nodes", "floor_edges")
+
     def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device,
                  graphs: bool = True):
         self.cfg = cfg
@@ -480,6 +506,7 @@ class DeviceCooEngine:
         self.floor_edges = cfg.edge_pad_multiple
         self.runners = RunnerSlot()
         self._fold = 0
+
 
     def bucket_for(self, *order_mats: np.ndarray) -> BucketSpec:
         """Grow-only bucket covering every batch row given."""
@@ -535,6 +562,8 @@ class CooEngine:
     sentinel items and null slots.) `graphs=False` runs every epoch
     eagerly on the card, for comparison only."""
 
+    FLOORS = ("floor_w",)
+
     def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device,
                  graphs: bool = True):
         self.cfg = cfg
@@ -551,6 +580,7 @@ class CooEngine:
         self.runners = RunnerSlot()
         self._fold = 0
         self._staged = []  # the last sub-chunk's packed epochs, on the host
+
 
     def pack_host(self, ds: GraphSet, order: np.ndarray):
         """`ds` in `order` as one stacked epoch of NumPy arrays, structures
@@ -631,6 +661,8 @@ class MultiDenseEngine:
     keyed by fold and slots). `graphs=False` runs every epoch eagerly on
     the card, for comparison only."""
 
+    FLOORS = ("slot_floor",)
+
     def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device,
                  graphs: bool = True):
         self.cfg = cfg
@@ -645,6 +677,7 @@ class MultiDenseEngine:
         self.slot_floor = np.minimum(self.slot_floor, _round_up(cfg.batch_size, 4))
         self.runners = RunnerSlot()
         self._fold = 0
+
 
     def slots_for(self, *order_seqs: np.ndarray) -> tuple:
         """Grow-only per-class slot counts covering every batch of the
@@ -708,25 +741,108 @@ def _stream_seed(seed: int, fold: int, stream: int) -> int:
     return int(state[0]) << 31 ^ int(state[1])
 
 
-def adam_state(net: DGCNNNet, optimizer: torch.optim.Adam) -> dict:
-    """Adam's moments and step counts in `net.parameters()` order, on the
-    CPU (a `capturable` Adam keeps its step counts on the card)."""
-    out = {"step": [], "exp_avg": [], "exp_avg_sq": []}
-    for p in net.parameters():
-        st = optimizer.state.get(p, {})
-        for key in out:
-            out[key].append(st.get(key, torch.zeros(())).detach().cpu())
-    return out
+def chunk_epochs(cfg: Config, epoch: int) -> int:
+    """Epochs k of the chunk that starts at `epoch`: k ≤ `max_fused_epochs`,
+    and cut at the checkpoint cadence, so that every in-flight bundle
+    falls on a chunk boundary (the reference's chunk loop,
+    dgcnn_tpu/train/cv.py:1198-1207)."""
+    k = cfg.num_epochs - epoch + 1
+    if cfg.max_fused_epochs:
+        k = min(k, cfg.max_fused_epochs)
+    if cfg.checkpoint_every:
+        k = min(k, cfg.checkpoint_every - (epoch - 1) % cfg.checkpoint_every)
+    return k
+
+
+def checkpoint_due(cfg: Config, epochs_done: int) -> bool:
+    """Whether an in-flight bundle is written after `epochs_done` epochs."""
+    return bool(cfg.checkpoint_every) and epochs_done % cfg.checkpoint_every == 0
+
+
+def resumed_epoch(cfg: Config, inflight: str, bundle: dict, what: str) -> int:
+    """The epoch a resumed `what` (fold or run) continues at; ValueError
+    past `num_epochs`, the reference's refusal (:1175-1183)."""
+    start = int(bundle["epoch"]) + 1
+    if start > cfg.num_epochs:
+        raise ValueError(
+            f"--resume checkpoint {inflight!r} is at epoch {start - 1}, beyond "
+            f"--num_epochs={cfg.num_epochs}: refusing to publish a {start - 1}-epoch "
+            f"{what} as a {cfg.num_epochs}-epoch protocol result. Rerun with the "
+            f"original --num_epochs or delete the inflight checkpoint.")
+    return start
+
+
+def engine_floors(engine) -> dict:
+    """The engine's grow-only budget floors (its `FLOORS`: the block
+    layout's nb and W, the device COO layout's bucket, the host COO
+    layout's item budget, the multi-tile layout's slot tuple), for an
+    in-flight bundle."""
+    return {name: np.asarray(getattr(engine, name)) for name in engine.FLOORS}
+
+
+def restore_floors(engine, saved: dict) -> None:
+    """Set the engine's floors to an in-flight bundle's (`engine_floors`),
+    so that a resumed run sizes its chunks' budgets as the uninterrupted
+    run did: a budget built from the remaining chunks alone could be
+    smaller, and another slot count changes the bits (the multi-tile
+    trunk's backward sums over the slot axis)."""
+    missing = sorted(set(engine.FLOORS) - set(saved))
+    if missing:
+        raise ValueError(f"the in-flight bundle holds no {missing} for the "
+                         f"{type(engine).__name__}")
+    for name in engine.FLOORS:
+        v = np.asarray(saved[name])
+        setattr(engine, name, v.astype(np.int64) if v.ndim else int(v))
+
+
+class CurveRenderer:
+    """The curve PNG redrawn at chunk boundaries, at most once every
+    `MIN_SECONDS` (the reference's `_maybe_render_live`,
+    dgcnn_tpu/train/cv.py:1114-1127). Best-effort on the host: the first
+    failure (matplotlib missing, a CSV mid-write) is printed, the later
+    ones are not."""
+
+    MIN_SECONDS = 15.0
+
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+        self.last: Optional[float] = None
+        self.reported = False
+
+    def maybe_render(self) -> None:
+        now = time.perf_counter()
+        if self.last is not None and now - self.last < self.MIN_SECONDS:
+            return
+        self.last = now
+        try:
+            from dgcnn_tpu_torch.train.plots import render_curves
+
+            render_curves(self.cfg.statistics_dir, self.cfg.data_type)
+        except Exception as e:  # plotting is best-effort observability
+            if not self.reported:
+                print(f"(live curve rendering skipped: {e})")
+                self.reported = True
+
+
+def fold_csv(cfg: Config, fold_number: int) -> str:
+    return os.path.join(cfg.statistics_dir, f"{cfg.data_type}_results_{fold_number}.csv")
+
+
+def fold_bundle(cfg: Config, fold_number: int) -> str:
+    return os.path.join(cfg.epochs_dir, f"{cfg.data_type}_{fold_number}")
 
 
 def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
              train_idx: np.ndarray, test_idx: np.ndarray, engine,
-             events: EventLog) -> FoldMetrics:
-    """One fold: fresh weights and optimizer, `cfg.num_epochs` epochs of
-    train + eval in chunks of k ≤ `max_fused_epochs` (`engine.run_epochs`,
-    one host round trip a chunk; the reference's chunk loop,
-    dgcnn_tpu/train/cv.py:1185-1250), the fold's CSV flushed at every
-    chunk boundary, then its final CSV and `epochs/` bundle."""
+             events: EventLog, curves: Optional[CurveRenderer] = None) -> FoldMetrics:
+    """One fold: fresh weights and optimizer (`FlatAdam` under
+    `opt_flatten`), `cfg.num_epochs` epochs of train + eval in chunks
+    (`chunk_epochs`; `engine.run_epochs`, one host round trip a chunk;
+    the reference's chunk loop, dgcnn_tpu/train/cv.py:1185-1285), the
+    fold's CSV flushed (and the curves redrawn by `curves`) at every chunk
+    boundary and its in-flight bundle written at the checkpoint cadence,
+    then its final CSV and `epochs/` bundle. Under `checkpoint_resume` a
+    fold with an in-flight bundle continues from it."""
     device = engine.device
     n_train, n_test = len(train_idx), len(test_idx)
     train_edges = int(dataset.edge_counts()[np.asarray(train_idx)].sum())
@@ -735,22 +851,35 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
     init_gen = torch.Generator().manual_seed(_stream_seed(cfg.seed, fold_number, 1))
     net = DGCNNNet(model, init_params(init_gen, model, device))
     optimizer = make_optimizer(net, cfg.learning_rate, cfg.adam_b1,
-                               cfg.adam_b2, cfg.adam_eps)
+                               cfg.adam_b2, cfg.adam_eps, flat=cfg.opt_flatten)
     dropout_gen = torch.Generator(device=device).manual_seed(
         _stream_seed(cfg.seed, fold_number, 2)
     )
     shuffle_rng = np.random.default_rng(
         np.random.SeedSequence([cfg.seed, fold_number])
     )
-    csv = os.path.join(cfg.statistics_dir,
-                       f"{cfg.data_type}_results_{fold_number}.csv")
+    csv = fold_csv(cfg, fold_number)
+    inflight = fold_bundle(cfg, fold_number) + "_inflight"
 
     metrics = FoldMetrics()
     epoch = 1
+    if cfg.checkpoint_resume and checkpoint_exists(inflight):
+        bundle = load_checkpoint(inflight)
+        epoch = resumed_epoch(cfg, inflight, bundle, "fold")
+        load_into(net, bundle["params"])
+        load_into(optimizer, bundle["opt_state"])
+        load_into(dropout_gen, bundle["rng"])
+        restore_floors(engine, bundle.get("floors", {}))
+        metrics.rows = {c: [float(v) for v in bundle["metrics"][c]]
+                        for c in FoldMetrics.COLUMNS}
+        # replay the shuffle stream: epoch e sees the permutation it would
+        # have seen in an uninterrupted run
+        for _ in range(epoch - 1):
+            shuffle_rng.permutation(n_train)
+        print(f"[fold {fold_number}] resumed at epoch {epoch}")
+
     while epoch <= cfg.num_epochs:
-        k = cfg.num_epochs - epoch + 1
-        if cfg.max_fused_epochs:
-            k = min(k, cfg.max_fused_epochs)
+        k = chunk_epochs(cfg, epoch)
         perms = np.stack([shuffle_rng.permutation(n_train) for _ in range(k)])
         t0 = time.perf_counter()
         rows = engine.run_epochs(net, optimizer, dropout_gen, perms)
@@ -781,14 +910,32 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
         epoch += k
         if epoch <= cfg.num_epochs:
             metrics.to_csv(csv)  # the fold so far, at every chunk boundary
+            if curves is not None:
+                curves.maybe_render()
+        if checkpoint_due(cfg, epoch - 1):
+            save_checkpoint(inflight, {
+                "params": net.state_dict(), "opt_state": adam_state(optimizer),
+                "rng": dropout_gen.get_state(), "epoch": np.int64(epoch - 1),
+                "metrics": {c: np.asarray(metrics.rows[c]) for c in FoldMetrics.COLUMNS},
+                "floors": engine_floors(engine)})
     engine.end_fold()
 
-    save_checkpoint(
-        os.path.join(cfg.epochs_dir, f"{cfg.data_type}_{fold_number}"),
-        {"params": net.state_dict(), "opt_state": adam_state(net, optimizer)},
-    )
+    save_checkpoint(fold_bundle(cfg, fold_number),
+                    {"params": net.state_dict(), "opt_state": adam_state(optimizer)})
     metrics.to_csv(csv)
+    remove_checkpoint(inflight)
     return metrics
+
+
+def _fold_bar(cfg: Config, folds):
+    """The numbered folds, under a tqdm bar where tqdm is installed (the
+    reference's fold bar, dgcnn_tpu/train/cv.py:1462-1472)."""
+    numbered = list(enumerate(folds, start=1))
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return numbered
+    return tqdm(numbered, desc=f"processing {cfg.data_type}", unit="fold")
 
 
 def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
@@ -799,7 +946,9 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
     reference does. On the card every layout runs each epoch after its
     runner's first (a fold's, or a grown budget's; lockstep: the run's) as
     a CUDA-graph replay; `graphs=False` runs them eagerly, for comparison
-    only."""
+    only. Under `checkpoint_resume` complete folds are skipped and the
+    others continue from their in-flight bundles (the reference's
+    :1409-1443, :1483-1491)."""
     device = resolve_device(device)
     fp32_only()
     check_supported(cfg)
@@ -851,6 +1000,22 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         num_params=num_params(init_params(torch.Generator().manual_seed(0), model)),
         device=str(device),
     )
+    if use_lockstep and cfg.checkpoint_resume:
+        # lockstep writes the fold CSVs at run end: every fold is complete
+        # or none is, unless an earlier run was sequential
+        done = [completed_fold_accuracies(fold_csv(cfg, f), cfg.num_epochs)
+                for f in range(1, len(folds) + 1)]
+        if all(d is not None for d in done):
+            for f, d in enumerate(done, start=1):
+                print(f"[fold {f}] resumed (complete): test {d[1]:.2f}%")
+            return _finalize_cv(cfg, events, [d[0] for d in done], [d[1] for d in done])
+        if cfg.cv_parallel != "folds" and any(d is not None for d in done):
+            # lockstep would retrain the complete folds too: redo only the
+            # missing ones, one after another (cv_parallel="folds" keeps
+            # lockstep: its folds cannot pause one by one)
+            print("[resume] partial run under auto-lockstep: redoing only the "
+                  "incomplete folds sequentially")
+            use_lockstep = False
     if use_lockstep:
         from dgcnn_tpu_torch.train.cv_vmap import run_cv_folds_lockstep
 
@@ -858,28 +1023,65 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
             cfg, dataset, model, folds, events, engine)
         return _finalize_cv(cfg, events, train_accs, test_accs)
 
+    curves = CurveRenderer(cfg)
+    # the engine's floors after the last complete fold, which a fold begun
+    # fresh after a resume starts from, as it would have without the crash
+    floors = os.path.join(cfg.epochs_dir, f"{cfg.data_type}_floors")
+    skipped = False
     train_accs, test_accs = [], []
-    for fold_number, (train_idx, test_idx) in enumerate(folds, start=1):
+    bar = _fold_bar(cfg, folds)
+    for fold_number, (train_idx, test_idx) in bar:
+        if cfg.checkpoint_resume and checkpoint_exists(fold_bundle(cfg, fold_number)):
+            done = completed_fold_accuracies(fold_csv(cfg, fold_number), cfg.num_epochs)
+            if done is not None:
+                train_accs.append(done[0])
+                test_accs.append(done[1])
+                print(f"[fold {fold_number}] resumed (complete): test {done[1]:.2f}%")
+                skipped = True
+                continue
+        if skipped and checkpoint_exists(floors):
+            restore_floors(engine, load_checkpoint(floors)["floors"])
+        skipped = False
         t0 = time.perf_counter()
         metrics = run_fold(cfg, dataset, model, fold_number, train_idx,
-                           test_idx, engine, events)
+                           test_idx, engine, events, curves)
         dt = time.perf_counter() - t0
+        if engine.FLOORS:
+            save_checkpoint(floors, {"floors": engine_floors(engine)})
         train_accs.append(metrics.last("train_accuracy"))
         test_accs.append(metrics.last("test_accuracy"))
         print(
             f"[{fold_number}] Train Acc: {train_accs[-1]:.2f}% "
             f"Test Acc: {test_accs[-1]:.2f}% ({dt:.1f}s)"
         )
+        if hasattr(bar, "set_postfix"):
+            bar.set_postfix(test_acc=f"{test_accs[-1]:.2f}%")
+    remove_checkpoint(floors)
     return _finalize_cv(cfg, events, train_accs, test_accs)
 
 
 def _finalize_cv(cfg: Config, events: EventLog, train_accs, test_accs):
-    """Overall CSV, summary line and run_end event."""
+    """The run tail, the same for both drivers (the reference's
+    :1508-1528): overall CSV, the curve PNG, the TensorBoard export (both
+    best-effort on the host), summary line and run_end event."""
     write_overall_csv(
         os.path.join(cfg.statistics_dir, f"{cfg.data_type}_results_overall.csv"),
         train_accs,
         test_accs,
     )
+    try:  # the visdom replacement's curves (reference train.py:122-125)
+        from dgcnn_tpu_torch.train.plots import render_curves
+
+        render_curves(cfg.statistics_dir, cfg.data_type)
+    except Exception as e:  # plotting is best-effort observability
+        print(f"(curve rendering skipped: {e})")
+    if cfg.tensorboard_dir and events.path:
+        try:
+            from dgcnn_tpu_torch.train.tensorboard import export_events
+
+            export_events(events.path, cfg.tensorboard_dir)
+        except Exception as e:  # so is the TensorBoard export
+            print(f"(tensorboard export skipped: {e})")
     tr, te = np.array(train_accs), np.array(test_accs)
     print(
         "Overall Training Accuracy: %.2f%% (std: %.2f) Testing Accuracy: %.2f%% (std: %.2f)"

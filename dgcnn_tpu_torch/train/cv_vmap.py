@@ -1,7 +1,7 @@
 """Fold-lockstep cross-validation — the port of dgcnn_tpu/train/cv_vmap.py
 (`_stacked_orders` :348 and `run_cv_folds_vmap` :368 with its block
 branch :444-505, multi-tile branch :505-597 and dense branch :598-620;
-the chunk loop :714-790).
+the in-flight bundle and resume :653-712; the chunk loop :714-790).
 
 All K folds train at once, on the dense, block-sparse or multi-tile
 layout, over the layout's engine (train/cv.py), which holds the dataset
@@ -29,7 +29,8 @@ sequential driver's (train/cv.py `run_fold`):
     tests/test_torch_block_lockstep.py, tests/test_torch_multi_lockstep.py).
 
 Epochs run in chunks of k ≤ `max_fused_epochs`, cut as the reference's
-chunk loop cuts them (:714-760): the k epochs' orders are drawn from each
+chunk loop cuts them (:714-760, at the checkpoint cadence too;
+train/cv.py `chunk_epochs`): the k epochs' orders are drawn from each
 fold's shuffle stream and run by the fused runner of the chunk's budget
 (train/loop.py `make_dense_lockstep_run`, `make_block_lockstep_run`,
 `make_multi_lockstep_run`: on the card one CUDA-graph replay an epoch
@@ -45,10 +46,15 @@ Artifacts are the sequential driver's (per-fold CSVs, `epochs/` bundles
 in its format, the event log); the CSVs and bundles are written at run
 end, and the `epoch` events come epoch by epoch, fold by fold, each with
 `folds_in_lockstep`, `chunk_epochs` = k and the chunk's seconds over k.
+Every `checkpoint_every` epochs the run writes one stacked in-flight
+bundle, `epochs/<DS>_lockstep_inflight` (`net_f`'s parameters,
+`FoldAdam`'s moments and step counts, every fold's dropout generator
+state, the epoch, the [F, n] metric rows and the engine's grow-only
+floors); under `checkpoint_resume` the run loads it in place, replays
+every fold's shuffle stream and continues.
 
-Not ported here: fold sharding over a mesh (ROADMAP Queue 1 item 12) and
-the in-flight lockstep checkpoint (item 11); `train/cv.py` refuses those
-settings before this module runs.
+Not ported here: fold sharding over a mesh (ROADMAP Queue 1 item 12);
+`train/cv.py` refuses it before this module runs.
 """
 
 from __future__ import annotations
@@ -65,14 +71,18 @@ from dgcnn_tpu_torch.config import Config
 from dgcnn_tpu_torch.data.graphset import GraphSet
 from dgcnn_tpu_torch.models.dgcnn import DGCNN, DGCNNFoldsNet, init_params, stack_params
 from dgcnn_tpu_torch.train.cv import (
-    BlockSparseEngine, MultiDenseEngine, _stream_seed, fp32_only,
+    BlockSparseEngine, MultiDenseEngine, _stream_seed, checkpoint_due,
+    chunk_epochs, engine_floors, fold_bundle, fold_csv, fp32_only, restore_floors,
+    resumed_epoch,
 )
 from dgcnn_tpu_torch.train.loop import (
     FoldAdam, FusedRun, make_block_lockstep_run, make_dense_lockstep_run,
     make_multi_lockstep_run,
 )
 from dgcnn_tpu_torch.train.metrics import EventLog, FoldMetrics
-from dgcnn_tpu_torch.utils.checkpoint import save_checkpoint
+from dgcnn_tpu_torch.utils.checkpoint import (
+    checkpoint_exists, load_checkpoint, load_into, remove_checkpoint, save_checkpoint,
+)
 
 
 def stack_folds(mats: List[np.ndarray], steps: int) -> np.ndarray:
@@ -157,18 +167,34 @@ def run_cv_folds_lockstep(cfg: Config, dataset: GraphSet, model: DGCNN,
         init_params(torch.Generator().manual_seed(_stream_seed(cfg.seed, f, 1)),
                     model, device) for f in fold_ids]))
     adam_f = FoldAdam(net_f, cfg.learning_rate, cfg.adam_b1, cfg.adam_b2,
-                      cfg.adam_eps)
+                      cfg.adam_eps, flat_state=cfg.opt_flatten)
     dropout_gens = [torch.Generator(device=device).manual_seed(
         _stream_seed(cfg.seed, f, 2)) for f in fold_ids]
 
     edge_counts = dataset.edge_counts()
     train_edges = int(sum(edge_counts[idx].sum() for idx in train_idx_f))
     metrics_f = [FoldMetrics() for _ in fold_ids]
+    inflight = os.path.join(cfg.epochs_dir, f"{cfg.data_type}_lockstep_inflight")
     epoch = 1
+    if cfg.checkpoint_resume and checkpoint_exists(inflight):
+        bundle = load_checkpoint(inflight)
+        epoch = resumed_epoch(cfg, inflight, bundle, "run")
+        load_into(net_f, bundle["params_f"])
+        load_into(adam_f, bundle["opt_f"])
+        for f, gen in enumerate(dropout_gens):
+            load_into(gen, bundle["rng_f"][str(f)])
+        restore_floors(engine, bundle.get("floors", {}))
+        for f, m in enumerate(metrics_f):
+            m.rows = {c: [float(v) for v in bundle["metrics"][c][f]]
+                      for c in FoldMetrics.COLUMNS}
+        # replay every fold's shuffle stream: epoch e sees the permutations
+        # it would have seen in an uninterrupted run
+        for rng, n in zip(shuffles, n_train_f):
+            for _ in range(epoch - 1):
+                rng.permutation(n)
+        print(f"[all folds] resumed at epoch {epoch} (lockstep)")
     while epoch <= cfg.num_epochs:
-        k = cfg.num_epochs - epoch + 1
-        if cfg.max_fused_epochs:
-            k = min(k, cfg.max_fused_epochs)
+        k = chunk_epochs(cfg, epoch)
         ids_k = [[idx[rng.permutation(len(idx))] for idx, rng in zip(train_idx_f, shuffles)]
                  for _ in range(k)]
         runner, orders = lockstep_chunk(engine, net_f, adam_f, dropout_gens, ids_k,
@@ -201,18 +227,24 @@ def run_cv_folds_lockstep(cfg: Config, dataset: GraphSet, model: DGCNN,
                                 for f in range(num_folds))
                 print(f"[all folds] epoch {epoch + j}: test% [{accs}] ({dt:.2f}s)")
         epoch += k
+        if checkpoint_due(cfg, epoch - 1):
+            save_checkpoint(inflight, {
+                "params_f": net_f.state_dict(), "opt_f": adam_f.state_tensors(),
+                "rng_f": [g.get_state() for g in dropout_gens],
+                "epoch": np.int64(epoch - 1),
+                "metrics": {c: np.stack([np.asarray(m.rows[c]) for m in metrics_f])
+                            for c in FoldMetrics.COLUMNS},
+                "floors": engine_floors(engine)})
     engine.end_fold()  # drops the runner and its graph
 
     train_accs, test_accs = [], []
     for f in range(num_folds):
-        save_checkpoint(
-            os.path.join(cfg.epochs_dir, f"{cfg.data_type}_{f + 1}"),
-            {"params": net_f.fold_state_dict(f), "opt_state": adam_f.fold_state(f)},
-        )
-        metrics_f[f].to_csv(os.path.join(
-            cfg.statistics_dir, f"{cfg.data_type}_results_{f + 1}.csv"))
+        save_checkpoint(fold_bundle(cfg, f + 1), {"params": net_f.fold_state_dict(f),
+                                                 "opt_state": adam_f.fold_state(f)})
+        metrics_f[f].to_csv(fold_csv(cfg, f + 1))
         train_accs.append(metrics_f[f].last("train_accuracy"))
         test_accs.append(metrics_f[f].last("test_accuracy"))
         print(f"[{f + 1}] Train Acc: {train_accs[-1]:.2f}% "
               f"Test Acc: {test_accs[-1]:.2f}%")
+    remove_checkpoint(inflight)
     return train_accs, test_accs

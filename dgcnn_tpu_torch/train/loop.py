@@ -104,14 +104,54 @@ def nll_loss_and_correct(
 
 
 def make_optimizer(net: DGCNNNet, lr: float = 1e-3, b1: float = 0.9,
-                   b2: float = 0.999, eps: float = 1e-8) -> torch.optim.Adam:
-    """torch's Adam. On CUDA parameters it is `capturable`: the step counts
-    and bias corrections stay on the device, so an epoch graph can hold
-    the update, and the eager epochs run the same update and give the
-    same bits. torch refuses `capturable` on the CPU."""
+                   b2: float = 0.999, eps: float = 1e-8,
+                   flat: bool = False) -> torch.optim.Adam:
+    """torch's Adam (`flat`: `FlatAdam`, `--opt_flatten`). On CUDA
+    parameters it is `capturable`: the step counts and bias corrections
+    stay on the device, so an epoch graph can hold the update, and the
+    eager epochs run the same update and give the same bits. torch
+    refuses `capturable` on the CPU."""
     cuda = next(net.parameters()).is_cuda
+    if flat:
+        return FlatAdam(net, lr=lr, betas=(b1, b2), eps=eps, capturable=cuda)
     return torch.optim.Adam(net.parameters(), lr=lr, betas=(b1, b2), eps=eps,
                             capturable=cuda)
+
+
+class FlatAdam(torch.optim.Adam):
+    """`--opt_flatten`, the port of dgcnn_tpu/train/flat_opt.py:28
+    `flatten_optimizer`: one Adam update over the raveled parameter
+    vector. The net's parameters become views of one flat parameter
+    (`parameters()` order) and `step` updates it from the concatenated
+    gradients, as torch's Adam over that one tensor: the same per-element
+    formula as the per-leaf Adam of `make_optimizer` (its CPU or its
+    capturable foreach path), so the parameters are the per-leaf run's
+    bits, and capturable inside an epoch graph. Its state is one step
+    count and vector-shaped moments [P]: bundles written with it do not
+    load into a per-leaf Adam, nor the other way (utils/checkpoint.py
+    `load_into` raises). Build it before the first forward: it moves the
+    parameters' storage."""
+
+    def __init__(self, net: torch.nn.Module, **adam_kw):
+        self.leaves = list(net.parameters())
+        flat = torch.nn.Parameter(torch.cat([p.detach().reshape(-1)
+                                             for p in self.leaves]))
+        off = 0
+        for p in self.leaves:  # each parameter becomes a view of its run of `flat`
+            p.data = flat.data[off : off + p.numel()].view(p.shape)
+            off += p.numel()
+        super().__init__([flat], **adam_kw)
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.leaves:
+            p.grad = None
+        super().zero_grad(set_to_none)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        flat = self.param_groups[0]["params"][0]
+        flat.grad = torch.cat([p.grad.reshape(-1) for p in self.leaves])
+        return super().step(closure)
 
 
 def train_step(
@@ -196,12 +236,15 @@ class FoldAdam:
     `step(real)` applies it to the folds whose `real` [F] entry is True
     and leaves the others' parameters, moments and counts untouched (a
     `where`, not a zero gradient: Adam would still decay the moments and
-    move the weights)."""
+    move the weights). The update is the same under `--opt_flatten`
+    (`flat_state`); only the bundles' layout follows it: vector-shaped
+    moments, as `FlatAdam`'s."""
 
     def __init__(self, net_f: DGCNNFoldsNet, lr: float = 1e-3, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+                 b2: float = 0.999, eps: float = 1e-8, flat_state: bool = False):
         self.params = list(net_f.parameters())
         self.flat = net_f.flat
+        self.flat_state = flat_state
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         f, dev = net_f.num_folds, self.flat.device
         self.steps = torch.zeros(f, dtype=torch.float32, device=dev)
@@ -228,19 +271,37 @@ class FoldAdam:
         self.exp_avg.copy_(torch.where(keep, m, self.exp_avg))
         self.exp_avg_sq.copy_(torch.where(keep, v, self.exp_avg_sq))
 
+    def _runs(self, buf: torch.Tensor) -> list:
+        """`buf`'s run of each parameter, [F, ...] views in `parameters()`
+        order."""
+        out, off = [], 0
+        for p in self.params:
+            out.append(buf[off : off + p.numel()].view(p.shape))
+            off += p.numel()
+        return out
+
     def fold_state(self, fold: int) -> dict:
         """Fold `fold`'s (0-based) moments and step counts in the layout of
         the sequential driver's `adam_state`: a list per key in
-        `parameters()` order."""
-        out = {"step": [], "exp_avg": [], "exp_avg_sq": []}
-        off = 0
-        for p in self.params:
-            n = p.numel()
-            for key, buf in (("exp_avg", self.exp_avg), ("exp_avg_sq", self.exp_avg_sq)):
-                out[key].append(buf[off : off + n].view(p.shape)[fold].cpu())
-            out["step"].append(self.steps[fold].cpu())
-            off += n
+        `parameters()` order; under `flat_state` one step count and the
+        fold's moments raveled in that order, as `FlatAdam`'s."""
+        out = {key: [r[fold].cpu() for r in self._runs(buf)]
+               for key, buf in (("exp_avg", self.exp_avg), ("exp_avg_sq", self.exp_avg_sq))}
+        if self.flat_state:
+            out = {key: [torch.cat([t.reshape(-1) for t in ts])] for key, ts in out.items()}
+        out["step"] = [self.steps[fold].cpu()] * len(out["exp_avg"])
         return out
+
+    def state_tensors(self) -> dict:
+        """The live state, for the lockstep run's in-flight bundle
+        (utils/checkpoint.py `load_into`): the per-fold step counts and
+        the moments, as [F, ...] runs a parameter, or under `flat_state`
+        as the flat buffers."""
+        if self.flat_state:
+            return {"steps": self.steps, "exp_avg": self.exp_avg,
+                    "exp_avg_sq": self.exp_avg_sq}
+        return {"steps": self.steps, "exp_avg": self._runs(self.exp_avg),
+                "exp_avg_sq": self._runs(self.exp_avg_sq)}
 
 
 def lockstep_train_step(net_f: DGCNNFoldsNet, adam_f: FoldAdam, batch,

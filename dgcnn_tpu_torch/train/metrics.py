@@ -19,7 +19,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 
 class FoldMetrics:
@@ -47,6 +47,21 @@ class FoldMetrics:
             for i in range(len(self.rows["train_loss"])):
                 vals = ",".join(str(self.rows[c][i]) for c in self.COLUMNS)
                 f.write(f"{i + 1},{vals}\n")
+
+
+def completed_fold_accuracies(csv_path: str, num_epochs: int
+                              ) -> Optional[Tuple[float, float]]:
+    """If a fold CSV already holds `num_epochs` rows, its last epoch's
+    (train_acc, test_acc), so that `--resume` can skip the fold (the
+    reference's `_completed_fold_accuracies`, dgcnn_tpu/train/cv.py:218)."""
+    if not os.path.exists(csv_path):
+        return None
+    with open(csv_path) as f:
+        lines = f.read().strip().splitlines()
+    if len(lines) != num_epochs + 1:
+        return None
+    last = lines[-1].split(",")
+    return float(last[3]), float(last[4])
 
 
 def write_overall_csv(path: str, train_accs: List[float], test_accs: List[float]):

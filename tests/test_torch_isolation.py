@@ -45,7 +45,10 @@ def test_the_scan_covers_the_probe_and_measurement_modules():
     scanned = {str(p.relative_to(ROOT)) for p in _sources()}
     assert {"dgcnn_tpu_torch/tools/probe_kernel_anatomy.py",
             "dgcnn_tpu_torch/tools/__init__.py",
-            "dgcnn_tpu_torch/utils/profiling.py", "chip_smoke.py"} <= scanned
+            "dgcnn_tpu_torch/utils/profiling.py", "chip_smoke.py",
+            "dgcnn_tpu_torch/infer.py", "dgcnn_tpu_torch/train/plots.py",
+            "dgcnn_tpu_torch/train/tensorboard.py",
+            "dgcnn_tpu_torch/utils/checkpoint.py"} <= scanned
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

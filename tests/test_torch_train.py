@@ -128,8 +128,6 @@ def test_cv_run_writes_reference_artifacts(tmp_path):
     {"compute_dtype": "bfloat16", "layout": "coo"},
     {"adj_dtype": "bfloat16", "compute_dtype": "bfloat16", "layout": "coo"},
     {"mesh_shape": (2, 1)},
-    {"checkpoint_resume": True}, {"checkpoint_every": 5},
-    {"tensorboard_dir": "tb"}, {"opt_flatten": True},
 ], ids=lambda kw: next(iter(kw)))
 def test_unserved_options_raise(tmp_path, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
