@@ -125,7 +125,8 @@ CUDA is absent or any phase fails. Phases:
         `--spmm auto` 2 × 4, the other device-assembled name 1 × 3, and
         `--spmm pallas` (`CooEngine`: host-packed sub-chunks, each epoch
         staged into one static device stack, block-pair structures padded
-        to the sub-chunk's grow-only item budget) 1 × 2, and synthetic NCI1
+        to the sub-chunk's grow-only item budget; every epoch packed by the
+        C++ packer) 2 × 4, and synthetic NCI1
         `--layout coo --spmm pallas` 1 × 2, graphed and eager, launches
         exact on the named kernel and 0 on the others; then the block and
         COO runners built directly (fold 1 of DD, its first 3 epochs at
@@ -190,8 +191,7 @@ CUDA is absent or any phase fails. Phases:
         regime at 2 bytes an element); each run's fold-epoch seconds and
         peak memory beside the fp32 run of 4a, 4e or 4d; one batch of
         each on the card against the CPU within rel 1e-2; the bf16
-        lockstep runners (NCI1, DD) built directly; `--layout coo
-        --dtype bfloat16` raises NotImplementedError;
+        lockstep runners (NCI1, DD) built directly;
      h. resume and inference: phase 4a's NCI1 dense lockstep run (10 × 4),
         phase 4e's DD block lockstep run (10 × 4) and phase 4c's DD
         `--layout coo` run (2 × 4) again with `--ckpt_every 2`, graphed,
@@ -208,6 +208,23 @@ CUDA is absent or any phase fails. Phases:
         the other kernels), graphed bitwise eager, the card within rel
         1e-4 of the CPU, one replay under `set_sync_debug_mode("error")`,
         graphs/s over a pass of replays and over a whole call;
+     i. the COO layout under bf16 compute, the native packer, the parity
+        harness and the forward entry: synthetic DD `--layout coo --dtype
+        bfloat16` 2 × 4 under `--spmm auto` (`DeviceCooEngine`) and
+        `pallas` (`CooEngine`), in chunks of 2, graphed then eager as in
+        4c (the SpMM kernels fp32, launches exact per replay, rows and
+        bundles bitwise), fold-epoch seconds and peak memory beside 4c's
+        fp32 runs, one batch of each on the card against the CPU within
+        rel 1e-2; the C++ packer built on the host, every `CooEngine` of
+        4c packed through it (`CooEngine.packed`), one DD epoch packed
+        both ways byte-equal, the seconds of each pack and of
+        `add_blockcoo`; the parity harness's CLI, each step a fresh
+        process: `dump` on the card, `dump --platform cpu` with its
+        weights, `compare` at its defaults (MUTAG's first 50 graphs, COO),
+        and this process's `dump_activations` against the card dump;
+        `graft_entry.entry()`
+        eager against `torch.compile`, allclose at rtol 1e-5, the row
+        kernel launched by both;
   5. device times (utils/profiling.py `device_ms`): each call captured
      10 times in one CUDA graph, the graph replayed and timed with CUDA
      events, so the host's launch rate is out of the number; warm
@@ -282,6 +299,7 @@ import json
 import math
 import os
 import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -1777,6 +1795,16 @@ def host_cpu():
     return f"{name} ({platform.machine()})"
 
 
+def fp32_matmul_error():
+    """{device: max abs of a 512 x 512 fp32 product from its float64 value},
+    on the card and on the CPU: whether either multiplies at reduced
+    precision in this process."""
+    a = torch.randn(512, 512, generator=torch.Generator().manual_seed(0))
+    want = a.double() @ a.double()
+    return {dev: f"{((a.to(dev) @ a.to(dev)).double().cpu() - want).abs().max().item():.3e}"
+            for dev in ("cuda", "cpu")}
+
+
 class _TorchWith:
     """`torch` with some functions replaced (`Branches.taken`)."""
 
@@ -3226,8 +3254,8 @@ def bf16_main_paths(ctx, collab, nci1, dt, fp32):
     after another) 2 × 4, trunk calls by regime at 2 bytes an element.
     Each: rows and `epochs/` bundles bitwise equal graphed and eager,
     finite losses, fold-epoch seconds and peak memory beside the fp32 run
-    of the same path (`fp32`: label → (fold-epoch seconds, peak MiB));
-    `--layout coo --dtype bfloat16` raises NotImplementedError."""
+    of the same path (`fp32`: label → (fold-epoch seconds, peak MiB)).
+    The COO layout under bf16 compute is phase 4i's."""
     from dgcnn_tpu_torch.kernels import block_csr, block_resident
 
     counters = {"block_csr": block_csr.launches, "block_resident": block_resident.launches}
@@ -3338,17 +3366,6 @@ def bf16_main_paths(ctx, collab, nci1, dt, fp32):
         out["collab"] = {"calls": got, "kernel_launches": kern, "regimes": regimes,
                          "slot_floors": start["slot_floors"], "epoch_s": epoch_s,
                          "peak_mib": peak}
-
-        coo = cv_config(tmp, "coo_bf16", "NCI1", 1, 1, layout="coo",
-                        compute_dtype="bfloat16")
-        try:
-            run_cv(coo, True)
-        except NotImplementedError as e:
-            if "item 20" not in str(e):
-                raise
-            log(f"  NCI1 --layout coo --dtype bfloat16: NotImplementedError ({e})")
-        else:
-            raise AssertionError("COO under bf16 compute ran")
     return out
 
 
@@ -3625,6 +3642,228 @@ def resume_and_infer(nci1, dd):
     return out
 
 
+# -- phase 4i: bf16 COO, the native packer, the harness and the entry -------
+
+
+@contextlib.contextmanager
+def engines_made():
+    """The engines `run_cross_validation` makes while the block runs
+    (`train/cv.py make_engine` wrapped)."""
+    from dgcnn_tpu_torch.train import cv
+
+    made, make = [], cv.make_engine
+
+    def spy(*args, **kw):
+        made.append(make(*args, **kw))
+        return made[-1]
+
+    cv.make_engine = spy
+    try:
+        yield made
+    finally:
+        cv.make_engine = make
+
+
+def coo_bf16_main_path(gs, counters, spmm_auto, fp32):
+    """Phase 4i (a): synthetic DD `--layout coo --dtype bfloat16`, 2 folds
+    x 4 epochs in chunks of `max_fused_epochs` 2, under `--spmm auto`
+    (`DeviceCooEngine`, the row kernel) and `--spmm pallas` (`CooEngine`,
+    host-packed, the block-COO kernel), each graphed with the counts set to
+    0 just before and read just after, then eager
+    (`sparse_graphed_vs_eager`: launches exact per replay, rows and
+    bundles bitwise). The SpMM kernels run fp32 as under fp32 compute (the
+    reference's COO path never hands them bf16), so their launch counts
+    are the fp32 run's. Fold-epoch seconds of chunk 2 and the run's peak
+    memory beside phase 4c's fp32 run of the same path (`fp32`: name →
+    (graphed chunk-2 fold-epoch seconds, peak MiB))."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("auto", "pallas"):
+            used = SPMM_KERNEL_OF[spmm_auto if name == "auto" else name]
+            label = f"DD COO bf16 {name}"
+            with engines_made() as made:
+                n, f1, ev, ev_e, _ = sparse_graphed_vs_eager(
+                    tmp, label, "DD", gs, 2, 4, counters, used, "coo",
+                    layout="coo", spmm_impl=name, compute_dtype="bfloat16")
+            kinds = sorted({type(e).__name__ for e in made})
+            want = "CooEngine" if name == "pallas" else "DeviceCooEngine"
+            if kinds != [want]:
+                raise AssertionError(f"{label}: engines {kinds}, expected {want}")
+            peak = PEAK_MIB[os.path.join(tmp, label, "statistics")]
+            epoch_s = [(e["fold"], e["epoch_seconds"]) for e in ev if e["epoch"] > 2]
+            s32, p32 = fp32[name]
+            log(f"  {label} ({want}, {used}): fold-epoch seconds of chunk 2 graphed "
+                f"bf16 {epoch_s} against fp32 {s32}; peak memory of the run bf16 "
+                f"{peak:.1f} MiB against fp32 {p32:.1f} MiB; launches {n}, of width 1 "
+                f"{f1}: the fp32 run's counts")
+            out[name] = {"launches": n, "f1": f1, "epoch_s": epoch_s, "peak_mib": peak,
+                         "eager_epoch_s": [(e["fold"], e["epoch_seconds"]) for e in ev_e
+                                           if e["epoch"] > 2]}
+    return out
+
+
+def native_packer(engines, data_type="DD"):
+    """Phase 4i (b): the C++ packer on the card's host. It must build; every
+    `CooEngine` of phase 4c's runs (`engines`) must have packed every epoch
+    with it (`CooEngine.packed`); one `data_type` epoch of the last fold's
+    training graphs in a shuffled order, packed both ways, byte-equal;
+    the seconds of each pack (best of 3) and of `add_blockcoo` (the block
+    structures `--spmm pallas` adds, NumPy in both packages) on it."""
+    from dgcnn_tpu_torch import native
+    from dgcnn_tpu_torch.batching.packer import ARRAY_FIELDS, add_blockcoo, pack_epoch
+    from dgcnn_tpu_torch.train.cv import CooEngine
+
+    if not native.native_available():
+        raise AssertionError(f"the native packer did not build: {native.build_error()}")
+    host = [e for e in engines if isinstance(e, CooEngine)]
+    if not host:
+        raise AssertionError("phase 4c made no CooEngine")
+    for e in host:
+        if e.packed["native"] == 0 or e.packed["numpy"] != 0:
+            raise AssertionError(f"{e.cfg.data_type} CooEngine packed {e.packed}")
+    log("  every CooEngine of phase 4c packed through the native packer: " + "; ".join(
+        f"{e.cfg.data_type} {e.packed['native']} epochs, pack {e.pack_seconds['pack']:.3f}"
+        f" s, add_blockcoo {e.pack_seconds['blockcoo']:.3f} s in all" for e in host))
+    engine = next(e for e in host if e.cfg.data_type == data_type)
+    ds = engine._train_set
+    order = np.random.default_rng(0).permutation(ds.num_graphs)
+    secs, epochs = {}, {}
+    for backend in ("native", "numpy"):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            epochs[backend] = pack_epoch(ds, order, engine.cfg.batch_size, engine.bucket,
+                                         backend)
+            times.append(time.perf_counter() - t0)
+        secs[backend] = min(times)
+    for name in ARRAY_FIELDS:
+        a, b = (np.asarray(getattr(epochs[k], name)) for k in ("native", "numpy"))
+        if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise AssertionError(f"native vs NumPy packing: {name} differs")
+    t0 = time.perf_counter()
+    add_blockcoo(epochs["native"])
+    secs["add_blockcoo"] = time.perf_counter() - t0
+    steps = -(-len(order) // engine.cfg.batch_size)
+    log(f"  one {data_type} epoch ({ds.num_graphs} graphs, {steps} batches of bucket "
+        f"{engine.bucket}) packed both ways, byte-equal: native "
+        f"{secs['native']:.4f} s, NumPy {secs['numpy']:.4f} s (best of 3, host clock), "
+        f"add_blockcoo {secs['add_blockcoo']:.4f} s")
+    return secs
+
+
+def harness_cli(*args):
+    """`python -m dgcnn_tpu_torch.parity.harness *args` in a fresh process
+    (the repository root on its path); its standard output."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.dirname(os.path.abspath(__file__)),
+                    os.environ.get("PYTHONPATH")) if p))
+    res = subprocess.run([sys.executable, "-m", "dgcnn_tpu_torch.parity.harness", *args],
+                         env=env, capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise AssertionError(f"harness {args[0]} exited {res.returncode}:\n{res.stdout}"
+                             f"\n{res.stderr}")
+    return res.stdout
+
+
+def harness_and_entry(device):
+    """Phase 4i (c): the parity harness's CLI as a user runs it, each step a
+    fresh process: `dump` of the CLI's batch (synthetic MUTAG's first 50
+    graphs, one COO batch, weights seeded 0) on the card, `dump --platform
+    cpu` of the same graphs with the card dump's weights (`--weights`),
+    then `compare` at its defaults (rtol 1e-4, atol 1e-5); this process's
+    `dump_activations` on the card against the card dump under
+    `compare_dumps`. (The CPU side runs in a process of its own: in one
+    chip run, the CPU side of this check, run in a process that had
+    already used the card, gave these activations ~5e-5 relative away from
+    the bits every other CPU run gives, PERF.md §7 item 12.) The same CPU
+    dump made in this process is reported beside it, not checked: its max
+    abs by stage against the fresh process's and the card's, and both
+    CPU dumps' digests. Then `graft_entry.entry()` on the card,
+    eager against `torch.compile` (the default backend): allclose at rtol
+    1e-5, and the compiled forward launched the row kernel as many times
+    as the eager one."""
+    from dgcnn_tpu_torch.batching.packer import compute_bucket, pack_batch
+    from dgcnn_tpu_torch.data.synthetic import synthesize_tu_dataset
+    from dgcnn_tpu_torch.graft_entry import entry
+    from dgcnn_tpu_torch.kernels import spmm_pallas
+    from dgcnn_tpu_torch.models.dgcnn import DGCNN, init_params
+    from dgcnn_tpu_torch.parity.harness import _load_acts, compare_dumps, dump_activations
+    from dgcnn_tpu_torch.tools.probe_repeat import digest
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        card, cpu = os.path.join(tmp, "card.npz"), os.path.join(tmp, "cpu.npz")
+        common = ["--data_type", "MUTAG", "--synthetic", "--num_graphs", "50", "--seed",
+                  "0", "--data_root", os.path.join(tmp, "data")]
+        t0 = time.perf_counter()
+        harness_cli("dump", "--out", card, *common)
+        harness_cli("dump", "--out", cpu, "--weights", card, "--platform", "cpu", *common)
+        said = harness_cli("compare", card, cpu)
+        if "PARITY OK" not in said:
+            raise AssertionError(f"harness compare: {said}")
+        a, b = _load_acts(card), _load_acts(cpu)
+        out["cli"] = {k: float(np.abs(a[k] - b[k]).max()) for k in a}
+        log(f"  parity harness CLI (fresh processes, {time.perf_counter() - t0:.1f} s): "
+            f"dump MUTAG's first 50 graphs (COO) on the card, dump them on the CPU with "
+            f"its weights, compare at rtol 1e-4 / atol 1e-5: PARITY OK; max abs card vs "
+            f"CPU by stage {out['cli']}")
+        mutag = synthesize_tu_dataset("MUTAG")
+        model = DGCNN(num_features=mutag.num_features, num_classes=mutag.num_classes)
+        batch = pack_batch(mutag, np.arange(50), compute_bucket(mutag, 50))
+        here = dump_activations(init_params(torch.Generator().manual_seed(0), model), model,
+                                batch)
+        report = compare_dumps(here, a)
+        log(f"  dump_activations on the card in this process against the CLI's card "
+            f"dump: max abs by stage {report}; fp32 matmul error now {fp32_matmul_error()}")
+        # reported, not checked: the CPU side in this process, the evidence
+        # PERF.md §7 item 12 asks of every run
+        cpu_here = dump_activations(init_params(torch.Generator().manual_seed(0), model),
+                                    model, batch, device="cpu")
+        stages = sorted(set(cpu_here) & set(b))
+
+        def bits(d):
+            return digest([(k, torch.from_numpy(np.ascontiguousarray(d[k]))) for k in stages])
+
+        out["in_process_cpu"] = {
+            "vs_fresh_cpu": {k: float(np.abs(cpu_here[k] - b[k]).max()) for k in stages},
+            "vs_card": {k: float(np.abs(cpu_here[k] - a[k]).max()) for k in stages},
+            "digest": bits(cpu_here), "fresh_digest": bits(b)}
+        log(f"  (report only) dump_activations on the CPU in this process: max abs by "
+            f"stage against the fresh process's CPU dump "
+            f"{out['in_process_cpu']['vs_fresh_cpu']}, against the card dump "
+            f"{out['in_process_cpu']['vs_card']}; digests (tools/probe_repeat.py) this "
+            f"process {out['in_process_cpu']['digest']}, fresh process "
+            f"{out['in_process_cpu']['fresh_digest']}")
+    fn, args = entry()
+    explained = torch._dynamo.explain(fn)(*args)
+    torch._dynamo.reset()
+    spmm_pallas.rows_launches.reset()
+    want = fn(*args)
+    torch.cuda.synchronize()
+    eager_n = spmm_pallas.rows_launches.fwd_launches
+    compiled = torch.compile(fn)
+    t0 = time.perf_counter()
+    spmm_pallas.rows_launches.reset()
+    got = compiled(*args)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    compiled_n = spmm_pallas.rows_launches.fwd_launches
+    if eager_n != 4 or compiled_n != eager_n:
+        raise AssertionError(f"entry(): row-kernel launches eager {eager_n}, compiled "
+                             f"{compiled_n}, expected 4 each")
+    if not torch.allclose(got, want, rtol=1e-5, atol=0):
+        raise AssertionError(f"entry(): torch.compile vs eager max abs "
+                             f"{(got - want).abs().max().item():.3e}")
+    log(f"  graft_entry.entry() on the card: log-probs {tuple(want.shape)}, "
+        f"torch.compile (default backend, {compile_s:.1f} s with the compile) allclose "
+        f"eager at rtol 1e-5 (max abs {(got - want).abs().max().item():.3e}); row-kernel "
+        f"launches eager {eager_n}, compiled {compiled_n}; torch._dynamo.explain: "
+        f"{explained.graph_count} graph(s), {explained.graph_break_count} break(s)")
+    out["entry"] = {"compile_s": compile_s, "launches": compiled_n,
+                    "graphs": explained.graph_count, "breaks": explained.graph_break_count}
+    return out
+
+
 # -- phase 6: one profiled train step ---------------------------------------
 
 
@@ -3739,6 +3978,9 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
     log(f"host CPU (the CPU side of the card-vs-CPU checks): {host_cpu()}, "
         f"{os.cpu_count()} cores, {torch.get_num_threads()} torch threads")
+    log(f"fp32 matmul, 512 x 512 standard normal, max abs from float64: "
+        f"{fp32_matmul_error()} (IEEE fp32 ~3e-5, TF32 ~1e-2); environment "
+        f"{ {k: v for k, v in os.environ.items() if 'TF32' in k or 'CUBLAS' in k} }")
 
     log("== phase 2: build kernels")
     _build.build_all()
@@ -3893,28 +4135,33 @@ def main() -> int:
     spmm_other = {"xla": "onehot", "onehot": "xla"}[spmm_auto]
     log(f"== phase 4c: main path, synthetic DD, --layout coo: --spmm auto "
         f"(= {spmm_auto}) 2 folds x 4 epochs, --spmm {spmm_other} 1 x 3, --spmm "
-        f"pallas 1 x 2; synthetic NCI1 --layout coo --spmm pallas 1 x 2; each in "
+        f"pallas 2 x 4; synthetic NCI1 --layout coo --spmm pallas 1 x 2; each in "
         f"chunks of max_fused_epochs 2, graphed then eager")
     log(card)
     counters = spmm_counters()
-    coo_launches, coo_epoch_s = {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
+    coo_launches, coo_epoch_s, coo_fp32 = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp, engines_made() as coo_engines:
         for data_type, impl, name, folds_n, epochs in (
             ("DD", spmm_auto, "auto", 2, 4),
             ("DD", spmm_other, spmm_other, 1, 3),
-            ("DD", "pallas", "pallas", 1, 2),
+            ("DD", "pallas", "pallas", 2, 4),
             ("NCI1", "pallas", "pallas", 1, 2),
         ):
             used = SPMM_KERNEL_OF[impl]
             gs = ctx.gs if data_type == "DD" else nci1
+            label = f"{data_type} COO {name}"
             n, f1, ev, ev_e, _ = sparse_graphed_vs_eager(
-                tmp, f"{data_type} COO {name}", data_type, gs, folds_n, epochs, counters,
+                tmp, label, data_type, gs, folds_n, epochs, counters,
                 used, "coo", keep="DD COO" if (data_type, name) == ("DD", "auto") else None,
                 layout="coo", spmm_impl=name)
             if data_type == "DD" and used not in coo_launches:
                 coo_launches[used], coo_launches[used + "_f1"] = n, f1
             coo_epoch_s[(data_type, name)] = ([e["epoch_seconds"] for e in ev],
                                               [e["epoch_seconds"] for e in ev_e])
+            if data_type == "DD":  # phase 4i's fp32 side: chunk 2's seconds, the peak
+                coo_fp32[name] = ([(e["fold"], e["epoch_seconds"]) for e in ev
+                                   if e["epoch"] > 2],
+                                  PEAK_MIB[os.path.join(tmp, label, "statistics")])
 
     log("== phases 4b-4c: the block and COO fused runners built directly, a "
         "forced budget growth")
@@ -4003,7 +4250,7 @@ def main() -> int:
         f"bfloat16 (block, {FOLDS}-fold lockstep) {FOLDS} x 4 and --block_impl xla "
         f"{FOLDS} x 2, synthetic COLLAB --adj_dtype bfloat16 (multi, sequential) 2 x 4, "
         "in chunks of max_fused_epochs 2, graphed then eager; card vs CPU; the bf16 "
-        "lockstep runners built directly; COO under bf16 compute refused")
+        "lockstep runners built directly")
     log(card)
     mp = bf16_main_paths(ctx, collab, nci1, dt, {
         "NCI1 lockstep": (lock["lockstep_epoch_s"], lock["peak_mib"]),
@@ -4046,6 +4293,26 @@ def main() -> int:
     t4h = time.perf_counter()
     h = resume_and_infer(nci1, dd)
     log(f"  phase 4h took {time.perf_counter() - t4h:.1f} s")
+
+    log("== phase 4i: synthetic DD --layout coo --dtype bfloat16 2 x 4 under --spmm "
+        f"auto (= {spmm_auto}) and pallas, in chunks of max_fused_epochs 2, graphed "
+        "then eager; card vs CPU; the native packer; the parity harness's dumps and "
+        "graft_entry.entry() under torch.compile")
+    log(card)
+    t4i = time.perf_counter()
+    coo16 = coo_bf16_main_path(ctx.gs, counters, spmm_auto, coo_fp32)
+    card_vs_cpu(f"DD COO batch, bf16 compute (row {dd_coo.mean_row}, spmm_impl "
+                f"{spmm_auto})", coo_batch(dd_coo, dd_coo.mean_row, spmm_auto),
+                dd_model16, rtol=1e-2)
+    card_vs_cpu(f"DD CooEngine batch, bf16 compute (row {dd_host.mean_row}, spmm_impl "
+                f"pallas)", host_coo_batch(dd_host, dd_host.mean_row), dd_model16,
+                rtol=1e-2)
+    native_s = native_packer(coo_engines)
+    log(f"  DD --spmm pallas (CooEngine, native packing) fold-epoch seconds of phase 4c: "
+        f"graphed {coo_epoch_s[('DD', 'pallas')][0]}, eager "
+        f"{coo_epoch_s[('DD', 'pallas')][1]}")
+    parity = harness_and_entry(device)
+    log(f"  phase 4i took {time.perf_counter() - t4i:.1f} s")
 
     log("== phase 5: device times (CUDA-graph replay, CUDA events)")
     log(card)
@@ -4243,6 +4510,12 @@ def main() -> int:
     sparse_steps[f"DD COO ({spmm_auto})"] = profile_step(
         f"DD COO ({spmm_auto}, mean batch)",
         seq_step(dd_model, dd_coo.batch(dd_coo.mean_row), spmm_impl=spmm_auto))
+    coo_step = sparse_steps[f"DD COO ({spmm_auto})"]
+    # bf16 compute adds its casts (x at entry, W_i at its product, each
+    # layer's output) to the step's launches; the SpMMs are the same
+    coo_step16 = profile_step(
+        f"DD COO ({spmm_auto}, mean batch), bf16 compute",
+        seq_step(dd_model16, dd_coo.batch(dd_coo.mean_row), spmm_impl=spmm_auto))
     profile_step("DD COO (pallas, CooEngine mean batch; the slot order's sorts included)",
                  seq_step(dd_model, dd_host.batch(dd_host.mean_row), spmm_impl="pallas"))
     dd_net_f = folds_net(dd_model, device, seed=0)
@@ -4532,6 +4805,18 @@ def main() -> int:
         f"{dd_lock['ten_folds']['epoch_s']}, {dd_lock['ten_folds']['peak_mib']:.1f} "
         f"MiB); COLLAB multi {mp['collab']['epoch_s']}, {mp['collab']['peak_mib']:.1f} "
         f"MiB (fp32 {multi['epoch_s']}, {multi['peak_mib']:.1f} MiB)")
+    log(f"bf16 COO (phase 4i; {card}) fold-epoch seconds of chunk 2 and run peak "
+        f"memory: " + "; ".join(
+            f"DD --spmm {name} graphed {c['epoch_s']}, eager {c['eager_epoch_s']}, "
+            f"{c['peak_mib']:.1f} MiB (fp32 {coo_fp32[name][0]}, "
+            f"{coo_fp32[name][1]:.1f} MiB)" for name, c in coo16.items())
+        + f"; one DD COO train step fp32 {coo_step[2]} kernel launches, bf16 "
+        f"{coo_step16[2]}")
+    log(f"native packer (phase 4i; {card}): one DD epoch native {native_s['native']:.4f} "
+        f"s, NumPy {native_s['numpy']:.4f} s, add_blockcoo {native_s['add_blockcoo']:.4f} "
+        f"s; DD --spmm pallas fold-epoch seconds graphed "
+        f"{coo_epoch_s[('DD', 'pallas')][0]}, eager {coo_epoch_s[('DD', 'pallas')][1]}")
+    log(f"parity harness and entry (phase 4i; {card}): " + json.dumps(parity))
     log(f"COLLAB fold-epoch seconds, chunk 2 (fold, s): multi graphed "
         f"{multi['epoch_s']}, eager {multi['eager_epoch_s']}; --layout dense graphed "
         f"{multi['dense_epoch_s']}; multi lockstep (2 folds, epoch seconds / 2) "

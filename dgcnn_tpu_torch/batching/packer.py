@@ -12,11 +12,12 @@ num_graphs) bucket with explicit masks. Invariants, as in the reference:
     edge_mask 0, so the destination column stays sorted while the edges
     add nothing (their GCN weight is the mask).
 
-The packers are NumPy on the host and give the reference's bytes. The
-reference's C++ packer (`native/packer.cc`, identical output) is not
-ported yet (ROADMAP Queue 1 item 8): `pack_epoch` here is the NumPy
-backend. `GraphBatch` holds NumPy arrays after packing and tensors after
-`batch_to_device` or `batching/device_coo.gather_coo_batch`.
+The packers run on the host and give the reference's bytes: NumPy, and
+for a whole epoch also the C++ packer (dgcnn_tpu_torch/native, the
+reference's `native/packer.cc`), byte-identical; `pack_epoch`'s
+`backend` picks one as the reference's does. `GraphBatch` holds NumPy
+arrays after packing and tensors after `batch_to_device` or
+`batching/device_coo.gather_coo_batch`.
 """
 
 from __future__ import annotations
@@ -155,12 +156,39 @@ def pack_batch(
     )
 
 
+BACKENDS = ("auto", "native", "numpy")
+
+
+def resolve_backend(backend: str = "auto") -> str:
+    """The packer `backend` names: "native" (raises RuntimeError when the
+    C++ library cannot be built or loaded), "numpy", or "auto" = native
+    when it builds, else numpy."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown packer backend {backend!r} (one of {BACKENDS})")
+    if backend == "numpy":
+        return backend
+    from dgcnn_tpu_torch import native
+
+    if native.native_available():
+        return "native"
+    if backend == "native":
+        raise RuntimeError(f"native packer requested but unavailable "
+                           f"({native.build_error()})")
+    return "numpy"
+
+
 def pack_epoch(
-    dataset: GraphSet, order: np.ndarray, batch_size: int, bucket: BucketSpec
+    dataset: GraphSet, order: np.ndarray, batch_size: int, bucket: BucketSpec,
+    backend: str = "auto",
 ) -> GraphBatch:
     """An epoch's batches (consecutive `batch_size` slices of `order`, the
-    last one ragged), stacked on a leading axis."""
+    last one ragged), stacked on a leading axis. `backend` as
+    `resolve_backend`; the output is identical either way."""
     order = np.asarray(order, dtype=np.int64)
+    if resolve_backend(backend) == "native":
+        from dgcnn_tpu_torch import native
+
+        return native.pack_epoch_native(dataset, order, batch_size, bucket)
     batches = [
         pack_batch(dataset, order[i : i + batch_size], bucket)
         for i in range(0, len(order), batch_size)

@@ -11,7 +11,7 @@ ROADMAP item that ports them. What differs from the reference:
     `compute_dtype="bfloat16"` run as in the reference on the dense,
     multi-tile and block layouts (the kernels' bf16 modes); the COO
     layout ignores `adj_dtype`, as the reference's COO engines do, and
-    refuses bf16 compute (train/cv.py `check_layout_dtype`);
+    runs bf16 compute with its SpMM kernels in fp32, as the reference's;
   * `dense_trunk` is accepted for flag parity, but the port always runs
     its CUDA trunk kernel on the card (kernels/dense_trunk.py);
   * `block_impl` names the port's two block-propagation kernels:

@@ -6,8 +6,9 @@ and edges live in flat arrays indexed through `node_ptr`/`edge_ptr`
 prefix-sum tables. This is the natural host-side layout for a TPU
 framework — the batch packer (batching/packer.py) and the dense
 materializer (batching/dense.py) slice it with zero per-graph Python
-object overhead, and the native C++ packer (native/packer.cc) reads the
-same arrays through ctypes without any conversion.
+object overhead, and the C++ epoch packer (dgcnn_tpu_torch/native,
+`packer.cc`) reads the same arrays through ctypes without any
+conversion.
 
 Edge indices are **graph-local** (each graph's nodes are numbered from 0);
 the packers add batch offsets. Edges are directed COO pairs; TU-format

@@ -26,6 +26,13 @@ bits, and the same bits as each kernel's earlier design (`design=EARLIER`:
 one edge at a time through perm → col → h; reachable only through
 `cuda_rows` / `cuda_edge_block`, for chip_smoke.py's in-run comparison).
 
+The row kernel's launch is the operator `dgcnn_tpu_torch::spmm_rows`
+(`torch.library.custom_op` with a fake implementation), so that
+`torch.compile` of a forward on the card (graft_entry.py) keeps it whole.
+Only the row kernel is compile-safe: `entry()` is the one forward that
+is compiled, and it runs the row kernel. The edge-block kernel launches
+through its ctypes call directly; Dynamo would trace into it.
+
 `rows_launches` and `edge_block_launches` count one per forward /
 backward SpMM that ran on each kernel (`f1_fwd` / `f1_bwd`: those of
 width 1).
@@ -81,12 +88,7 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def cuda_rows(row_ptr, perm, row, col, colp, w, h, transpose: bool,
-              design: int = CURRENT) -> torch.Tensor:
-    """One launch of csrc/spmm_rows.cu (`row` is unused: the row pointers
-    give each row's range). `col` is by edge id (read by the earlier
-    design), `colp` by position (read by the current one)."""
-    del row
+def _rows_launch(row_ptr, perm, col, colp, w, h, transpose, design):
     lib = _bind("spmm_rows")
     n, f = row_ptr.shape[0] - 1, h.shape[1]
     with torch.cuda.device(h.device):
@@ -97,6 +99,31 @@ def cuda_rows(row_ptr, perm, row, col, colp, w, h, transpose: bool,
     _raise_on(lib, "spmm_rows", rc, transpose)
     rows_launches.count(transpose, f)
     return out
+
+
+# The row kernel's launch as an operator of its own, so that torch.compile
+# (Dynamo) keeps it whole: traced, the ctypes call would meet fake tensors
+# and Dynamo's stand-in for the current stream. The fake implementation
+# gives the output's shape; the real one launches and counts.
+_rows_op = torch.library.custom_op(
+    "dgcnn_tpu_torch::spmm_rows", _rows_launch, mutates_args=(),
+    schema="(Tensor row_ptr, Tensor? perm, Tensor? col, Tensor? colp, Tensor w, "
+           "Tensor h, bool transpose, int design) -> Tensor")
+
+
+@_rows_op.register_fake
+def _rows_fake(row_ptr, perm, col, colp, w, h, transpose, design):
+    return h.new_empty((row_ptr.shape[0] - 1, h.shape[1]), dtype=torch.float32)
+
+
+def cuda_rows(row_ptr, perm, row, col, colp, w, h, transpose: bool,
+              design: int = CURRENT) -> torch.Tensor:
+    """One launch of csrc/spmm_rows.cu (`row` is unused: the row pointers
+    give each row's range). `col` is by edge id (read by the earlier
+    design), `colp` by position (read by the current one). Runs as the
+    operator `torch.ops.dgcnn_tpu_torch.spmm_rows`."""
+    del row
+    return _rows_op(row_ptr, perm, col, colp, w, h, transpose, design)
 
 
 _COUNTERS = {}  # device → int32 arrival counters, all 0 between launches

@@ -37,8 +37,13 @@ and the propagation dtype is bf16 whenever the compute or the stored
 adjacency (dense) or pool (block) is bf16 (:275-283, :967-973): the
 trunk kernel and the block kernels then run their bf16 modes. The dense
 layouts keep the trunk kernel under bf16 compute, with its `round_h`
-flag, where the reference runs its einsum chain. The COO layout runs
-fp32 only (`apply_coo` refuses bf16 compute: ROADMAP Queue 1 item 20).
+flag, where the reference runs its einsum chain. The COO layout rounds
+at the reference's points (dgcnn_tpu/models/dgcnn.py:213, :226, :244):
+x at entry, each W_i at its product and each layer's masked output;
+`h = x @ W` and all that follows it up to that rounding (the SpMM, the
+self-loop term, the bias, tanh, the mask) stay fp32, as the reference's
+`gcn_conv` keeps them (dgcnn_tpu/ops/gcn.py:126), so the SpMM kernels
+run fp32 under either compute dtype.
 """
 
 from __future__ import annotations
@@ -686,12 +691,11 @@ def apply_coo(
     four layers' SpMMs, forward and backward, and a block-pair structure
     the packer attached serves "pallas", with its slot order
     (`block_coo_order`) built once here. SortPooling is the global
-    lexicographic sort. fp32 only: bf16 compute on this layout needs the
-    bf16 modes of the SpMM kernels (ROADMAP Queue 1 item 20)."""
-    if model.compute_dtype != "float32":
-        raise NotImplementedError(
-            "bfloat16 compute on the COO layout is not ported yet (ROADMAP "
-            "Queue 1 item 20: the SpMM kernels' bf16 modes)")
+    lexicographic sort. Under bf16 compute x enters and each layer's
+    masked output leaves in bf16, and each W_i is rounded to bf16 at its
+    product (`gcn_conv`); the product is summed in fp32 and the SpMM runs
+    fp32, as in the reference's `apply_coo`. The engines hand x over in
+    fp32, as the reference's packers do."""
     num_nodes = batch.x.shape[0]
     num_slots = batch.y.shape[0]
     deg_hat = gcn_degree(batch.edge_dst, batch.edge_mask, num_nodes)
@@ -707,14 +711,15 @@ def apply_coo(
     mask = batch.node_mask[:, None]
 
     acts: dict = {}
-    x = batch.x
+    dt = model.dtype
+    x = batch.x.to(dt)
     layer_outs = []
     for i, layer in enumerate(params["gcn"]):
-        x = torch.tanh(gcn_conv(
-            x, layer["w"], layer["b"], batch.edge_src, batch.edge_dst,
+        x = (torch.tanh(gcn_conv(
+            x, layer["w"].to(dt), layer["b"], batch.edge_src, batch.edge_dst,
             batch.edge_mask, deg_hat, impl=spmm_impl, node_scale=dinv_sqrt,
             structure=structure, w_pad=w_pad, w_padT=w_padT, order=order,
-        )) * mask
+        )) * mask).to(dt)
         layer_outs.append(x)
         acts[f"gcn{i + 1}"] = x
 
@@ -727,3 +732,13 @@ def apply_coo(
     if return_activations:
         return log_probs, acts
     return log_probs
+
+
+def apply(params: Params, model: DGCNN, batch, **kwargs):
+    """Layout-polymorphic forward (the reference's `apply`,
+    dgcnn_tpu/models/dgcnn.py:1035): a `DenseGraphBatch` goes to
+    `apply_dense` (its `spmm_impl` dropped), anything else to `apply_coo`."""
+    if isinstance(batch, DenseGraphBatch):
+        kwargs.pop("spmm_impl", None)
+        return apply_dense(params, model, batch, **kwargs)
+    return apply_coo(params, model, batch, **kwargs)

@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from dgcnn_tpu_torch.ops.readout import matmul_f32
 from dgcnn_tpu_torch.ops.spmm import EdgeOrder, spmm
 
 
@@ -43,8 +44,11 @@ def gcn_conv(x, weight, bias, edge_src, edge_dst, edge_weight, deg_hat,
     `edge_weight`, which is then the raw edge mask:
     Σ_e s_src·s_dst·mask·h[src] = s_dst·Σ_e mask·(s·h)[src].
     `structure`/`w_pad`/`w_padT` serve `impl` "pallas" (they must encode
-    the same weights); `order` serves the edge-stream kernels."""
-    h = torch.matmul(x, weight)
+    the same weights); `order` serves the edge-stream kernels. `x` and
+    `weight` may be bf16 (bf16 compute): their product is summed in fp32
+    (`matmul_f32`) and the rest of the layer runs fp32, as the reference's
+    `preferred_element_type=float32` product leaves it."""
+    h = matmul_f32(x, weight)
     kw = dict(impl=impl, structure=structure, w_pad=w_pad, w_padT=w_padT,
               order=order)
     if node_scale is not None:

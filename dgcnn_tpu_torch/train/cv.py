@@ -39,8 +39,7 @@ and multi-tile layouts; under "auto" on the dense layout when
 `_lockstep_would_engage`, and always on the block layout (on one device
 the reference runs multi-tile folds one after another). Otherwise, and
 on the COO layout, the folds run one after another. `choose_layout`
-answers as the reference does; the halo layout, meshes and bf16
-compute on the COO layout (`check_layout_dtype`) raise
+answers as the reference does; the halo layout and meshes raise
 NotImplementedError naming the ROADMAP item that ports them
 (`check_supported`). Each engine stores its data at the
 reference's dtypes: the dense and multi-tile datasets at
@@ -95,6 +94,7 @@ from dgcnn_tpu_torch.batching.packer import (
     pack_epoch,
     pad_blockcoo,
     pin_batch,
+    resolve_backend,
 )
 from dgcnn_tpu_torch.config import Config
 from dgcnn_tpu_torch.data.datasets import load_dataset
@@ -155,17 +155,6 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(unserved)
         )
-
-
-def check_layout_dtype(cfg: Config, layout: str) -> None:
-    """bf16 compute on the COO layout needs the SpMM kernels' bf16 modes:
-    NotImplementedError naming their ROADMAP item. (A bf16 `adj_dtype`
-    runs COO in fp32, as the reference's COO engines, which never read
-    it.)"""
-    if layout == "coo" and cfg.compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "not ported yet: bfloat16 compute on the COO layout (ROADMAP Queue 1 "
-            "item 20: the bf16 modes of the SpMM kernels)")
 
 
 def pool_dtype(cfg: Config) -> str:
@@ -544,8 +533,9 @@ class DeviceCooEngine:
 class CooEngine:
     """The COO layout packed on the host (batching/packer.py), the port of
     the reference's `CooEngine` (dgcnn_tpu/train/cv.py:249): every epoch
-    is packed with NumPy into the worst-case bucket (`compute_bucket`);
-    the fold's test batches are packed and shipped once. A chunk is cut
+    is packed (by the C++ packer, or NumPy without it) into the
+    worst-case bucket (`compute_bucket`); the fold's test batches are
+    packed and shipped once. A chunk is cut
     into sub-chunks of r = clip(`coo_fuse_bytes` // one packed epoch's
     device bytes, 1, 64) epochs, as the reference cuts it (`_epoch_bytes`,
     :285-310); a sub-chunk's r epochs are packed first, then run through
@@ -580,13 +570,27 @@ class CooEngine:
         self.runners = RunnerSlot()
         self._fold = 0
         self._staged = []  # the last sub-chunk's packed epochs, on the host
+        self.packed = {"native": 0, "numpy": 0}
+        self.pack_seconds = {"pack": 0.0, "blockcoo": 0.0}
 
 
     def pack_host(self, ds: GraphSet, order: np.ndarray):
-        """`ds` in `order` as one stacked epoch of NumPy arrays, structures
-        padded to the epoch's largest batch."""
-        epoch = pack_epoch(ds, order, self.cfg.batch_size, self.bucket)
-        return add_blockcoo(epoch) if self.spmm_impl == "pallas" else epoch
+        """`ds` in `order` as one stacked epoch of NumPy arrays, packed by
+        the C++ packer when it builds (`resolve_backend("auto")`), else by
+        NumPy, structures padded to the epoch's largest batch. Counts the
+        epochs each backend packed (`packed`) and the host seconds of the
+        packing and of `add_blockcoo` (`pack_seconds`)."""
+        backend = resolve_backend("auto")
+        t0 = time.perf_counter()
+        epoch = pack_epoch(ds, order, self.cfg.batch_size, self.bucket, backend)
+        t1 = time.perf_counter()
+        self.packed[backend] += 1
+        self.pack_seconds["pack"] += t1 - t0
+        if self.spmm_impl != "pallas":
+            return epoch
+        epoch = add_blockcoo(epoch)
+        self.pack_seconds["blockcoo"] += time.perf_counter() - t1
+        return epoch
 
     def epoch_bytes(self, n_train: int) -> int:
         """Device bytes of one packed epoch (the reference's `_epoch_bytes`:
@@ -725,7 +729,6 @@ def make_engine(cfg: Config, dataset: GraphSet, device: torch.device, layout: st
     """The layout's engine; COO picks as the reference's `make_engine`:
     `--spmm pallas` needs host-built structures (CooEngine), otherwise
     `coo_assembly` decides. `graphs` goes to every engine."""
-    check_layout_dtype(cfg, layout)
     if layout == "coo":
         host = cfg.resolved_spmm_impl() == "pallas" or cfg.coo_assembly == "host"
         return (CooEngine if host else DeviceCooEngine)(cfg, dataset, device, graphs)
@@ -965,7 +968,6 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         cfg, dataset.num_features, dataset.num_classes, dataset.node_counts()
     )
     layout = choose_layout(cfg, dataset)
-    check_layout_dtype(cfg, layout)
     if cfg.cv_parallel == "folds":
         check_lockstep_layout(layout)
     if layout not in PORTED_LAYOUTS:

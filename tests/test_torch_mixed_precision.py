@@ -24,7 +24,8 @@ the dense, multi-tile and block layouts, against the reference:
     the sums;
   * training: one short `run_cross_validation` on the CPU per layout and
     driver under bf16 trains with finite losses;
-  * the COO layout: bf16 compute raises naming its ROADMAP item, and a
+  * the COO layout: an engine trains an epoch under bf16 compute
+    (tests/test_torch_coo_bf16.py holds it against the reference), and a
     bf16 `adj_dtype` runs it bit for bit as fp32 (no COO engine reads
     it); the dense lockstep gate and the layout choice answer as the
     reference's at every dtype.
@@ -479,14 +480,26 @@ def test_cross_validation_trains_under_bf16(tmp_path, run, dtypes):
 
 
 @pytest.mark.parametrize("adj", ["auto", "bfloat16"])
-def test_coo_refuses_bf16_compute_naming_its_item(tmp_path, adj):
+def test_coo_engine_runs_an_epoch_under_bf16_compute(adj):
+    """`make_engine` on the COO layout under bf16 compute (the reference
+    runs it: tests/test_dtype.py) gives the device-assembled engine, which
+    stores x in fp32 as the reference's packers do, and one epoch of a
+    bf16 model trains and evaluates to finite rows."""
+    from dgcnn_tpu_torch.models.dgcnn import init_params
+    from dgcnn_tpu_torch.train.loop import make_optimizer
+
     gs = synthesize_tu_dataset("MUTAG", num_graphs=20, seed=1)
-    cfg = _cfg(tmp_path, "coo", "MUTAG", layout="coo", compute_dtype="bfloat16",
-               adj_dtype=adj)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 20"):
-        cv.run_cross_validation(cfg, dataset=gs, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        cv.make_engine(cfg, gs, torch.device("cpu"), "coo")
+    cfg = Config(data_type="MUTAG", batch_size=8, layout="coo", compute_dtype="bfloat16",
+                 adj_dtype=adj, **SMALL)
+    engine = cv.make_engine(cfg, gs, torch.device("cpu"), "coo")
+    assert isinstance(engine, cv.DeviceCooEngine) and engine.dev.x.dtype == torch.float32
+    model = DGCNN(num_features=gs.num_features, num_classes=gs.num_classes,
+                  compute_dtype="bfloat16", **SMALL)
+    net = DGCNNNet(model, init_params(torch.Generator().manual_seed(0), model))
+    engine.begin_fold(np.arange(14), np.arange(14, 20))
+    rows = engine.run_epochs(net, make_optimizer(net), torch.Generator().manual_seed(1),
+                             [np.random.default_rng(0).permutation(14)])
+    assert rows.shape == (1, 4) and np.isfinite(rows).all()
 
 
 def test_coo_runs_a_bf16_adj_dtype_as_fp32(tmp_path):

@@ -123,10 +123,6 @@ def test_cv_run_writes_reference_artifacts(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    # bf16 compute is served on the dense, multi and block layouts; the COO
-    # layout refuses it, whatever the adjacency dtype
-    {"compute_dtype": "bfloat16", "layout": "coo"},
-    {"adj_dtype": "bfloat16", "compute_dtype": "bfloat16", "layout": "coo"},
     {"mesh_shape": (2, 1)},
 ], ids=lambda kw: next(iter(kw)))
 def test_unserved_options_raise(tmp_path, kw):
