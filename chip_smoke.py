@@ -7,6 +7,10 @@ Needs one CUDA card and `nvcc`; exits non-zero, printing no result, when
 CUDA is absent or any phase fails. Phases:
 
   1. the card: `nvidia-smi` name and power limit, torch's device name;
+     the CPU side of the card-vs-CPU checks pinned before torch loads
+     (tools/cpu_pin.py: 8 torch threads, `MKL_CBWR=AVX2`, inherited by
+     every process the script starts; its mesh ranks share them) and
+     printed here and on every card-vs-CPU line;
   2. build every kernel from dgcnn_tpu_torch/csrc (nvcc, sm_90a, one
      process per source, all at once);
   3. hold each kernel against its plain PyTorch version on the card:
@@ -225,6 +229,29 @@ CUDA is absent or any phase fails. Phases:
         `graft_entry.entry()`
         eager against `torch.compile`, allclose at rtol 1e-5, the row
         kernel launched by both;
+     j. the mesh (parallel/): 2 `gloo` ranks sharing cuda:0, each this
+        script in a process of its own (`--mesh-child`) that joins the
+        group through `initialize_multihost` (tcp://localhost), first building
+        the row kernel at once into one empty directory (one library, no
+        partial file); then synthetic NCI1 dense on a (2, 1) grid with the
+        folds one after another (`MeshDenseEngine`, the trunk at 25 slots
+        a rank), DD block (1, 2) (`MeshBlockEngine`, the CSR kernel), DD
+        device COO (1, 2) (`MeshDeviceCooEngine`, the row kernel over each
+        graph rank's edge chunk) and DD host COO (2, 1) (`MeshCooEngine`):
+        the deterministic DP loss of one global batch within rel 1e-5 of
+        the single-device path on the card at the same weights, correct
+        counts equal; its gradients, summed over the data group, within
+        rtol 2e-4 / atol 1e-6 of one device's and bitwise across the
+        ranks; one dropout-0 epoch of fold 1 within rtol 3e-4 / atol 2e-6
+        of the single-device engine's rows, its parameters within rel
+        3e-4; `run_cross_validation` 2 folds x 2 epochs (eager, every
+        chunk one epoch) twice: every fold's parameters and rows bitwise
+        equal across the ranks and across the two runs, each rank's
+        launches of the path's kernel (0 just before, read just after)
+        exactly one device's for the run's steps, 0 on the others; rank
+        0's eager fold-epoch seconds (two ranks sharing one card: not
+        scaling); then, in this process, a 1-rank `nccl` group trains
+        fold 1 of DD one epoch through `MeshDeviceCooEngine`;
   5. device times (utils/profiling.py `device_ms`): each call captured
      10 times in one CUDA graph, the graph replayed and timed with CUDA
      events, so the host's launch rate is out of the number; warm
@@ -284,8 +311,10 @@ CUDA is absent or any phase fails. Phases:
      launches and merged-step times beside them; the three kernels' bf16
      modes as `*_bf16_*` entries with phase 4g's launches; the row
      kernel's entries carry phase 4h's inference launches and graphs/s),
-     the resume and inference numbers with the card line, the card line
-     again, and the final `{"ok": true, ...}` line.
+     the resume and inference numbers with the card line, phase 4j's
+     launches per rank as each mesh kernel's `mesh_path` and its
+     seconds, the card line again, and the final `{"ok": true, ...}`
+     line.
 """
 
 from __future__ import annotations
@@ -305,10 +334,17 @@ import tempfile
 import time
 import weakref
 
-import numpy as np
-import torch
+from dgcnn_tpu_torch.tools.cpu_pin import THREADS as CPU_THREADS
+from dgcnn_tpu_torch.tools.cpu_pin import describe as cpu_side
+from dgcnn_tpu_torch.tools.cpu_pin import pin_environ
 
-from dgcnn_tpu_torch.utils.profiling import (
+if __name__ == "__main__":  # the CPU side's threads and MKL branch, before torch loads
+    pin_environ()
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from dgcnn_tpu_torch.utils.profiling import (  # noqa: E402
     ATOL, FLUSH_BYTES, RTOL, Flush, block_bounds, card_line, device_ms, events_ms,
     rel_err, spmm_bound, trunk_bounds,
 )
@@ -2011,7 +2047,8 @@ def card_vs_cpu(name, make_batch, model, folds=False, rtol=None):
         f"have branched otherwise: {branches.summary()}; on its own branches the CPU "
         f"is at worst rel {own_worst[2]:.3e} ({own_worst[0]}), beyond the tolerance in "
         f"{beyond or 'no tensor'}; bits (tools/probe_repeat.py digest) card "
-        f"{digest([(n, t.cpu()) for n, t in card])}, CPU {digest(cpu_own)}")
+        f"{digest([(n, t.cpu()) for n, t in card])}, CPU {digest(cpu_own)}; CPU side "
+        f"{cpu_side()}")
     return worst
 
 
@@ -3616,7 +3653,8 @@ def card_inference(name, gs, bundle, counters):
         f"{flips}; labels agree on {out['labels_agree']:.4f}; one "
         f"replay ran under set_sync_debug_mode('error'); {gs.num_graphs / steady:.0f} "
         f"graphs/s over a pass of replays ({steady:.4f} s), {gs.num_graphs / wall:.0f} "
-        f"graphs/s for the whole call ({wall:.3f} s: graphset, warm-up, capture)")
+        f"graphs/s for the whole call ({wall:.3f} s: graphset, warm-up, capture); CPU "
+        f"side {cpu_side()}")
     return out
 
 
@@ -3806,7 +3844,8 @@ def harness_and_entry(device):
         log(f"  parity harness CLI (fresh processes, {time.perf_counter() - t0:.1f} s): "
             f"dump MUTAG's first 50 graphs (COO) on the card, dump them on the CPU with "
             f"its weights, compare at rtol 1e-4 / atol 1e-5: PARITY OK; max abs card vs "
-            f"CPU by stage {out['cli']}")
+            f"CPU by stage {out['cli']}; CPU side (the fresh processes inherit the pins) "
+            f"{cpu_side()}")
         mutag = synthesize_tu_dataset("MUTAG")
         model = DGCNN(num_features=mutag.num_features, num_classes=mutag.num_classes)
         batch = pack_batch(mutag, np.arange(50), compute_bucket(mutag, 50))
@@ -3957,6 +3996,472 @@ def profile_epoch(name, r, eager_step):
             "steps": steps, "idle": idle, "capture_s": r["capture_s"]}
 
 
+# -- phase 4j: the mesh on the card ---------------------------------------------
+
+# (name, dataset, grid (data, graph), config, the kernel its path runs); each
+# run 2 folds x 2 epochs, every chunk one epoch
+MESH_RUNS = (
+    ("NCI1 dense", "NCI1", (2, 1), dict(layout="dense", cv_parallel="sequential"),
+     "gcn_trunk"),
+    ("DD block", "DD", (1, 2), dict(layout="block"), "block_csr"),
+    ("DD device COO", "DD", (1, 2), dict(layout="coo"), "spmm_rows"),
+    ("DD host COO", "DD", (2, 1), dict(layout="coo", coo_assembly="host"), "spmm_rows"),
+)
+MESH_WORLD = 2
+MESH_TIMEOUT = 400  # seconds for both ranks together
+
+
+def mesh_counters():
+    """name → the launch counts of every kernel the mesh paths could run."""
+    from dgcnn_tpu_torch.kernels import block_csr, block_resident, dense_trunk
+
+    return {"gcn_trunk": dense_trunk.launches, "block_csr": block_csr.launches,
+            "block_resident": block_resident.launches, **spmm_counters()}
+
+
+def mesh_counts():
+    """name → [fwd, bwd, fwd at F=1, bwd at F=1] launches so far (the
+    trunk's kernel launches, no width split)."""
+    out = {}
+    for name, c in mesh_counters().items():
+        out[name] = ([c.kernel_fwd, c.kernel_bwd, 0, 0] if name == "gcn_trunk" else
+                     [c.fwd_launches, c.bwd_launches, c.f1_fwd, c.f1_bwd])
+    return out
+
+
+def params_digest(net) -> str:
+    """A digest of a net's parameters (or of a list of tensors)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in (net.parameters() if isinstance(net, torch.nn.Module) else net):
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def mesh_det_loss(engine, net, ids):
+    """The deterministic DP loss (global mean, correct) of the global batch
+    `ids` on this rank's grid, through the mesh engine's own assembly."""
+    from dgcnn_tpu_torch.parallel import shard, train_dp
+    from dgcnn_tpu_torch.train import cv
+
+    grid = engine.grid
+    if isinstance(engine, cv.MeshCooEngine):
+        step = shard.shard_batch_for_dp(engine.dataset, ids, engine.bucket, *grid.shape)
+        return train_dp.make_sharded_loss(grid, engine.spmm_impl, True)(net, step)
+    rows = engine.epoch_order(ids)  # [1, n_data, slots]
+    idx = torch.from_numpy(rows[0]).to(engine.device)
+    if isinstance(engine, cv.MeshDenseEngine):
+        fn = train_dp.make_dense_dp_loss(engine.data, grid, True)
+    elif isinstance(engine, cv.MeshBlockEngine):
+        fn = train_dp.make_block_dp_loss(engine.dev, grid, *engine.budget_for(rows), True,
+                                         engine.block_impl)
+    else:
+        fn = train_dp.make_device_coo_dp_loss(engine.dev, grid, engine.bucket_for(rows),
+                                              engine.spmm_impl, True)
+    return fn(net, idx)
+
+
+def single_det_loss(engine, net, ids, gs):
+    """The same batch's (mean loss, correct) on one device, assembled as the
+    single-device engine assembles it."""
+    from dgcnn_tpu_torch.batching.block_sparse import gather_block_batch
+    from dgcnn_tpu_torch.batching.dense import gather_dense_batch
+    from dgcnn_tpu_torch.batching.device_coo import gather_coo_batch
+    from dgcnn_tpu_torch.batching.packer import batch_to_device, pack_batch
+    from dgcnn_tpu_torch.train import cv
+    from dgcnn_tpu_torch.train.loop import nll_loss_and_correct
+
+    idx = torch.from_numpy(np.asarray(ids, dtype=np.int32)).to(engine.device)
+    kw = {}
+    if isinstance(engine, cv.DenseEngine):
+        b = gather_dense_batch(engine.data, idx)
+    elif isinstance(engine, cv.BlockSparseEngine):
+        b = gather_block_batch(engine.dev, idx, *engine.budget_for(np.asarray(ids)[None]))
+        kw = {"pool": engine.dev.pool, "block_impl": engine.block_impl}
+    elif isinstance(engine, cv.DeviceCooEngine):
+        b = gather_coo_batch(engine.dev, idx, engine.bucket_for(np.asarray(ids)[None]))
+        kw = {"spmm_impl": engine.spmm_impl}
+    else:
+        b = batch_to_device(pack_batch(gs, ids, engine.bucket), engine.device)
+        kw = {"spmm_impl": engine.spmm_impl}
+    return nll_loss_and_correct(net(b, deterministic=True, **kw), b.y, b.graph_mask)
+
+
+def mesh_grads(engine, net, ids):
+    """Every parameter's gradient of the deterministic DP loss of the global
+    batch `ids`, summed over the data group as the train step sums it."""
+    from dgcnn_tpu_torch.parallel.train_dp import reduce_gradients
+
+    net.zero_grad(set_to_none=True)
+    mesh_det_loss(engine, net, ids)[0].backward()
+    reduce_gradients(net.parameters(), engine.grid.data_group)
+    return [p.grad.clone() for p in net.parameters()]
+
+
+def single_grads(engine, net, ids, gs):
+    """The same gradients on one device."""
+    net.zero_grad(set_to_none=True)
+    single_det_loss(engine, net, ids, gs)[0].backward()
+    return [p.grad.clone() for p in net.parameters()]
+
+
+def mesh_launches_want(engine, kernel, train_steps, eval_steps):
+    """Launches (fwd, bwd, fwd at F=1, bwd at F=1) of `kernel` on each rank
+    over `train_steps` train and `eval_steps` eval steps: one device's, a
+    forward of every layer a step and a backward a train step. The trunk
+    (no width split) makes `launches_per_call` of its plan at the rank's
+    slots a call; the SpMM and CSR kernels launch once a layer, a quarter
+    of them at width 1."""
+    steps = train_steps + eval_steps
+    if kernel == "gcn_trunk":
+        from dgcnn_tpu_torch.kernels import dense_trunk as dt
+
+        fwd, bwd = dt.launches_per_call(dt.trunk_plan(engine.slots, engine.n_tile, DIMS),
+                                        DIMS)
+        return [fwd * steps, bwd * train_steps, 0, 0]
+    return [len(DIMS) * steps, len(DIMS) * train_steps, steps, train_steps]
+
+
+def dropout0_epoch(engine, model0, train, test, perm, device):
+    """One epoch of fold 1 through `engine` with dropout 0 from the weights
+    of seed 3; (its row [4], the net after it)."""
+    from dgcnn_tpu_torch.models.dgcnn import DGCNNNet, init_params
+    from dgcnn_tpu_torch.train.loop import make_optimizer
+
+    net = DGCNNNet(model0, init_params(torch.Generator().manual_seed(3), model0, device))
+    opt = make_optimizer(net)
+    engine.begin_fold(train, test)
+    rows = engine.run_epochs(net, opt, torch.Generator(device=device).manual_seed(7),
+                             perm[None])
+    engine.end_fold()
+    return rows[0], net
+
+
+@contextlib.contextmanager
+def fold_digests():
+    """Each mesh engine's chunks wrapped: {fold: (digest of the parameters,
+    the chunk's rows)} after every chunk (the last one is the fold's)."""
+    from dgcnn_tpu_torch.train import cv
+
+    seen, saved = {}, {cls: cls.run_epochs for cls in cv.MESH_ENGINES}
+
+    def wrap(orig):
+        def run_epochs(self, net, optimizer, dropout_gen, perms):
+            rows = orig(self, net, optimizer, dropout_gen, perms)
+            seen[self._fold] = (params_digest(net), rows.tolist())
+            return rows
+        return run_epochs
+
+    for cls, orig in saved.items():
+        cls.run_epochs = wrap(orig)
+    try:
+        yield seen
+    finally:
+        for cls, orig in saved.items():
+            cls.run_epochs = orig
+
+
+def mesh_cv(cfg, gs, grid):
+    """`run_cross_validation` on the grid, eagerly, the launch counts set to
+    0 just before it and read just after; each fold's parameter digest and
+    rows, and (rank 0, which writes the event log) each epoch's seconds."""
+    from dgcnn_tpu_torch.train.cv import run_cross_validation
+
+    with fold_digests() as seen:
+        for c in mesh_counters().values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_cross_validation(cfg, dataset=gs, device=grid.device, grid=grid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = mesh_counts()
+    return {"folds": {str(f): v for f, v in seen.items()}, "launches": counts,
+            "wall_s": wall,
+            "epoch_s": ([[e["fold"], e["epoch"], e["epoch_seconds"]]
+                         for e in epoch_events(cfg)] if grid.writer else None)}
+
+
+def mesh_child_run(name, data_type, gs, grid_shape, over, kernel, tmp, device):
+    """One of `MESH_RUNS` on this rank: the checks against one device (rank 0
+    computes the single-device side), then the run twice."""
+    from dgcnn_tpu_torch.models.dgcnn import DGCNNNet, init_params
+    from dgcnn_tpu_torch.parallel.mesh import make_mesh
+    from dgcnn_tpu_torch.train import cv
+
+    sub = name.replace(" ", "_")
+    cfg = cv_config(tmp, sub, data_type, 2, 2, mesh_shape=grid_shape, max_fused_epochs=1,
+                    **over)
+    grid = make_mesh(grid_shape, device)
+    layout = cv.choose_layout(cfg, gs)
+    engine = cv.make_engine(cfg, gs, device, layout, grid=grid)
+    single = (cv.make_engine(dataclasses.replace(cfg, mesh_shape=(1, 1)), gs, device,
+                             layout, graphs=False) if grid.writer else None)
+    fold_dir = os.path.join(cfg.data_root, cfg.data_type, "10fold_idx")
+    train, test = cv.get_folds(gs.y, fold_dir, 2, cfg.seed, data_type=cfg.data_type)[0]
+    train = np.asarray(train)
+    perm = np.random.default_rng(np.random.SeedSequence([cfg.seed, 1])).permutation(
+        len(train))
+    ids = train[perm][:cfg.batch_size]
+    model = cv._model_from_config(cfg, gs.num_features, gs.num_classes)
+    model0 = dataclasses.replace(model, dropout_rate=0.0)
+    out = {"layout": layout, "engine": type(engine).__name__, "slots": engine.slots,
+           "want_launches": mesh_launches_want(engine, kernel, *count_steps(
+               data_type, gs.y, 2, 2, cfg.batch_size, fold_dir))}
+    net = DGCNNNet(model, init_params(torch.Generator().manual_seed(3), model, device))
+    with torch.no_grad():
+        loss, correct = mesh_det_loss(engine, net, ids)
+        out["det"] = {"mesh": [loss.item(), correct.item()]}
+        if single is not None:
+            loss, correct = single_det_loss(single, net, ids, gs)
+            out["det"]["single"] = [loss.item(), correct.item()]
+    grads = mesh_grads(engine, net, ids)
+    out["grad"] = {"digest": params_digest(grads)}
+    if single is not None:
+        rows = [(n, *rel_err(a, b), torch.allclose(a, b, rtol=2e-4, atol=1e-6))
+                for (n, _), a, b in zip(net.named_parameters(), grads,
+                                        single_grads(single, net, ids, gs))]
+        out["grad"]["worst_rel"] = max(r[2] for r in rows)
+        out["grad"]["beyond"] = [r[0] for r in rows if not r[4]]
+    rows, net_m = dropout0_epoch(engine, model0, train, test, perm, device)
+    out["epoch"] = {"mesh": rows.tolist(), "digest": params_digest(net_m)}
+    if single is not None:
+        rows_s, net_s = dropout0_epoch(single, model0, train, test, perm, device)
+        out["epoch"]["single"] = rows_s.tolist()
+        out["epoch"]["params_worst_rel"] = max(
+            rel_err(a.detach(), b.detach())[1]
+            for a, b in zip(net_m.parameters(), net_s.parameters()))
+    del engine, single
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["runs"] = [mesh_cv(dataclasses.replace(
+        cfg, statistics_dir=os.path.join(tmp, f"{sub}_{rep}", "statistics"),
+        epochs_dir=os.path.join(tmp, f"{sub}_{rep}", "epochs")), gs, grid)
+        for rep in (1, 2)]
+    return out
+
+
+def cold_build(tmp):
+    """Both ranks build the row kernel at once into one empty directory (a
+    cold start of several ranks on one host): (seconds, the directory's
+    files after both have loaded it)."""
+    import torch.distributed as dist
+
+    from dgcnn_tpu_torch.kernels import _build
+
+    cold = os.path.join(tmp, "cold_build")
+    os.makedirs(cold, exist_ok=True)
+    saved = _build.BUILD_DIR, _build.sources, dict(_build._STATE.libs)
+    _build.BUILD_DIR, _build.sources = cold, lambda: ["spmm_rows"]
+    _build._STATE.libs.pop("spmm_rows", None)
+    dist.barrier()
+    t0 = time.perf_counter()
+    try:
+        _build.build_all()
+    finally:
+        _build.BUILD_DIR, _build.sources = saved[0], saved[1]
+    seconds = time.perf_counter() - t0
+    dist.barrier()
+    return {"seconds": seconds, "files": sorted(os.listdir(cold))}
+
+
+def mesh_child(rank: int, world: int, coordinator: str, out_path: str) -> int:
+    """One rank of phase 4j (`chip_smoke.py --mesh-child RANK WORLD
+    COORDINATOR OUT`): joins a gloo group of WORLD ranks on cuda:0 as a
+    user's process joins one (`initialize_multihost`, tcp://COORDINATOR),
+    builds, runs every `MESH_RUNS` entry and writes its results as JSON
+    to OUT."""
+    import torch.distributed as dist
+
+    from dgcnn_tpu_torch.data.synthetic import synthesize_tu_dataset
+    from dgcnn_tpu_torch.kernels import _build
+    from dgcnn_tpu_torch.parallel.mesh import initialize_multihost
+    from dgcnn_tpu_torch.train.cv import fp32_only
+
+    torch.set_num_threads(max(1, CPU_THREADS // world))  # the ranks share the cores
+    fp32_only()
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    # nccl refuses two ranks on one card: the one-card run's gloo
+    initialize_multihost(coordinator, world, rank, backend="gloo")
+    try:
+        result = {"rank": rank, "cold_build": cold_build(os.path.dirname(out_path))}
+        _build.build_all()  # the other kernels, built by phase 2
+        data = {n: synthesize_tu_dataset(n) for n in ("NCI1", "DD")}
+        with tempfile.TemporaryDirectory() as tmp:
+            result["runs"] = {name: mesh_child_run(name, ds, data[ds], shape, over, kernel,
+                                                   tmp, device)
+                              for name, ds, shape, over, kernel in MESH_RUNS}
+        with open(out_path, "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def spawn_mesh_ranks(tmp):
+    """Phase 4j's ranks, each `chip_smoke.py --mesh-child` in a process of its
+    own; each rank's results. Raises with the ranks' output if one fails
+    or the ranks outlast `MESH_TIMEOUT` (then every rank is killed)."""
+    import socket
+
+    with socket.socket() as sock:  # a free port on this host for rank 0's store
+        sock.bind(("localhost", 0))
+        coordinator = f"localhost:{sock.getsockname()[1]}"
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(MESH_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-child", str(r),
+         str(MESH_WORLD), coordinator, outs[r]], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__))) for r in range(MESH_WORLD)]
+    deadline = time.monotonic() + MESH_TIMEOUT
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("phase 4j: a rank failed:\n" + "\n".join(
+            f"--- rank {r} (exit {p.returncode})\n{t[-6000:]}"
+            for r, (p, t) in enumerate(zip(procs, logs))))
+    res = []
+    for o in outs:
+        with open(o) as f:
+            res.append(json.load(f))
+    return res
+
+
+def check_mesh_run(name, shape, kernel, ranks):
+    """Phase 4j's checks of one run from its ranks' results; returns the
+    run's launches per rank of `kernel` and rank 0's epoch seconds."""
+    r0 = ranks[0]["runs"][name]
+    det = r0["det"]
+    rel = abs(det["mesh"][0] - det["single"][0]) / abs(det["single"][0])
+    if rel > 1e-5 or det["mesh"][1] != det["single"][1]:
+        raise AssertionError(f"{name}: mesh loss {det['mesh']} vs one device "
+                             f"{det['single']} (rel {rel:.3e})")
+    for r in ranks[1:]:
+        if r["runs"][name]["det"]["mesh"] != det["mesh"]:
+            raise AssertionError(f"{name}: rank {r['rank']}'s loss differs from rank 0's")
+    grad = r0["grad"]
+    if grad["beyond"]:
+        raise AssertionError(f"{name}: the gradients of {grad['beyond']} leave one "
+                             f"device's beyond rtol 2e-4 / atol 1e-6")
+    for r in ranks[1:]:
+        if r["runs"][name]["grad"]["digest"] != grad["digest"]:
+            raise AssertionError(f"{name}: rank {r['rank']}'s gradients differ from "
+                                 f"rank 0's")
+    ep = r0["epoch"]
+    got, want = np.asarray(ep["mesh"]), np.asarray(ep["single"])
+    if not np.allclose(got, want, rtol=3e-4, atol=2e-6) or ep["params_worst_rel"] > 3e-4:
+        raise AssertionError(f"{name}: dropout-0 epoch {got} vs one device {want}, "
+                             f"parameters worst rel {ep['params_worst_rel']:.3e}")
+    ep_rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 2e-6 / 3e-4)))
+    for r in ranks[1:]:
+        if r["runs"][name]["epoch"] != {k: ep[k] for k in ("mesh", "digest")}:
+            raise AssertionError(f"{name}: rank {r['rank']}'s dropout-0 epoch differs")
+    runs = [[r["runs"][name]["runs"][rep] for r in ranks] for rep in (0, 1)]
+    for rep, by_rank in enumerate(runs):
+        for r, res in enumerate(by_rank[1:], start=1):
+            if res["folds"] != by_rank[0]["folds"]:
+                raise AssertionError(f"{name} run {rep + 1}: rank {r}'s parameters or rows "
+                                     f"differ from rank 0's")
+            if res["launches"] != by_rank[0]["launches"]:
+                raise AssertionError(f"{name}: rank {r}'s launches {res['launches']} vs "
+                                     f"rank 0's {by_rank[0]['launches']}")
+    if runs[0][0]["folds"] != runs[1][0]["folds"] or sorted(runs[0][0]["folds"]) != [
+            "1", "2"]:
+        raise AssertionError(f"{name}: two runs differ")
+    launches = runs[0][0]["launches"]
+    want_l = {k: r0["want_launches"] if k == kernel else [0, 0, 0, 0] for k in launches}
+    if launches != want_l:
+        raise AssertionError(f"{name}: launches {launches}, want {want_l}")
+    secs = [s for _, _, s in runs[0][0]["epoch_s"]]
+    log(f"  {name} ({r0['engine']}, grid {shape}, {r0['slots']} slots a data rank): "
+        f"loss of one global batch {det['mesh'][0]:.8f} vs one device "
+        f"{det['single'][0]:.8f} (rel {rel:.3e}, correct {det['mesh'][1]:.0f} both); one "
+        f"dropout-0 epoch of fold 1 within rtol 3e-4 of one device (worst rel "
+        f"{ep_rel:.3e}, parameters worst rel {ep['params_worst_rel']:.3e} within 3e-4); "
+        f"its gradients after the data group's sum within rtol 2e-4 / atol 1e-6 of one "
+        f"device's (worst rel {grad['worst_rel']:.3e}), bitwise across the ranks; 2 folds "
+        f"x 2 epochs twice: every fold's parameters and rows bitwise equal across the "
+        f"ranks and across the two runs; launches per rank (fwd, bwd, F=1 fwd, F=1 bwd) "
+        f"{kernel} {launches[kernel]} as one device's, 0 on every other kernel; eager "
+        f"fold-epoch seconds (two ranks sharing one card, not scaling) {secs}")
+    return {"run": name, "kernel": kernel, "grid": list(shape), "engine": r0["engine"],
+            "launches_per_rank": [by["launches"][kernel] for by in runs[0]],
+            "epoch_s": secs}
+
+
+def nccl_one_rank(dd, device):
+    """A 1-rank `nccl` group: `MeshDeviceCooEngine` trains fold 1 of
+    synthetic DD for one epoch through `run_fold`, its collectives on
+    nccl; (row, launches)."""
+    import torch.distributed as dist
+
+    from dgcnn_tpu_torch.parallel.mesh import make_mesh
+    from dgcnn_tpu_torch.train import cv
+    from dgcnn_tpu_torch.train.metrics import EventLog
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            grid = make_mesh((1, 1), device)
+            backend = dist.get_backend(grid.data_group)
+            if backend != "nccl":
+                raise AssertionError(f"the grid's group runs {backend}, not nccl")
+            cfg = cv_config(tmp, "nccl", "DD", 2, 1, layout="coo")
+            engine = cv.MeshDeviceCooEngine(cfg, dd, grid)
+            model = cv._model_from_config(cfg, dd.num_features, dd.num_classes)
+            train, test = cv.get_folds(dd.y, "", 2, cfg.seed, data_type="DD")[0]
+            for c in mesh_counters().values():
+                c.reset()
+            t0 = time.perf_counter()
+            m = cv.run_fold(cfg, dd, model, 1, train, test, engine, EventLog(None))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = mesh_counts()
+        finally:
+            dist.destroy_process_group()
+    row = [m.rows[c][0] for c in m.COLUMNS]
+    tr_n, ev_n = (-(-len(ids) // cfg.batch_size) for ids in (train, test))
+    want = {k: mesh_launches_want(engine, "spmm_rows", tr_n, ev_n) if k == "spmm_rows"
+            else [0, 0, 0, 0] for k in counts}
+    if not np.isfinite(row).all() or counts != want:
+        raise AssertionError(f"nccl run: row {row}, launches {counts}, want {want}")
+    log(f"  1-rank nccl group ({backend}): MeshDeviceCooEngine, DD fold 1 x 1 epoch "
+        f"through run_fold in {wall:.2f} s (the communicator's set-up included): row "
+        f"{row}, spmm_rows launches {counts['spmm_rows']} as one device's, 0 elsewhere")
+    return {"backend": backend, "row": row, "launches": counts["spmm_rows"], "wall_s": wall}
+
+
+def mesh_main_path(dd, device, card):
+    """Phase 4j: the `MESH_RUNS` on 2 gloo ranks sharing cuda:0, then the
+    1-rank nccl group; what the kernels line adds."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_mesh_ranks(tmp)
+    builds = [r["cold_build"] for r in ranks]
+    if any(b["files"] != builds[0]["files"] for b in builds) or [
+            f for f in builds[0]["files"] if not f.endswith(".so")] or len(
+            builds[0]["files"]) != 1:
+        raise AssertionError(f"cold build by {MESH_WORLD} ranks at once: {builds}")
+    log(f"  {MESH_WORLD} ranks built the row kernel at once into one empty directory in "
+        f"{[round(b['seconds'], 2) for b in builds]} s: one library, no partial file "
+        f"left ({builds[0]['files']})")
+    runs = [check_mesh_run(name, shape, kernel, ranks)
+            for name, _, shape, _, kernel in MESH_RUNS]
+    nccl = nccl_one_rank(dd, device)
+    log(f"  phase 4j took {time.perf_counter() - t0:.1f} s; {card}")
+    return {"runs": runs, "nccl": nccl}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
@@ -3976,8 +4481,9 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
         f"count {torch.cuda.device_count()}")
+    torch.set_num_threads(CPU_THREADS)
     log(f"host CPU (the CPU side of the card-vs-CPU checks): {host_cpu()}, "
-        f"{os.cpu_count()} cores, {torch.get_num_threads()} torch threads")
+        f"{os.cpu_count()} cores; pinned (tools/cpu_pin.py): {cpu_side()}")
     log(f"fp32 matmul, 512 x 512 standard normal, max abs from float64: "
         f"{fp32_matmul_error()} (IEEE fp32 ~3e-5, TF32 ~1e-2); environment "
         f"{ {k: v for k, v in os.environ.items() if 'TF32' in k or 'CUBLAS' in k} }")
@@ -4313,6 +4819,13 @@ def main() -> int:
         f"{coo_epoch_s[('DD', 'pallas')][1]}")
     parity = harness_and_entry(device)
     log(f"  phase 4i took {time.perf_counter() - t4i:.1f} s")
+
+    log(f"== phase 4j: the mesh on the card: {MESH_WORLD} gloo ranks sharing cuda:0 (each "
+        f"a process of its own), synthetic NCI1 dense (2, 1) with the folds one after "
+        f"another, DD block (1, 2), DD device COO (1, 2) and DD host COO (2, 1), 2 folds x "
+        f"2 epochs each, eager, run twice; then a 1-rank nccl group")
+    log(card)
+    mesh = mesh_main_path(ctx.gs, device, card)
 
     log("== phase 5: device times (CUDA-graph replay, CUDA events)")
     log(card)
@@ -4767,6 +5280,31 @@ def main() -> int:
         "shape": f"the abuild variant at the {probe_shapes[0].label}",
         "variants_ms": {v: t["ms"] for v, t in std["variants"].items()},
     })
+    for k in kernels:  # phase 4j's launches, per rank, beside the single-device path's
+        runs = []
+        for run in mesh["runs"]:
+            for i, d in enumerate(("fwd", "bwd")):
+                if k["name"] == f"{run['kernel']}_{d}":
+                    per_rank = [n[i] - n[2 + i] for n in run["launches_per_rank"]]
+                elif k["name"] == f"{run['kernel']}_{d}_f1":
+                    per_rank = [n[2 + i] for n in run["launches_per_rank"]]
+                else:
+                    continue
+                runs.append({"run": run["run"], "grid": run["grid"], "engine": run["engine"],
+                             "launches_per_rank": per_rank})
+        if runs:
+            k["mesh_path"] = {
+                "main_path": f"phase 4j: {MESH_WORLD} gloo ranks sharing one card, 2 folds x "
+                             f"2 epochs, eager, launches counted per rank",
+                "runs": runs}
+            if k["name"].startswith("spmm_rows") and not k["name"].endswith("_f1"):
+                i = 0 if "_fwd" in k["name"] else 1
+                k["mesh_path"]["nccl_one_rank"] = (mesh["nccl"]["launches"][i]
+                                                   - mesh["nccl"]["launches"][2 + i])
+    log(f"mesh (phase 4j; {card}; two ranks sharing one card, not scaling): eager "
+        f"fold-epoch seconds " + "; ".join(f"{r['run']} {r['grid']} {r['epoch_s']}"
+                                          for r in mesh["runs"])
+        + f"; 1-rank nccl DD device COO fold-epoch {mesh['nccl']['wall_s']:.3f} s")
     log(f"DD block fold-epoch seconds (main path, block_impl {auto_impl}): graphed "
         f"{dd_epoch_s}, eager {[e['epoch_seconds'] for e in dd_events[auto_impl][1]]}")
     log(f"DD block lockstep fold-epoch seconds ({FOLDS} folds, cv_parallel auto, "
@@ -4830,4 +5368,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:  # one rank of phase 4j
+        sys.exit(mesh_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -182,6 +182,23 @@ def order_matrix(order: np.ndarray, batch_size: int, batch_slots: int) -> np.nda
     return out
 
 
+def order_matrix_dp(order: np.ndarray, batch_size: int, n_data: int,
+                    slots_local: int) -> np.ndarray:
+    """Epoch index tensor [steps, n_data, slots_local] for data-parallel
+    dense training (the reference's `order_matrix_dp`): each global batch's
+    graphs are dealt round-robin to the data ranks (a dense graph costs
+    n_tile² whatever its size, so count balance is node balance)."""
+    order = np.asarray(order, dtype=np.int32)
+    steps = -(-len(order) // batch_size)
+    out = np.full((steps, n_data, slots_local), -1, dtype=np.int32)
+    for s in range(steps):
+        chunk = order[s * batch_size : (s + 1) * batch_size]
+        for d in range(n_data):
+            mine = chunk[d::n_data]
+            out[s, d, : len(mine)] = mine
+    return out
+
+
 def gather_dense_batch(data: DenseDataset, idx: torch.Tensor) -> DenseGraphBatch:
     """Device-side batch construction: gather graph rows by index (−1 →
     masked padding slot). `idx` lies on the dataset's device, so nothing

@@ -132,13 +132,20 @@ def device_graphset_bytes(dataset: GraphSet) -> int:
 
 
 def gather_coo_batch(dev: DeviceGraphSet, idx_row: torch.Tensor,
-                     bucket: BucketSpec) -> GraphBatch:
+                     bucket: BucketSpec, edge_window=None) -> GraphBatch:
     """Assemble one packed GraphBatch on the device of `dev` from [slots]
     graph ids (−1 = empty slot). Equal to `pack_batch` of the same graphs:
     same slot layout, padded nodes with graph id = slots, padded edges
-    src 0 → dst N_pad−1 with mask 0 at the tail, destination-sorted."""
+    src 0 → dst N_pad−1 with mask 0 at the tail, destination-sorted.
+
+    `edge_window=(start, length)` (ints) assembles only that contiguous
+    slice of the batch's edge stream, the node arrays whole: a graph
+    rank's chunk on the edge-partitioned grid (parallel/train_dp.py)."""
     slots = idx_row.shape[0]
     n_pad, e_pad = bucket.num_nodes, bucket.num_edges
+    e_start = 0
+    if edge_window is not None:
+        e_start, e_pad = (int(v) for v in edge_window)
     device = idx_row.device
     num_graphs_total = dev.node_start.shape[0] - 1
 
@@ -155,7 +162,7 @@ def gather_coo_batch(dev: DeviceGraphSet, idx_row: torch.Tensor,
     x = dev.x[torch.where(node_ok, src_row, dev.x.shape[0] - 1)]
     node_graph = torch.where(node_ok, slot_c, slots)
 
-    epos = torch.arange(e_pad, device=device)
+    epos = torch.arange(e_start, e_start + e_pad, device=device)
     eslot_c = segment_of(edge_off[1:], epos).clamp(max=slots - 1)
     edge_ok = epos < edge_off[slots]
     erow = torch.where(edge_ok, dev.edge_start[g[eslot_c]] + epos - edge_off[eslot_c], 0)

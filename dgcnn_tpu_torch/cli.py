@@ -1,7 +1,13 @@
 """Command-line interface — the port of dgcnn_tpu/cli.py, with the same
 flags. Runs on the GPU (`cuda`); `--platform cpu` runs the plain PyTorch
 path on the CPU. Flags whose paths the port does not serve yet raise
-NotImplementedError naming the ROADMAP item that ports them.
+NotImplementedError naming the ROADMAP item that ports them. On several
+devices, one process each (the port's mesh, parallel/mesh.py):
+
+    torchrun --nproc_per_node 4 -m dgcnn_tpu_torch.cli --data_type DD \
+        --synthetic --layout coo --mesh 2,2
+    python -m dgcnn_tpu_torch.cli ... --mesh 2,2 --multihost \
+        --coordinator HOST:PORT --num_processes 4 --process_id R
 
     python -m dgcnn_tpu_torch.cli --data_type NCI1 --synthetic --layout dense
     python -m dgcnn_tpu_torch.cli --data_type DD --synthetic   # block layout
@@ -16,6 +22,8 @@ from __future__ import annotations
 
 import argparse
 import os
+
+import torch
 
 from dgcnn_tpu_torch.config import DATASETS, Config
 from dgcnn_tpu_torch.train.cv import run_cross_validation
@@ -37,15 +45,21 @@ def get_args(argv=None):
                         help="batch layout (the port serves dense, block "
                              "and coo; auto picks as the reference does)")
     parser.add_argument("--mesh", default="1,1", type=str,
-                        help="device mesh 'data,graph' (not ported: 1,1 only)")
+                        help="process grid 'data,graph' (e.g. 2,2 = 2-way data "
+                             "parallel x 2-way edge-partitioned), one process "
+                             "per device: launch D*G processes (torchrun, or "
+                             "the multi-host flags below)")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-host runtime (not ported)")
+                        help="join the run's process group before the first "
+                             "device touch: tcp://--coordinator with the two "
+                             "flags below, else torchrun's environment "
+                             "(env://); implied under torchrun")
     parser.add_argument("--coordinator", default=None, type=str,
-                        help="multi-host coordinator host:port (not ported)")
+                        help="rank 0's host:port (tcp:// rendezvous)")
     parser.add_argument("--num_processes", default=None, type=int,
-                        help="multi-host process count (not ported)")
+                        help="the run's process count (the world size)")
     parser.add_argument("--process_id", default=None, type=int,
-                        help="multi-host rank (not ported)")
+                        help="this process's rank")
     parser.add_argument("--lr", default=1e-3, type=float, help="Adam learning rate")
     parser.add_argument("--sortpool_k", default=30, type=int,
                         help="SortPooling k (overridden by --sortpool_percentile)")
@@ -123,12 +137,16 @@ def get_args(argv=None):
     return parser.parse_args(argv)
 
 
+def under_torchrun() -> bool:
+    """Whether torchrun (or another launcher of its kind) started this
+    process: its standard environment is set."""
+    return all(k in os.environ for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
+                                         "MASTER_PORT"))
+
+
 def main(argv=None):
     opt = get_args(argv)
     unserved = []
-    if opt.multihost or opt.coordinator or opt.num_processes is not None \
-            or opt.process_id is not None:
-        unserved.append("multi-host runs (ROADMAP Queue 1 item 12)")
     if opt.profile:
         unserved.append("--profile (ROADMAP Queue 1 item 13)")
     if opt.platform == "probe":
@@ -170,7 +188,17 @@ def main(argv=None):
             if opt.out_root else {}
         ),
     )
-    device = "cpu" if opt.platform == "cpu" else "cuda"
+    device = "cpu" if opt.platform == "cpu" else None
+    if opt.multihost or opt.coordinator or under_torchrun():
+        from dgcnn_tpu_torch.parallel.mesh import initialize_multihost
+
+        initialize_multihost(opt.coordinator, opt.num_processes, opt.process_id,
+                             device=device)
+    ranks = cfg.mesh_shape[0] * cfg.mesh_shape[1]
+    if ranks > 1 and not torch.distributed.is_initialized():
+        from dgcnn_tpu_torch.parallel.mesh import LAUNCH_HINT
+
+        raise RuntimeError(f"--mesh {opt.mesh} needs {ranks} processes: {LAUNCH_HINT}")
     return run_cross_validation(cfg, allow_synthetic=opt.synthetic, device=device)
 
 

@@ -16,7 +16,8 @@ implementation, so Dynamo traces the forward whole, in one graph, and the
 compiled forward launches the kernel (chip_smoke.py counts the launches).
 
 The multi-device dry run (`dryrun_multichip` of `__graft_entry__.py`)
-is not here: it needs the mesh engines (ROADMAP Queue 1 item 12).
+is not here: it needs the halo engine and fold-sharded lockstep
+(ROADMAP Queue 1 item 12b).
 
     python -m dgcnn_tpu_torch.graft_entry [--platform cpu]
 """

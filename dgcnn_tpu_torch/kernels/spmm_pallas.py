@@ -198,20 +198,31 @@ def check_inputs(edge_src, edge_dst, edge_weight, h,
             raise ValueError(f"the SpMM's inputs must be contiguous, {name} is not")
 
 
+def _group_sum(t: torch.Tensor, group) -> torch.Tensor:
+    if group is not None:
+        torch.distributed.all_reduce(t, group=group)
+    return t
+
+
 def make_spmm_fn(name: str, launch) -> type:
     """An autograd Function around one edge-stream kernel. `launch(row_ptr,
     perm, row, col, colp, w, h, transpose)` runs it on CUDA tensors (the
-    order carries its position columns); CPU tensors run `spmm_plain`."""
+    order carries its position columns); CPU tensors run `spmm_plain`.
+    With a process `group` the edges are this rank's chunk of a stream
+    that the group's ranks share: the output and dh are each summed over
+    the group (`all_reduce`), dw stays the chunk's own."""
 
-    def forward(edge_src, edge_dst, edge_weight, h, order):
+    def forward(edge_src, edge_dst, edge_weight, h, order, group=None):
         if h.is_cuda:
-            return launch(order.row_ptr, order.perm, edge_dst, edge_src, order.col,
-                          edge_weight, h, False)
-        return spmm_plain(edge_src, edge_dst, edge_weight, h, h.shape[0])
+            out = launch(order.row_ptr, order.perm, edge_dst, edge_src, order.col,
+                         edge_weight, h, False)
+        else:
+            out = spmm_plain(edge_src, edge_dst, edge_weight, h, h.shape[0])
+        return _group_sum(out, group)
 
     def setup_context(ctx, inputs, output):
-        edge_src, edge_dst, edge_weight, h, order = inputs
-        ctx.order = order
+        edge_src, edge_dst, edge_weight, h, order, group = inputs
+        ctx.order, ctx.group = order, group
         ctx.save_for_backward(edge_src, edge_dst, edge_weight, h)
 
     def backward(ctx, g):
@@ -225,9 +236,10 @@ def make_spmm_fn(name: str, launch) -> type:
                             edge_weight, g, True)
             else:
                 dh = spmm_plain(edge_dst, edge_src, edge_weight, g, g.shape[0])
+            dh = _group_sum(dh, ctx.group)
         if ctx.needs_input_grad[2]:
             dw = sddmm_plain(edge_src, edge_dst, h, g)
-        return None, None, dw, dh, None
+        return None, None, dw, dh, None, None
 
     return type(name, (torch.autograd.Function,), {
         "forward": staticmethod(forward),
@@ -240,23 +252,24 @@ SpmmRowsFn = make_spmm_fn("SpmmRowsFn", cuda_rows)
 SpmmEdgeBlockFn = make_spmm_fn("SpmmEdgeBlockFn", cuda_edge_block)
 
 
-def _apply(fn, edge_src, edge_dst, edge_weight, h, order):
+def _apply(fn, edge_src, edge_dst, edge_weight, h, order, group):
     check_inputs(edge_src, edge_dst, edge_weight, h, order)
     if h.is_cuda:
         order = (edge_order(edge_src, edge_dst, h.shape[0]) if order is None
                  else position_columns(order, edge_src, edge_dst))
-    return fn.apply(edge_src, edge_dst, edge_weight, h, order)
+    return fn.apply(edge_src, edge_dst, edge_weight, h, order, group)
 
 
 def spmm_pallas(edge_src, edge_dst, edge_weight, h,
-                order: Optional[EdgeOrder] = None) -> torch.Tensor:
+                order: Optional[EdgeOrder] = None, group=None) -> torch.Tensor:
     """out [N, F] through the row-parallel CSR kernel (CUDA) or the plain
-    version (CPU). `order` defaults to stable sorts of this stream."""
-    return _apply(SpmmRowsFn, edge_src, edge_dst, edge_weight, h, order)
+    version (CPU). `order` defaults to stable sorts of this stream;
+    `group` sums an edge chunk's output and dh over a process group."""
+    return _apply(SpmmRowsFn, edge_src, edge_dst, edge_weight, h, order, group)
 
 
 def spmm_pallas_mxu(edge_src, edge_dst, edge_weight, h,
-                    order: Optional[EdgeOrder] = None) -> torch.Tensor:
+                    order: Optional[EdgeOrder] = None, group=None) -> torch.Tensor:
     """The same function through the edge-block kernel (CUDA) or the plain
     version (CPU)."""
-    return _apply(SpmmEdgeBlockFn, edge_src, edge_dst, edge_weight, h, order)
+    return _apply(SpmmEdgeBlockFn, edge_src, edge_dst, edge_weight, h, order, group)

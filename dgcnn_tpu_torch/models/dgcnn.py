@@ -230,11 +230,14 @@ class DGCNNNet(nn.Module):
                 dropout_gen: Optional[torch.Generator] = None,
                 return_activations: bool = False,
                 pool: Optional[torch.Tensor] = None,
-                block_impl: str = "pallas", spmm_impl: str = "xla"):
+                block_impl: str = "pallas", spmm_impl: str = "xla",
+                edge_group=None):
         """`batch` is a DenseGraphBatch, a MultiDenseBatch, a BlockBatch or
         a GraphBatch; a BlockBatch also needs the engine's adjacency block
         `pool` and the `block_impl` that propagates over it, a GraphBatch
-        the `spmm_impl` that aggregates its edges. A MultiDenseBatch gives
+        the `spmm_impl` that aggregates its edges (and, when its edges are
+        a chunk of a stream cut over a process group, that `edge_group`:
+        `apply_coo`). A MultiDenseBatch gives
         the log-probs of its classes' slots in class order, the order of
         its `y` and `graph_mask`."""
         kw = dict(deterministic=deterministic, dropout_gen=dropout_gen,
@@ -243,7 +246,7 @@ class DGCNNNet(nn.Module):
             return apply_multi_dense(self.params(), self.model, batch.classes, **kw)
         if isinstance(batch, GraphBatch):
             return apply_coo(self.params(), self.model, batch,
-                             spmm_impl=spmm_impl, **kw)
+                             spmm_impl=spmm_impl, edge_group=edge_group, **kw)
         if isinstance(batch, BlockBatch):
             if pool is None:
                 raise ValueError("a BlockBatch needs the block pool")
@@ -680,6 +683,7 @@ def apply_coo(
     dropout_gen: Optional[torch.Generator] = None,
     return_activations: bool = False,
     spmm_impl: str = "xla",
+    edge_group=None,
 ):
     """Forward pass on the COO layout (batching/packer.py,
     batching/device_coo.py) → log-probabilities [slots, C]. Degrees and
@@ -695,13 +699,20 @@ def apply_coo(
     masked output leaves in bf16, and each W_i is rounded to bf16 at its
     product (`gcn_conv`); the product is summed in fp32 and the SpMM runs
     fp32, as in the reference's `apply_coo`. The engines hand x over in
-    fp32, as the reference's packers do."""
+    fp32, as the reference's packers do.
+
+    `edge_group` (a process group; the reference's `edge_axis`): the
+    batch's edge leaves are this rank's contiguous chunk of the stream,
+    its node arrays whole; the degrees and every SpMM are summed over the
+    group, so each of its ranks computes the full forward (and, through
+    the SpMM's backward, the full gradient). The block-COO structure is
+    never used on a chunk."""
     num_nodes = batch.x.shape[0]
     num_slots = batch.y.shape[0]
-    deg_hat = gcn_degree(batch.edge_dst, batch.edge_mask, num_nodes)
+    deg_hat = gcn_degree(batch.edge_dst, batch.edge_mask, num_nodes, edge_group)
     dinv_sqrt = torch.rsqrt(deg_hat)
     structure = w_pad = w_padT = None
-    if batch.blockcoo is not None and spmm_impl == "pallas":
+    if batch.blockcoo is not None and spmm_impl == "pallas" and edge_group is None:
         structure, w_pad, w_padT = batch.blockcoo
     order = None
     if batch.x.is_cuda:
@@ -719,6 +730,7 @@ def apply_coo(
             x, layer["w"].to(dt), layer["b"], batch.edge_src, batch.edge_dst,
             batch.edge_mask, deg_hat, impl=spmm_impl, node_scale=dinv_sqrt,
             structure=structure, w_pad=w_pad, w_padT=w_padT, order=order,
+            edge_group=edge_group,
         )) * mask).to(dt)
         layer_outs.append(x)
         acts[f"gcn{i + 1}"] = x
@@ -737,8 +749,10 @@ def apply_coo(
 def apply(params: Params, model: DGCNN, batch, **kwargs):
     """Layout-polymorphic forward (the reference's `apply`,
     dgcnn_tpu/models/dgcnn.py:1035): a `DenseGraphBatch` goes to
-    `apply_dense` (its `spmm_impl` dropped), anything else to `apply_coo`."""
+    `apply_dense` (its `spmm_impl` and `edge_group` dropped), anything else
+    to `apply_coo`."""
     if isinstance(batch, DenseGraphBatch):
         kwargs.pop("spmm_impl", None)
+        kwargs.pop("edge_group", None)
         return apply_dense(params, model, batch, **kwargs)
     return apply_coo(params, model, batch, **kwargs)

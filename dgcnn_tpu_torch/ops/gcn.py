@@ -19,12 +19,17 @@ from dgcnn_tpu_torch.ops.readout import matmul_f32
 from dgcnn_tpu_torch.ops.spmm import EdgeOrder, spmm
 
 
-def gcn_degree(edge_dst, edge_mask, num_nodes: int) -> torch.Tensor:
+def gcn_degree(edge_dst, edge_mask, num_nodes: int, edge_group=None) -> torch.Tensor:
     """d̂ = in-degree over real edges + 1 (the re-added self-loop). A sum
     of 0/1 masks: exact in any order below 2^24, so the index_add_'s
-    atomics on the card give the same bits on every run."""
+    atomics on the card give the same bits on every run. With the edge
+    stream cut over the ranks of `edge_group` (a process group), the
+    partial in-degrees are summed over it, exactly, so every rank holds
+    the full degrees."""
     deg = edge_mask.new_zeros(num_nodes)
     deg.index_add_(0, edge_dst.long(), edge_mask)
+    if edge_group is not None:
+        torch.distributed.all_reduce(deg, group=edge_group)
     return deg + 1.0
 
 
@@ -37,20 +42,22 @@ def gcn_edge_weights(edge_src, edge_dst, edge_mask, deg_hat) -> torch.Tensor:
 def gcn_conv(x, weight, bias, edge_src, edge_dst, edge_weight, deg_hat,
              impl: str = "xla", node_scale: Optional[torch.Tensor] = None,
              structure=None, w_pad=None, w_padT=None,
-             order: Optional[EdgeOrder] = None) -> torch.Tensor:
+             order: Optional[EdgeOrder] = None, edge_group=None) -> torch.Tensor:
     """One GCNConv layer given precomputed edge weights and degrees (shared
     by the four layers of the DGCNN). With `node_scale` (= d̂^{-1/2}) the
     normalization runs as two node-row scalings around a SpMM weighted by
     `edge_weight`, which is then the raw edge mask:
     Σ_e s_src·s_dst·mask·h[src] = s_dst·Σ_e mask·(s·h)[src].
     `structure`/`w_pad`/`w_padT` serve `impl` "pallas" (they must encode
-    the same weights); `order` serves the edge-stream kernels. `x` and
+    the same weights); `order` serves the edge-stream kernels;
+    `edge_group` sums the SpMM over the ranks that share the edge stream
+    (ops/spmm.py). `x` and
     `weight` may be bf16 (bf16 compute): their product is summed in fp32
     (`matmul_f32`) and the rest of the layer runs fp32, as the reference's
     `preferred_element_type=float32` product leaves it."""
     h = matmul_f32(x, weight)
     kw = dict(impl=impl, structure=structure, w_pad=w_pad, w_padT=w_padT,
-              order=order)
+              order=order, edge_group=edge_group)
     if node_scale is not None:
         s = node_scale[:, None]
         agg = spmm(edge_src, edge_dst, edge_weight, h * s, h.shape[0], **kw) * s

@@ -129,13 +129,22 @@ def edge_order(edge_src, edge_dst, num_nodes: int, edge_mask=None,
 
 def spmm(edge_src, edge_dst, edge_weight, h, num_nodes: int, impl: str = "xla",
          structure=None, w_pad=None, w_padT=None,
-         order: Optional[EdgeOrder] = None) -> torch.Tensor:
+         order: Optional[EdgeOrder] = None, edge_group=None) -> torch.Tensor:
     """`out[i] = Σ_{dst_e=i} w_e·h[src_e]` through the kernel `impl` names
     (module docstring). `structure`/`w_pad`/`w_padT` (the packer's
     `add_blockcoo`) serve "pallas" and must encode `edge_weight`; `order`
     serves the kernel that runs: `edge_order`'s for the edge-stream
     kernels, `block_coo_order`'s for the block-COO kernel when a structure
-    is given. Each kernel builds its own when it is None."""
+    is given. Each kernel builds its own when it is None.
+
+    `edge_group` (a process group; the reference's `edge_axis`): the edge
+    stream is this rank's contiguous chunk of one batch's, h the whole
+    node block, the same on every rank of the group. The chunk runs
+    through the edge-stream kernel `impl` names ("pallas" without a
+    structure: the row kernel), and one sum over the group rebuilds the
+    aggregate; the backward sums dh over the group, since the true dh is
+    Σ_g A_gᵀ·dout (kernels/spmm_pallas.py). The block-COO kernel never
+    runs on an edge chunk, as in the reference."""
     from dgcnn_tpu_torch.kernels.spmm_block_coo import spmm_block_coo
     from dgcnn_tpu_torch.kernels.spmm_pallas import spmm_pallas, spmm_pallas_mxu
 
@@ -144,9 +153,11 @@ def spmm(edge_src, edge_dst, edge_weight, h, num_nodes: int, impl: str = "xla",
     if h.shape[0] != num_nodes:
         raise ValueError(f"h has {h.shape[0]} rows, num_nodes is {num_nodes}")
     if impl == "pallas" and structure is not None:
+        if edge_group is not None:
+            raise ValueError("the block-COO kernel does not run on an edge chunk")
         if w_pad is None or w_padT is None:
             raise ValueError("a block-COO structure needs w_pad and w_padT")
         return spmm_block_coo(structure, w_pad, w_padT, h, order)
     if impl == "onehot":
-        return spmm_pallas_mxu(edge_src, edge_dst, edge_weight, h, order)
-    return spmm_pallas(edge_src, edge_dst, edge_weight, h, order)
+        return spmm_pallas_mxu(edge_src, edge_dst, edge_weight, h, order, edge_group)
+    return spmm_pallas(edge_src, edge_dst, edge_weight, h, order, edge_group)

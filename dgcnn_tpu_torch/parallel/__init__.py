@@ -1,0 +1,38 @@
+"""Parallelism over a (data, graph) process grid — the port of
+dgcnn_tpu/parallel (less `batch_pspecs` and `device_put_epoch`, which
+place arrays on a JAX mesh: a rank here keeps its own selection,
+`shard.local_view`). The halo exchange (`parallel/halo.py`) is ROADMAP
+Queue 1 item 12b."""
+
+from dgcnn_tpu_torch.parallel.mesh import (
+    ProcessGrid, device_grid, initialize_multihost, make_mesh,
+)
+from dgcnn_tpu_torch.parallel.shard import (
+    local_view, lpt_assign, pack_epoch_dp, partition_edges, shard_batch_for_dp,
+    shard_bucket,
+)
+from dgcnn_tpu_torch.parallel.train_dp import (
+    DPRun, make_block_dp_run, make_dense_dp_run, make_device_coo_dp_run,
+    make_dp_eval_epoch, make_dp_train_epoch, make_sharded_loss, reduce_gradients,
+)
+
+__all__ = [
+    "DPRun",
+    "ProcessGrid",
+    "device_grid",
+    "initialize_multihost",
+    "local_view",
+    "lpt_assign",
+    "make_block_dp_run",
+    "make_dense_dp_run",
+    "make_device_coo_dp_run",
+    "make_dp_eval_epoch",
+    "make_dp_train_epoch",
+    "make_mesh",
+    "make_sharded_loss",
+    "pack_epoch_dp",
+    "partition_edges",
+    "reduce_gradients",
+    "shard_batch_for_dp",
+    "shard_bucket",
+]

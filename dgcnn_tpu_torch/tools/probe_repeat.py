@@ -11,13 +11,16 @@ shuffle stacked on the slot axis (560 slots, T=88), through a
 log-probs and every parameter gradient of the summed per-fold losses.
 Each device runs in `--runs` fresh processes, each computing the batch
 `--reps` times (each behind an allocation of another size), with fp32
-products only (`train/cv.py fp32_only`) and torch's default CPU threads. Prints one JSON line: per device, how many
+products only (`train/cv.py fp32_only`), the CPU side pinned as
+chip_smoke.py pins its own (tools/cpu_pin.py: `THREADS` torch threads
+and `MKL_CBWR`, set before torch loads in each child). Prints one JSON line: per device, how many
 distinct bit patterns the processes and the repetitions inside one
 process gave; for every pair of a distinct card pattern and a distinct
 CPU pattern, the worst relative error (max abs error over the tensor's
 largest value) and the tensors beyond rtol 1e-4 / atol 1e-6, the
 card-vs-CPU check's tolerance; and, on the card, its name and power
-limit. The card is needed only for `cuda`."""
+limit; and each device's CPU side as its children ran it
+(`cpu_pin.describe`). The card is needed only for `cuda`."""
 
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ import tempfile
 
 import numpy as np
 import torch
+
+from dgcnn_tpu_torch.tools import cpu_pin
 
 FOLDS, SLOTS, BATCH, SEED = 10, 56, 50, 324
 
@@ -84,8 +89,10 @@ def digest(outs) -> str:
 
 
 def child(device: str, reps: int, path: str) -> None:
+    from dgcnn_tpu_torch.tools.cpu_pin import describe
     from dgcnn_tpu_torch.train.cv import fp32_only
 
+    torch.set_num_threads(int(os.environ["OMP_NUM_THREADS"]))
     fp32_only()
     if device == "cuda":
         from dgcnn_tpu_torch.kernels import _build
@@ -97,7 +104,7 @@ def child(device: str, reps: int, path: str) -> None:
         pad = torch.empty(1 + r * 1_000_003, device=device)
         runs.append(outputs(gs, host, device))
         del pad
-    torch.save(runs, path)
+    torch.save({"runs": runs, "cpu_side": describe()}, path)
 
 
 def worst(card, cpu):
@@ -127,14 +134,17 @@ def main(argv=None) -> int:
         print(json.dumps({"error": "CUDA is not available; pass --devices cpu"}))
         return 1
     report, patterns = {}, {}
+    env = cpu_pin.pin_environ(dict(os.environ))
     with tempfile.TemporaryDirectory() as tmp:
         for dev in devices:
-            runs = []
+            runs, sides = [], set()
             for r in range(args.runs):
                 path = os.path.join(tmp, f"{dev}_{r}.pt")
                 subprocess.run([sys.executable, "-m", __spec__.name, "--child", dev,
-                                str(args.reps), path], check=True)
-                runs.append(torch.load(path))
+                                str(args.reps), path], check=True, env=env)
+                saved = torch.load(path)
+                runs.append(saved["runs"])
+                sides.add(saved["cpu_side"])
             seen = {}
             for outs in (o for run in runs for o in run):
                 seen.setdefault(digest(outs), outs)
@@ -144,6 +154,7 @@ def main(argv=None) -> int:
                 "distinct_across_processes": len({digest(run[0]) for run in runs}),
                 "distinct_within_a_process": max(len({digest(o) for o in run})
                                                  for run in runs),
+                "cpu_side": sorted(sides),
             }
     if "cuda" in devices and "cpu" in devices:
         report["card_vs_cpu"] = [

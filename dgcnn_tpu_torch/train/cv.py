@@ -39,9 +39,14 @@ and multi-tile layouts; under "auto" on the dense layout when
 `_lockstep_would_engage`, and always on the block layout (on one device
 the reference runs multi-tile folds one after another). Otherwise, and
 on the COO layout, the folds run one after another. `choose_layout`
-answers as the reference does; the halo layout and meshes raise
-NotImplementedError naming the ROADMAP item that ports them
-(`check_supported`). Each engine stores its data at the
+answers as the reference does; the halo layout and fold-sharded lockstep
+over a mesh raise NotImplementedError naming the ROADMAP item that ports
+them (`check_supported`). On a mesh (`mesh_shape` ≠ (1, 1); the
+reference's :675-1037, :1067-1090) every process is one rank of the
+(data, graph) grid (parallel/mesh.py) and the folds run one after another
+through the layout's mesh engine (`MeshDenseEngine`, `MeshBlockEngine`,
+`MeshDeviceCooEngine`, `MeshCooEngine`), eagerly; rank 0 alone writes the
+files. Each engine stores its data at the
 reference's dtypes: the dense and multi-tile datasets at
 `store_dtypes(resolved_adj_dtype, compute_dtype)`, the block pool at
 `pool_dtype(cfg)`; the COO engines in fp32.
@@ -73,6 +78,7 @@ from dgcnn_tpu_torch.batching.dense import (
     dense_dataset_bytes,
     dense_tile,
     order_matrix,
+    order_matrix_dp,
 )
 from dgcnn_tpu_torch.batching.device_coo import (
     batch_extents,
@@ -101,6 +107,12 @@ from dgcnn_tpu_torch.data.datasets import load_dataset
 from dgcnn_tpu_torch.data.folds import get_folds
 from dgcnn_tpu_torch.data.graphset import GraphSet
 from dgcnn_tpu_torch.models.dgcnn import DGCNN, DGCNNNet, init_params, num_params
+from dgcnn_tpu_torch.parallel.mesh import make_mesh, sum_over
+from dgcnn_tpu_torch.parallel.shard import epoch_rows, pack_epoch_dp, shard_bucket
+from dgcnn_tpu_torch.parallel.train_dp import (
+    local_steps, make_block_dp_run, make_dense_dp_run, make_device_coo_dp_run,
+    make_dp_eval_epoch, make_dp_train_epoch,
+)
 from dgcnn_tpu_torch.train.loop import (
     make_block_run,
     make_coo_run,
@@ -145,12 +157,25 @@ def fp32_only() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def check_supported(cfg: Config) -> None:
+def on_mesh(cfg: Config) -> bool:
+    return tuple(cfg.mesh_shape) != (1, 1)
+
+
+def check_supported(cfg: Config, use_lockstep: bool) -> None:
     """Raise NotImplementedError for every setting this slice does not
-    serve, naming the ROADMAP item that ports it."""
+    serve, naming the ROADMAP item that ports it: fold-sharded lockstep
+    over a mesh, which the reference runs under `cv_parallel="folds"` and,
+    under "auto", wherever its folds would lockstep on a (D, 1) mesh
+    (`use_lockstep`, dgcnn_tpu/train/cv.py:1383-1401). Training those runs
+    one fold after another would give rows the reference never trains.
+    (The halo layout is refused with the other unported layouts,
+    `_LAYOUT_ITEM`.)"""
     unserved = []
-    if tuple(cfg.mesh_shape) != (1, 1):
-        unserved.append("a device mesh (ROADMAP Queue 1 item 12)")
+    if on_mesh(cfg) and (cfg.cv_parallel == "folds" or use_lockstep):
+        unserved.append(
+            f"fold-sharded lockstep over the mesh {tuple(cfg.mesh_shape)} "
+            f"(cv_parallel={cfg.cv_parallel!r}; ROADMAP Queue 1 item 12b): "
+            f"cv_parallel='sequential' trains the folds one after another on it")
     if unserved:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(unserved)
@@ -178,7 +203,7 @@ def check_lockstep_layout(layout: str) -> None:
 
 
 _LAYOUT_ITEM = {
-    "halo": "ROADMAP Queue 1 item 12",
+    "halo": "ROADMAP Queue 1 item 12b",
 }
 
 
@@ -721,14 +746,223 @@ class MultiDenseEngine:
         self.runners.drop()
 
 
+class _MeshEngine:
+    """What the four mesh engines share (the reference's
+    dgcnn_tpu/train/cv.py:675-1037): the rank's `grid` (parallel/mesh.py),
+    its device, `slots = max(1, ⌈batch/D⌉)` graph slots a sub-batch (not
+    rounded to `graph_pad_multiple`, as in the reference), and one eager
+    runner a fold (`parallel/train_dp.py DPRun`: a collective of the gloo
+    backend cannot be captured in a CUDA graph), dropped at the fold's
+    end or when a budget grows."""
+
+    FLOORS = ()
+
+    def __init__(self, cfg: Config, grid):
+        self.cfg = cfg
+        self.grid = grid
+        self.device = grid.device
+        self.slots = max(1, -(-cfg.batch_size // grid.n_data))
+        self.runners = RunnerSlot()
+        self._fold = 0
+
+    def end_fold(self) -> None:
+        self.runners.drop()
+
+
+class _MeshGatherEngine(_MeshEngine):
+    """A mesh engine whose dataset lives replicated on every rank's device
+    and whose batches are gathered there from a [steps, n_data, slots]
+    order: each global batch is dealt to the data ranks by `epoch_order`."""
+
+    def epoch_order(self, ids: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
+
+    def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
+        self._train_idx = np.asarray(train_idx, dtype=np.int64)
+        self._test_np = self.epoch_order(np.asarray(test_idx, dtype=np.int64))
+        self._fold += 1
+
+    def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
+        """Train + eval one epoch per permutation of the fold's training
+        graphs; host rows [k, 4], the same on every rank."""
+        orders = np.stack([self.epoch_order(self._train_idx[p]) for p in perms])
+        key, make = self.runner_for(orders, net, optimizer, dropout_gen)
+        return self.runners.get((self._fold, key), make).run_epochs(orders)
+
+
+class MeshDenseEngine(_MeshGatherEngine):
+    """The dense layout on the grid (the reference's `MeshDenseEngine`,
+    :868): the dense dataset replicated on every rank's device, each
+    global batch dealt round-robin to the data ranks (`order_matrix_dp`),
+    each data rank's sub-batch through the trunk kernel at `slots` slots;
+    the graph axis replicates the computation."""
+
+    def __init__(self, cfg: Config, dataset: GraphSet, grid):
+        super().__init__(cfg, grid)
+        self.n_tile = dense_tile(dataset)
+        self.data = build_dense_dataset(dataset, self.n_tile, self.device,
+                                        cfg.resolved_adj_dtype(), cfg.compute_dtype)
+
+    def epoch_order(self, ids: np.ndarray) -> np.ndarray:
+        return order_matrix_dp(ids, self.cfg.batch_size, self.grid.n_data, self.slots)
+
+    def runner_for(self, orders, net, optimizer, dropout_gen):
+        return None, lambda: make_dense_dp_run(net, optimizer, self.data, self.grid,
+                                               self._test_np, dropout_gen)
+
+
+class MeshBlockEngine(_MeshGatherEngine):
+    """The block-sparse layout on the grid (the reference's
+    `MeshBlockEngine`, :936): the block graphset replicated, each global
+    batch LPT-balanced over the data ranks on stored-block counts (the
+    propagation's work), each sub-batch through the block kernel
+    `block_impl` names; the budgets (nb, W) sized once a chunk over every
+    rank's sub-batch rows, grown only on the block engine's geometric
+    grid; the graph axis replicates the computation."""
+
+    FLOORS = ("floor_nb", "floor_w")
+
+    def __init__(self, cfg: Config, dataset: GraphSet, grid):
+        super().__init__(cfg, grid)
+        host = build_block_graphset(dataset)
+        self._nb = host.nb.astype(np.int64)
+        self._block_counts = host.block_count.astype(np.int64)
+        self.dev = block_graphset_to_device(host, self.device, pool_dtype(cfg))
+        self.block_impl = cfg.resolved_block_impl()
+        self.floor_nb = 8
+        self.floor_w = 64
+
+    def epoch_order(self, ids: np.ndarray) -> np.ndarray:
+        return epoch_rows(self._block_counts, ids, self.cfg.batch_size,
+                          self.grid.n_data, self.slots)
+
+    def budget_for(self, *order_mats: np.ndarray):
+        nb = w = 1
+        for m in order_mats:  # last axis = slots: every rank's sub-batch row
+            bn, bw = block_batch_extents(self._nb, self._block_counts, m)
+            nb, w = max(nb, bn), max(w, bw)
+        self.floor_nb = max(self.floor_nb, _geom_round(nb, 8))
+        self.floor_w = max(self.floor_w, _geom_round(w, 64))
+        return self.floor_nb, self.floor_w
+
+    def runner_for(self, orders, net, optimizer, dropout_gen):
+        nb, w = self.budget_for(orders, self._test_np)
+        return (nb, w), lambda: make_block_dp_run(
+            net, optimizer, self.dev, self.grid, nb, w, self._test_np, dropout_gen,
+            self.block_impl)
+
+
+class MeshDeviceCooEngine(_MeshGatherEngine):
+    """The COO layout assembled on the device, on the grid (the
+    reference's `MeshDeviceCooEngine`, :772): the COO graphset replicated,
+    each global batch LPT-balanced over the data ranks on node counts,
+    each graph rank assembling only its contiguous chunk of its data
+    rank's edge stream (`gather_coo_batch(edge_window=...)`), aggregated
+    by the SpMM kernel `spmm_impl` names and summed over the graph group.
+    The bucket is sized once a chunk, grown only, its edges a multiple of
+    `edge_pad_multiple · G` so that the chunks are equal."""
+
+    FLOORS = ("floor_nodes", "floor_edges")
+
+    def __init__(self, cfg: Config, dataset: GraphSet, grid):
+        super().__init__(cfg, grid)
+        self._node_counts = dataset.node_counts().astype(np.int64)
+        self._edge_counts = dataset.edge_counts().astype(np.int64)
+        self.dev = device_graphset_to(build_device_graphset(dataset), self.device)
+        self.spmm_impl = cfg.resolved_spmm_impl()
+        self.edge_multiple = cfg.edge_pad_multiple * grid.n_graph
+        self.floor_nodes = cfg.node_pad_multiple
+        self.floor_edges = self.edge_multiple
+
+    def epoch_order(self, ids: np.ndarray) -> np.ndarray:
+        return epoch_rows(self._node_counts, ids, self.cfg.batch_size,
+                          self.grid.n_data, self.slots)
+
+    def bucket_for(self, *order_mats: np.ndarray) -> BucketSpec:
+        n = e = 1
+        for m in order_mats:
+            bn, be = batch_extents(self._node_counts, self._edge_counts, m)
+            n, e = max(n, bn), max(e, be)
+        self.floor_nodes = max(self.floor_nodes,
+                               _geom_round(n, self.cfg.node_pad_multiple))
+        self.floor_edges = max(self.floor_edges, _geom_round(e, self.edge_multiple))
+        return BucketSpec(num_nodes=self.floor_nodes, num_edges=self.floor_edges,
+                          num_graphs=self.slots)
+
+    def runner_for(self, orders, net, optimizer, dropout_gen):
+        bucket = self.bucket_for(orders, self._test_np)
+        return bucket, lambda: make_device_coo_dp_run(
+            net, optimizer, self.dev, self.grid, bucket, self._test_np, dropout_gen,
+            self.spmm_impl)
+
+
+class MeshCooEngine(_MeshEngine):
+    """The COO layout packed on the host, on the grid (the reference's
+    `MeshCooEngine`, :675): every epoch packed by `pack_epoch_dp` into the
+    worst-case per-shard bucket (`shard_bucket`: LPT-balanced sub-batches,
+    edge leaves cut over the graph axis); each rank ships only its own
+    selection (`local_steps`), one transfer per array an epoch, and trains
+    over it (`make_dp_train_epoch`); the fold's test epoch is packed and
+    shipped once. No block-COO structures are attached: the SpMM runs the
+    edge-stream kernel `spmm_impl` names (the row kernel for "pallas")."""
+
+    def __init__(self, cfg: Config, dataset: GraphSet, grid):
+        super().__init__(cfg, grid)
+        self.dataset = dataset
+        self.bucket = shard_bucket(dataset, cfg.batch_size, grid.n_data,
+                                   cfg.node_pad_multiple, cfg.edge_pad_multiple,
+                                   cfg.graph_pad_multiple, grid.n_graph)
+        self.spmm_impl = cfg.resolved_spmm_impl()
+
+    def pack(self, ds: GraphSet, order: np.ndarray):
+        return pack_epoch_dp(ds, order, self.cfg.batch_size, self.bucket,
+                             self.grid.n_data, self.grid.n_graph)
+
+    def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
+        self._train_set = self.dataset.subset(train_idx)
+        test_set = self.dataset.subset(test_idx)
+        self._test_steps = local_steps(self.pack(test_set, np.arange(test_set.num_graphs)),
+                                       self.grid, self.device)
+        self._fold += 1
+
+    def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
+        """Pack, ship, train and evaluate one epoch per permutation of the
+        fold's training graphs; host rows [k, 4], the same on every rank."""
+        train, evaluate = self.runners.get(self._fold, lambda: (
+            make_dp_train_epoch(net, optimizer, self.grid, self.spmm_impl),
+            make_dp_eval_epoch(net, self.grid, self.spmm_impl)))
+        rows = []
+        for perm in perms:
+            tr_loss, tr_correct = train(self.pack(self._train_set, perm), dropout_gen)
+            te_loss, te_correct = evaluate(self._test_steps)
+            rows.append(torch.stack([tr_loss, te_loss, tr_correct, te_correct]))
+        return torch.stack(rows).cpu().double().numpy()
+
+
+MESH_ENGINES = (MeshDenseEngine, MeshBlockEngine, MeshDeviceCooEngine, MeshCooEngine)
 PORTED_LAYOUTS = ("dense", "multi", "block", "coo")
 
 
 def make_engine(cfg: Config, dataset: GraphSet, device: torch.device, layout: str,
-                graphs: bool = True):
+                graphs: bool = True, grid=None):
     """The layout's engine; COO picks as the reference's `make_engine`:
     `--spmm pallas` needs host-built structures (CooEngine), otherwise
-    `coo_assembly` decides. `graphs` goes to every engine."""
+    `coo_assembly` decides. `graphs` goes to every single-device engine.
+    On a mesh (`mesh_shape` ≠ (1, 1)) the reference's mesh branch
+    (:1067-1090): the mesh engine of the layout over `grid` (made here
+    when None), the COO one by `coo_assembly` alone; the multi-tile layout
+    is single-device only (ValueError)."""
+    if on_mesh(cfg):
+        if layout == "multi":
+            raise ValueError(
+                f"layout={layout!r} is single-chip only; use layout='dense', "
+                "'block', 'halo' or 'coo' (or 'auto') with a mesh")
+        if grid is None:
+            grid = make_mesh(cfg.mesh_shape, device)
+        cls = {"dense": MeshDenseEngine, "block": MeshBlockEngine}.get(layout)
+        if cls is None:
+            cls = MeshDeviceCooEngine if cfg.coo_assembly == "device" else MeshCooEngine
+        return cls(cfg, dataset, grid)
     if layout == "coo":
         host = cfg.resolved_spmm_impl() == "pallas" or cfg.coo_assembly == "host"
         return (CooEngine if host else DeviceCooEngine)(cfg, dataset, device, graphs)
@@ -739,8 +973,8 @@ def make_engine(cfg: Config, dataset: GraphSet, device: torch.device, layout: st
     return DenseEngine(cfg, dataset, device, graphs)
 
 
-def _stream_seed(seed: int, fold: int, stream: int) -> int:
-    state = np.random.SeedSequence([seed, fold, stream]).generate_state(2)
+def _stream_seed(seed: int, fold: int, stream: int, *more: int) -> int:
+    state = np.random.SeedSequence([seed, fold, stream, *more]).generate_state(2)
     return int(state[0]) << 31 ^ int(state[1])
 
 
@@ -827,6 +1061,21 @@ class CurveRenderer:
                 self.reported = True
 
 
+def dropout_states(dropout_gen: torch.Generator, grid=None) -> torch.Tensor:
+    """The dropout generator's state for an in-flight bundle; on a mesh
+    every data rank's, [D, ·], summed over the data group from each rank's
+    own row (every rank calls this), since rank 0 writes the bundle and
+    each data rank resumes from its own row."""
+    state = dropout_gen.get_state()
+    if grid is None:
+        return state
+    rows = torch.zeros((grid.n_data, state.numel()), dtype=torch.int32,
+                       device=grid.device)
+    rows[grid.d] = state.to(device=grid.device, dtype=torch.int32)
+    sum_over(rows, grid.data_group)
+    return rows.cpu().to(torch.uint8)
+
+
 def fold_csv(cfg: Config, fold_number: int) -> str:
     return os.path.join(cfg.statistics_dir, f"{cfg.data_type}_results_{fold_number}.csv")
 
@@ -845,8 +1094,15 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
     fold's CSV flushed (and the curves redrawn by `curves`) at every chunk
     boundary and its in-flight bundle written at the checkpoint cadence,
     then its final CSV and `epochs/` bundle. Under `checkpoint_resume` a
-    fold with an in-flight bundle continues from it."""
+    fold with an in-flight bundle continues from it.
+
+    On a mesh engine (`engine.grid`) every rank trains the same replica:
+    the same weights and shuffle, dropout seeded by the data rank as well
+    (the graph ranks of one data group draw the same masks), and rank 0
+    alone writes the files, which every rank reads on a resume."""
     device = engine.device
+    grid = getattr(engine, "grid", None)
+    writer = grid is None or grid.writer
     n_train, n_test = len(train_idx), len(test_idx)
     train_edges = int(dataset.edge_counts()[np.asarray(train_idx)].sum())
     engine.begin_fold(train_idx, test_idx)
@@ -856,7 +1112,7 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
     optimizer = make_optimizer(net, cfg.learning_rate, cfg.adam_b1,
                                cfg.adam_b2, cfg.adam_eps, flat=cfg.opt_flatten)
     dropout_gen = torch.Generator(device=device).manual_seed(
-        _stream_seed(cfg.seed, fold_number, 2)
+        _stream_seed(cfg.seed, fold_number, 2, *(() if grid is None else (grid.d,)))
     )
     shuffle_rng = np.random.default_rng(
         np.random.SeedSequence([cfg.seed, fold_number])
@@ -871,7 +1127,7 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
         epoch = resumed_epoch(cfg, inflight, bundle, "fold")
         load_into(net, bundle["params"])
         load_into(optimizer, bundle["opt_state"])
-        load_into(dropout_gen, bundle["rng"])
+        load_into(dropout_gen, bundle["rng"] if grid is None else bundle["rng"][grid.d])
         restore_floors(engine, bundle.get("floors", {}))
         metrics.rows = {c: [float(v) for v in bundle["metrics"][c]]
                         for c in FoldMetrics.COLUMNS}
@@ -911,22 +1167,25 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
                     f"test {te_loss:.4f}/{test_acc:.2f}% ({dt:.2f}s)"
                 )
         epoch += k
-        if epoch <= cfg.num_epochs:
+        if epoch <= cfg.num_epochs and writer:
             metrics.to_csv(csv)  # the fold so far, at every chunk boundary
             if curves is not None:
                 curves.maybe_render()
         if checkpoint_due(cfg, epoch - 1):
+            rng = dropout_states(dropout_gen, grid)  # a collective on a mesh
+        if checkpoint_due(cfg, epoch - 1) and writer:
             save_checkpoint(inflight, {
                 "params": net.state_dict(), "opt_state": adam_state(optimizer),
-                "rng": dropout_gen.get_state(), "epoch": np.int64(epoch - 1),
+                "rng": rng, "epoch": np.int64(epoch - 1),
                 "metrics": {c: np.asarray(metrics.rows[c]) for c in FoldMetrics.COLUMNS},
                 "floors": engine_floors(engine)})
     engine.end_fold()
 
-    save_checkpoint(fold_bundle(cfg, fold_number),
-                    {"params": net.state_dict(), "opt_state": adam_state(optimizer)})
-    metrics.to_csv(csv)
-    remove_checkpoint(inflight)
+    if writer:
+        save_checkpoint(fold_bundle(cfg, fold_number),
+                        {"params": net.state_dict(), "opt_state": adam_state(optimizer)})
+        metrics.to_csv(csv)
+        remove_checkpoint(inflight)
     return metrics
 
 
@@ -943,7 +1202,7 @@ def _fold_bar(cfg: Config, folds):
 
 def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
                          allow_synthetic: bool = False, device=None,
-                         graphs: bool = True):
+                         graphs: bool = True, grid=None):
     """Full experiment on `device` (default `cuda`; `"cpu"` runs the plain
     PyTorch path). Returns per-fold and aggregate accuracies, as the
     reference does. On the card every layout runs each epoch after its
@@ -951,10 +1210,20 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
     a CUDA-graph replay; `graphs=False` runs them eagerly, for comparison
     only. Under `checkpoint_resume` complete folds are skipped and the
     others continue from their in-flight bundles (the reference's
-    :1409-1443, :1483-1491)."""
-    device = resolve_device(device)
+    :1409-1443, :1483-1491).
+
+    With `mesh_shape` ≠ (1, 1) this process is one rank of the (data,
+    graph) grid: `grid`, or `make_mesh(cfg.mesh_shape, device)` over the
+    initialised process group (parallel/mesh.py; `device` None means
+    `cuda:LOCAL_RANK`). Every rank runs this function; the folds run one
+    after another through the layout's mesh engine, eagerly (`run_start`
+    says `graphs: false`), and rank 0 alone writes the CSVs, the event
+    log and the `epochs/` bundles. A resume waits for every rank (a
+    barrier), then each reads rank 0's files."""
+    mesh = on_mesh(cfg)
+    if not mesh:
+        device = resolve_device(device)
     fp32_only()
-    check_supported(cfg)
     if dataset is None:
         dataset, meta = load_dataset(
             cfg.data_type, root=cfg.data_root,
@@ -968,6 +1237,8 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         cfg, dataset.num_features, dataset.num_classes, dataset.node_counts()
     )
     layout = choose_layout(cfg, dataset)
+    use_lockstep = lockstep_engages(cfg, dataset, layout)
+    check_supported(cfg, use_lockstep)
     if cfg.cv_parallel == "folds":
         check_lockstep_layout(layout)
     if layout not in PORTED_LAYOUTS:
@@ -976,7 +1247,10 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
             f"yet ({_LAYOUT_ITEM[layout]}); the port runs the dense, multi, "
             f"block and coo layouts"
         )
-    use_lockstep = lockstep_engages(cfg, dataset, layout)
+    if mesh:
+        grid = grid if grid is not None else make_mesh(cfg.mesh_shape, device)
+        device = grid.device
+    writer = grid is None or grid.writer
 
     fold_dir = cfg.fold_index_dir or os.path.join(
         cfg.data_root, cfg.data_type, "10fold_idx"
@@ -984,9 +1258,10 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
     folds = get_folds(
         dataset.y, fold_dir, cfg.num_folds, cfg.seed, data_type=cfg.data_type
     )
-    engine = make_engine(cfg, dataset, device, layout, graphs)
+    engine = make_engine(cfg, dataset, device, layout, graphs, grid)
     events = EventLog(
         os.path.join(cfg.statistics_dir, f"{cfg.data_type}_events.jsonl")
+        if writer else None
     )
     events.write(
         kind="run_start",
@@ -999,9 +1274,13 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         **({"spmm_impl": cfg.resolved_spmm_impl()} if layout == "coo" else {}),
         **({"tiles": list(engine.tiles), "slot_floors": engine.slot_floor.tolist()}
            if layout == "multi" else {}),
+        **({"mesh_shape": list(grid.shape), "engine": type(engine).__name__,
+            "graphs": False} if mesh else {}),
         num_params=num_params(init_params(torch.Generator().manual_seed(0), model)),
         device=str(device),
     )
+    if mesh and cfg.checkpoint_resume:
+        grid.barrier()  # every rank reads rank 0's files as they stand
     if use_lockstep and cfg.checkpoint_resume:
         # lockstep writes the fold CSVs at run end: every fold is complete
         # or none is, unless an earlier run was sequential
@@ -1048,7 +1327,7 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         metrics = run_fold(cfg, dataset, model, fold_number, train_idx,
                            test_idx, engine, events, curves)
         dt = time.perf_counter() - t0
-        if engine.FLOORS:
+        if engine.FLOORS and writer:
             save_checkpoint(floors, {"floors": engine_floors(engine)})
         train_accs.append(metrics.last("train_accuracy"))
         test_accs.append(metrics.last("test_accuracy"))
@@ -1058,25 +1337,29 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         )
         if hasattr(bar, "set_postfix"):
             bar.set_postfix(test_acc=f"{test_accs[-1]:.2f}%")
-    remove_checkpoint(floors)
-    return _finalize_cv(cfg, events, train_accs, test_accs)
+    if writer:
+        remove_checkpoint(floors)
+    return _finalize_cv(cfg, events, train_accs, test_accs, writer)
 
 
-def _finalize_cv(cfg: Config, events: EventLog, train_accs, test_accs):
+def _finalize_cv(cfg: Config, events: EventLog, train_accs, test_accs,
+                 writer: bool = True):
     """The run tail, the same for both drivers (the reference's
     :1508-1528): overall CSV, the curve PNG, the TensorBoard export (both
-    best-effort on the host), summary line and run_end event."""
-    write_overall_csv(
-        os.path.join(cfg.statistics_dir, f"{cfg.data_type}_results_overall.csv"),
-        train_accs,
-        test_accs,
-    )
-    try:  # the visdom replacement's curves (reference train.py:122-125)
-        from dgcnn_tpu_torch.train.plots import render_curves
+    best-effort on the host), summary line and run_end event. Only the
+    `writer` (a mesh's rank 0) writes files."""
+    if writer:
+        write_overall_csv(
+            os.path.join(cfg.statistics_dir, f"{cfg.data_type}_results_overall.csv"),
+            train_accs,
+            test_accs,
+        )
+        try:  # the visdom replacement's curves (reference train.py:122-125)
+            from dgcnn_tpu_torch.train.plots import render_curves
 
-        render_curves(cfg.statistics_dir, cfg.data_type)
-    except Exception as e:  # plotting is best-effort observability
-        print(f"(curve rendering skipped: {e})")
+            render_curves(cfg.statistics_dir, cfg.data_type)
+        except Exception as e:  # plotting is best-effort observability
+            print(f"(curve rendering skipped: {e})")
     if cfg.tensorboard_dir and events.path:
         try:
             from dgcnn_tpu_torch.train.tensorboard import export_events

@@ -53,7 +53,7 @@ state, the epoch, the [F, n] metric rows and the engine's grow-only
 floors); under `checkpoint_resume` the run loads it in place, replays
 every fold's shuffle stream and continues.
 
-Not ported here: fold sharding over a mesh (ROADMAP Queue 1 item 12);
+Not ported here: fold sharding over a mesh (ROADMAP Queue 1 item 12b);
 `train/cv.py` refuses it before this module runs.
 """
 

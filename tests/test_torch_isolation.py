@@ -51,7 +51,10 @@ def test_the_scan_covers_the_probe_and_measurement_modules():
             "dgcnn_tpu_torch/utils/checkpoint.py", "dgcnn_tpu_torch/native/__init__.py",
             "dgcnn_tpu_torch/parity/harness.py", "dgcnn_tpu_torch/parity/torch_oracle.py",
             "dgcnn_tpu_torch/graft_entry.py",
-            "dgcnn_tpu_torch/tools/probe_epoch_seconds.py"} <= scanned
+            "dgcnn_tpu_torch/tools/probe_epoch_seconds.py",
+            "dgcnn_tpu_torch/tools/cpu_pin.py", "dgcnn_tpu_torch/parallel/mesh.py",
+            "dgcnn_tpu_torch/parallel/shard.py",
+            "dgcnn_tpu_torch/parallel/train_dp.py"} <= scanned
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

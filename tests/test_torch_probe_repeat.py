@@ -12,7 +12,7 @@ import torch
 
 import chip_smoke as cs
 from dgcnn_tpu_torch.batching.dense import dense_tile
-from dgcnn_tpu_torch.tools import probe_repeat
+from dgcnn_tpu_torch.tools import cpu_pin, probe_repeat
 import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 
@@ -29,9 +29,10 @@ def test_the_batch_and_outputs_are_chip_smokes():
 
 
 def test_fresh_processes_give_one_pattern(capsys, monkeypatch):
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the children's torch, as this one's
+    monkeypatch.setattr(cpu_pin, "THREADS", 1)  # the children's torch, as this one's
     assert probe_repeat.main(["--devices", "cpu", "--runs", "2", "--reps", "2"]) == 0
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["cpu"]["cpu_side"][0].startswith("1 torch threads, MKL_CBWR=AVX2")
     assert report["cpu"]["distinct_across_processes"] == 1
     assert report["cpu"]["distinct_within_a_process"] == 1
     assert len(report["cpu"]["patterns"]) == 2 and "card_vs_cpu" not in report

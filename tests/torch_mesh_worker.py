@@ -1,0 +1,276 @@
+"""One rank of a CPU process grid, for the port's mesh tests (a helper,
+not a test file; it imports only torch, numpy and the port).
+
+    python tests/torch_mesh_worker.py RANK WORLD STORE JOBS OUT
+
+joins a `gloo` group of WORLD ranks through the FileStore STORE, runs
+torch on one thread, runs each job of the JSON list JOBS in order and
+saves what they return to the .npz OUT, keys `<job name>/<key>`. A job
+that raises on one rank would leave the others waiting in a collective:
+the group's timeout (60 s) ends them, and the caller's subprocess timeout
+ends the rest.
+
+Jobs (`kind`):
+  coo_loss     the deterministic sharded loss (`make_sharded_loss`) of one
+               global batch packed by `shard_batch_for_dp`; with `grads`,
+               the gradients after `reduce_gradients`
+  engine_loss  an engine's DP loss (`make_dense_dp_loss`,
+               `make_device_coo_dp_loss`, `make_block_dp_loss`) of one
+               [n_data, slots] order row
+  epoch        one DP training epoch (`make_dp_train_epoch`, dropout 0)
+               over a `pack_epoch_dp` epoch; the parameters after it
+  cv           `run_cross_validation` on the mesh: the result, every
+               fold's parameters after its last chunk, and how many files
+               this rank wrote; `crash_at` raises from the engine's chunk
+               of that index (every rank), after which `resume` runs the
+               same config with `checkpoint_resume`
+  mismatch     `make_mesh` of a grid whose size is not the world's
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+import torch.distributed as dist  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+from dgcnn_tpu_torch.config import Config  # noqa: E402
+from dgcnn_tpu_torch.data.synthetic import synthesize_tu_dataset  # noqa: E402
+from dgcnn_tpu_torch.models.dgcnn import DGCNN, DGCNNNet  # noqa: E402
+from dgcnn_tpu_torch.parallel import mesh, shard, train_dp  # noqa: E402
+from dgcnn_tpu_torch.parity.convert import state_to_params  # noqa: E402
+from dgcnn_tpu_torch.train import cv, metrics  # noqa: E402
+from dgcnn_tpu_torch.train.loop import make_optimizer  # noqa: E402
+
+
+def dataset(job):
+    return synthesize_tu_dataset(job["data"], num_graphs=job["graphs"], seed=job["seed"])
+
+
+def net_from(job, gs, dropout=0.5):
+    model = DGCNN(num_features=gs.num_features, num_classes=gs.num_classes,
+                  dropout_rate=dropout)
+    with np.load(job["params"]) as z:
+        state = {k: torch.from_numpy(z[k].copy()) for k in z.files}
+    return DGCNNNet(model, state_to_params(state))
+
+
+def grads_of(net):
+    return {f"grad/{n}": p.grad.numpy().copy() for n, p in net.named_parameters()}
+
+
+def params_of(net):
+    return {f"param/{n}": p.detach().numpy().copy() for n, p in net.named_parameters()}
+
+
+def coo_loss(job, rank):
+    gs = dataset(job)
+    grid = mesh.make_mesh(tuple(job["mesh"]), "cpu")
+    d, g = grid.shape
+    bucket = shard.shard_bucket(gs, len(job["idx"]), d, n_graph=g)
+    step = shard.shard_batch_for_dp(gs, np.asarray(job["idx"]), bucket, d, g)
+    net = net_from(job, gs)
+    loss, correct = train_dp.make_sharded_loss(grid, job.get("spmm", "xla"),
+                                               deterministic=True)(net, step)
+    out = {"loss": loss.detach().numpy(), "correct": correct.numpy()}
+    if job.get("grads"):
+        loss.backward()
+        train_dp.reduce_gradients(net.parameters(), grid.data_group)
+        out.update(grads_of(net))
+    return out
+
+
+def engine_loss(job, rank):
+    from dgcnn_tpu_torch.batching.block_sparse import (
+        block_graphset_to_device, build_block_graphset)
+    from dgcnn_tpu_torch.batching.dense import build_dense_dataset, dense_tile
+    from dgcnn_tpu_torch.batching.device_coo import (
+        build_device_graphset, device_graphset_to)
+    from dgcnn_tpu_torch.batching.packer import BucketSpec
+
+    gs = dataset(job)
+    grid = mesh.make_mesh(tuple(job["mesh"]), "cpu")
+    rows = torch.tensor(job["rows"], dtype=torch.int32)
+    if job["layout"] == "dense":
+        data = build_dense_dataset(gs, dense_tile(gs), "cpu")
+        fn = train_dp.make_dense_dp_loss(data, grid, True)
+    elif job["layout"] == "coo":
+        dev = device_graphset_to(build_device_graphset(gs), "cpu")
+        fn = train_dp.make_device_coo_dp_loss(dev, grid, BucketSpec(*job["bucket"]),
+                                              "xla", True)
+    else:
+        dev = block_graphset_to_device(build_block_graphset(gs), "cpu")
+        fn = train_dp.make_block_dp_loss(dev, grid, *job["budget"], True)
+    loss, correct = fn(net_from(job, gs), rows)
+    return {"loss": loss.detach().numpy(), "correct": correct.numpy()}
+
+
+def epoch(job, rank):
+    gs = dataset(job)
+    grid = mesh.make_mesh(tuple(job["mesh"]), "cpu")
+    d, g = grid.shape
+    bs = job["batch"]
+    bucket = shard.shard_bucket(gs, bs, d, n_graph=g)
+    batches = shard.pack_epoch_dp(gs, np.asarray(job["order"]), bs, bucket, d, g)
+    net = net_from(job, gs, dropout=0.0)
+    opt = make_optimizer(net)
+    gen = torch.Generator().manual_seed(0)  # dropout 0: draws, but masks nothing
+    loss, correct = train_dp.make_dp_train_epoch(net, opt, grid)(batches, gen)
+    return {"loss": loss.numpy(), "correct": correct.numpy(), **params_of(net)}
+
+
+class Crash(RuntimeError):
+    pass
+
+
+def _run_cv(cfg, gs, crash_at=None):
+    """`run_cross_validation` with each mesh engine's chunks wrapped: the
+    parameters after every chunk of every fold are kept (the last one per
+    fold is the fold's result), and the chunk `crash_at` raises."""
+    seen, calls = {}, [0]
+    wrapped = {}
+    for cls in cv.MESH_ENGINES:
+        orig = cls.run_epochs
+        wrapped[cls] = orig
+
+        def run_epochs(self, net, optimizer, dropout_gen, perms, _orig=orig):
+            calls[0] += 1
+            if crash_at is not None and calls[0] == crash_at:
+                raise Crash(f"chunk {crash_at}")
+            rows = _orig(self, net, optimizer, dropout_gen, perms)
+            seen[self._fold] = (type(self).__name__, params_of(net), rows)
+            return rows
+
+        cls.run_epochs = run_epochs
+    writes = [0]
+    saved = (cv.save_checkpoint, metrics.FoldMetrics.to_csv, cv.write_overall_csv)
+
+    def counting(fn):
+        def f(*a, **k):
+            writes[0] += 1
+            return fn(*a, **k)
+        return f
+
+    cv.save_checkpoint = counting(saved[0])
+    metrics.FoldMetrics.to_csv = counting(saved[1])
+    cv.write_overall_csv = counting(saved[2])
+    try:
+        res = cv.run_cross_validation(cfg, dataset=gs, device="cpu")
+    finally:
+        for cls, orig in wrapped.items():
+            cls.run_epochs = orig
+        cv.save_checkpoint, metrics.FoldMetrics.to_csv, cv.write_overall_csv = saved
+    return res, seen, writes[0]
+
+
+def cv_job(job, rank):
+    gs = dataset(job)
+    cfg = Config(**{k: tuple(v) if isinstance(v, list) else v
+                    for k, v in job["cfg"].items()})
+    out = {}
+    if job.get("crash_at"):
+        try:
+            _run_cv(cfg, gs, job["crash_at"])
+            raise AssertionError("the run did not crash")
+        except Crash:
+            out["crashed"] = np.asarray(1)
+        cfg = dataclasses.replace(cfg, checkpoint_resume=True)
+    res, seen, writes = _run_cv(cfg, gs)
+    out["test_accuracies"] = np.asarray(res["test_accuracies"], dtype=np.float64)
+    out["train_accuracies"] = np.asarray(res["train_accuracies"], dtype=np.float64)
+    out["writes"] = np.asarray(writes)
+    for fold, (engine, params, rows) in seen.items():
+        out[f"fold{fold}/engine"] = np.asarray(engine)
+        out[f"fold{fold}/rows"] = rows
+        out.update({f"fold{fold}/{k}": v for k, v in params.items()})
+    return out
+
+
+def mismatch(job, rank):
+    try:
+        mesh.make_mesh(tuple(job["mesh"]), "cpu")
+    except ValueError as e:
+        return {"error": np.asarray(str(e))}
+    return {"error": np.asarray("")}
+
+
+JOBS = {"coo_loss": coo_loss, "engine_loss": engine_loss, "epoch": epoch, "cv": cv_job,
+        "mismatch": mismatch}
+
+
+def spawn(tmp, world: int, jobs: list, timeout: float = 120.0) -> list:
+    """Run `jobs` on a grid of `world` ranks, each this script in its own
+    process, in the directory `tmp` (the store, the job list, the outputs);
+    returns each rank's results, a dict of arrays. Raises with the ranks'
+    output when one fails, and kills every rank still running at the
+    `timeout` (seconds, for all of them together)."""
+    import pathlib
+    import subprocess
+    import time
+
+    tmp = pathlib.Path(tmp)
+    jobs_path = tmp / "jobs.json"
+    jobs_path.write_text(json.dumps(jobs))
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(r), str(world),
+         str(tmp / "store"), str(jobs_path), str(tmp / f"out{r}.npz")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        for r in range(world)]
+    deadline = time.monotonic() + timeout
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+            logs.append(out.decode(errors="replace"))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"a rank of {world} did not finish in {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {world} exited {p.returncode}:\n"
+                                 + "\n".join(f"--- rank {i}\n{t[-4000:]}"
+                                             for i, t in enumerate(logs)))
+    out = []
+    for r in range(world):
+        with np.load(tmp / f"out{r}.npz") as z:
+            out.append({k: z[k] for k in z.files})
+    return out
+
+
+def main(argv) -> int:
+    rank, world = int(argv[1]), int(argv[2])
+    store, jobs_path, out_path = argv[3], argv[4], argv[5]
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=60))
+    try:
+        with open(jobs_path) as f:
+            jobs = json.load(f)
+        out = {}
+        for job in jobs:
+            res = JOBS[job["kind"]](job, rank)
+            out.update({f"{job['name']}/{k}": np.asarray(v) for k, v in res.items()})
+        np.savez(out_path, **out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
