@@ -252,6 +252,23 @@ CUDA is absent or any phase fails. Phases:
         0's eager fold-epoch seconds (two ranks sharing one card: not
         scaling); then, in this process, a 1-rank `nccl` group trains
         fold 1 of DD one epoch through `MeshDeviceCooEngine`;
+     k. the halo layout and fold-sharded lockstep, the ranks run as in j:
+        synthetic DD `--layout halo` on a (1, 2) grid at full width
+        (`MeshHaloEngine`, the row kernel over each rank's extended
+        window): one global batch's deterministic loss and its gradients,
+        summed over all D·G ranks, within rtol 2e-4 / atol 1e-6 of one
+        device's `apply_coo`, bitwise across the ranks;
+        `run_cross_validation` 2 folds x 2 epochs (eager, chunks of one
+        epoch): parameters and rows bitwise across the ranks, the row
+        kernel's launches per rank exactly the run's steps', 0 elsewhere
+        (and `--spmm onehot`, 2 folds x 1 epoch, the edge-block kernel);
+        then synthetic NCI1 and DD under `auto` on a (2, 1) grid, 10
+        folds x 2 epochs (DD `--block_impl xla` 2 x 2), graphed:
+        fold-sharded lockstep, every fold's rows within rtol/atol 5e-4 of
+        the same config's one-device lockstep on the card (bitwise or not
+        printed), accuracies equal, each rank's trunk or CSR launches
+        exactly one device's; then `dryrun_multichip(2)` on the card (its
+        own 2 gloo ranks sharing it);
   5. device times (utils/profiling.py `device_ms`): each call captured
      10 times in one CUDA graph, the graph replayed and timed with CUDA
      events, so the host's launch rate is out of the number; warm
@@ -311,9 +328,9 @@ CUDA is absent or any phase fails. Phases:
      launches and merged-step times beside them; the three kernels' bf16
      modes as `*_bf16_*` entries with phase 4g's launches; the row
      kernel's entries carry phase 4h's inference launches and graphs/s),
-     the resume and inference numbers with the card line, phase 4j's
-     launches per rank as each mesh kernel's `mesh_path` and its
-     seconds, the card line again, and the final `{"ok": true, ...}`
+     the resume and inference numbers with the card line, phases 4j
+     and 4k's launches per rank as each mesh kernel's `mesh_path` and
+     their seconds, the card line again, and the final `{"ok": true, ...}`
      line.
 """
 
@@ -4001,6 +4018,8 @@ def profile_epoch(name, r, eager_step):
 # (name, dataset, grid (data, graph), config, the kernel its path runs); each
 # run 2 folds x 2 epochs, every chunk one epoch
 MESH_RUNS = (
+    # cv_parallel "sequential" pins the DP engine's path on purpose: under
+    # `auto` the (2, 1) grid would shard NCI1's folds in lockstep (phase 4k)
     ("NCI1 dense", "NCI1", (2, 1), dict(layout="dense", cv_parallel="sequential"),
      "gcn_trunk"),
     ("DD block", "DD", (1, 2), dict(layout="block"), "block_csr"),
@@ -4008,7 +4027,7 @@ MESH_RUNS = (
     ("DD host COO", "DD", (2, 1), dict(layout="coo", coo_assembly="host"), "spmm_rows"),
 )
 MESH_WORLD = 2
-MESH_TIMEOUT = 400  # seconds for both ranks together
+MESH_TIMEOUT = 400  # seconds for both ranks together (each phase)
 
 
 def mesh_counters():
@@ -4266,11 +4285,13 @@ def cold_build(tmp):
     return {"seconds": seconds, "files": sorted(os.listdir(cold))}
 
 
-def mesh_child(rank: int, world: int, coordinator: str, out_path: str) -> int:
-    """One rank of phase 4j (`chip_smoke.py --mesh-child RANK WORLD
-    COORDINATOR OUT`): joins a gloo group of WORLD ranks on cuda:0 as a
-    user's process joins one (`initialize_multihost`, tcp://COORDINATOR),
-    builds, runs every `MESH_RUNS` entry and writes its results as JSON
+def mesh_child(rank: int, world: int, coordinator: str, out_path: str,
+               phase: str = "4j") -> int:
+    """One rank of phase 4j or 4k (`chip_smoke.py --mesh-child RANK WORLD
+    COORDINATOR OUT PHASE`): joins a gloo group of WORLD ranks on cuda:0
+    as a user's process joins one (`initialize_multihost`,
+    tcp://COORDINATOR), builds, runs every `MESH_RUNS` entry (4j) or every
+    `HALO_RUNS` and `FOLD_RUNS` entry (4k) and writes its results as JSON
     to OUT."""
     import torch.distributed as dist
 
@@ -4286,13 +4307,23 @@ def mesh_child(rank: int, world: int, coordinator: str, out_path: str) -> int:
     # nccl refuses two ranks on one card: the one-card run's gloo
     initialize_multihost(coordinator, world, rank, backend="gloo")
     try:
-        result = {"rank": rank, "cold_build": cold_build(os.path.dirname(out_path))}
+        result = {"rank": rank}
+        if phase == "4j":
+            result["cold_build"] = cold_build(os.path.dirname(out_path))
         _build.build_all()  # the other kernels, built by phase 2
         data = {n: synthesize_tu_dataset(n) for n in ("NCI1", "DD")}
         with tempfile.TemporaryDirectory() as tmp:
-            result["runs"] = {name: mesh_child_run(name, ds, data[ds], shape, over, kernel,
-                                                   tmp, device)
-                              for name, ds, shape, over, kernel in MESH_RUNS}
+            if phase == "4j":
+                result["runs"] = {name: mesh_child_run(name, ds, data[ds], shape, over,
+                                                       kernel, tmp, device)
+                                  for name, ds, shape, over, kernel in MESH_RUNS}
+            else:
+                result["halo"] = {name: halo_child_run(name, ds, data[ds], shape, over,
+                                                       kernel, depth, tmp, device)
+                                  for name, ds, shape, over, kernel, depth in HALO_RUNS}
+                result["folds"] = {name: fold_child_run(name, ds, data[ds], shape, over,
+                                                        depth, tmp, device)
+                                   for name, ds, shape, over, _, depth in FOLD_RUNS}
         with open(out_path, "w") as f:
             json.dump(result, f)
     finally:
@@ -4300,10 +4331,11 @@ def mesh_child(rank: int, world: int, coordinator: str, out_path: str) -> int:
     return 0
 
 
-def spawn_mesh_ranks(tmp):
-    """Phase 4j's ranks, each `chip_smoke.py --mesh-child` in a process of its
-    own; each rank's results. Raises with the ranks' output if one fails
-    or the ranks outlast `MESH_TIMEOUT` (then every rank is killed)."""
+def spawn_mesh_ranks(tmp, phase="4j"):
+    """Phase 4j's (or 4k's) ranks, each `chip_smoke.py --mesh-child` in a
+    process of its own; each rank's results. Raises with the ranks' output
+    if one fails or the ranks outlast `MESH_TIMEOUT` (then every rank is
+    killed)."""
     import socket
 
     with socket.socket() as sock:  # a free port on this host for rank 0's store
@@ -4312,7 +4344,7 @@ def spawn_mesh_ranks(tmp):
     outs = [os.path.join(tmp, f"rank{r}.json") for r in range(MESH_WORLD)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--mesh-child", str(r),
-         str(MESH_WORLD), coordinator, outs[r]], stdout=subprocess.PIPE,
+         str(MESH_WORLD), coordinator, outs[r], phase], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__))) for r in range(MESH_WORLD)]
     deadline = time.monotonic() + MESH_TIMEOUT
@@ -4326,7 +4358,7 @@ def spawn_mesh_ranks(tmp):
                 p.kill()
                 p.wait()
     if any(p.returncode != 0 for p in procs):
-        raise AssertionError("phase 4j: a rank failed:\n" + "\n".join(
+        raise AssertionError(f"phase {phase}: a rank failed:\n" + "\n".join(
             f"--- rank {r} (exit {p.returncode})\n{t[-6000:]}"
             for r, (p, t) in enumerate(zip(procs, logs))))
     res = []
@@ -4460,6 +4492,229 @@ def mesh_main_path(dd, device, card):
     nccl = nccl_one_rank(dd, device)
     log(f"  phase 4j took {time.perf_counter() - t0:.1f} s; {card}")
     return {"runs": runs, "nccl": nccl}
+
+
+# -- phase 4k: the halo layout, fold-sharded lockstep and the dry run ------------
+
+# (name, dataset, grid, config, the kernel its path runs, (folds, epochs))
+HALO_RUNS = (
+    ("DD halo", "DD", (1, 2), dict(layout="halo"), "spmm_rows", (2, 2)),
+    ("DD halo onehot", "DD", (1, 2), dict(layout="halo", spmm_impl="onehot"),
+     "spmm_edge_block", (2, 1)),
+)
+FOLD_RUNS = (
+    ("NCI1 fold-sharded", "NCI1", (2, 1), dict(), "gcn_trunk", (FOLDS, 2)),
+    ("DD fold-sharded", "DD", (2, 1), dict(), "block_csr", (FOLDS, 2)),
+    ("DD fold-sharded xla", "DD", (2, 1), dict(block_impl="xla"), "block_resident",
+     (2, 2)),
+)
+
+
+def halo_child_run(name, data_type, gs, grid_shape, over, kernel, depth, tmp, device):
+    """One of `HALO_RUNS` on this rank: one global batch's deterministic halo
+    loss and its gradients summed over all D·G ranks, against one device's
+    `apply_coo` on the same batch (rank 0); then `run_cross_validation`
+    over the grid, the launch counts set to 0 just before and read just
+    after."""
+    from dgcnn_tpu_torch.batching.packer import batch_to_device, compute_bucket, pack_batch
+    from dgcnn_tpu_torch.batching.shard_pack import pack_step_halo
+    from dgcnn_tpu_torch.models.dgcnn import DGCNNNet, init_params
+    from dgcnn_tpu_torch.parallel.halo import grad_groups, make_halo_loss
+    from dgcnn_tpu_torch.parallel.mesh import make_mesh
+    from dgcnn_tpu_torch.parallel.train_dp import reduce_gradients
+    from dgcnn_tpu_torch.train import cv
+    from dgcnn_tpu_torch.train.loop import nll_loss_and_correct
+
+    sub = name.replace(" ", "_")
+    folds_n, epochs = depth
+    cfg = cv_config(tmp, sub, data_type, folds_n, epochs, mesh_shape=grid_shape,
+                    max_fused_epochs=1, **over)
+    grid = make_mesh(grid_shape, device)
+    engine = cv.make_engine(cfg, gs, device, "halo", grid=grid)
+    fold_dir = os.path.join(cfg.data_root, cfg.data_type, "10fold_idx")
+    train, _ = cv.get_folds(gs.y, fold_dir, folds_n, cfg.seed, data_type=data_type)[0]
+    train = np.asarray(train)
+    perm = np.random.default_rng(np.random.SeedSequence([cfg.seed, 1])).permutation(
+        len(train))
+    ids = train[perm][:cfg.batch_size]
+    b = engine.bucket
+    out = {"engine": type(engine).__name__, "spmm_impl": engine.spmm_impl,
+           "bucket": [b.shard_nodes, b.shard_edges, b.shard_graphs, b.halo],
+           "want_launches": mesh_launches_want(engine, kernel, *count_steps(
+               data_type, gs.y, folds_n, epochs, cfg.batch_size, fold_dir))}
+    model = cv._model_from_config(cfg, gs.num_features, gs.num_classes)
+    net = DGCNNNet(model, init_params(torch.Generator().manual_seed(3), model, device))
+    local = pack_step_halo(gs, ids, *grid.shape, b.shard_nodes, b.shard_edges,
+                           b.shard_graphs, b.halo, rank=(grid.d, grid.g)).map(
+        lambda a: torch.from_numpy(a).to(device))
+    out["shard"] = {"S": b.shard_nodes, "E_s": b.shard_edges,
+                    "real_nodes": float(local.node_mask.sum()),
+                    "real_edges": float(local.edge_mask.sum())}
+    net.zero_grad(set_to_none=True)
+    loss, correct = make_halo_loss(grid, engine.spmm_impl, deterministic=True)(net, local)
+    loss.backward()
+    for group in grad_groups(grid):
+        reduce_gradients(net.parameters(), group)
+    grads = [p.grad.clone() for p in net.parameters()]
+    out["det"] = {"mesh": [loss.item(), correct.item()]}
+    out["grad"] = {"digest": params_digest(grads)}
+    if grid.writer:
+        batch = batch_to_device(pack_batch(gs, ids, compute_bucket(gs, len(ids))), device)
+        net.zero_grad(set_to_none=True)
+        loss_s, correct_s = nll_loss_and_correct(
+            net(batch, deterministic=True, spmm_impl=engine.spmm_impl), batch.y,
+            batch.graph_mask)
+        loss_s.backward()
+        out["det"]["single"] = [loss_s.item(), correct_s.item()]
+        rows = [(n, *rel_err(a, p.grad), torch.allclose(a, p.grad, rtol=2e-4, atol=1e-6))
+                for (n, p), a in zip(net.named_parameters(), grads)]
+        out["grad"]["worst_rel"] = max(r[2] for r in rows)
+        out["grad"]["beyond"] = [r[0] for r in rows if not r[4]]
+    del engine, local
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["run"] = mesh_cv(cfg, gs, grid)
+    return out
+
+
+def fold_child_run(name, data_type, gs, grid_shape, over, depth, tmp, device):
+    """One of `FOLD_RUNS` on this rank: `run_cross_validation` under `auto`
+    over the (D, 1) grid, graphed, the launch counts set to 0 just before
+    and read just after, then (rank 0) the same config on one device."""
+    from dgcnn_tpu_torch.train import cv
+
+    sub = name.replace(" ", "_")
+    folds_n, epochs = depth
+    cfg = cv_config(tmp, sub, data_type, folds_n, epochs, mesh_shape=grid_shape,
+                    max_fused_epochs=1, **over)
+    layout = cv.choose_layout(cfg, gs)
+    out = {"layout": layout, "lockstep": cv.lockstep_engages(cfg, gs, layout)}
+
+    def counted(c):
+        for k in mesh_counters().values():
+            k.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cv.run_cross_validation(c, dataset=gs, device=device)
+        torch.cuda.synchronize()
+        return {"test": res["test_accuracies"], "launches": mesh_counts(),
+                "wall_s": time.perf_counter() - t0}
+
+    out["mesh"] = counted(cfg)
+    if torch.distributed.get_rank() == 0:
+        out["rows"] = [r.tolist() for r in fold_rows(cfg)]
+        out["epoch_s"] = [[e["fold"], e["epoch"], e["epoch_seconds"]]
+                          for e in epoch_events(cfg) if e["fold"] == 1]
+        start = json.loads(open(os.path.join(cfg.statistics_dir,
+                                             f"{data_type}_events.jsonl")).readline())
+        out["engine"], out["fold_shards"] = start["engine"], start.get("fold_shards")
+        one = dataclasses.replace(cfg, mesh_shape=(1, 1),
+                                  statistics_dir=os.path.join(tmp, sub + "_one", "statistics"),
+                                  epochs_dir=os.path.join(tmp, sub + "_one", "epochs"))
+        out["one"] = counted(one)
+        out["one_rows"] = [r.tolist() for r in fold_rows(one)]
+        out["one_epoch_s"] = [[e["fold"], e["epoch"], e["epoch_seconds"]]
+                              for e in epoch_events(one) if e["fold"] == 1]
+    torch.distributed.barrier()  # rank 1 waits while rank 0 runs one device
+    return out
+
+
+def check_halo_run(name, shape, kernel, ranks):
+    """Phase 4k's checks of one halo run from its ranks' results."""
+    r0 = ranks[0]["halo"][name]
+    det = r0["det"]
+    rel = abs(det["mesh"][0] - det["single"][0]) / abs(det["single"][0])
+    if rel > 2e-4 or det["mesh"][1] != det["single"][1]:
+        raise AssertionError(f"{name}: halo loss {det['mesh']} vs one device "
+                             f"{det['single']} (rel {rel:.3e})")
+    if r0["grad"]["beyond"]:
+        raise AssertionError(f"{name}: the gradients of {r0['grad']['beyond']} leave one "
+                             f"device's beyond rtol 2e-4 / atol 1e-6")
+    for r in ranks[1:]:
+        mine = r["halo"][name]
+        if mine["det"]["mesh"] != det["mesh"] or mine["grad"]["digest"] != r0["grad"][
+                "digest"]:
+            raise AssertionError(f"{name}: rank {r['rank']}'s loss or gradients differ "
+                                 f"from rank 0's")
+        if mine["run"]["folds"] != r0["run"]["folds"]:
+            raise AssertionError(f"{name}: rank {r['rank']}'s parameters or rows differ")
+    want = {k: r0["want_launches"] if k == kernel else [0, 0, 0, 0]
+            for k in r0["run"]["launches"]}
+    per_rank = [r["halo"][name]["run"]["launches"] for r in ranks]
+    if any(p != want for p in per_rank):
+        raise AssertionError(f"{name}: launches per rank {per_rank}, want {want}")
+    secs = [s for _, _, s in r0["run"]["epoch_s"]]
+    log(f"  {name} ({r0['engine']}, grid {shape}, spmm {r0['spmm_impl']}, bucket S, E_s, "
+        f"B_s, H = {r0['bucket']}; rank 0's shard of one batch {r0['shard']}): loss of one "
+        f"global batch {det['mesh'][0]:.8f} vs one device's apply_coo "
+        f"{det['single'][0]:.8f} (rel {rel:.3e}, correct {det['mesh'][1]:.0f} both); its "
+        f"gradients after the sum over all D·G ranks within rtol 2e-4 / atol 1e-6 of one "
+        f"device's (worst rel {r0['grad']['worst_rel']:.3e}), bitwise across the ranks; "
+        f"run_cross_validation: every fold's parameters and rows bitwise across the "
+        f"ranks; launches per rank (fwd, bwd, F=1 fwd, F=1 bwd) {kernel} "
+        f"{per_rank[0][kernel]} exactly, 0 on every other kernel; eager fold-epoch "
+        f"seconds (two ranks sharing one card, not scaling) {secs}")
+    return {"run": name, "kernel": kernel, "grid": list(shape), "engine": r0["engine"],
+            "launches_per_rank": [p[kernel] for p in per_rank], "epoch_s": secs}
+
+
+def check_fold_run(name, shape, kernel, ranks):
+    """Phase 4k's checks of one fold-sharded run from its ranks' results."""
+    r0 = ranks[0]["folds"][name]
+    if not r0["lockstep"] or r0["fold_shards"] != shape[0]:
+        raise AssertionError(f"{name}: auto did not shard the folds' lockstep "
+                             f"({r0['lockstep']}, {r0['fold_shards']})")
+    got, want = np.asarray(r0["rows"]), np.asarray(r0["one_rows"])
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: rows {got.shape} vs one device's {want.shape}")
+    if not np.allclose(got, want, rtol=5e-4, atol=5e-4):
+        raise AssertionError(f"{name}: fold-sharded rows vs one device's lockstep: worst "
+                             f"abs {np.abs(got - want).max():.3e}")
+    for r in ranks[1:]:
+        if r["folds"][name]["mesh"]["test"] != r0["mesh"]["test"]:
+            raise AssertionError(f"{name}: rank {r['rank']}'s gathered accuracies differ")
+    if r0["mesh"]["test"] != r0["one"]["test"]:
+        raise AssertionError(f"{name}: accuracies {r0['mesh']['test']} vs one device's "
+                             f"{r0['one']['test']}")
+    want_l = {k: r0["one"]["launches"][k] if k == kernel else [0, 0, 0, 0]
+              for k in r0["one"]["launches"]}
+    if r0["one"]["launches"] != want_l or not any(want_l[kernel]):
+        raise AssertionError(f"{name}: one device's launches {r0['one']['launches']}")
+    per_rank = [r["folds"][name]["mesh"]["launches"] for r in ranks]
+    if any(p != want_l for p in per_rank):
+        raise AssertionError(f"{name}: launches per rank {per_rank}, one device's {want_l}")
+    bitwise = bool(np.array_equal(got, want))
+    secs = [s for _, _, s in r0["epoch_s"]]
+    log(f"  {name} ({r0['layout']} lockstep under auto, {r0['engine']} on each rank, "
+        f"grid {shape}): every fold's rows within rtol/atol 5e-4 of one device's lockstep "
+        f"(worst abs {np.abs(got - want).max():.3e}, bitwise {bitwise}), accuracies equal; "
+        f"launches per rank (fwd, bwd, F=1 fwd, F=1 bwd) {kernel} {per_rank[0][kernel]} "
+        f"as one device's; fold-epoch seconds by epoch, graphed, rank 0 (two ranks "
+        f"sharing one card, not scaling) {secs}, one device {[s for _, _, s in r0['one_epoch_s']]}")
+    return {"run": name, "kernel": kernel, "grid": list(shape), "engine": r0["engine"],
+            "launches_per_rank": [p[kernel] for p in per_rank], "epoch_s": secs,
+            "one_device_epoch_s": [s for _, _, s in r0["one_epoch_s"]], "bitwise": bitwise}
+
+
+def halo_fold_main_path(card):
+    """Phase 4k: `HALO_RUNS` and `FOLD_RUNS` on 2 gloo ranks sharing cuda:0,
+    then `dryrun_multichip(2)` on the card; what the kernels line adds."""
+    from dgcnn_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_mesh_ranks(tmp, "4k")
+    runs = [check_halo_run(name, shape, kernel, ranks)
+            for name, _, shape, _, kernel, _ in HALO_RUNS]
+    runs += [check_fold_run(name, shape, kernel, ranks)
+             for name, _, shape, _, kernel, _ in FOLD_RUNS]
+    t1 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(2)
+    dry_s = time.perf_counter() - t1
+    log(f"  dryrun_multichip(2) on the card (2 gloo ranks sharing it) in {dry_s:.1f} s: "
+        + json.dumps(dry))
+    log(f"  phase 4k took {time.perf_counter() - t0:.1f} s; {card}")
+    return {"runs": runs, "dryrun": dry, "dryrun_s": dry_s}
 
 
 def main() -> int:
@@ -4826,6 +5081,14 @@ def main() -> int:
         f"2 epochs each, eager, run twice; then a 1-rank nccl group")
     log(card)
     mesh = mesh_main_path(ctx.gs, device, card)
+
+    log(f"== phase 4k: the halo layout and fold-sharded lockstep on the card: "
+        f"{MESH_WORLD} gloo ranks sharing cuda:0, synthetic DD --layout halo (1, 2) 2 "
+        f"folds x 2 epochs (and --spmm onehot 2 x 1), eager; synthetic NCI1 and DD "
+        f"under auto on a (2, 1) grid, {FOLDS} folds x 2 epochs (DD --block_impl xla "
+        f"2 x 2), graphed; then dryrun_multichip(2)")
+    log(card)
+    halo_folds = halo_fold_main_path(card)
 
     log("== phase 5: device times (CUDA-graph replay, CUDA events)")
     log(card)
@@ -5280,9 +5543,9 @@ def main() -> int:
         "shape": f"the abuild variant at the {probe_shapes[0].label}",
         "variants_ms": {v: t["ms"] for v, t in std["variants"].items()},
     })
-    for k in kernels:  # phase 4j's launches, per rank, beside the single-device path's
+    for k in kernels:  # phases 4j and 4k's launches per rank, beside one device's
         runs = []
-        for run in mesh["runs"]:
+        for run in mesh["runs"] + halo_folds["runs"]:
             for i, d in enumerate(("fwd", "bwd")):
                 if k["name"] == f"{run['kernel']}_{d}":
                     per_rank = [n[i] - n[2 + i] for n in run["launches_per_rank"]]
@@ -5294,8 +5557,11 @@ def main() -> int:
                              "launches_per_rank": per_rank})
         if runs:
             k["mesh_path"] = {
-                "main_path": f"phase 4j: {MESH_WORLD} gloo ranks sharing one card, 2 folds x "
-                             f"2 epochs, eager, launches counted per rank",
+                "main_path": f"phases 4j and 4k: {MESH_WORLD} gloo ranks sharing one card; "
+                             f"the DP and halo engines 2 folds x 2 epochs (halo onehot "
+                             f"2 x 1), eager; fold-sharded lockstep {FOLDS} folds x 2 "
+                             f"epochs (block_impl xla 2 x 2), graphed; launches counted "
+                             f"per rank",
                 "runs": runs}
             if k["name"].startswith("spmm_rows") and not k["name"].endswith("_f1"):
                 i = 0 if "_fwd" in k["name"] else 1
@@ -5305,6 +5571,12 @@ def main() -> int:
         f"fold-epoch seconds " + "; ".join(f"{r['run']} {r['grid']} {r['epoch_s']}"
                                           for r in mesh["runs"])
         + f"; 1-rank nccl DD device COO fold-epoch {mesh['nccl']['wall_s']:.3f} s")
+    log(f"halo and fold-sharded lockstep (phase 4k; {card}; two ranks sharing one card, "
+        f"not scaling): fold-epoch seconds " + "; ".join(
+            f"{r['run']} {r['grid']} {r['epoch_s']}"
+            + (f" (one device {r['one_device_epoch_s']}, rows bitwise {r['bitwise']})"
+               if "one_device_epoch_s" in r else "") for r in halo_folds["runs"])
+        + f"; dryrun_multichip(2) {halo_folds['dryrun_s']:.1f} s")
     log(f"DD block fold-epoch seconds (main path, block_impl {auto_impl}): graphed "
         f"{dd_epoch_s}, eager {[e['epoch_seconds'] for e in dd_events[auto_impl][1]]}")
     log(f"DD block lockstep fold-epoch seconds ({FOLDS} folds, cv_parallel auto, "
@@ -5368,6 +5640,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--mesh-child"]:  # one rank of phase 4j
-        sys.exit(mesh_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
+    if sys.argv[1:2] == ["--mesh-child"]:  # one rank of phase 4j or 4k
+        sys.exit(mesh_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5],
+                            *sys.argv[6:7]))
     sys.exit(main())

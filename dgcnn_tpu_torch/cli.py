@@ -1,11 +1,15 @@
 """Command-line interface — the port of dgcnn_tpu/cli.py, with the same
 flags. Runs on the GPU (`cuda`); `--platform cpu` runs the plain PyTorch
-path on the CPU. Flags whose paths the port does not serve yet raise
-NotImplementedError naming the ROADMAP item that ports them. On several
-devices, one process each (the port's mesh, parallel/mesh.py):
+path on the CPU. `--platform probe` (a TPU transport health check) is
+not ported and raises NotImplementedError. On several devices, one
+process each (the port's mesh, parallel/mesh.py):
 
     torchrun --nproc_per_node 4 -m dgcnn_tpu_torch.cli --data_type DD \
         --synthetic --layout coo --mesh 2,2
+    torchrun --nproc_per_node 2 -m dgcnn_tpu_torch.cli --data_type DD \
+        --synthetic --layout halo --mesh 1,2    # nodes sharded over 2 ranks
+    torchrun --nproc_per_node 2 -m dgcnn_tpu_torch.cli --data_type NCI1 \
+        --synthetic --mesh 2,1    # auto: the folds' lockstep sharded over 2
     python -m dgcnn_tpu_torch.cli ... --mesh 2,2 --multihost \
         --coordinator HOST:PORT --num_processes 4 --process_id R
 
@@ -21,6 +25,7 @@ devices, one process each (the port's mesh, parallel/mesh.py):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import torch
@@ -42,8 +47,9 @@ def get_args(argv=None):
                         help="directory with {train,test}_idx-<k>.txt fold files")
     parser.add_argument("--layout", default="auto",
                         choices=["auto", "coo", "dense", "multi", "block", "halo"],
-                        help="batch layout (the port serves dense, block "
-                             "and coo; auto picks as the reference does)")
+                        help="batch layout; halo shards each sub-batch's "
+                             "nodes over the mesh's graph axis (needs --mesh); "
+                             "auto picks as the reference does")
     parser.add_argument("--mesh", default="1,1", type=str,
                         help="process grid 'data,graph' (e.g. 2,2 = 2-way data "
                              "parallel x 2-way edge-partitioned), one process "
@@ -129,7 +135,9 @@ def get_args(argv=None):
                         help="export the run's events as TensorBoard scalars "
                              "under DIR at run end (needs tensorboardX)")
     parser.add_argument("--profile", default=None, type=str, metavar="DIR",
-                        help="device trace (not ported)")
+                        help="write a torch.profiler trace of the run (host "
+                             "ops, and the card's kernels) to "
+                             "DIR/trace_<pid>.json")
     parser.add_argument("--platform", default="auto",
                         choices=["auto", "cpu", "probe"],
                         help="auto = the GPU (raises when CUDA is absent); "
@@ -146,13 +154,9 @@ def under_torchrun() -> bool:
 
 def main(argv=None):
     opt = get_args(argv)
-    unserved = []
-    if opt.profile:
-        unserved.append("--profile (ROADMAP Queue 1 item 13)")
     if opt.platform == "probe":
-        unserved.append("--platform probe, a TPU transport health check")
-    if unserved:
-        raise NotImplementedError("not ported yet: " + "; ".join(unserved))
+        raise NotImplementedError(
+            "not ported: --platform probe, a TPU transport health check")
     cfg = Config(
         data_type=opt.data_type,
         batch_size=opt.batch_size,
@@ -199,7 +203,13 @@ def main(argv=None):
         from dgcnn_tpu_torch.parallel.mesh import LAUNCH_HINT
 
         raise RuntimeError(f"--mesh {opt.mesh} needs {ranks} processes: {LAUNCH_HINT}")
-    return run_cross_validation(cfg, allow_synthetic=opt.synthetic, device=device)
+    ctx = contextlib.nullcontext()
+    if opt.profile:
+        from dgcnn_tpu_torch.utils.profiling import trace
+
+        ctx = trace(opt.profile)
+    with ctx:
+        return run_cross_validation(cfg, allow_synthetic=opt.synthetic, device=device)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,7 @@
 """Experiment configuration — the port's copy of dgcnn_tpu/config.py.
 
 Same field names, defaults and validation, so a CLI flag means the same on
-both packages. Fields this slice does not serve are still accepted here
-and rejected by the driver (train/cv.py `check_supported`) with the
-ROADMAP item that ports them. What differs from the reference:
+both packages. What differs from the reference:
 
   * `adj_dtype="auto"` resolves to float32: the TPU's bf16 resolution
     rested on its matrix unit rounding fp32 operands anyway, which the

@@ -19,6 +19,7 @@ graphs store each undirected edge in both directions (SURVEY §2c
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -116,8 +117,13 @@ class GraphSet:
     # -- (de)serialization ----------------------------------------------------
 
     def to_npz(self, path: str) -> None:
+        """Write the arrays to `path` atomically: to a temporary name of this
+        process, then renamed into place, so that a process reading the
+        path (another rank of a mesh run loading the same cache) never sees
+        a partial file."""
+        tmp = f"{path}.{os.getpid()}.tmp.npz"
         np.savez_compressed(
-            path,
+            tmp,
             x=self.x,
             node_ptr=self.node_ptr,
             edge_src=self.edge_src,
@@ -126,6 +132,7 @@ class GraphSet:
             y=self.y,
             num_classes=np.int64(self.num_classes),
         )
+        os.replace(tmp, path)
 
     @staticmethod
     def from_npz(path: str) -> "GraphSet":

@@ -400,8 +400,9 @@ def _dense_trunk(params: Params, model: DGCNN, batch: DenseGraphBatch,
             raise ValueError(f"{s} slots do not split into {f} folds")
         hw1 = matmul_f32(x.reshape(f, -1, x.shape[-1]), gcn[0]["w"].to(dt)).reshape(
             s, x.shape[1], -1)
+        # contiguous: for one fold the expanded view has stride 0
         wsel = torch.arange(f, dtype=torch.int32, device=dev)[:, None].expand(
-            f, s // f).reshape(-1)
+            f, s // f).reshape(-1).contiguous()
         ws = tuple(layer["w"].to(dt).float() for layer in gcn[1:])
         bs = tuple(layer["b"] for layer in gcn)
     else:

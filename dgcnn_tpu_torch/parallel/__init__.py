@@ -1,9 +1,12 @@
 """Parallelism over a (data, graph) process grid — the port of
 dgcnn_tpu/parallel (less `batch_pspecs` and `device_put_epoch`, which
 place arrays on a JAX mesh: a rank here keeps its own selection,
-`shard.local_view`). The halo exchange (`parallel/halo.py`) is ROADMAP
-Queue 1 item 12b."""
+`shard.local_view`), and the halo layout's node-sharded forward
+(`halo.py`)."""
 
+from dgcnn_tpu_torch.parallel.halo import (
+    HaloExchange, apply_halo, make_halo_eval_epoch, make_halo_loss, make_halo_train_epoch,
+)
 from dgcnn_tpu_torch.parallel.mesh import (
     ProcessGrid, device_grid, initialize_multihost, make_mesh,
 )
@@ -18,7 +21,9 @@ from dgcnn_tpu_torch.parallel.train_dp import (
 
 __all__ = [
     "DPRun",
+    "HaloExchange",
     "ProcessGrid",
+    "apply_halo",
     "device_grid",
     "initialize_multihost",
     "local_view",
@@ -28,6 +33,9 @@ __all__ = [
     "make_device_coo_dp_run",
     "make_dp_eval_epoch",
     "make_dp_train_epoch",
+    "make_halo_eval_epoch",
+    "make_halo_loss",
+    "make_halo_train_epoch",
     "make_mesh",
     "make_sharded_loss",
     "pack_epoch_dp",

@@ -104,6 +104,14 @@ def sum_over(t: torch.Tensor, group) -> torch.Tensor:
     return t
 
 
+def broadcast_from(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """`t` overwritten in place with rank `src`'s (a global rank of
+    `group`; no-op for None)."""
+    if group is not None:
+        dist.broadcast(t, src=src, group=group)
+    return t
+
+
 def rank_device(device=None, rank: int = 0) -> torch.device:
     """The rank's device: `cuda:LOCAL_RANK` (torchrun's variable; else the
     rank modulo the cards) unless the caller names one; "cpu" runs the

@@ -73,10 +73,13 @@ class _GroupSum(torch.autograd.Function):
         return g, None
 
 
-def global_terms(loss_sum, count, correct, group):
+def global_terms(loss_sum, count, correct, *groups):
     """(global mean loss, global correct count) from one rank's terms, one
-    collective over the data group."""
-    s = _GroupSum.apply(torch.stack([loss_sum, count, correct]), group)
+    collective over each of `groups` in turn (the data group; the halo
+    layout's graph group, then its data group)."""
+    s = torch.stack([loss_sum, count, correct])
+    for group in groups:
+        s = _GroupSum.apply(s, group)
     return s[0] / s[1].clamp(min=1.0), s[2].detach()
 
 
@@ -183,18 +186,22 @@ def make_sharded_loss(grid: ProcessGrid, spmm_impl: str = "xla",
 
 
 def dp_train_pass(net, optimizer, train_loss: Callable, steps, dropout_gen,
-                  grid: ProcessGrid):
+                  grid: ProcessGrid, grad_groups=None):
     """Train over `steps` on the grid: for each, the DP loss
     (`train_loss(net, step, dropout_gen)`), its backward, the gradients
-    summed over the data group, the replicated Adam step. Returns (mean of
-    the global batch means, summed correct count) on the device."""
+    summed over each of `grad_groups` in turn (default: the data group),
+    the replicated Adam step. Returns (mean of the global batch means,
+    summed correct count) on the device."""
+    if grad_groups is None:
+        grad_groups = (grid.data_group,)
     net.train()
     losses, corrects = [], []
     for step in steps:
         optimizer.zero_grad(set_to_none=True)
         loss, correct = train_loss(net, step, dropout_gen)
         loss.backward()
-        reduce_gradients(net.parameters(), grid.data_group)
+        for group in grad_groups:
+            reduce_gradients(net.parameters(), group)
         optimizer.step()
         losses.append(loss.detach())
         corrects.append(correct.detach())

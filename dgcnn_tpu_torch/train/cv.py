@@ -1,7 +1,7 @@
 """Cross-validation driver — the port of dgcnn_tpu/train/cv.py
 (`choose_layout` :141, `CooEngine` :249, `DeviceCooEngine` :339,
 `_geom_round` :373, `BlockSparseEngine` :434, `DenseEngine` :521,
-`MultiDenseEngine` :583, the
+`MultiDenseEngine` :583, `MeshHaloEngine` :720, the
 engine choice of `make_engine` :1067, `run_fold` :1130,
 `run_cross_validation` :1301, with its lockstep dispatch :1361-1401,
 its resume :1409-1443 and its fold loop :1461-1504, and `_finalize_cv`
@@ -31,22 +31,24 @@ draws the curves (train/plots.py, at chunk boundaries on a throttle and
 at run end) and exports TensorBoard events (train/tensorboard.py), both
 best-effort on the host.
 
-The port serves the dense, multi-tile dense, block-sparse and COO
-layouts. The folds train in lockstep (train/cv_vmap.py, over the
+The port serves the dense, multi-tile dense, block-sparse, COO and
+halo layouts. The folds train in lockstep (train/cv_vmap.py, over the
 layout's engine) where the reference would lockstep them
 (`lockstep_engages`): under `cv_parallel="folds"` on the dense, block
 and multi-tile layouts; under "auto" on the dense layout when
-`_lockstep_would_engage`, and always on the block layout (on one device
-the reference runs multi-tile folds one after another). Otherwise, and
-on the COO layout, the folds run one after another. `choose_layout`
-answers as the reference does; the halo layout and fold-sharded lockstep
-over a mesh raise NotImplementedError naming the ROADMAP item that ports
-them (`check_supported`). On a mesh (`mesh_shape` ≠ (1, 1); the
-reference's :675-1037, :1067-1090) every process is one rank of the
-(data, graph) grid (parallel/mesh.py) and the folds run one after another
-through the layout's mesh engine (`MeshDenseEngine`, `MeshBlockEngine`,
-`MeshDeviceCooEngine`, `MeshCooEngine`), eagerly; rank 0 alone writes the
-files. Each engine stores its data at the
+`_lockstep_would_engage`, always on the block layout, and on the
+multi-tile layout over a (D, 1) grid of D > 1 (on one device the
+reference runs multi-tile folds one after another). Otherwise, and on
+the COO and halo layouts, the folds run one after another.
+`choose_layout` answers as the reference does (it never picks halo). On
+a mesh (`mesh_shape` ≠ (1, 1); the reference's :675-1037, :1067-1090)
+every process is one rank of the (data, graph) grid (parallel/mesh.py):
+in lockstep, each rank of a (D, 1) grid trains its block of the folds on
+the layout's single-device engine (fold-sharded lockstep,
+train/cv_vmap.py); otherwise the folds run one after another through the
+layout's mesh engine (`MeshDenseEngine`, `MeshBlockEngine`,
+`MeshDeviceCooEngine`, `MeshCooEngine`, `MeshHaloEngine`), eagerly.
+Rank 0 alone writes the files. Each engine stores its data at the
 reference's dtypes: the dense and multi-tile datasets at
 `store_dtypes(resolved_adj_dtype, compute_dtype)`, the block pool at
 `pool_dtype(cfg)`; the COO engines in fp32.
@@ -107,6 +109,10 @@ from dgcnn_tpu_torch.data.datasets import load_dataset
 from dgcnn_tpu_torch.data.folds import get_folds
 from dgcnn_tpu_torch.data.graphset import GraphSet
 from dgcnn_tpu_torch.models.dgcnn import DGCNN, DGCNNNet, init_params, num_params
+from dgcnn_tpu_torch.batching.shard_pack import halo_bucket, pack_epoch_halo
+from dgcnn_tpu_torch.parallel.halo import (
+    halo_steps, make_halo_eval_epoch, make_halo_train_epoch,
+)
 from dgcnn_tpu_torch.parallel.mesh import make_mesh, sum_over
 from dgcnn_tpu_torch.parallel.shard import epoch_rows, pack_epoch_dp, shard_bucket
 from dgcnn_tpu_torch.parallel.train_dp import (
@@ -161,27 +167,6 @@ def on_mesh(cfg: Config) -> bool:
     return tuple(cfg.mesh_shape) != (1, 1)
 
 
-def check_supported(cfg: Config, use_lockstep: bool) -> None:
-    """Raise NotImplementedError for every setting this slice does not
-    serve, naming the ROADMAP item that ports it: fold-sharded lockstep
-    over a mesh, which the reference runs under `cv_parallel="folds"` and,
-    under "auto", wherever its folds would lockstep on a (D, 1) mesh
-    (`use_lockstep`, dgcnn_tpu/train/cv.py:1383-1401). Training those runs
-    one fold after another would give rows the reference never trains.
-    (The halo layout is refused with the other unported layouts,
-    `_LAYOUT_ITEM`.)"""
-    unserved = []
-    if on_mesh(cfg) and (cfg.cv_parallel == "folds" or use_lockstep):
-        unserved.append(
-            f"fold-sharded lockstep over the mesh {tuple(cfg.mesh_shape)} "
-            f"(cv_parallel={cfg.cv_parallel!r}; ROADMAP Queue 1 item 12b): "
-            f"cv_parallel='sequential' trains the folds one after another on it")
-    if unserved:
-        raise NotImplementedError(
-            "not ported yet: " + "; ".join(unserved)
-        )
-
-
 def pool_dtype(cfg: Config) -> str:
     """The block pool's storage dtype, the reference's rule
     (dgcnn_tpu/train/cv.py:457-469): the compute dtype when it is not
@@ -192,19 +177,21 @@ def pool_dtype(cfg: Config) -> str:
 LOCKSTEP_LAYOUTS = ("dense", "block", "multi")
 
 
-def check_lockstep_layout(layout: str) -> None:
-    """`cv_parallel="folds"` on a layout lockstep never runs on (coo,
-    halo): the reference's ValueError."""
+def check_lockstep_request(cfg: Config, layout: str) -> None:
+    """`cv_parallel="folds"` where lockstep cannot run: on a layout it
+    never runs on (coo, halo), or over a grid that is not (D, 1) — the
+    reference's ValueError (dgcnn_tpu/train/cv.py:1361-1382)."""
+    problems = []
     if layout not in LOCKSTEP_LAYOUTS:
-        raise ValueError(
-            f"cv_parallel='folds' is incompatible with: layout={layout!r} "
-            f"(lockstep runs on the dense, block-sparse or multi-tile layout; "
-            f"this dataset resolved to {layout!r})")
-
-
-_LAYOUT_ITEM = {
-    "halo": "ROADMAP Queue 1 item 12b",
-}
+        problems.append(
+            f"layout={layout!r} (lockstep runs on the dense, block-sparse or "
+            f"multi-tile layout; this dataset resolved to {layout!r})")
+    if fold_shard_devices(cfg.mesh_shape, cfg.num_folds) is None:
+        problems.append(
+            f"mesh_shape={tuple(cfg.mesh_shape)} (fold-sharded lockstep needs a "
+            f"(D, 1) mesh; D ∤ num_folds is fine)")
+    if problems:
+        raise ValueError("cv_parallel='folds' is incompatible with: " + "; ".join(problems))
 
 
 def percentile_sort_pool_k(node_counts: np.ndarray, percentile: float) -> int:
@@ -765,6 +752,17 @@ class _MeshEngine:
         self.runners = RunnerSlot()
         self._fold = 0
 
+    @property
+    def dropout_rank(self) -> int:
+        """The index the rank's dropout stream folds in: its data rank (the
+        graph ranks of one data group draw the same masks)."""
+        return self.grid.d
+
+    @property
+    def dropout_ranks(self) -> int:
+        """How many distinct dropout streams the grid runs."""
+        return self.grid.n_data
+
     def end_fold(self) -> None:
         self.runners.drop()
 
@@ -925,12 +923,16 @@ class MeshCooEngine(_MeshEngine):
                                        self.grid, self.device)
         self._fold += 1
 
+    def epochs_for(self, net, optimizer):
+        """The fold's (train_epoch, eval_epoch)."""
+        return (make_dp_train_epoch(net, optimizer, self.grid, self.spmm_impl),
+                make_dp_eval_epoch(net, self.grid, self.spmm_impl))
+
     def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
         """Pack, ship, train and evaluate one epoch per permutation of the
         fold's training graphs; host rows [k, 4], the same on every rank."""
-        train, evaluate = self.runners.get(self._fold, lambda: (
-            make_dp_train_epoch(net, optimizer, self.grid, self.spmm_impl),
-            make_dp_eval_epoch(net, self.grid, self.spmm_impl)))
+        train, evaluate = self.runners.get(self._fold,
+                                           lambda: self.epochs_for(net, optimizer))
         rows = []
         for perm in perms:
             tr_loss, tr_correct = train(self.pack(self._train_set, perm), dropout_gen)
@@ -939,27 +941,83 @@ class MeshCooEngine(_MeshEngine):
         return torch.stack(rows).cpu().double().numpy()
 
 
-MESH_ENGINES = (MeshDenseEngine, MeshBlockEngine, MeshDeviceCooEngine, MeshCooEngine)
-PORTED_LAYOUTS = ("dense", "multi", "block", "coo")
+class MeshHaloEngine(MeshCooEngine):
+    """The halo layout on the grid (the reference's `MeshHaloEngine`,
+    :720): each sub-batch's packed node axis SHARDED over the graph ranks
+    (batching/shard_pack.py), each GCN layer exchanging H boundary rows
+    with the two neighbouring shards (parallel/halo.py) instead of
+    replicating the node block. Every epoch is packed on the host into the
+    worst-case `halo_bucket`, each rank packing only its own sub-batch and
+    keeping its own shard, and shipped once; the fold's test epoch is
+    packed and shipped once. The gradients are summed over all D·G ranks,
+    and dropout folds in the rank (d·G + g), as the reference's
+    `fold_in(rng, g + G·d)`."""
+
+    def __init__(self, cfg: Config, dataset: GraphSet, grid):
+        _MeshEngine.__init__(self, cfg, grid)
+        self.dataset = dataset
+        self.bucket = halo_bucket(dataset, cfg.batch_size, grid.n_data, grid.n_graph,
+                                  cfg.node_pad_multiple, cfg.edge_pad_multiple,
+                                  cfg.graph_pad_multiple)
+        self.spmm_impl = cfg.resolved_spmm_impl()
+
+    @property
+    def dropout_rank(self) -> int:
+        return self.grid.rank
+
+    @property
+    def dropout_ranks(self) -> int:
+        return self.grid.n_data * self.grid.n_graph
+
+    def pack(self, ds: GraphSet, order: np.ndarray):
+        """This rank's steps of the epoch `order` of `ds`, on its device."""
+        grid = self.grid
+        return halo_steps(pack_epoch_halo(ds, order, self.cfg.batch_size, grid.n_data,
+                                          grid.n_graph, self.bucket, rank=(grid.d, grid.g)),
+                          self.device)
+
+    def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
+        self._train_set = self.dataset.subset(train_idx)
+        test_set = self.dataset.subset(test_idx)
+        self._test_steps = self.pack(test_set, np.arange(test_set.num_graphs))
+        self._fold += 1
+
+    def epochs_for(self, net, optimizer):
+        return (make_halo_train_epoch(net, optimizer, self.grid, self.spmm_impl),
+                make_halo_eval_epoch(net, self.grid, self.spmm_impl))
+
+
+MESH_ENGINES = (MeshDenseEngine, MeshBlockEngine, MeshDeviceCooEngine, MeshCooEngine,
+                MeshHaloEngine)
 
 
 def make_engine(cfg: Config, dataset: GraphSet, device: torch.device, layout: str,
-                graphs: bool = True, grid=None):
+                graphs: bool = True, grid=None, lockstep: bool = False):
     """The layout's engine; COO picks as the reference's `make_engine`:
     `--spmm pallas` needs host-built structures (CooEngine), otherwise
     `coo_assembly` decides. `graphs` goes to every single-device engine.
     On a mesh (`mesh_shape` ≠ (1, 1)) the reference's mesh branch
     (:1067-1090): the mesh engine of the layout over `grid` (made here
     when None), the COO one by `coo_assembly` alone; the multi-tile layout
-    is single-device only (ValueError)."""
-    if on_mesh(cfg):
+    is single-device only (ValueError), and the halo layout needs a mesh
+    (ValueError). Under fold-sharded `lockstep` each rank of a (D, 1) grid
+    runs its folds on the layout's single-device engine, on its device."""
+    if layout == "halo" and not on_mesh(cfg):
+        raise ValueError(
+            "layout='halo' shards the node axis over the mesh 'graph' "
+            "axis — pass --mesh D,G with G>1 (or D·G>1); on one device "
+            "use layout='coo'")
+    if on_mesh(cfg) and lockstep:
+        device = (grid if grid is not None else make_mesh(cfg.mesh_shape, device)).device
+    elif on_mesh(cfg):
         if layout == "multi":
             raise ValueError(
                 f"layout={layout!r} is single-chip only; use layout='dense', "
                 "'block', 'halo' or 'coo' (or 'auto') with a mesh")
         if grid is None:
             grid = make_mesh(cfg.mesh_shape, device)
-        cls = {"dense": MeshDenseEngine, "block": MeshBlockEngine}.get(layout)
+        cls = {"dense": MeshDenseEngine, "block": MeshBlockEngine,
+               "halo": MeshHaloEngine}.get(layout)
         if cls is None:
             cls = MeshDeviceCooEngine if cfg.coo_assembly == "device" else MeshCooEngine
         return cls(cfg, dataset, grid)
@@ -1061,18 +1119,22 @@ class CurveRenderer:
                 self.reported = True
 
 
-def dropout_states(dropout_gen: torch.Generator, grid=None) -> torch.Tensor:
+def dropout_states(dropout_gen: torch.Generator, engine=None) -> torch.Tensor:
     """The dropout generator's state for an in-flight bundle; on a mesh
-    every data rank's, [D, ·], summed over the data group from each rank's
-    own row (every rank calls this), since rank 0 writes the bundle and
-    each data rank resumes from its own row."""
+    engine one row per dropout stream, [engine.dropout_ranks, ·] (the data
+    ranks; on the halo layout every rank), each rank's own row summed over
+    the grid's groups (every rank calls this), since rank 0 writes the
+    bundle and each rank resumes from its own row."""
     state = dropout_gen.get_state()
+    grid = getattr(engine, "grid", None)
     if grid is None:
         return state
-    rows = torch.zeros((grid.n_data, state.numel()), dtype=torch.int32,
+    rows = torch.zeros((engine.dropout_ranks, state.numel()), dtype=torch.int32,
                        device=grid.device)
-    rows[grid.d] = state.to(device=grid.device, dtype=torch.int32)
+    rows[engine.dropout_rank] = state.to(device=grid.device, dtype=torch.int32)
     sum_over(rows, grid.data_group)
+    if engine.dropout_ranks > grid.n_data:
+        sum_over(rows, grid.graph_group)
     return rows.cpu().to(torch.uint8)
 
 
@@ -1112,7 +1174,8 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
     optimizer = make_optimizer(net, cfg.learning_rate, cfg.adam_b1,
                                cfg.adam_b2, cfg.adam_eps, flat=cfg.opt_flatten)
     dropout_gen = torch.Generator(device=device).manual_seed(
-        _stream_seed(cfg.seed, fold_number, 2, *(() if grid is None else (grid.d,)))
+        _stream_seed(cfg.seed, fold_number, 2,
+                     *(() if grid is None else (engine.dropout_rank,)))
     )
     shuffle_rng = np.random.default_rng(
         np.random.SeedSequence([cfg.seed, fold_number])
@@ -1127,7 +1190,8 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
         epoch = resumed_epoch(cfg, inflight, bundle, "fold")
         load_into(net, bundle["params"])
         load_into(optimizer, bundle["opt_state"])
-        load_into(dropout_gen, bundle["rng"] if grid is None else bundle["rng"][grid.d])
+        load_into(dropout_gen,
+                  bundle["rng"] if grid is None else bundle["rng"][engine.dropout_rank])
         restore_floors(engine, bundle.get("floors", {}))
         metrics.rows = {c: [float(v) for v in bundle["metrics"][c]]
                         for c in FoldMetrics.COLUMNS}
@@ -1172,7 +1236,7 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
             if curves is not None:
                 curves.maybe_render()
         if checkpoint_due(cfg, epoch - 1):
-            rng = dropout_states(dropout_gen, grid)  # a collective on a mesh
+            rng = dropout_states(dropout_gen, engine)  # a collective on a mesh
         if checkpoint_due(cfg, epoch - 1) and writer:
             save_checkpoint(inflight, {
                 "params": net.state_dict(), "opt_state": adam_state(optimizer),
@@ -1238,15 +1302,8 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
     )
     layout = choose_layout(cfg, dataset)
     use_lockstep = lockstep_engages(cfg, dataset, layout)
-    check_supported(cfg, use_lockstep)
     if cfg.cv_parallel == "folds":
-        check_lockstep_layout(layout)
-    if layout not in PORTED_LAYOUTS:
-        raise NotImplementedError(
-            f"the {layout!r} layout (chosen for {cfg.data_type}) is not ported "
-            f"yet ({_LAYOUT_ITEM[layout]}); the port runs the dense, multi, "
-            f"block and coo layouts"
-        )
+        check_lockstep_request(cfg, layout)
     if mesh:
         grid = grid if grid is not None else make_mesh(cfg.mesh_shape, device)
         device = grid.device
@@ -1258,7 +1315,23 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
     folds = get_folds(
         dataset.y, fold_dir, cfg.num_folds, cfg.seed, data_type=cfg.data_type
     )
-    engine = make_engine(cfg, dataset, device, layout, graphs, grid)
+    if mesh and cfg.checkpoint_resume:
+        grid.barrier()  # every rank reads rank 0's files as they stand
+    done = None
+    if use_lockstep and cfg.checkpoint_resume:
+        # lockstep writes the fold CSVs at run end: every fold is complete
+        # or none is, unless an earlier run was sequential
+        done = [completed_fold_accuracies(fold_csv(cfg, f), cfg.num_epochs)
+                for f in range(1, len(folds) + 1)]
+        if (cfg.cv_parallel != "folds" and any(d is not None for d in done)
+                and not all(d is not None for d in done)):
+            # lockstep would retrain the complete folds too: redo only the
+            # missing ones, one after another (cv_parallel="folds" keeps
+            # lockstep: its folds cannot pause one by one)
+            print("[resume] partial run under auto-lockstep: redoing only the "
+                  "incomplete folds sequentially")
+            use_lockstep = False
+    engine = make_engine(cfg, dataset, device, layout, graphs, grid, use_lockstep)
     events = EventLog(
         os.path.join(cfg.statistics_dir, f"{cfg.data_type}_events.jsonl")
         if writer else None
@@ -1271,38 +1344,26 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         num_classes=dataset.num_classes,
         layout=layout,
         **({"block_impl": cfg.resolved_block_impl()} if layout == "block" else {}),
-        **({"spmm_impl": cfg.resolved_spmm_impl()} if layout == "coo" else {}),
+        **({"spmm_impl": cfg.resolved_spmm_impl()} if layout in ("coo", "halo") else {}),
         **({"tiles": list(engine.tiles), "slot_floors": engine.slot_floor.tolist()}
            if layout == "multi" else {}),
         **({"mesh_shape": list(grid.shape), "engine": type(engine).__name__,
-            "graphs": False} if mesh else {}),
+            "graphs": bool(graphs) and use_lockstep,
+            **({"fold_shards": grid.n_data} if use_lockstep else {})} if mesh else {}),
         num_params=num_params(init_params(torch.Generator().manual_seed(0), model)),
         device=str(device),
     )
-    if mesh and cfg.checkpoint_resume:
-        grid.barrier()  # every rank reads rank 0's files as they stand
-    if use_lockstep and cfg.checkpoint_resume:
-        # lockstep writes the fold CSVs at run end: every fold is complete
-        # or none is, unless an earlier run was sequential
-        done = [completed_fold_accuracies(fold_csv(cfg, f), cfg.num_epochs)
-                for f in range(1, len(folds) + 1)]
-        if all(d is not None for d in done):
-            for f, d in enumerate(done, start=1):
-                print(f"[fold {f}] resumed (complete): test {d[1]:.2f}%")
-            return _finalize_cv(cfg, events, [d[0] for d in done], [d[1] for d in done])
-        if cfg.cv_parallel != "folds" and any(d is not None for d in done):
-            # lockstep would retrain the complete folds too: redo only the
-            # missing ones, one after another (cv_parallel="folds" keeps
-            # lockstep: its folds cannot pause one by one)
-            print("[resume] partial run under auto-lockstep: redoing only the "
-                  "incomplete folds sequentially")
-            use_lockstep = False
+    if done is not None and all(d is not None for d in done):
+        for f, d in enumerate(done, start=1):
+            print(f"[fold {f}] resumed (complete): test {d[1]:.2f}%")
+        return _finalize_cv(cfg, events, [d[0] for d in done], [d[1] for d in done],
+                            writer)
     if use_lockstep:
         from dgcnn_tpu_torch.train.cv_vmap import run_cv_folds_lockstep
 
         train_accs, test_accs = run_cv_folds_lockstep(
-            cfg, dataset, model, folds, events, engine)
-        return _finalize_cv(cfg, events, train_accs, test_accs)
+            cfg, dataset, model, folds, events, engine, grid)
+        return _finalize_cv(cfg, events, train_accs, test_accs, writer)
 
     curves = CurveRenderer(cfg)
     # the engine's floors after the last complete fold, which a fold begun

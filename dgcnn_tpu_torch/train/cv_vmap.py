@@ -1,5 +1,5 @@
 """Fold-lockstep cross-validation — the port of dgcnn_tpu/train/cv_vmap.py
-(`_stacked_orders` :348 and `run_cv_folds_vmap` :368 with its block
+(`fold_shard_devices` :328, `_stacked_orders` :348 and `run_cv_folds_vmap` :368 with its block
 branch :444-505, multi-tile branch :505-597 and dense branch :598-620;
 the in-flight bundle and resume :653-712; the chunk loop :714-790).
 
@@ -53,8 +53,11 @@ state, the epoch, the [F, n] metric rows and the engine's grow-only
 floors); under `checkpoint_resume` the run loads it in place, replays
 every fold's shuffle stream and continues.
 
-Not ported here: fold sharding over a mesh (ROADMAP Queue 1 item 12b);
-`train/cv.py` refuses it before this module runs.
+Over a (D, 1) process grid the folds are sharded (the reference's
+`fold_shard_devices` :328 and :368-420): each rank trains its contiguous
+block of the padded fold axis (`fold_block`) with the runners above, and
+the rows and states reach rank 0 between chunks (`gather_folds`); see
+`run_cv_folds_lockstep`.
 """
 
 from __future__ import annotations
@@ -70,13 +73,15 @@ from dgcnn_tpu_torch.batching.dense import order_matrix
 from dgcnn_tpu_torch.config import Config
 from dgcnn_tpu_torch.data.graphset import GraphSet
 from dgcnn_tpu_torch.models.dgcnn import DGCNN, DGCNNFoldsNet, init_params, stack_params
+from dgcnn_tpu_torch.parallel.mesh import broadcast_from
+from dgcnn_tpu_torch.parity.convert import fold_state
 from dgcnn_tpu_torch.train.cv import (
     BlockSparseEngine, MultiDenseEngine, _stream_seed, checkpoint_due,
     chunk_epochs, engine_floors, fold_bundle, fold_csv, fp32_only, restore_floors,
     resumed_epoch,
 )
 from dgcnn_tpu_torch.train.loop import (
-    FoldAdam, FusedRun, make_block_lockstep_run, make_dense_lockstep_run,
+    FoldAdam, FusedRun, fold_adam_state, make_block_lockstep_run, make_dense_lockstep_run,
     make_multi_lockstep_run,
 )
 from dgcnn_tpu_torch.train.metrics import EventLog, FoldMetrics
@@ -145,62 +150,199 @@ def lockstep_chunk(engine, net_f: DGCNNFoldsNet, adam_f: FoldAdam, dropout_gens,
         *args, engine.data, test, pattern, dropout_gens, engine.graphs)), orders
 
 
+def fold_block(num_folds: int, grid=None) -> List[int]:
+    """The 0-based global ids of the folds this rank trains. On a (D, 1)
+    grid the fold axis is padded as the reference pads it, to F = ⌈K/D⌉·D,
+    and cut into D contiguous blocks of F/D: rank d trains its block's REAL
+    folds (none when its block holds only pad folds: K=10, D=8 leaves
+    ranks 5-7 empty). Without a grid, all K."""
+    if grid is None:
+        return list(range(num_folds))
+    per = -(-num_folds // grid.n_data)
+    return list(range(grid.d * per, min((grid.d + 1) * per, num_folds)))
+
+
+def gather_folds(local, like: torch.Tensor, num_folds: int, grid) -> torch.Tensor:
+    """[K, ...] on every rank of a (D, 1) grid: each rank's `local` [its
+    folds, ...] (None on a rank with none), shaped per fold as `like`
+    [1, ...], reaches every rank by a broadcast over the data group from
+    its owner, one owner after another (the data rank d is the global
+    rank d on a (D, 1) grid)."""
+    per = -(-num_folds // grid.n_data)
+    out = []
+    for r in range(grid.n_data):
+        buf = torch.zeros((per,) + tuple(like.shape[1:]), dtype=like.dtype,
+                          device=grid.device)
+        if r == grid.d and local is not None:
+            buf[: len(local)] = local
+        out.append(broadcast_from(buf, r, grid.data_group))
+    return torch.cat(out)[:num_folds]
+
+
+def _tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def fold_trees(net_f: DGCNNFoldsNet, adam_f: FoldAdam, gens) -> dict:
+    """The run's fold-stacked state, every leaf [F, ...]: the parameters,
+    Adam's step counts and moments as runs (`FoldAdam.run_tensors`) and
+    the dropout generators' states."""
+    return {"params_f": dict(net_f.state_dict()), "opt_f": adam_f.run_tensors(),
+            "rng_f": torch.stack([g.get_state() for g in gens])}
+
+
+def gathered_trees(trees, like: dict, num_folds: int, grid) -> dict:
+    """`fold_trees` of every real fold, [K, ...] leaves, on every rank
+    (`gather_folds` leaf by leaf; `trees` None on a rank with no fold)."""
+    if trees is None:
+        return _tree_map(lambda lk: gather_folds(None, lk, num_folds, grid), like)
+    return _tree_map(lambda t, lk: gather_folds(t.to(grid.device), lk, num_folds, grid),
+                     trees, like)
+
+
+def inflight_bundle(trees: dict, flat_state: bool) -> dict:
+    """The stacked in-flight bundle's state leaves from `fold_trees`: the
+    moments as `FoldAdam.state_tensors` lays them out (under `flat_state`
+    the runs raveled one after another: the flat buffer) and the
+    generator states a list."""
+    opt = dict(trees["opt_f"])
+    if flat_state:
+        opt = {"steps": opt["steps"],
+               **{k: torch.cat([r.reshape(-1) for r in opt[k]])
+                  for k in ("exp_avg", "exp_avg_sq")}}
+    return {"params_f": trees["params_f"], "opt_f": opt,
+            "rng_f": list(trees["rng_f"])}
+
+
+def load_own_folds(bundle: dict, num_folds: int, own: List[int], net_f: DGCNNFoldsNet,
+                   adam_f: FoldAdam, gens) -> None:
+    """Load the folds `own` of a stacked in-flight bundle of `num_folds`
+    folds (`inflight_bundle`'s layout) into this rank's live state."""
+    sel = np.asarray(own)
+    load_into(net_f, {k: v[sel] for k, v in bundle["params_f"].items()})
+    opt = bundle["opt_f"]
+    own_opt = {"steps": np.asarray(opt["steps"])[sel]}
+    for key in ("exp_avg", "exp_avg_sq"):
+        shapes = [tuple(r.shape[1:]) for r in adam_f.run_tensors()[key]]
+        if adam_f.flat_state:  # the flat buffer: each parameter's [K, ...] run
+            flat, off, runs = np.asarray(opt[key]), 0, []
+            for shape in shapes:
+                n = num_folds * int(np.prod(shape, dtype=np.int64))
+                runs.append(flat[off : off + n].reshape((num_folds,) + shape)[sel])
+                off += n
+            own_opt[key] = np.concatenate([r.reshape(-1) for r in runs])
+        else:
+            own_opt[key] = [np.asarray(opt[key][str(i)])[sel] for i in range(len(shapes))]
+    load_into(adam_f, own_opt)
+    for f, gen in zip(own, gens):
+        load_into(gen, bundle["rng_f"][str(f)])
+
+
 def run_cv_folds_lockstep(cfg: Config, dataset: GraphSet, model: DGCNN,
                           folds: List[Tuple[np.ndarray, np.ndarray]],
-                          events: EventLog, engine) -> Tuple[List[float], List[float]]:
+                          events: EventLog, engine, grid=None
+                          ) -> Tuple[List[float], List[float]]:
     """Run the whole K-fold experiment in fold-lockstep on the layout of
     `engine` (a dense, block-sparse or multi-tile engine of train/cv.py,
     whose device and `graphs` the run takes). Returns (train_accs,
-    test_accs) and writes the sequential driver's artifact set."""
+    test_accs) and writes the sequential driver's artifact set.
+
+    With `grid` (a (D, 1) process grid; the reference's fold sharding,
+    dgcnn_tpu/train/cv_vmap.py:328-420) this rank trains only its
+    `fold_block`, in lockstep, through its own single-device engine: a
+    process has its own shapes, so the reference's masked pad folds are
+    not built (a deliberate divergence), and the fold half being
+    embarrassingly parallel, no collective runs inside an epoch (each is
+    still a CUDA-graph replay). Everything keyed by a fold takes its
+    global id. After every chunk each fold's rows, and at every in-flight
+    bundle and at the end its state, reach every rank by broadcasts from
+    the fold's owner (`gather_folds`); rank 0 writes the events, the CSVs,
+    the bundles and the stacked in-flight bundle of every real fold, with
+    each rank's grow-only floors as a row, and a resumed rank loads its
+    own folds and floors from it. A rank with no fold still joins every
+    collective."""
     fp32_only()  # the trunk's per-weight-set gradient sum is an fp32 product
     device = engine.device
     num_folds = len(folds)
+    own = fold_block(num_folds, grid)
+    writer = grid is None or grid.writer
     train_idx_f = [np.asarray(tr, np.int32) for tr, _ in folds]
     test_idx_f = [np.asarray(te, np.int32) for _, te in folds]
     n_train_f = [len(t) for t in train_idx_f]
     n_test_f = [len(t) for t in test_idx_f]
 
-    fold_ids = range(1, num_folds + 1)
-    shuffles = [np.random.default_rng(np.random.SeedSequence([cfg.seed, f]))
-                for f in fold_ids]
-    net_f = DGCNNFoldsNet(model, stack_params([
-        init_params(torch.Generator().manual_seed(_stream_seed(cfg.seed, f, 1)),
-                    model, device) for f in fold_ids]))
-    adam_f = FoldAdam(net_f, cfg.learning_rate, cfg.adam_b1, cfg.adam_b2,
-                      cfg.adam_eps, flat_state=cfg.opt_flatten)
-    dropout_gens = [torch.Generator(device=device).manual_seed(
-        _stream_seed(cfg.seed, f, 2)) for f in fold_ids]
+    shuffles = {f: np.random.default_rng(np.random.SeedSequence([cfg.seed, f + 1]))
+                for f in own}
+    net_f = adam_f = None
+    dropout_gens = []
+    if own:
+        net_f = DGCNNFoldsNet(model, stack_params([
+            init_params(torch.Generator().manual_seed(_stream_seed(cfg.seed, f + 1, 1)),
+                        model, device) for f in own]))
+        adam_f = FoldAdam(net_f, cfg.learning_rate, cfg.adam_b1, cfg.adam_b2,
+                          cfg.adam_eps, flat_state=cfg.opt_flatten)
+        dropout_gens = [torch.Generator(device=device).manual_seed(
+            _stream_seed(cfg.seed, f + 1, 2)) for f in own]
+    like = None
+    if grid is not None:  # one fold's leaves: the shapes every rank gathers
+        net1 = DGCNNFoldsNet(model, stack_params([
+            init_params(torch.Generator().manual_seed(0), model, device)]))
+        like = fold_trees(net1, FoldAdam(net1), [torch.Generator(device=device)])
+
+    def state():  # every real fold's stacked state, on every rank
+        local = fold_trees(net_f, adam_f, dropout_gens) if own else None
+        return local if grid is None else gathered_trees(local, like, num_folds, grid)
+
+    def floors():  # the engine's floors; on a grid each rank's as a row
+        mine = engine_floors(engine)
+        if grid is None:
+            return mine
+        return {n: gather_folds(torch.as_tensor(v, device=device)[None],
+                                torch.as_tensor(v)[None], grid.n_data, grid).cpu().numpy()
+                for n, v in mine.items()}
 
     edge_counts = dataset.edge_counts()
     train_edges = int(sum(edge_counts[idx].sum() for idx in train_idx_f))
-    metrics_f = [FoldMetrics() for _ in fold_ids]
+    metrics_f = [FoldMetrics() for _ in range(num_folds)]
     inflight = os.path.join(cfg.epochs_dir, f"{cfg.data_type}_lockstep_inflight")
     epoch = 1
     if cfg.checkpoint_resume and checkpoint_exists(inflight):
         bundle = load_checkpoint(inflight)
         epoch = resumed_epoch(cfg, inflight, bundle, "run")
-        load_into(net_f, bundle["params_f"])
-        load_into(adam_f, bundle["opt_f"])
-        for f, gen in enumerate(dropout_gens):
-            load_into(gen, bundle["rng_f"][str(f)])
-        restore_floors(engine, bundle.get("floors", {}))
+        if own:
+            load_own_folds(bundle, num_folds, own, net_f, adam_f, dropout_gens)
+        saved = bundle.get("floors", {})
+        restore_floors(engine, saved if grid is None else
+                       {n: np.asarray(v)[grid.d] for n, v in saved.items()})
         for f, m in enumerate(metrics_f):
             m.rows = {c: [float(v) for v in bundle["metrics"][c][f]]
                       for c in FoldMetrics.COLUMNS}
         # replay every fold's shuffle stream: epoch e sees the permutations
         # it would have seen in an uninterrupted run
-        for rng, n in zip(shuffles, n_train_f):
+        for f, rng in shuffles.items():
             for _ in range(epoch - 1):
-                rng.permutation(n)
-        print(f"[all folds] resumed at epoch {epoch} (lockstep)")
+                rng.permutation(n_train_f[f])
+        if writer:
+            print(f"[all folds] resumed at epoch {epoch} (lockstep)")
     while epoch <= cfg.num_epochs:
         k = chunk_epochs(cfg, epoch)
-        ids_k = [[idx[rng.permutation(len(idx))] for idx, rng in zip(train_idx_f, shuffles)]
+        ids_k = [[train_idx_f[f][shuffles[f].permutation(n_train_f[f])] for f in own]
                  for _ in range(k)]
-        runner, orders = lockstep_chunk(engine, net_f, adam_f, dropout_gens, ids_k,
-                                        test_idx_f)
         t0 = time.perf_counter()
-        rows = runner.run_epochs(orders)  # [k, F, 4]
+        rows = None
+        if own:
+            runner, orders = lockstep_chunk(engine, net_f, adam_f, dropout_gens, ids_k,
+                                            [test_idx_f[f] for f in own])
+            rows = runner.run_epochs(orders)  # [k, F, 4]
+        if grid is not None:
+            local = None if rows is None else torch.from_numpy(
+                np.ascontiguousarray(rows.transpose(1, 0, 2))).to(device)
+            rows = gather_folds(local, torch.zeros((1, k, 4), dtype=torch.float64),
+                                num_folds, grid).cpu().numpy().transpose(1, 0, 2)
         dt = (time.perf_counter() - t0) / k  # amortized over the chunk
         for j in range(k):
             for f in range(num_folds):
@@ -222,29 +364,35 @@ def run_cv_folds_lockstep(cfg: Config, dataset: GraphSet, model: DGCNN,
                     chunk_epochs=k,
                     folds_in_lockstep=num_folds,
                 )
-            if cfg.log_every and (epoch + j) % cfg.log_every == 0:
+            if writer and cfg.log_every and (epoch + j) % cfg.log_every == 0:
                 accs = " ".join(f"{rows[j, f, 3] / n_test_f[f] * 100.0:.1f}"
                                 for f in range(num_folds))
                 print(f"[all folds] epoch {epoch + j}: test% [{accs}] ({dt:.2f}s)")
         epoch += k
         if checkpoint_due(cfg, epoch - 1):
-            save_checkpoint(inflight, {
-                "params_f": net_f.state_dict(), "opt_f": adam_f.state_tensors(),
-                "rng_f": [g.get_state() for g in dropout_gens],
-                "epoch": np.int64(epoch - 1),
-                "metrics": {c: np.stack([np.asarray(m.rows[c]) for m in metrics_f])
-                            for c in FoldMetrics.COLUMNS},
-                "floors": engine_floors(engine)})
+            trees, fl = state(), floors()
+            if writer:
+                save_checkpoint(inflight, {
+                    **inflight_bundle(trees, cfg.opt_flatten),
+                    "epoch": np.int64(epoch - 1),
+                    "metrics": {c: np.stack([np.asarray(m.rows[c]) for m in metrics_f])
+                                for c in FoldMetrics.COLUMNS},
+                    "floors": fl})
     engine.end_fold()  # drops the runner and its graph
 
+    trees = state()
     train_accs, test_accs = [], []
     for f in range(num_folds):
-        save_checkpoint(fold_bundle(cfg, f + 1), {"params": net_f.fold_state_dict(f),
-                                                 "opt_state": adam_f.fold_state(f)})
-        metrics_f[f].to_csv(fold_csv(cfg, f + 1))
+        if writer:
+            save_checkpoint(fold_bundle(cfg, f + 1), {
+                "params": fold_state(trees["params_f"], f),
+                "opt_state": fold_adam_state(trees["opt_f"], f, cfg.opt_flatten)})
+            metrics_f[f].to_csv(fold_csv(cfg, f + 1))
         train_accs.append(metrics_f[f].last("train_accuracy"))
         test_accs.append(metrics_f[f].last("test_accuracy"))
-        print(f"[{f + 1}] Train Acc: {train_accs[-1]:.2f}% "
-              f"Test Acc: {test_accs[-1]:.2f}%")
-    remove_checkpoint(inflight)
+        if writer:
+            print(f"[{f + 1}] Train Acc: {train_accs[-1]:.2f}% "
+                  f"Test Acc: {test_accs[-1]:.2f}%")
+    if writer:
+        remove_checkpoint(inflight)
     return train_accs, test_accs

@@ -282,26 +282,36 @@ class FoldAdam:
 
     def fold_state(self, fold: int) -> dict:
         """Fold `fold`'s (0-based) moments and step counts in the layout of
-        the sequential driver's `adam_state`: a list per key in
-        `parameters()` order; under `flat_state` one step count and the
-        fold's moments raveled in that order, as `FlatAdam`'s."""
-        out = {key: [r[fold].cpu() for r in self._runs(buf)]
-               for key, buf in (("exp_avg", self.exp_avg), ("exp_avg_sq", self.exp_avg_sq))}
-        if self.flat_state:
-            out = {key: [torch.cat([t.reshape(-1) for t in ts])] for key, ts in out.items()}
-        out["step"] = [self.steps[fold].cpu()] * len(out["exp_avg"])
-        return out
+        the sequential driver's `adam_state` (`fold_adam_state`)."""
+        return fold_adam_state(self.run_tensors(), fold, self.flat_state)
+
+    def run_tensors(self) -> dict:
+        """The per-fold step counts and the moments as [F, ...] runs a
+        parameter (views of the live buffers)."""
+        return {"steps": self.steps, "exp_avg": self._runs(self.exp_avg),
+                "exp_avg_sq": self._runs(self.exp_avg_sq)}
 
     def state_tensors(self) -> dict:
         """The live state, for the lockstep run's in-flight bundle
-        (utils/checkpoint.py `load_into`): the per-fold step counts and
-        the moments, as [F, ...] runs a parameter, or under `flat_state`
-        as the flat buffers."""
+        (utils/checkpoint.py `load_into`): `run_tensors`, or under
+        `flat_state` the flat buffers."""
         if self.flat_state:
             return {"steps": self.steps, "exp_avg": self.exp_avg,
                     "exp_avg_sq": self.exp_avg_sq}
-        return {"steps": self.steps, "exp_avg": self._runs(self.exp_avg),
-                "exp_avg_sq": self._runs(self.exp_avg_sq)}
+        return self.run_tensors()
+
+
+def fold_adam_state(runs: dict, fold: int, flat_state: bool = False) -> dict:
+    """Fold `fold`'s (0-based) moments and step count from `runs`
+    (`FoldAdam.run_tensors`' layout, [F, ...] leaves) in the layout of the
+    sequential driver's `adam_state`: a list per key in `parameters()`
+    order; under `flat_state` one step count and the fold's moments
+    raveled in that order, as `FlatAdam`'s."""
+    out = {key: [r[fold].cpu() for r in runs[key]] for key in ("exp_avg", "exp_avg_sq")}
+    if flat_state:
+        out = {key: [torch.cat([t.reshape(-1) for t in ts])] for key, ts in out.items()}
+    out["step"] = [runs["steps"][fold].cpu()] * len(out["exp_avg"])
+    return out
 
 
 def lockstep_train_step(net_f: DGCNNFoldsNet, adam_f: FoldAdam, batch,

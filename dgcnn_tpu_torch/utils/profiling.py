@@ -9,6 +9,8 @@ CUDA tensors and raise without them.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import subprocess
 
 import numpy as np
@@ -36,6 +38,24 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """A `torch.profiler` trace of the enclosed run (the CLI's `--profile
+    DIR`; the port of dgcnn_tpu/utils/profiling.py:51 `trace`): the host's
+    ops, and the card's kernels where CUDA is present, written at the end
+    as a Chrome trace `DIR/trace_<pid>.json` (one file a process, so the
+    ranks of a mesh run do not overwrite each other's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}.json"))
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor):

@@ -153,3 +153,30 @@ def test_config_fields_and_defaults_match_reference():
     assert Config().resolved_adj_dtype() == "float32"
     with pytest.raises(ValueError):
         Config(dense_trunk="other")
+
+
+def test_graphset_cache_write_is_atomic(tmp_path, monkeypatch):
+    """`to_npz` writes under a temporary name and renames it into place: a
+    write that dies half way leaves no file at the cache path, which the
+    ranks of a mesh run (each loading the same cache) may be reading."""
+    from dgcnn_tpu_torch.data import graphset as tgraphset
+    from dgcnn_tpu_torch.data.synthetic import synthesize_tu_dataset as tsynth
+
+    gs = tsynth("MUTAG", num_graphs=4, seed=0)
+    path = str(tmp_path / "MUTAG.npz")
+    real = tgraphset.np.savez_compressed
+
+    def dies(file, **arrays):
+        real(file, **arrays)
+        with open(file, "r+b") as f:
+            f.truncate(10)
+        raise OSError("disk full")
+
+    monkeypatch.setattr(tgraphset.np, "savez_compressed", dies)
+    with pytest.raises(OSError):
+        gs.to_npz(path)
+    assert not (tmp_path / "MUTAG.npz").exists()
+    monkeypatch.setattr(tgraphset.np, "savez_compressed", real)
+    gs.to_npz(path)
+    back = tgraphset.GraphSet.from_npz(path)
+    assert back.x.tobytes() == gs.x.tobytes()

@@ -54,7 +54,9 @@ def test_the_scan_covers_the_probe_and_measurement_modules():
             "dgcnn_tpu_torch/tools/probe_epoch_seconds.py",
             "dgcnn_tpu_torch/tools/cpu_pin.py", "dgcnn_tpu_torch/parallel/mesh.py",
             "dgcnn_tpu_torch/parallel/shard.py",
-            "dgcnn_tpu_torch/parallel/train_dp.py"} <= scanned
+            "dgcnn_tpu_torch/parallel/train_dp.py", "dgcnn_tpu_torch/parallel/halo.py",
+            "dgcnn_tpu_torch/batching/shard_pack.py",
+            "dgcnn_tpu_torch/tools/probe_collab_drift.py"} <= scanned
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

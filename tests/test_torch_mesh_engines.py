@@ -5,8 +5,9 @@ dense (2, 1) with the folds one after another, block (1, 2), device COO
 are finite, rank 0 alone writes, the replicas' parameters are bitwise
 equal, and with dropout 0 the rows are the port's single-process run's
 within rtol 3e-4 / atol 2e-6; a crash and `--resume` at (2, 1) gives the
-uninterrupted run's bits; and the refusals of what ROADMAP Queue 1 item
-12b ports. Mirrors tests/test_mesh_engines.py."""
+uninterrupted run's bits. (The halo engine's runs are in
+tests/test_torch_halo.py, fold-sharded lockstep's in
+tests/test_torch_fold_shard.py.) Mirrors tests/test_mesh_engines.py."""
 
 import copy
 import dataclasses
@@ -178,25 +179,6 @@ def _cpu_cfg(tmp_path, **kw):
     return Config(**_cfg(tmp_path, "refused", **kw))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(mesh_shape=(2, 1)),  # MUTAG dense: the reference locksteps over the mesh
-    dict(mesh_shape=(2, 1), layout="block", data_type="DD"),
-    dict(mesh_shape=(1, 2), cv_parallel="folds"),
-    dict(mesh_shape=(2, 1), cv_parallel="folds", layout="coo"),
-], ids=["auto_dense", "auto_block", "folds_1x2", "folds_coo"])
-def test_fold_sharded_lockstep_is_refused_naming_item_12b(tmp_path, kw):
-    gs = synthesize_tu_dataset(kw.get("data_type", "MUTAG"), num_graphs=24, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12b"):
-        cv.run_cross_validation(_cpu_cfg(tmp_path, **kw), dataset=gs, device="cpu")
-
-
-def test_halo_is_refused_naming_item_12b(tmp_path):
-    gs = synthesize_tu_dataset("MUTAG", num_graphs=24, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12b"):
-        cv.run_cross_validation(_cpu_cfg(tmp_path, layout="halo", mesh_shape=(1, 2)),
-                                dataset=gs, device="cpu")
-
-
 def test_multi_tile_with_a_mesh_is_a_value_error(tmp_path):
     gs = synthesize_tu_dataset("MUTAG", num_graphs=24, seed=1)
     cfg = _cpu_cfg(tmp_path, mesh_shape=(1, 2), layout="multi", cv_parallel="sequential")
@@ -294,3 +276,77 @@ def test_chip_smokes_mesh_checks_catch_what_they_should(fault):
     else:
         with pytest.raises(AssertionError):
             cs.check_mesh_run("NCI1 dense", (2, 1), "gcn_trunk", ranks)
+
+
+def _smoke_4k_ranks():
+    """Two ranks' results of chip_smoke phase 4k's halo and fold-sharded
+    runs, as its children write them, every check passing."""
+    zero = [0, 0, 0, 0]
+    out = []
+    for r in range(2):
+        halo = {"engine": "MeshHaloEngine", "spmm_impl": "xla", "bucket": [64, 512, 8, 64],
+                "shard": {}, "want_launches": [96, 64, 24, 16],
+                "det": {"mesh": [0.69, 30.0]}, "grad": {"digest": "aa"},
+                "run": {"folds": {"1": ["p1", [[0.7]]], "2": ["p2", [[0.6]]]},
+                        "launches": {"spmm_rows": [96, 64, 24, 16],
+                                     "gcn_trunk": zero, "block_csr": zero},
+                        "epoch_s": [[1, 1, 0.5], [1, 2, 0.4]] if r == 0 else None}}
+        folds = {"mesh": {"test": [70.0, 80.0], "launches": {
+            "gcn_trunk": [40, 30, 0, 0], "block_csr": zero, "spmm_rows": zero}}}
+        if r == 0:
+            halo["det"]["single"] = [0.69000001, 30.0]
+            halo["grad"].update(worst_rel=1e-6, beyond=[])
+            folds.update(lockstep=True, fold_shards=2, layout="dense",
+                         engine="DenseEngine", rows=[[[0.7, 0.6, 50.0, 70.0, 1.0]]] * 2,
+                         one_rows=[[[0.7, 0.6, 50.0, 70.0, 1.0]]] * 2,
+                         epoch_s=[[1, 1, 0.2], [1, 2, 0.01]],
+                         one_epoch_s=[[1, 1, 0.3], [1, 2, 0.02]],
+                         one={"test": [70.0, 80.0], "launches": {
+                             "gcn_trunk": [40, 30, 0, 0], "block_csr": zero,
+                             "spmm_rows": zero}})
+        out.append({"rank": r, "halo": {"DD halo": halo}, "folds": {"NCI1 fs": folds}})
+    return out
+
+
+@pytest.mark.parametrize("fault", [None, "loss", "grad", "grad_replica", "replica",
+                                   "halo_launch", "other_kernel", "rows", "accuracy",
+                                   "fold_launch", "not_sharded"])
+def test_chip_smokes_halo_and_fold_checks_catch_what_they_should(fault):
+    """chip_smoke.py phase 4k's checks (`check_halo_run`, `check_fold_run`)
+    on results that pass, and on each fault they are there to catch."""
+    import chip_smoke as cs
+
+    ranks = _smoke_4k_ranks()
+    h0, h1 = (r["halo"]["DD halo"] for r in ranks)
+    f0, f1 = (r["folds"]["NCI1 fs"] for r in ranks)
+    if fault == "loss":
+        h0["det"]["single"][0] = 0.69 * (1 + 3e-4)
+    elif fault == "grad":
+        h0["grad"]["beyond"] = ["gcn.0.w"]
+    elif fault == "grad_replica":
+        h1["grad"]["digest"] = "ab"
+    elif fault == "replica":
+        h1["run"]["folds"]["2"][0] = "p3"
+    elif fault == "halo_launch":
+        for h in (h0, h1):
+            h["run"]["launches"]["spmm_rows"][1] = 63
+    elif fault == "other_kernel":
+        h1["run"]["launches"]["block_csr"][0] = 1
+    elif fault == "rows":
+        f0["rows"] = [[[0.7 * (1 + 2e-3), 0.6, 50.0, 70.0, 1.0]]] * 2
+    elif fault == "accuracy":
+        f1["mesh"]["test"] = [70.0, 90.0]
+    elif fault == "fold_launch":
+        f1["mesh"]["launches"]["gcn_trunk"][0] = 39
+    elif fault == "not_sharded":
+        f0["lockstep"] = False
+    halo = lambda: cs.check_halo_run("DD halo", (1, 2), "spmm_rows", ranks)  # noqa: E731
+    fold = lambda: cs.check_fold_run("NCI1 fs", (2, 1), "gcn_trunk", ranks)  # noqa: E731
+    if fault is None:
+        assert halo()["launches_per_rank"] == [[96, 64, 24, 16]] * 2
+        got = fold()
+        assert got["launches_per_rank"] == [[40, 30, 0, 0]] * 2 and got["bitwise"]
+    else:
+        with pytest.raises(AssertionError):
+            halo()
+            fold()

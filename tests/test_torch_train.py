@@ -122,25 +122,12 @@ def test_cv_run_writes_reference_artifacts(tmp_path):
         stats / "MUTAG_results_1.csv").read_text()
 
 
-@pytest.mark.parametrize("kw", [
-    {"mesh_shape": (2, 1)},
-], ids=lambda kw: next(iter(kw)))
-def test_unserved_options_raise(tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cv.run_cross_validation(_cfg(tmp_path, **kw), allow_synthetic=True,
-                                device="cpu")
-
-
-@pytest.mark.parametrize("layout", ["multi", "halo"])
+@pytest.mark.parametrize("layout", ["multi"])
 def test_unported_layouts_raise(tmp_path, layout):
-    """halo is not ported and raises, naming its ROADMAP item; multi is
-    ported: one fold x 1 epoch on the CPU through its engine (two tile
-    classes) writes the fold's CSV and its `epochs/` bundle."""
-    if layout == "halo":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            cv.run_cross_validation(_cfg(tmp_path, layout=layout),
-                                    allow_synthetic=True, device="cpu")
-        return
+    """Every layout is ported (the halo layout's tests are in
+    tests/test_torch_halo.py): multi, one fold x 1 epoch on the CPU
+    through its engine (two tile classes), writes the fold's CSV and its
+    `epochs/` bundle."""
     cfg = _cfg(tmp_path, layout=layout, num_epochs=1, multi_dense_min_tile=16)
     gs = synthesize_tu_dataset("MUTAG", num_graphs=30, seed=2)
     train, test = cv.get_folds(gs.y, "", 2, cfg.seed, data_type="MUTAG")[0]
@@ -173,3 +160,16 @@ def test_cli_cpu_run(tmp_path):
                     "--data_root", str(tmp_path / "data"), "--out_root", str(tmp_path)])
     assert len(res["train_accuracies"]) == 2
     assert os.path.exists(tmp_path / "epochs" / "PTC_MR_2.npz")
+
+
+def test_cli_profile_writes_a_trace(tmp_path):
+    """`--profile DIR` wraps the run in a torch.profiler trace and writes it
+    (the reference's `--profile`, dgcnn_tpu/cli.py:184-189)."""
+    res = cli.main(["--data_type", "MUTAG", "--synthetic", "--platform", "cpu",
+                    "--num_folds", "2", "--num_epochs", "1", "--layout", "dense",
+                    "--data_root", str(tmp_path / "data"), "--out_root", str(tmp_path),
+                    "--profile", str(tmp_path / "prof")])
+    assert len(res["test_accuracies"]) == 2
+    (trace,) = (tmp_path / "prof").glob("trace_*.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any("addmm" in e.get("name", "") or "mm" in e.get("name", "") for e in events)

@@ -25,6 +25,17 @@ Jobs (`kind`):
                of that index (every rank), after which `resume` runs the
                same config with `checkpoint_resume`
   mismatch     `make_mesh` of a grid whose size is not the world's
+  halo_loss    the halo layout's deterministic loss (`make_halo_loss`) of
+               one global batch packed by `pack_step_halo` (this rank's
+               shard), the log-probs of the rank's slots, and the gradients
+               summed over all D·G ranks (`grad_groups`) and, for contrast,
+               over the data group alone
+  cli          `dgcnn_tpu_torch.cli.main(argv)` on this grid's process group
+
+A `cv` job runs every layout through `run_cross_validation`, fold-sharded
+lockstep too: there `crash_at` counts the lockstep chunks
+(`cv_vmap.lockstep_chunk`), which every rank that trains folds calls at
+once.
 """
 
 from __future__ import annotations
@@ -61,7 +72,7 @@ def dataset(job):
 
 def net_from(job, gs, dropout=0.5):
     model = DGCNN(num_features=gs.num_features, num_classes=gs.num_classes,
-                  dropout_rate=dropout)
+                  dropout_rate=dropout, compute_dtype=job.get("dtype", "float32"))
     with np.load(job["params"]) as z:
         state = {k: torch.from_numpy(z[k].copy()) for k in z.files}
     return DGCNNNet(model, state_to_params(state))
@@ -135,15 +146,39 @@ class Crash(RuntimeError):
     pass
 
 
-def _run_cv(cfg, gs, crash_at=None):
+def _run_cv(cfg, gs, crash_at=None, init=None):
     """`run_cross_validation` with each mesh engine's chunks wrapped: the
     parameters after every chunk of every fold are kept (the last one per
-    fold is the fold's result), and the chunk `crash_at` raises."""
+    fold is the fold's result), and the chunk `crash_at` raises (a
+    lockstep chunk in lockstep). `init` (an .npz of fold-stacked states,
+    fold f's at row f − 1) replaces the lockstep folds' initial weights."""
+    from dgcnn_tpu_torch.train import cv_vmap
+
     seen, calls = {}, [0]
-    wrapped = {}
-    for cls in cv.MESH_ENGINES:
-        orig = cls.run_epochs
-        wrapped[cls] = orig
+    wrapped = {cls: cls.run_epochs for cls in cv.MESH_ENGINES}  # before any wrap
+    saved_chunk, saved_init = cv_vmap.lockstep_chunk, cv_vmap.init_params
+
+    def lockstep_chunk(*a, **k):
+        calls[0] += 1
+        if crash_at is not None and calls[0] == crash_at:
+            raise Crash(f"chunk {crash_at}")
+        return saved_chunk(*a, **k)
+
+    cv_vmap.lockstep_chunk = lockstep_chunk
+    if init is not None:
+        with np.load(init) as z:
+            stacked = {k: torch.from_numpy(z[k].copy()) for k in z.files}
+        by_seed = {cv._stream_seed(cfg.seed, f + 1, 1): f
+                   for f in range(next(iter(stacked.values())).shape[0])}
+
+        def init_params(gen, model, device="cpu"):
+            f = by_seed.get(gen.initial_seed())
+            if f is None:  # not a fold's initial weights
+                return saved_init(gen, model, device)
+            return state_to_params({k: v[f].to(device) for k, v in stacked.items()})
+
+        cv_vmap.init_params = init_params
+    for cls, orig in wrapped.items():
 
         def run_epochs(self, net, optimizer, dropout_gen, perms, _orig=orig):
             calls[0] += 1
@@ -166,12 +201,15 @@ def _run_cv(cfg, gs, crash_at=None):
     cv.save_checkpoint = counting(saved[0])
     metrics.FoldMetrics.to_csv = counting(saved[1])
     cv.write_overall_csv = counting(saved[2])
+    cv_vmap.save_checkpoint = cv.save_checkpoint
     try:
         res = cv.run_cross_validation(cfg, dataset=gs, device="cpu")
     finally:
         for cls, orig in wrapped.items():
             cls.run_epochs = orig
         cv.save_checkpoint, metrics.FoldMetrics.to_csv, cv.write_overall_csv = saved
+        cv_vmap.lockstep_chunk, cv_vmap.init_params = saved_chunk, saved_init
+        cv_vmap.save_checkpoint = saved[0]
     return res, seen, writes[0]
 
 
@@ -180,14 +218,15 @@ def cv_job(job, rank):
     cfg = Config(**{k: tuple(v) if isinstance(v, list) else v
                     for k, v in job["cfg"].items()})
     out = {}
+    init = job.get("init")
     if job.get("crash_at"):
         try:
-            _run_cv(cfg, gs, job["crash_at"])
+            _run_cv(cfg, gs, job["crash_at"], init)
             raise AssertionError("the run did not crash")
         except Crash:
             out["crashed"] = np.asarray(1)
         cfg = dataclasses.replace(cfg, checkpoint_resume=True)
-    res, seen, writes = _run_cv(cfg, gs)
+    res, seen, writes = _run_cv(cfg, gs, init=init)
     out["test_accuracies"] = np.asarray(res["test_accuracies"], dtype=np.float64)
     out["train_accuracies"] = np.asarray(res["train_accuracies"], dtype=np.float64)
     out["writes"] = np.asarray(writes)
@@ -206,7 +245,39 @@ def mismatch(job, rank):
     return {"error": np.asarray("")}
 
 
-JOBS = {"coo_loss": coo_loss, "engine_loss": engine_loss, "epoch": epoch, "cv": cv_job,
+def halo_loss(job, rank):
+    from dgcnn_tpu_torch.batching.shard_pack import pack_step_halo
+    from dgcnn_tpu_torch.parallel.halo import apply_halo, grad_groups, make_halo_loss
+
+    gs = dataset(job)
+    grid = mesh.make_mesh(tuple(job["mesh"]), "cpu")
+    local = pack_step_halo(gs, np.asarray(job["idx"]), *grid.shape, *job["bucket"],
+                           rank=(grid.d, grid.g)).map(torch.from_numpy)
+    net = net_from(job, gs)
+    with torch.no_grad():
+        lp = apply_halo(net.params(), net.model, local, group=grid.graph_group, g=grid.g,
+                        n_graph=grid.n_graph)
+    loss, correct = make_halo_loss(grid, deterministic=True)(net, local)
+    loss.backward()
+    own = {n: p.grad.clone() for n, p in net.named_parameters()}
+    data_only = {f"data_only/{n}": mesh.sum_over(g.clone(), grid.data_group).numpy()
+                 for n, g in own.items()}
+    for group in grad_groups(grid):
+        train_dp.reduce_gradients(net.parameters(), group)
+    return {"lp": lp.numpy(), "graph_mask": local.graph_mask.numpy(),
+            "loss": loss.detach().numpy(), "correct": correct.numpy(),
+            **grads_of(net), **data_only}
+
+
+def cli_job(job, rank):
+    from dgcnn_tpu_torch import cli
+
+    res = cli.main(job["argv"])  # the process group is this grid's
+    return {"test_accuracies": np.asarray(res["test_accuracies"], dtype=np.float64)}
+
+
+JOBS = {"halo_loss": halo_loss, "cli": cli_job, "coo_loss": coo_loss,
+        "engine_loss": engine_loss, "epoch": epoch, "cv": cv_job,
         "mismatch": mismatch}
 
 
@@ -264,6 +335,7 @@ def main(argv) -> int:
             jobs = json.load(f)
         out = {}
         for job in jobs:
+            print(f"[rank {rank}] job {job['name']}", flush=True)
             res = JOBS[job["kind"]](job, rank)
             out.update({f"{job['name']}/{k}": np.asarray(v) for k, v in res.items()})
         np.savez(out_path, **out)
