@@ -28,7 +28,9 @@ CUDA is absent or any phase fails. Phases:
         the lockstep step's trunk: the ten folds' first train batches of
         synthetic NCI1 (T=88, plan resident C=1) and PROTEINS (T=176, C=2)
         stacked on the slot axis, S = 560, K = 10, slot s on weight set
-        s // 56; the two tile classes of synthetic COLLAB's multi-tile
+        s // 56, and NCI1's first five folds of it, S = 280, K = 5 (one
+        rank's step of phase 4k's fold-sharded lockstep on a (2, 1)
+        grid); the two tile classes of synthetic COLLAB's multi-tile
         layout at fold 1's first batch that holds both (T=256 at the
         engine's slot floor, resident; T=464 at S=4, streamed), and the
         same two classes repeated for 10 folds in lockstep (S = 10 × the
@@ -269,6 +271,24 @@ CUDA is absent or any phase fails. Phases:
         printed), accuracies equal, each rank's trunk or CSR launches
         exactly one device's; then `dryrun_multichip(2)` on the card (its
         own 2 gloo ranks sharing it);
+     l. the reference protocol's tools (dgcnn_tpu_torch/tools/):
+        `release_validation` of synthetic MUTAG at 10 folds x 30 epochs
+        (one 25-epoch chunk and 5 more), NCI1 and DD at 10 x 4 (cut from
+        100; the kernels' counts set to 0 just before, read just after:
+        the trunk and the CSR kernel launched), every summary line's keys,
+        layouts dense, dense, block in lockstep, the card line;
+        `release_report` over it (its rows parse, the card in its heading;
+        MUTAG's steady-state median a number with its first chunk's 250
+        rows left out, the others "—" with all their rows left out); MUTAG
+        again into another root and `diff_runs` over the two (exit 0:
+        bitwise); `export_tensorboard` of NCI1's events
+        with its last epoch replayed (each point once; through a recording
+        stand-in where the host has no tensorboardX); a `--profile` CLI
+        run of MUTAG at 1 fold x 2 epochs and `summarize_trace` (the trunk
+        kernel in the device top table); `dress_rehearsal --train` of
+        NCI1 at 1 epoch (the cache byte-equal, the accuracy finite);
+        `pinned_trajectory` on the card, dense and block, against its card
+        artifacts (every file MATCH; the trunk and the CSR kernel launched);
   5. device times (utils/profiling.py `device_ms`): each call captured
      10 times in one CUDA graph, the graph replayed and timed with CUDA
      events, so the host's launch rate is out of the number; warm
@@ -301,7 +321,12 @@ CUDA is absent or any phase fails. Phases:
      the block kernels' bf16 mode (the wrapper's design) at the DD mean
      batch and the merged step, beside fp32, bounds at 2 bytes an
      element, the library call on the widened operands; the row kernel
-     at phase 4h's median inference batch of NCI1 and DD;
+     at phase 4h's median inference batch of NCI1 and DD; phase 4k's
+     shapes in this process: the trunk at one rank's fold-sharded
+     lockstep step (S = 280, K = 5, T = 88), the block kernels at one
+     rank's 5-fold merged mean step, the row and edge-block kernels at
+     rank (0, 0)'s DD halo shard (each checked against its plain version
+     in phase 3a, 3b or 3c);
   6. one `torch.profiler` table of a single eager train step for NCI1
      dense (one fold, and the lockstep step of all ten, in fp32 and under
      bf16 compute), DD block through each `--block_impl` (one fold, and
@@ -782,7 +807,9 @@ def stack_batches(parts):
 def check_lockstep_trunk(datasets, device, dt, stats):
     """Phase 3a's lockstep cases: the ten folds' first train rows of
     synthetic NCI1 (T=88, plan resident C=1) and PROTEINS (T=176, C=2)
-    stacked on the slot axis, S = 560, K = 10; returns the shapes by T."""
+    stacked on the slot axis, S = 560, K = 10, and NCI1's first five folds
+    (S = 280, K = 5: one rank's fold-sharded step, which phase 5 times);
+    returns the full shapes by T."""
     from dgcnn_tpu_torch.batching.dense import dense_tile
 
     shapes = {}
@@ -798,6 +825,11 @@ def check_lockstep_trunk(datasets, device, dt, stats):
                                  f"C={want_c}")
         compare_trunk(f"lockstep {name} T={t} S={SL}", adj, mask, device, dt, stats,
                       folds=FOLDS)
+        if name == "NCI1":  # phase 5 times phase 4k's fold-sharded step at this shape
+            half = FOLDS // 2
+            compare_trunk(f"fold-sharded lockstep {name} T={t} S={half * S} K={half} "
+                          f"(one rank of a (2, 1) grid)", adj[:half * S], mask[:half * S],
+                          device, dt, stats, folds=half)
         shapes[t] = (adj, mask)
     return shapes
 
@@ -910,23 +942,24 @@ class DDLockstepContext:
     and the folds' test orders, the merged stream's budgets (nb per fold,
     W per step: `block_fold_extents` on the reference's grid, floors 8 and
     64) and the train step whose merged items are nearest the mean: the
-    shape phase 3b checks and phase 5 times."""
+    shape phase 3b checks and phase 5 times. `own`: the folds (0-based)
+    of one rank of a fold-sharded grid, its budgets its own (phase 5)."""
 
-    def __init__(self, ctx):
+    def __init__(self, ctx, own=range(FOLDS)):
         from dgcnn_tpu_torch.batching.block_sparse import block_fold_extents
         from dgcnn_tpu_torch.data.folds import get_folds
         from dgcnn_tpu_torch.train.cv import _geom_round
         from dgcnn_tpu_torch.train.cv_vmap import stacked_orders
 
         self.ctx = ctx
-        folds = get_folds(ctx.gs.y, "", FOLDS, 324, data_type="DD")
+        self.folds = len(own)
+        folds = [get_folds(ctx.gs.y, "", FOLDS, 324, data_type="DD")[f] for f in own]
         train = [np.asarray(tr, np.int32) for tr, _ in folds]
         test = [np.asarray(te, np.int32) for _, te in folds]
         self.steps = max(-(-len(t) // 50) for t in train)
         self.t_steps = max(-(-len(t) // 50) for t in test)
         self.epochs = []  # 3 epochs' orders, each fold on its shuffle stream
-        rngs = [np.random.default_rng(np.random.SeedSequence([324, f]))
-                for f in range(1, FOLDS + 1)]
+        rngs = [np.random.default_rng(np.random.SeedSequence([324, f + 1])) for f in own]
         for _ in range(3):
             self.epochs.append(stacked_orders(
                 [t[r.permutation(len(t))] for t, r in zip(train, rngs)], 50, S,
@@ -939,10 +972,10 @@ class DDLockstepContext:
         counts = ctx.engine._block_counts
         self.items = (counts[np.maximum(self.order, 0)] * (self.order >= 0)).sum((1, 2))
         self.mean_step = int(np.argmin(np.abs(self.items - self.items.mean())))
-        log(f"DD lockstep ({FOLDS} folds): {self.steps} train + {self.t_steps} test "
+        log(f"DD lockstep ({self.folds} folds): {self.steps} train + {self.t_steps} test "
             f"steps an epoch; merged items a train step mean {self.items.mean():.1f} "
             f"(one fold's mean batch {ctx.row_items[ctx.mean_row]}), max "
-            f"{self.items.max()}; budgets nb {self.nb} a fold (nb' = {FOLDS * self.nb} "
+            f"{self.items.max()}; budgets nb {self.nb} a fold (nb' = {self.folds * self.nb} "
             f"block-rows merged), W {self.w}; mean step {self.mean_step} "
             f"({self.items[self.mean_step]} items)")
 
@@ -1157,14 +1190,14 @@ def check_blocks(ctx, device, stats):
                   widths=(32, 1), need_padding=False)
 
 
-def check_lockstep_blocks(lctx, device, stats):
-    """Phase 3b's lockstep case: both kernels on the 10-fold merged stream
-    of DD's mean lockstep step (nb' = 10 × nb block-rows), 64 items of
-    headroom, F ∈ {32, 1}, each design phase 5 times."""
+def check_lockstep_blocks(lctx, device, stats, variants=True):
+    """Phase 3b's lockstep case: both kernels on the merged stream of DD's
+    mean lockstep step (nb' = folds × nb block-rows), 64 items of
+    headroom, F ∈ {32, 1}, each design phase 5 times (`variants`)."""
     b = lctx.batch(w=lctx.w + 64)
-    compare_block(f"DD {FOLDS}-fold merged mean step (step {lctx.mean_step}, "
-                  f"{int(b.num_items)} items, nb' {FOLDS * lctx.nb})", b,
-                  FOLDS * lctx.nb, lctx.ctx.pool, device, stats, variants=True)
+    compare_block(f"DD {lctx.folds}-fold merged mean step (step {lctx.mean_step}, "
+                  f"{int(b.num_items)} items, nb' {lctx.folds * lctx.nb})", b,
+                  lctx.folds * lctx.nb, lctx.ctx.pool, device, stats, variants=variants)
 
 
 def check_blocks_bf16(ctx, lctx, pool16, device, stats):
@@ -1288,12 +1321,10 @@ SPMM_KERNEL_OF = {"xla": "spmm_rows", "onehot": "spmm_edge_block",
 
 
 def spmm_counters():
-    """name → the kernel's launch counts."""
-    from dgcnn_tpu_torch.kernels import spmm_block_coo as sbc
-    from dgcnn_tpu_torch.kernels import spmm_pallas as sp
+    """name → the SpMM kernel's launch counts (train/loop.py's one list)."""
+    from dgcnn_tpu_torch.train.loop import KERNEL_COUNTERS
 
-    return {"spmm_rows": sp.rows_launches, "spmm_edge_block": sp.edge_block_launches,
-            "spmm_block_coo": sbc.launches}
+    return {name: KERNEL_COUNTERS[name] for name in SPMM_KERNELS}
 
 
 class CooContext:
@@ -1700,6 +1731,35 @@ def edge_block_cases(device):
 BLOCK_COO_TIMED = ("spmm_block_coo", "spmm_block_coo_abuild")
 
 
+def halo_shard_case(gs, device):
+    """Rank (0, 0)'s shard of synthetic DD's halo step on a (1, 2) grid
+    (phase 4k's path): fold 1's first train batch (seed 324, batch 50)
+    packed by `pack_step_halo` into the config's `halo_bucket`, its edges
+    over the extended [H | S | H] window as `apply_halo` hands them to the
+    SpMM (destinations shifted by H), as one `SpmmCase`; and (S, E_s, H)."""
+    from types import SimpleNamespace
+
+    from dgcnn_tpu_torch.batching.shard_pack import halo_bucket, pack_step_halo
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.data.folds import get_folds
+
+    cfg = Config(data_type="DD")
+    b = halo_bucket(gs, cfg.batch_size, 1, 2, cfg.node_pad_multiple,
+                    cfg.edge_pad_multiple, cfg.graph_pad_multiple)
+    train = np.asarray(get_folds(gs.y, "", FOLDS, cfg.seed, data_type="DD")[0][0])
+    perm = np.random.default_rng(np.random.SeedSequence([cfg.seed, 1])).permutation(
+        len(train))
+    local = pack_step_halo(gs, train[perm][:cfg.batch_size], 1, 2, b.shard_nodes,
+                           b.shard_edges, b.shard_graphs, b.halo, rank=(0, 0)).map(
+        lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    n = b.shard_nodes + 2 * b.halo
+    view = SimpleNamespace(x=torch.empty((n, 1), device=device),
+                           edge_src=local.edge_src_ext,
+                           edge_dst=local.edge_dst_loc + b.halo, edge_mask=local.edge_mask)
+    return SpmmCase(view, seed=5, device=device, block_coo=False), (
+        b.shard_nodes, b.shard_edges, b.halo)
+
+
 def time_spmm(case, flush, device, kernels=SPMM_KERNELS + ("spmm_block_coo_abuild",)):
     """Per kernel of `kernels` (an edge-stream kernel's earlier design as
     `<name>_earlier`), direction and F: warm and flushed device ms, the
@@ -1708,10 +1768,12 @@ def time_spmm(case, flush, device, kernels=SPMM_KERNELS + ("spmm_block_coo_abuil
     from dgcnn_tpu_torch.kernels.spmm_block_coo import _cuda_spmm, block_coo_order
     from dgcnn_tpu_torch.ops.spmm import spmm_plain
 
-    s, bo = case.structure, case.bc_order
     gen = torch.Generator(device=device).manual_seed(11)
-    rows = {"order_ms": device_ms(lambda: block_coo_order(s, case.n))}
-    log(f"  block-COO slot order (both orientations): {rows['order_ms']:.4f} ms")
+    rows = {}
+    if case.block_coo:
+        s, bo = case.structure, case.bc_order
+        rows["order_ms"] = device_ms(lambda: block_coo_order(s, case.n))
+        log(f"  block-COO slot order (both orientations): {rows['order_ms']:.4f} ms")
     for f in (32, 1):
         h = torch.randn((case.n, f), generator=gen, device=device)
         g = torch.randn((case.n, f), generator=gen, device=device)
@@ -1724,12 +1786,14 @@ def time_spmm(case, flush, device, kernels=SPMM_KERNELS + ("spmm_block_coo_abuil
                 calls[kname + suffix] = (
                     lambda k=kname, d=design: case.launch(k, h, False, d),
                     lambda k=kname, d=design: case.launch(k, g, True, d))
-        calls["spmm_block_coo"] = (
-            lambda: _cuda_spmm(bo.row_ptr, bo.perm, s.item_c, s.ls, case.w_pad, h, False),
-            lambda: _cuda_spmm(bo.row_ptrT, bo.permT, s.item_cT, s.lsT, case.w_padT, g,
-                               True))
-        calls["spmm_block_coo_abuild"] = (lambda: case.abuild(h, False),
-                                          lambda: case.abuild(g, True))
+        if case.block_coo:
+            calls["spmm_block_coo"] = (
+                lambda: _cuda_spmm(bo.row_ptr, bo.perm, s.item_c, s.ls, case.w_pad, h,
+                                   False),
+                lambda: _cuda_spmm(bo.row_ptrT, bo.permT, s.item_cT, s.lsT, case.w_padT,
+                                   g, True))
+            calls["spmm_block_coo_abuild"] = (lambda: case.abuild(h, False),
+                                              lambda: case.abuild(g, True))
         calls = {k: v for k, v in calls.items() if k in kernels}
         plain = {
             "fwd": device_ms(lambda: spmm_plain(case.src, case.dst, case.w, h, case.n)),
@@ -4717,6 +4781,213 @@ def halo_fold_main_path(card):
     return {"runs": runs, "dryrun": dry, "dryrun_s": dry_s}
 
 
+# -- phase 4l: the reference protocol's tools on the card ----------------------
+
+RELEASE_SETS = ("MUTAG", "NCI1", "DD")
+RELEASE_LAYOUTS = ("dense", "dense", "block")
+RELEASE_EPOCHS = 4  # cut from the protocol's 100
+# MUTAG runs this many epochs past one chunk (max_fused_epochs): its second
+# chunk gives the report's steady-state median rows
+MUTAG_EXTRA_EPOCHS = 5
+# the summary line's keys: the reference tool's (tools/release_validation.py
+# :71-80), then the port's
+SUMMARY_KEYS = ("dataset", "dtype", "adj_dtype", "block_impl", "wall_s", "test_acc_mean",
+                "test_acc_std", "train_acc_mean", "card", "device", "layout",
+                "cv_parallel", "num_epochs", "num_folds", "launches")
+TB_TAGS = 6  # train/test loss and accuracy, edges/s, epoch seconds
+TRACE_TOP = 15  # rows of the trace's device top table
+REHEARSAL = "NCI1"  # the dress rehearsal's dataset, at its published size
+
+
+@contextlib.contextmanager
+def tensorboardx_or_recorder(points):
+    """tensorboardX where it is installed; else a stand-in module whose
+    `SummaryWriter` records each (run directory, tag, step, value) into
+    `points`, so that the export's reading, deduplication and counting
+    still run."""
+    import importlib.util
+    import types
+
+    if importlib.util.find_spec("tensorboardX") is not None:
+        yield "tensorboardX"
+        return
+
+    class SummaryWriter:
+        def __init__(self, logdir):
+            self.logdir = logdir
+
+        def add_scalar(self, tag, value, global_step, walltime=None):
+            points.append((self.logdir, tag, global_step, float(value)))
+
+        def close(self):
+            pass
+
+    stand_in = types.ModuleType("tensorboardX")
+    stand_in.SummaryWriter = SummaryWriter
+    sys.modules["tensorboardX"] = stand_in
+    try:
+        yield "a recording stand-in (tensorboardX is not installed)"
+    finally:
+        del sys.modules["tensorboardX"]
+
+
+def quiet(fn, *args):
+    """`fn(*args)` with its standard output captured: (result, output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    return result, buf.getvalue()
+
+
+def tools_main_path(card):
+    """Phase 4l: `release_validation` of MUTAG at 10 folds x one chunk + 5
+    epochs, NCI1 and DD at 10 x 4 (the kernels' counts set to 0 just
+    before, read just after) and `release_report` over it (MUTAG's
+    steady-state median a number, its first chunk's rows left out);
+    MUTAG again into another root and `diff_runs` (exit 0: two card runs
+    bitwise equal); `export_tensorboard` over NCI1's events with its last
+    epoch replayed; a `--profile` CLI run of MUTAG at 1 fold x 2 epochs
+    and `summarize_trace` (the trunk kernel in its top table);
+    `dress_rehearsal --train` on NCI1 at 1 epoch; `pinned_trajectory` on
+    the card against its card artifacts (the trunk and the CSR kernel
+    launched)."""
+    from dgcnn_tpu_torch import cli
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.data.synthetic import PROFILES
+    from dgcnn_tpu_torch.tools import (
+        diff_runs, dress_rehearsal, export_tensorboard, pinned_trajectory, release_report,
+        release_validation, summarize_trace)
+    from dgcnn_tpu_torch.train.loop import KERNEL_COUNTERS
+
+    t0 = time.perf_counter()
+    out = {}
+    chunk = Config().max_fused_epochs
+    epochs = {ds: RELEASE_EPOCHS for ds in RELEASE_SETS}
+    epochs["MUTAG"] = chunk + MUTAG_EXTRA_EPOCHS
+    with tempfile.TemporaryDirectory() as tmp:
+        data, rel, again = (os.path.join(tmp, d) for d in ("data", "rel", "again"))
+        for c in KERNEL_COUNTERS.values():
+            c.reset()
+        for ds in RELEASE_SETS:
+            quiet(release_validation.main, [ds, "--num_epochs", str(epochs[ds]),
+                                            "--out_root", rel, "--data_root", data])
+        launches = release_validation.kernel_counts()
+        with open(os.path.join(rel, "summary.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        for row, ds, layout in zip(rows, RELEASE_SETS, RELEASE_LAYOUTS, strict=True):
+            if tuple(row) != SUMMARY_KEYS:
+                raise AssertionError(f"summary keys {tuple(row)}")
+            want = (ds, layout, "folds", card, "cuda", epochs[ds], FOLDS)
+            got = tuple(row[k] for k in ("dataset", "layout", "cv_parallel", "card",
+                                         "device", "num_epochs", "num_folds"))
+            if got != want or not all(math.isfinite(row[k]) for k in (
+                    "test_acc_mean", "test_acc_std", "train_acc_mean", "wall_s")):
+                raise AssertionError(f"summary {row}; want {want}")
+            log(f"  release_validation {ds}: {row['layout']}, {row['cv_parallel']}, "
+                f"{row['wall_s']:.2f} s, test {row['test_acc_mean']:.2f} ± "
+                f"{row['test_acc_std']:.2f} %, launches {json.dumps(row['launches'])}")
+        trunk = launches["dense_trunk"]["fwd_launches"], launches["dense_trunk"]["bwd_launches"]
+        csr = launches["block_csr"]["fwd_launches"], launches["block_csr"]["bwd_launches"]
+        if min(trunk + csr) == 0:
+            raise AssertionError(f"the path launched trunk {trunk}, CSR {csr}")
+        out["launches"] = {"gcn_trunk": trunk, "block_csr": csr}
+        report = release_report.render(rel)
+        table = {ln.split(" | ")[0].lstrip("| ").split(" (")[0]: ln.strip("|").split("|")
+                 for ln in report.splitlines() if ln.startswith("| ")}
+        for ds in RELEASE_SETS:
+            # a run of one chunk has no steady-state row; MUTAG's second
+            # chunk has, and only its first chunk is left out
+            cells = [c.strip() for c in table[ds]]
+            steady = epochs[ds] > chunk
+            left = FOLDS * min(epochs[ds], chunk)
+            median, _, rest = cells[1].partition(" (") if len(cells) == 7 else ("", "", "")
+            if (rest != f"{left} rows left out)" or
+                    cells[4] != f"{rows[RELEASE_SETS.index(ds)]['wall_s']:.0f} s" or
+                    (median.endswith(" ms") and cells[3].endswith("×**")) != steady or
+                    (not steady and (median, cells[3]) != ("—", "—")) or
+                    (steady and not float(median[:-3]) > 0)):
+                raise AssertionError(f"report row {cells}: {epochs[ds]} epochs in chunks "
+                                     f"of {chunk}, want {left} rows left out")
+        if card not in report.splitlines()[0]:
+            raise AssertionError(f"report heading {report.splitlines()[0]!r}")
+        log("  release_report: " + report.splitlines()[0])
+        for ds in RELEASE_SETS:
+            log("    " + next(ln for ln in report.splitlines() if ln.startswith(f"| {ds}")))
+
+        quiet(release_validation.main, ["MUTAG", "--num_epochs", str(epochs["MUTAG"]),
+                                        "--out_root", again, "--data_root", data])
+        first = os.path.join(tmp, "first")
+        os.makedirs(first)
+        for name in os.listdir(os.path.join(rel, "statistics")):
+            if name.startswith("MUTAG_"):
+                shutil.copy(os.path.join(rel, "statistics", name), first)
+        rc, diff = quiet(diff_runs.main, [first, os.path.join(again, "statistics")])
+        if rc != 0:
+            raise AssertionError("diff_runs of two card runs of MUTAG:\n" + diff)
+        log(f"  diff_runs, MUTAG twice on the card: exit 0 ({len(diff.splitlines())} "
+            f"files: " + "; ".join(ln.strip() for ln in diff.splitlines()) + ")")
+
+        ev_name = f"{RELEASE_SETS[1]}_events.jsonl"
+        events = os.path.join(tmp, ev_name)
+        with open(os.path.join(rel, "statistics", ev_name)) as f:
+            lines = f.readlines()
+        last = [json.loads(ln) for ln in lines]
+        replay = [{**e, "train_loss": 0.0} for e in last
+                  if e["kind"] == "epoch" and e["epoch"] == RELEASE_EPOCHS]
+        with open(events, "w") as f:  # a resume re-appends the last epoch's rows
+            f.writelines(lines + [json.dumps(e) + "\n" for e in replay])
+        points = []
+        with tensorboardx_or_recorder(points) as writer:
+            _, text = quiet(export_tensorboard.main,
+                            [events, "--logdir", os.path.join(tmp, "tb")])
+        want = FOLDS * RELEASE_EPOCHS * TB_TAGS
+        if f": {want} scalar points" not in text or (
+                points and (len(points) != want or len({p[:3] for p in points}) != want
+                            or any(p[1] == "train_loss" and (p[3] == 0.0) != (
+                                p[2] == RELEASE_EPOCHS) for p in points))):
+            raise AssertionError(f"export: {text!r}, {len(points)} points recorded")
+        log(f"  export_tensorboard over {ev_name} ({len(replay)} rows replayed), "
+            f"through {writer}: {want} scalar points ({FOLDS} folds x {RELEASE_EPOCHS} "
+            f"epochs x {TB_TAGS} tags, each once)")
+
+        prof = os.path.join(tmp, "prof")
+        quiet(cli.main, ["--data_type", "MUTAG", "--synthetic", "--num_folds", "1",
+                         "--num_epochs", "2", "--data_root", data, "--out_root",
+                         os.path.join(tmp, "prof_run"), "--profile", prof])
+        s = summarize_trace.summarize(summarize_trace.find_trace(prof))
+        names = [n for n, _, _ in s["device"]["ops"][:TRACE_TOP]]
+        if not any("trunk_resident" in n for n in names):
+            raise AssertionError(f"no trunk kernel in the device top table: {names}")
+        log(summarize_trace.table("device", s["device"], TRACE_TOP))
+        out["trace"] = {"device_busy_ms": s["device"]["busy_us"] / 1e3,
+                        "span_ms": s["device"]["span_us"] / 1e3, "top": names[:3]}
+
+        rc, text = quiet(dress_rehearsal.main, ["--name", REHEARSAL, "--train",
+                                                "--num_epochs", "1"])
+        rehearsal = json.loads(text.strip().splitlines()[-1])
+        if rc != 0 or rehearsal.get("round_trip") != "byte_identical" or \
+                rehearsal.get("graphs") != PROFILES[REHEARSAL]["num_graphs"]:
+            raise AssertionError(f"dress_rehearsal: {text[-2000:]}")
+        log(f"  dress_rehearsal --train {REHEARSAL} (1 epoch): {json.dumps(rehearsal)}")
+        out["rehearsal"] = rehearsal
+
+    for c in KERNEL_COUNTERS.values():
+        c.reset()
+    rc, text = quiet(pinned_trajectory.main, [])
+    pinned = release_validation.kernel_counts()
+    trunk_p = pinned["dense_trunk"]["fwd_launches"], pinned["dense_trunk"]["bwd_launches"]
+    csr_p = pinned["block_csr"]["fwd_launches"], pinned["block_csr"]["bwd_launches"]
+    files = len(pinned_trajectory.LAYOUTS) * pinned_trajectory.NUM_FOLDS
+    if rc != 0 or text.count(": MATCH") != files or min(trunk_p + csr_p) == 0:
+        raise AssertionError(f"pinned_trajectory on the card: rc {rc}, trunk {trunk_p}, "
+                             f"CSR {csr_p}:\n{text}")
+    log(f"  pinned_trajectory on the card: {files} of {files} artifacts MATCH (card/); "
+        f"launches trunk {trunk_p}, CSR {csr_p}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 4l took {out['seconds']:.1f} s; {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
@@ -4784,6 +5055,9 @@ def main() -> int:
     check_blocks(ctx, device, stats)
     lctx = DDLockstepContext(ctx)
     check_lockstep_blocks(lctx, device, stats)
+    # one rank's step of fold-sharded lockstep on a (2, 1) grid (phase 4k)
+    sctx = DDLockstepContext(ctx, own=range(FOLDS // 2))
+    check_lockstep_blocks(sctx, device, stats, variants=False)
     log("  -- the bf16 mode (bf16 pool and hb)")
     pool16 = ctx.pool.to(torch.bfloat16)
     check_blocks_bf16(ctx, lctx, pool16, device, stats)
@@ -4798,6 +5072,11 @@ def main() -> int:
         case = spmm_cases[key] = SpmmCase(c.batch(r), seed=r, device=device)
         compare_spmm(f"{label} COO batch (row {r}, {case.e_real} edges, N {case.n}, "
                      f"block-COO items {case.items} of {case.slots})", case, device, stats)
+    # one rank's shard of DD's halo step on a (1, 2) grid (phase 4k): the row
+    # and edge-block kernels over the extended window
+    halo_case, (hs, he, hh) = halo_shard_case(ctx.gs, device)
+    compare_spmm(f"DD halo shard (rank (0, 0) of (1, 2): N {halo_case.n}, E_s {he}, "
+                 f"{halo_case.e_real} real edges)", halo_case, device, stats)
     dd_host = HostCooContext("DD", ctx.gs, device)
     nci1_host_coo = HostCooContext("NCI1", datasets["NCI1"], device)
     for label, key, c, r in (
@@ -5090,6 +5369,14 @@ def main() -> int:
     log(card)
     halo_folds = halo_fold_main_path(card)
 
+    log(f"== phase 4l: the reference protocol's tools on the card: release_validation "
+        f"{', '.join(RELEASE_SETS)} ({FOLDS} folds x {RELEASE_EPOCHS} epochs, MUTAG one "
+        f"chunk + {MUTAG_EXTRA_EPOCHS}; cut from 100) and release_report; MUTAG again and "
+        f"diff_runs; export_tensorboard; a --profile run and summarize_trace; "
+        f"dress_rehearsal --train NCI1; pinned_trajectory on the card")
+    log(card)
+    tools = tools_main_path(card)
+
     log("== phase 5: device times (CUDA-graph replay, CUDA events)")
     log(card)
     flush = Flush(device)
@@ -5249,6 +5536,28 @@ def main() -> int:
         log(f"  {ds} inference batch {inf['median_batch']} (the median batch by edges; "
             f"the row kernel, which inference runs forward only):")
         infer_times[ds] = time_spmm(inf["case"], flush, device, kernels=("spmm_rows",))
+    # phase 4k's paths at their own shapes, in this process (a shape needs no
+    # second rank): one rank's step of fold-sharded lockstep on a (2, 1) grid
+    # (5 folds, its own budgets) and one rank's shard of DD's halo step
+    half = FOLDS // 2
+    adj, mask = lock_shapes[t_main]
+    row = trunk_times[("fold shard", t_main)] = time_trunk(
+        dt, adj[:half * S], mask[:half * S], None, flush, device, folds=half)
+    log(f"  trunk fold-sharded lockstep, one rank of a (2, 1) grid: S={half * S} "
+        f"K={half} T={t_main} {row['plan']}: fwd kernel {row['fwd']:.4f} ms (flushed "
+        f"{row['fwd_flushed']:.4f}) plain {row['fwd_plain']:.4f} bound "
+        f"{row['bound_fwd']:.4f} ({row['bound_fwd_by']}) | bwd kernel {row['bwd']:.4f} "
+        f"ms (flushed {row['bwd_flushed']:.4f}) plain {row['bwd_plain']:.4f} bound "
+        f"{row['bound_bwd']:.4f} ({row['bound_bwd_by']})")
+    shard_label = f"{half}-fold merged mean step"
+    log(f"  DD {shard_label}, one rank of a (2, 1) grid (step {sctx.mean_step}, nb' "
+        f"{half * sctx.nb}):")
+    block_times[shard_label] = time_block(sctx.batch(), half * sctx.nb, ctx.pool, flush,
+                                          device, variants=False)
+    log(f"  DD halo shard, rank (0, 0) of a (1, 2) grid (S {hs}, H {hh}, N {hs + 2 * hh}, "
+        f"E_s {he}, {halo_case.e_real} real edges):")
+    spmm_times["halo shard"] = time_spmm(halo_case, flush, device,
+                                         kernels=("spmm_rows", "spmm_edge_block"))
     del flush
 
     log("== phase 6: one profiled train step (torch.profiler), then one epoch "
@@ -5543,6 +5852,38 @@ def main() -> int:
         "shape": f"the abuild variant at the {probe_shapes[0].label}",
         "variants_ms": {v: t["ms"] for v, t in std["variants"].items()},
     })
+    # phase 5's times at phase 4k's shapes, beside each kernel's 4k launches
+    timed = ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    ts5 = trunk_times[("fold shard", t_main)]
+    at_4k = {}
+    for d in ("fwd", "bwd"):
+        at_4k[f"gcn_trunk_{d}"] = ("fold_sharded_shape", {
+            "shape": f"one rank of a (2, 1) grid: S={half * S}, K={half}, T={t_main}",
+            "plan": ts5["plan"], "ms": ts5[d], "ms_l2_flushed": ts5[f"{d}_flushed"],
+            "plain_ms": ts5[f"{d}_plain"], "bound_ms": ts5[f"bound_{d}"],
+            "bound_by": ts5[f"bound_{d}_by"], "library_ms": None})
+        for f, suffix in ((32, ""), (1, "_f1")):
+            for kname in BLOCK_KERNELS:
+                r = block_row(block_times[shard_label], kname, d, f)
+                at_4k[f"{kname}_{d}{suffix}"] = ("fold_sharded_shape", {
+                    "shape": f"one rank's {shard_label}: {r['n_items']} items, nb' "
+                             f"{r['nb']}, F {f}", **{k: r[k] for k in timed}})
+            for kname in ("spmm_rows", "spmm_edge_block"):
+                r = spmm_times["halo shard"][(kname, d, f)]
+                at_4k[f"{kname}_{d}{suffix}"] = ("halo_shape", {
+                    "shape": f"DD halo shard: N {r['n']} (S {hs}, H {hh}), E_s {he}, "
+                             f"{r['edges']} real edges, F {f}", **{k: r[k] for k in timed}})
+    for k in kernels:
+        if k["name"] in at_4k:
+            k[at_4k[k["name"]][0]] = at_4k[k["name"]][1]
+        for name, (fwd, bwd) in tools["launches"].items():
+            if k["name"] in (f"{name}_fwd", f"{name}_bwd"):
+                k["tools_path"] = {
+                    "main_path": f"phase 4l: release_validation {', '.join(RELEASE_SETS)}, "
+                                 f"{FOLDS} folds x {RELEASE_EPOCHS} epochs (MUTAG one "
+                                 f"chunk + {MUTAG_EXTRA_EPOCHS}), launches of every "
+                                 f"width counted per replay",
+                    "launches": fwd if k["name"].endswith("_fwd") else bwd}
     for k in kernels:  # phases 4j and 4k's launches per rank, beside one device's
         runs = []
         for run in mesh["runs"] + halo_folds["runs"]:

@@ -1,0 +1,142 @@
+"""Compose the port's RESULTS table from a `release_validation` run; the
+port's copy of tools/release_report.py.
+
+Reads the summary lines and the per-epoch event logs of the full
+reference protocol (100 epochs x 10 folds, batch 50, seed 324) and
+renders the table against the reference's published GTX-1070 numbers
+(BASELINE.md), under a heading that names the card and its power limit
+as the summaries recorded them.
+
+    python -m dgcnn_tpu_torch.tools.release_report release \
+        > dgcnn_tpu_torch/RESULTS.md
+
+The epoch column is a median over steady-state rows only, where the
+reference takes every row: the rows of a chunk that built a runner
+(`runner_built`: a run's first chunk in lockstep, a fold's first chunk
+in sequence, and a chunk after a budget grew) hold an eager warm-up
+epoch and a CUDA-graph capture; the rows left out are counted beside
+the median.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+# reference per-epoch seconds + published accuracy (reference
+# README.md:106-138, mirrored in BASELINE.md)
+REFERENCE = {
+    "MUTAG": (4.48, "85.83±1.66"),
+    "PTC_MR": (6.77, "58.59±2.47"),
+    "NCI1": (61.04, "74.44±0.47"),
+    "PROTEINS": (21.15, "75.54±0.94"),
+    "DD": (64.71, "79.37±0.94"),
+    "COLLAB": (202.65, "73.76±0.49"),
+    "IMDB-BINARY": (15.55, "70.03±0.86"),
+    "IMDB-MULTI": (21.90, "47.83±0.85"),
+}
+
+
+def steady_epoch_seconds(events_path: str):
+    """(median fold-epoch seconds over the steady-state rows, rows left
+    out). A lockstep row's seconds cover all its folds: the fold-epoch is
+    that over `folds_in_lockstep`. Each (fold, epoch) counts once, the
+    last written (a resumed run appends its replayed epochs)."""
+    rows = {}
+    with open(events_path) as f:
+        for line in f:
+            ev = json.loads(line)
+            if ev.get("kind") == "epoch":
+                rows[(ev["fold"], ev["epoch"])] = ev
+    vals, left_out = [], 0
+    for ev in rows.values():
+        if ev.get("runner_built", False):
+            left_out += 1
+            continue
+        vals.append(ev["epoch_seconds"] / ev.get("folds_in_lockstep", 1))
+    vals.sort()
+    return (vals[len(vals) // 2] if vals else float("nan")), left_out
+
+
+def read_summaries(root: str) -> dict:
+    summaries = {}
+    with open(os.path.join(root, "summary.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            summaries[rec["dataset"]] = rec  # the last run of a dataset
+    return summaries
+
+
+def render(root: str) -> str:
+    summaries = read_summaries(root)
+    cards = sorted({s.get("card") or f"no card ({s.get('device', 'cpu')})"
+                    for s in summaries.values()})
+    out = [f"# Release validation of dgcnn_tpu_torch — full reference protocol on "
+           f"{' / '.join(cards)}", ""]
+    depth = sorted({(s.get("num_folds", 10), s.get("num_epochs", 100))
+                    for s in summaries.values()})
+    out += [
+        "Every dataset, " + ", ".join(f"{e} epochs × {k}-fold CV" for k, e in depth)
+        + ", batch 50, seed 324, Adam defaults: the experiment `python train.py "
+        "--data_type X` runs in the reference, here through "
+        "`python -m dgcnn_tpu_torch.tools.release_validation`. Data is the "
+        "**synthetic profile** generator (no network in the build environment), "
+        "so the accuracy column validates the pipeline, not the published "
+        "benchmark numbers.",
+        "",
+        "| dataset | epoch (median) | ref epoch (GTX 1070) | speedup | "
+        "full 10-fold run | test acc (synthetic) | ref acc (real data) |",
+        "|---|---|---|---|---|---|---|",
+    ]
+    layouts = []
+    for ds, (ref_epoch, ref_acc) in REFERENCE.items():
+        s = summaries.get(ds)
+        if s is None:
+            out.append(f"| {ds} | — | {ref_epoch:.2f} s | — | — | — | {ref_acc} |")
+            continue
+        ep, left = steady_epoch_seconds(
+            os.path.join(root, "statistics", f"{ds}_events.jsonl"))
+        # the reference's tags (adj_dtype auto, float32 on the port, too),
+        # but block_impl: the port's auto is the CSR kernel ("pallas")
+        tags = []
+        if s.get("dtype", "float32") != "float32":
+            tags.append(s["dtype"])
+        if s.get("adj_dtype", "float32") != "float32":
+            tags.append(f"adj={s['adj_dtype']}")
+        if s.get("block_impl", "auto") != "auto":
+            tags.append(s["block_impl"])
+        tag = f" ({', '.join(tags)})" if tags else ""
+        layouts.append(f"{ds} {s.get('layout')}, {s.get('cv_parallel')}")
+        # a run of one chunk a fold has no steady-state row
+        epoch, speedup = (("—", "—") if ep != ep else
+                          (f"{ep * 1e3:.2f} ms", f"**{ref_epoch / ep:,.0f}×**"))
+        out.append(
+            f"| {ds}{tag} | {epoch} ({left} rows left out) | {ref_epoch:.2f} s | "
+            f"{speedup} | {s['wall_s']:.0f} s | "
+            f"{s['test_acc_mean']:.2f}±{s['test_acc_std']:.2f}% | {ref_acc} |")
+    out += [
+        "",
+        "The epoch column is one fold-epoch (train and the per-epoch test-set "
+        "evaluation; the reference's timing excludes the evaluation), the median "
+        "over steady-state chunks: a lockstep row's seconds are over its folds. "
+        "Left out are the chunks that built a runner: a run's (lockstep) or a "
+        "fold's (sequential) first chunk, which holds an eager warm-up epoch and a "
+        "CUDA-graph capture, and every chunk after a budget grew, which captures "
+        "again. The full-run column holds them, the data's "
+        "synthesis or load, the engine's build and shipping to the card, and "
+        "writing the artifacts.",
+        "",
+        "Layouts and CV drivers `auto` resolved to: " + "; ".join(layouts) + ".",
+    ]
+    return "\n".join(out) + "\n"
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    sys.stdout.write(render(argv[0] if argv else "release"))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -344,15 +344,19 @@ class RunnerSlot:
     and that graph's memory pool, then builds the new one, which warms up
     and captures on its first chunk. Budgets grow only, so a run builds
     one runner a fold (in lockstep one a run) and one more each time a
-    budget grows."""
+    budget grows. `builds` counts the runners built: the drivers mark the
+    `epoch` events of a chunk that built one (`runner_built`), whose
+    seconds hold the warm-up and the capture."""
 
     def __init__(self):
         self.key = self.runner = None
+        self.builds = 0
 
     def get(self, key, make):
         if self.runner is None or key != self.key:
             self.drop()
             self.runner, self.key = make(), key
+            self.builds += 1
         return self.runner
 
     def drop(self) -> None:
@@ -1205,8 +1209,10 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
         k = chunk_epochs(cfg, epoch)
         perms = np.stack([shuffle_rng.permutation(n_train) for _ in range(k)])
         t0 = time.perf_counter()
+        builds = engine.runners.builds
         rows = engine.run_epochs(net, optimizer, dropout_gen, perms)
         dt = (time.perf_counter() - t0) / k  # amortized over the chunk
+        built = engine.runners.builds != builds
         for j in range(k):
             tr_loss, te_loss, tr_correct, te_correct = rows[j]
             train_acc = float(tr_correct) / n_train * 100.0
@@ -1223,6 +1229,7 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
                 epoch_seconds=dt,
                 edges_per_second=train_edges / dt if dt > 0 else 0.0,
                 chunk_epochs=k,
+                runner_built=built,
             )
             if cfg.log_every and (epoch + j) % cfg.log_every == 0:
                 print(
@@ -1343,6 +1350,7 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         num_features=dataset.num_features,
         num_classes=dataset.num_classes,
         layout=layout,
+        cv_parallel="folds" if use_lockstep else "sequential",
         **({"block_impl": cfg.resolved_block_impl()} if layout == "block" else {}),
         **({"spmm_impl": cfg.resolved_spmm_impl()} if layout in ("coo", "halo") else {}),
         **({"tiles": list(engine.tiles), "slot_floors": engine.slot_floor.tolist()}

@@ -333,6 +333,7 @@ def run_cv_folds_lockstep(cfg: Config, dataset: GraphSet, model: DGCNN,
         ids_k = [[train_idx_f[f][shuffles[f].permutation(n_train_f[f])] for f in own]
                  for _ in range(k)]
         t0 = time.perf_counter()
+        builds = engine.runners.builds
         rows = None
         if own:
             runner, orders = lockstep_chunk(engine, net_f, adam_f, dropout_gens, ids_k,
@@ -344,6 +345,7 @@ def run_cv_folds_lockstep(cfg: Config, dataset: GraphSet, model: DGCNN,
             rows = gather_folds(local, torch.zeros((1, k, 4), dtype=torch.float64),
                                 num_folds, grid).cpu().numpy().transpose(1, 0, 2)
         dt = (time.perf_counter() - t0) / k  # amortized over the chunk
+        built = engine.runners.builds != builds
         for j in range(k):
             for f in range(num_folds):
                 tr_loss, te_loss, tr_correct, te_correct = rows[j, f]
@@ -363,6 +365,7 @@ def run_cv_folds_lockstep(cfg: Config, dataset: GraphSet, model: DGCNN,
                     edges_per_second=train_edges / dt if dt > 0 else 0.0,
                     chunk_epochs=k,
                     folds_in_lockstep=num_folds,
+                    runner_built=built,
                 )
             if writer and cfg.log_every and (epoch + j) % cfg.log_every == 0:
                 accs = " ".join(f"{rows[j, f, 3] / n_test_f[f] * 100.0:.1f}"

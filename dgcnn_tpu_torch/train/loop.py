@@ -383,13 +383,15 @@ def lockstep_epoch_body(net_f, adam_f, batch_fn: BatchFn, order3d: torch.Tensor,
 
 # -- the fused runner -----------------------------------------------------
 
-# every kernel wrapper's launch counter; a graph replay adds what its
-# capture counted to each
-KERNEL_COUNTERS = (
-    dense_trunk.launches, block_csr.launches, block_resident.launches,
-    spmm_block_coo.launches, spmm_pallas.rows_launches,
-    spmm_pallas.edge_block_launches,
-)
+# every kernel wrapper's launch counter, by kernel name; a graph replay
+# adds what its capture counted to each
+KERNEL_COUNTERS = {
+    "dense_trunk": dense_trunk.launches, "block_csr": block_csr.launches,
+    "block_resident": block_resident.launches,
+    "spmm_block_coo": spmm_block_coo.launches,
+    "spmm_rows": spmm_pallas.rows_launches,
+    "spmm_edge_block": spmm_pallas.edge_block_launches,
+}
 
 
 class CountedGraph:
@@ -399,7 +401,7 @@ class CountedGraph:
     counters' difference over the capture and puts the counters back (the
     capture launched nothing), and each `replay()` adds that difference."""
 
-    def __init__(self, graph, counters=KERNEL_COUNTERS):
+    def __init__(self, graph, counters=tuple(KERNEL_COUNTERS.values())):
         self.graph = graph
         self.counters = counters
         self.per_replay = None

@@ -57,6 +57,22 @@ def test_the_scan_covers_the_probe_and_measurement_modules():
             "dgcnn_tpu_torch/parallel/train_dp.py", "dgcnn_tpu_torch/parallel/halo.py",
             "dgcnn_tpu_torch/batching/shard_pack.py",
             "dgcnn_tpu_torch/tools/probe_collab_drift.py"} <= scanned
+    assert {f"dgcnn_tpu_torch/tools/{m}.py" for m in TOOLS} <= scanned
+
+
+# the ports of tools/ (the port keeps its own copy of each, even of those
+# that import no JAX)
+TOOLS = ("release_validation", "release_report", "diff_runs", "export_tensorboard",
+         "summarize_trace", "pinned_trajectory", "fetch_datasets", "dress_rehearsal")
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_tools_import_nothing_of_the_reference_tools(tool):
+    src = (PORT / "tools" / f"{tool}.py").read_text()
+    bad = [n for n in ast.walk(ast.parse(src)) if isinstance(n, (ast.Import, ast.ImportFrom))
+           and any(name.split(".")[0] == "tools" for name in (
+               [a.name for a in n.names] if isinstance(n, ast.Import) else [n.module or ""]))]
+    assert bad == [] and "sys.path" not in src
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
