@@ -216,7 +216,7 @@ CUDA is absent or any phase fails. Phases:
         graphs/s over a pass of replays and over a whole call;
      i. the COO layout under bf16 compute, the native packer, the parity
         harness and the forward entry: synthetic DD `--layout coo --dtype
-        bfloat16` 2 × 4 under `--spmm auto` (`DeviceCooEngine`) and
+        bfloat16` 1 × 4 under `--spmm auto` (`DeviceCooEngine`) and
         `pallas` (`CooEngine`), in chunks of 2, graphed then eager as in
         4c (the SpMM kernels fp32, launches exact per replay, rows and
         bundles bitwise), fold-epoch seconds and peak memory beside 4c's
@@ -252,8 +252,16 @@ CUDA is absent or any phase fails. Phases:
         launches of the path's kernel (0 just before, read just after)
         exactly one device's for the run's steps, 0 on the others; rank
         0's eager fold-epoch seconds (two ranks sharing one card: not
-        scaling); then, in this process, a 1-rank `nccl` group trains
-        fold 1 of DD one epoch through `MeshDeviceCooEngine`;
+        scaling); then, in this process, each of the five mesh engines
+        (NCI1 dense, DD block, device COO, host COO and halo) on a 1-rank
+        `nccl` grid trains fold 1 of 10, 3 epochs in chunks of 2, graphed
+        (the first epoch eager, then CUDA-graph replays, collectives
+        captured) then eagerly from the same seeds and floors: rows and
+        parameters bitwise equal, launches exactly one device's (replays
+        counted), one eager epoch of the graphed body and one replay under
+        `set_sync_debug_mode("error")` (a 1-rank grid sends nothing point
+        to point: `python -m dgcnn_tpu_torch.tools.mesh_cards` runs the
+        halo exchange on four cards);
      k. the halo layout and fold-sharded lockstep, the ranks run as in j:
         synthetic DD `--layout halo` on a (1, 2) grid at full width
         (`MeshHaloEngine`, the row kernel over each rank's extended
@@ -269,8 +277,9 @@ CUDA is absent or any phase fails. Phases:
         fold-sharded lockstep, every fold's rows within rtol/atol 5e-4 of
         the same config's one-device lockstep on the card (bitwise or not
         printed), accuracies equal, each rank's trunk or CSR launches
-        exactly one device's; then `dryrun_multichip(2)` on the card (its
-        own 2 gloo ranks sharing it);
+        exactly one device's; beside them `dryrun_multichip(2)` on the card
+        (its own 2 gloo ranks sharing it; the phase's fold-epoch seconds
+        are taken beside it);
      l. the reference protocol's tools (dgcnn_tpu_torch/tools/):
         `release_validation` of synthetic MUTAG at 10 folds x 30 epochs
         (one 25-epoch chunk and 5 more), NCI1 and DD at 10 x 4 (cut from
@@ -3784,7 +3793,7 @@ def engines_made():
 
 
 def coo_bf16_main_path(gs, counters, spmm_auto, fp32):
-    """Phase 4i (a): synthetic DD `--layout coo --dtype bfloat16`, 2 folds
+    """Phase 4i (a): synthetic DD `--layout coo --dtype bfloat16`, 1 fold
     x 4 epochs in chunks of `max_fused_epochs` 2, under `--spmm auto`
     (`DeviceCooEngine`, the row kernel) and `--spmm pallas` (`CooEngine`,
     host-packed, the block-COO kernel), each graphed with the counts set to
@@ -3802,7 +3811,7 @@ def coo_bf16_main_path(gs, counters, spmm_auto, fp32):
             label = f"DD COO bf16 {name}"
             with engines_made() as made:
                 n, f1, ev, ev_e, _ = sparse_graphed_vs_eager(
-                    tmp, label, "DD", gs, 2, 4, counters, used, "coo",
+                    tmp, label, "DD", gs, 1, 4, counters, used, "coo",
                     layout="coo", spmm_impl=name, compute_dtype="bfloat16")
             kinds = sorted({type(e).__name__ for e in made})
             want = "CooEngine" if name == "pallas" else "DeviceCooEngine"
@@ -3897,32 +3906,39 @@ def harness_and_entry(device):
     the bits every other CPU run gives, PERF.md §7 item 12.) The same CPU
     dump made in this process is reported beside it, not checked: its max
     abs by stage against the fresh process's and the card's, and both
-    CPU dumps' digests. Then `graft_entry.entry()` on the card,
-    eager against `torch.compile` (the default backend): allclose at rtol
-    1e-5, and the compiled forward launched the row kernel as many times
-    as the eager one."""
+    CPU dumps' digests. While the CLI's processes run, this process runs
+    `entry_compiled` (the CPU side's bits are pinned by thread count and
+    MKL branch, not by load)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from dgcnn_tpu_torch.batching.packer import compute_bucket, pack_batch
     from dgcnn_tpu_torch.data.synthetic import synthesize_tu_dataset
-    from dgcnn_tpu_torch.graft_entry import entry
-    from dgcnn_tpu_torch.kernels import spmm_pallas
     from dgcnn_tpu_torch.models.dgcnn import DGCNN, init_params
     from dgcnn_tpu_torch.parity.harness import _load_acts, compare_dumps, dump_activations
     from dgcnn_tpu_torch.tools.probe_repeat import digest
 
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
         card, cpu = os.path.join(tmp, "card.npz"), os.path.join(tmp, "cpu.npz")
         common = ["--data_type", "MUTAG", "--synthetic", "--num_graphs", "50", "--seed",
                   "0", "--data_root", os.path.join(tmp, "data")]
-        t0 = time.perf_counter()
-        harness_cli("dump", "--out", card, *common)
-        harness_cli("dump", "--out", cpu, "--weights", card, "--platform", "cpu", *common)
-        said = harness_cli("compare", card, cpu)
+
+        def cli_steps():
+            t0 = time.perf_counter()
+            harness_cli("dump", "--out", card, *common)
+            harness_cli("dump", "--out", cpu, "--weights", card, "--platform", "cpu",
+                        *common)
+            return harness_cli("compare", card, cpu), time.perf_counter() - t0
+
+        # the CLI's processes run beside the entry's torch.compile in this one
+        cli_future = pool.submit(cli_steps)
+        out["entry"] = entry_compiled()
+        said, cli_s = cli_future.result()
         if "PARITY OK" not in said:
             raise AssertionError(f"harness compare: {said}")
         a, b = _load_acts(card), _load_acts(cpu)
         out["cli"] = {k: float(np.abs(a[k] - b[k]).max()) for k in a}
-        log(f"  parity harness CLI (fresh processes, {time.perf_counter() - t0:.1f} s): "
+        log(f"  parity harness CLI (fresh processes, {cli_s:.1f} s, beside the compile): "
             f"dump MUTAG's first 50 graphs (COO) on the card, dump them on the CPU with "
             f"its weights, compare at rtol 1e-4 / atol 1e-5: PARITY OK; max abs card vs "
             f"CPU by stage {out['cli']}; CPU side (the fresh processes inherit the pins) "
@@ -3954,6 +3970,16 @@ def harness_and_entry(device):
             f"{out['in_process_cpu']['vs_card']}; digests (tools/probe_repeat.py) this "
             f"process {out['in_process_cpu']['digest']}, fresh process "
             f"{out['in_process_cpu']['fresh_digest']}")
+    return out
+
+
+def entry_compiled():
+    """`graft_entry.entry()` on the card, eager against `torch.compile`:
+    allclose at rtol 1e-5 and the row kernel launched as often; what the
+    kernels line keeps of it."""
+    from dgcnn_tpu_torch.graft_entry import entry
+    from dgcnn_tpu_torch.kernels import spmm_pallas
+
     fn, args = entry()
     explained = torch._dynamo.explain(fn)(*args)
     torch._dynamo.reset()
@@ -3975,13 +4001,13 @@ def harness_and_entry(device):
         raise AssertionError(f"entry(): torch.compile vs eager max abs "
                              f"{(got - want).abs().max().item():.3e}")
     log(f"  graft_entry.entry() on the card: log-probs {tuple(want.shape)}, "
-        f"torch.compile (default backend, {compile_s:.1f} s with the compile) allclose "
+        f"torch.compile (default backend, {compile_s:.1f} s with the compile, beside the "
+        f"harness's processes) allclose "
         f"eager at rtol 1e-5 (max abs {(got - want).abs().max().item():.3e}); row-kernel "
         f"launches eager {eager_n}, compiled {compiled_n}; torch._dynamo.explain: "
         f"{explained.graph_count} graph(s), {explained.graph_break_count} break(s)")
-    out["entry"] = {"compile_s": compile_s, "launches": compiled_n,
-                    "graphs": explained.graph_count, "breaks": explained.graph_break_count}
-    return out
+    return {"compile_s": compile_s, "launches": compiled_n,
+            "graphs": explained.graph_count, "breaks": explained.graph_break_count}
 
 
 # -- phase 6: one profiled train step ---------------------------------------
@@ -4494,52 +4520,147 @@ def check_mesh_run(name, shape, kernel, ranks):
             "epoch_s": secs}
 
 
-def nccl_one_rank(dd, device):
-    """A 1-rank `nccl` group: `MeshDeviceCooEngine` trains fold 1 of
-    synthetic DD for one epoch through `run_fold`, its collectives on
-    nccl; (row, launches)."""
+# phase 4j's 1-rank nccl legs: (name, dataset, mesh engine, config, the kernel its
+# path runs); each trains fold 1 of 10, NCCL_EPOCHS epochs in chunks of 2
+NCCL_RUNS = (
+    ("NCI1 dense", "NCI1", "MeshDenseEngine", dict(layout="dense"), "gcn_trunk"),
+    ("DD block", "DD", "MeshBlockEngine", dict(layout="block"), "block_csr"),
+    ("DD device COO", "DD", "MeshDeviceCooEngine", dict(layout="coo"), "spmm_rows"),
+    ("DD host COO", "DD", "MeshCooEngine", dict(layout="coo", coo_assembly="host"),
+     "spmm_rows"),
+    ("DD halo", "DD", "MeshHaloEngine", dict(layout="halo"), "spmm_rows"),
+)
+NCCL_EPOCHS = 3
+
+
+def nccl_engine_epochs(engine, cfg, gs, graphs, train, test):
+    """Fold 1 through the mesh `engine` from its first floors (`graphs=False`:
+    every epoch eager), NCCL_EPOCHS epochs in chunks of 2 from the weights of
+    seed 3, the launch counts set to 0 just before and read just after;
+    (rows, parameters' digest, launches, the fold-epoch seconds of each
+    chunk, the capture seconds, and the runner, still held)."""
+    from dgcnn_tpu_torch.models.dgcnn import DGCNNNet, init_params
+    from dgcnn_tpu_torch.train import cv
+    from dgcnn_tpu_torch.train.loop import make_optimizer
+
+    engine.graphs = graphs
+    device = engine.device
+    model = cv._model_from_config(cfg, gs.num_features, gs.num_classes)
+    net = DGCNNNet(model, init_params(torch.Generator().manual_seed(3), model, device))
+    opt = make_optimizer(net)
+    gen = torch.Generator(device=device).manual_seed(7)
+    rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, 1]))
+    perms = np.stack([rng.permutation(len(train)) for _ in range(NCCL_EPOCHS)])
+    engine.begin_fold(train, test)
+    for c in mesh_counters().values():
+        c.reset()
+    rows, secs = [], []
+    for i in range(0, NCCL_EPOCHS, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk = engine.run_epochs(net, opt, gen, perms[i:i + 2])
+        secs.append((time.perf_counter() - t0) / len(chunk))
+        rows.append(chunk)
+    counts = mesh_counts()
+    runner = engine.runners.runner
+    return {"rows": np.concatenate(rows), "digest": params_digest(net), "launches": counts,
+            "epoch_s": secs, "runner": runner,
+            "capture_s": getattr(runner, "capture_seconds", None)}
+
+
+def no_sync_replay(name, runner):
+    """One eager epoch of a graphed mesh runner's body and one replay of its
+    graph, each under `set_sync_debug_mode("error")`: neither syncs the
+    host (the runner's state moves on; its rows were read before)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runner.body()
+        runner.graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not torch.isfinite(runner.rows).all():
+        raise AssertionError(f"{name}: the body under the sync check gave {runner.rows}")
+
+
+def nccl_one_rank(data, device):
+    """A 1-rank `nccl` group: each of `NCCL_RUNS` trains fold 1 through its
+    mesh engine graphed (the runner a `FusedRun`: the first epoch warm-up,
+    then CUDA-graph replays, collectives captured), then eagerly, from the
+    same seeds: rows and parameters bitwise equal, each run's launches of
+    the path's kernel exactly one device's for its steps (replays counted),
+    0 on the others; then one eager epoch of the graphed runner's body and
+    one replay under `set_sync_debug_mode("error")`. A 1-rank grid sends
+    nothing point to point: the halo exchange between cards is
+    `python -m dgcnn_tpu_torch.tools.mesh_cards`'s (four cards)."""
     import torch.distributed as dist
 
     from dgcnn_tpu_torch.parallel.mesh import make_mesh
     from dgcnn_tpu_torch.train import cv
-    from dgcnn_tpu_torch.train.metrics import EventLog
+    from dgcnn_tpu_torch.train.loop import FusedRun
 
+    out = {}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
                                 rank=0, world_size=1)
         try:
             grid = make_mesh((1, 1), device)
-            backend = dist.get_backend(grid.data_group)
-            if backend != "nccl":
-                raise AssertionError(f"the grid's group runs {backend}, not nccl")
-            cfg = cv_config(tmp, "nccl", "DD", 2, 1, layout="coo")
-            engine = cv.MeshDeviceCooEngine(cfg, dd, grid)
-            model = cv._model_from_config(cfg, dd.num_features, dd.num_classes)
-            train, test = cv.get_folds(dd.y, "", 2, cfg.seed, data_type="DD")[0]
-            for c in mesh_counters().values():
-                c.reset()
-            t0 = time.perf_counter()
-            m = cv.run_fold(cfg, dd, model, 1, train, test, engine, EventLog(None))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = mesh_counts()
+            if grid.backend != "nccl" or not grid.graphed:
+                raise AssertionError(f"the grid runs {grid.backend}, graphed {grid.graphed}")
+            for name, ds, cls_name, over, kernel in NCCL_RUNS:
+                gs = data[ds]
+                cfg = cv_config(tmp, "nccl_" + name.replace(" ", "_"), ds, 10,
+                                NCCL_EPOCHS, max_fused_epochs=2, **over)
+                train, test = cv.get_folds(gs.y, "", 10, cfg.seed, data_type=ds)[0]
+                engine = getattr(cv, cls_name)(cfg, gs, grid)
+                floors = cv.engine_floors(engine)
+                g = nccl_engine_epochs(engine, cfg, gs, True, train, test)
+                if not isinstance(g["runner"], FusedRun) or g["runner"].graph is None:
+                    raise AssertionError(f"{name}: no graphed runner ({g['runner']})")
+                no_sync_replay(name, g["runner"])
+                tr_n, ev_n = (-(-len(ids) // cfg.batch_size) for ids in (train, test))
+                want = {k: mesh_launches_want(engine, kernel, tr_n * NCCL_EPOCHS,
+                                              ev_n * NCCL_EPOCHS) if k == kernel
+                        else [0, 0, 0, 0] for k in g["launches"]}
+                engine.end_fold()
+                del g["runner"]
+                cv.restore_floors(engine, floors)  # the eager run's budgets from the same start
+                e = nccl_engine_epochs(engine, cfg, gs, False, train, test)
+                if e["runner"].graphs or e["runner"].graph is not None:
+                    raise AssertionError(f"{name}: graphs=False captured ({e['runner']})")
+                engine.end_fold()
+                del e["runner"], engine
+                same_bits(f"1-rank nccl {name}: graphed vs eager rows", [g["rows"]],
+                          [e["rows"]])
+                if g["digest"] != e["digest"]:
+                    raise AssertionError(f"1-rank nccl {name}: graphed vs eager parameters")
+                for run, label in ((g, "graphed"), (e, "eager")):
+                    if not np.isfinite(run["rows"]).all() or run["launches"] != want:
+                        raise AssertionError(f"1-rank nccl {name} {label}: rows "
+                                             f"{run['rows']}, launches {run['launches']}, "
+                                             f"want {want}")
+                log(f"  1-rank nccl {name} ({cls_name}, {kernel}): fold 1 x {NCCL_EPOCHS} "
+                    f"epochs in chunks of 2, graphed (capture {g['capture_s']:.3f} s) vs "
+                    f"eager: rows and parameters bitwise; launches (fwd, bwd, F=1 fwd, F=1 "
+                    f"bwd) {g['launches'][kernel]} both, one device's, 0 elsewhere; the "
+                    f"body and a replay under set_sync_debug_mode('error'): no host sync; "
+                    f"fold-epoch seconds by chunk graphed {g['epoch_s']}, eager "
+                    f"{e['epoch_s']}")
+                out[name] = {"engine": cls_name, "kernel": kernel,
+                             "launches": g["launches"][kernel], "capture_s": g["capture_s"],
+                             "epoch_s": g["epoch_s"], "eager_epoch_s": e["epoch_s"]}
+                gc.collect()
+                torch.cuda.empty_cache()
         finally:
             dist.destroy_process_group()
-    row = [m.rows[c][0] for c in m.COLUMNS]
-    tr_n, ev_n = (-(-len(ids) // cfg.batch_size) for ids in (train, test))
-    want = {k: mesh_launches_want(engine, "spmm_rows", tr_n, ev_n) if k == "spmm_rows"
-            else [0, 0, 0, 0] for k in counts}
-    if not np.isfinite(row).all() or counts != want:
-        raise AssertionError(f"nccl run: row {row}, launches {counts}, want {want}")
-    log(f"  1-rank nccl group ({backend}): MeshDeviceCooEngine, DD fold 1 x 1 epoch "
-        f"through run_fold in {wall:.2f} s (the communicator's set-up included): row "
-        f"{row}, spmm_rows launches {counts['spmm_rows']} as one device's, 0 elsewhere")
-    return {"backend": backend, "row": row, "launches": counts["spmm_rows"], "wall_s": wall}
+    return out
 
 
-def mesh_main_path(dd, device, card):
+def mesh_main_path(data, device, card):
     """Phase 4j: the `MESH_RUNS` on 2 gloo ranks sharing cuda:0, then the
-    1-rank nccl group; what the kernels line adds."""
+    1-rank nccl legs (`data`: name → synthetic dataset); what the kernels
+    line adds."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         ranks = spawn_mesh_ranks(tmp)
@@ -4553,7 +4674,7 @@ def mesh_main_path(dd, device, card):
         f"left ({builds[0]['files']})")
     runs = [check_mesh_run(name, shape, kernel, ranks)
             for name, _, shape, _, kernel in MESH_RUNS]
-    nccl = nccl_one_rank(dd, device)
+    nccl = nccl_one_rank(data, device)
     log(f"  phase 4j took {time.perf_counter() - t0:.1f} s; {card}")
     return {"runs": runs, "nccl": nccl}
 
@@ -4762,21 +4883,29 @@ def check_fold_run(name, shape, kernel, ranks):
 
 def halo_fold_main_path(card):
     """Phase 4k: `HALO_RUNS` and `FOLD_RUNS` on 2 gloo ranks sharing cuda:0,
-    then `dryrun_multichip(2)` on the card; what the kernels line adds."""
+    and beside them, from a thread, `dryrun_multichip(2)` (its own 2 gloo
+    ranks on the card: all four processes wait mostly on the host); what
+    the kernels line adds."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from dgcnn_tpu_torch import graft_entry
 
+    def dry_run():
+        t1 = time.perf_counter()
+        return graft_entry.dryrun_multichip(2), time.perf_counter() - t1
+
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        ranks = spawn_mesh_ranks(tmp, "4k")
+    with ThreadPoolExecutor(1) as pool:
+        dry_future = pool.submit(dry_run)
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks = spawn_mesh_ranks(tmp, "4k")
+        dry, dry_s = dry_future.result()
     runs = [check_halo_run(name, shape, kernel, ranks)
             for name, _, shape, _, kernel, _ in HALO_RUNS]
     runs += [check_fold_run(name, shape, kernel, ranks)
              for name, _, shape, _, kernel, _ in FOLD_RUNS]
-    t1 = time.perf_counter()
-    dry = graft_entry.dryrun_multichip(2)
-    dry_s = time.perf_counter() - t1
-    log(f"  dryrun_multichip(2) on the card (2 gloo ranks sharing it) in {dry_s:.1f} s: "
-        + json.dumps(dry))
+    log(f"  dryrun_multichip(2) on the card (2 gloo ranks sharing it, beside this "
+        f"phase's 2) in {dry_s:.1f} s: " + json.dumps(dry))
     log(f"  phase 4k took {time.perf_counter() - t0:.1f} s; {card}")
     return {"runs": runs, "dryrun": dry, "dryrun_s": dry_s}
 
@@ -5334,7 +5463,7 @@ def main() -> int:
     h = resume_and_infer(nci1, dd)
     log(f"  phase 4h took {time.perf_counter() - t4h:.1f} s")
 
-    log("== phase 4i: synthetic DD --layout coo --dtype bfloat16 2 x 4 under --spmm "
+    log("== phase 4i: synthetic DD --layout coo --dtype bfloat16 1 x 4 under --spmm "
         f"auto (= {spmm_auto}) and pallas, in chunks of max_fused_epochs 2, graphed "
         "then eager; card vs CPU; the native packer; the parity harness's dumps and "
         "graft_entry.entry() under torch.compile")
@@ -5357,15 +5486,16 @@ def main() -> int:
     log(f"== phase 4j: the mesh on the card: {MESH_WORLD} gloo ranks sharing cuda:0 (each "
         f"a process of its own), synthetic NCI1 dense (2, 1) with the folds one after "
         f"another, DD block (1, 2), DD device COO (1, 2) and DD host COO (2, 1), 2 folds x "
-        f"2 epochs each, eager, run twice; then a 1-rank nccl group")
+        f"2 epochs each, eager, run twice; then the five mesh engines on a 1-rank nccl "
+        f"grid, fold 1 x {NCCL_EPOCHS} epochs, graphed vs eager")
     log(card)
-    mesh = mesh_main_path(ctx.gs, device, card)
+    mesh = mesh_main_path({"NCI1": datasets["NCI1"], "DD": ctx.gs}, device, card)
 
     log(f"== phase 4k: the halo layout and fold-sharded lockstep on the card: "
         f"{MESH_WORLD} gloo ranks sharing cuda:0, synthetic DD --layout halo (1, 2) 2 "
         f"folds x 2 epochs (and --spmm onehot 2 x 1), eager; synthetic NCI1 and DD "
         f"under auto on a (2, 1) grid, {FOLDS} folds x 2 epochs (DD --block_impl xla "
-        f"2 x 2), graphed; then dryrun_multichip(2)")
+        f"2 x 2), graphed; beside them dryrun_multichip(2)")
     log(card)
     halo_folds = halo_fold_main_path(card)
 
@@ -5904,14 +6034,28 @@ def main() -> int:
                              f"epochs (block_impl xla 2 x 2), graphed; launches counted "
                              f"per rank",
                 "runs": runs}
-            if k["name"].startswith("spmm_rows") and not k["name"].endswith("_f1"):
-                i = 0 if "_fwd" in k["name"] else 1
-                k["mesh_path"]["nccl_one_rank"] = (mesh["nccl"]["launches"][i]
-                                                   - mesh["nccl"]["launches"][2 + i])
+        graphed = []  # phase 4j's 1-rank nccl legs, graphed, replays counted
+        for run, leg in mesh["nccl"].items():
+            for i, d in enumerate(("fwd", "bwd")):
+                if k["name"] == f"{leg['kernel']}_{d}":
+                    n = leg["launches"][i] - leg["launches"][2 + i]
+                elif k["name"] == f"{leg['kernel']}_{d}_f1":
+                    n = leg["launches"][2 + i]
+                else:
+                    continue
+                graphed.append({"run": run, "engine": leg["engine"], "launches": n})
+        if graphed:
+            k.setdefault("mesh_path", {})["nccl_one_rank_graphed"] = {
+                "main_path": f"phase 4j: a 1-rank nccl grid, fold 1 x {NCCL_EPOCHS} epochs "
+                             f"in chunks of 2 through each mesh engine, graphed (warm-up, "
+                             f"then replays), launches counted per replay",
+                "runs": graphed}
     log(f"mesh (phase 4j; {card}; two ranks sharing one card, not scaling): eager "
         f"fold-epoch seconds " + "; ".join(f"{r['run']} {r['grid']} {r['epoch_s']}"
                                           for r in mesh["runs"])
-        + f"; 1-rank nccl DD device COO fold-epoch {mesh['nccl']['wall_s']:.3f} s")
+        + "; 1-rank nccl legs, fold-epoch seconds by chunk graphed / eager, capture s: "
+        + "; ".join(f"{n} {v['epoch_s']} / {v['eager_epoch_s']}, {v['capture_s']:.3f}"
+                    for n, v in mesh["nccl"].items()))
     log(f"halo and fold-sharded lockstep (phase 4k; {card}; two ranks sharing one card, "
         f"not scaling): fold-epoch seconds " + "; ".join(
             f"{r['run']} {r['grid']} {r['epoch_s']}"

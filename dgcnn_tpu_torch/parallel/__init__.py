@@ -15,16 +15,16 @@ from dgcnn_tpu_torch.parallel.shard import (
     shard_bucket,
 )
 from dgcnn_tpu_torch.parallel.train_dp import (
-    DPRun, make_block_dp_run, make_dense_dp_run, make_device_coo_dp_run,
+    graphed_dp_run, make_block_dp_run, make_dense_dp_run, make_device_coo_dp_run,
     make_dp_eval_epoch, make_dp_train_epoch, make_sharded_loss, reduce_gradients,
 )
 
 __all__ = [
-    "DPRun",
     "HaloExchange",
     "ProcessGrid",
     "apply_halo",
     "device_grid",
+    "graphed_dp_run",
     "initialize_multihost",
     "local_view",
     "lpt_assign",

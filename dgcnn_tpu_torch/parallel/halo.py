@@ -20,13 +20,15 @@ it whole in its extended window), after one more exchange of the
 concatenated layer outputs; the loss is summed over the graph group,
 then over the data group.
 
-Deliberate divergence, the transport: the reference exchanges with two
-`ppermute`s, O(H·F) a rank. The port calls only `all_reduce` and
-`broadcast` on the grid, the collectives `gloo` also serves on CUDA
-tensors (parallel/mesh.py), so one exchange is one `all_reduce(SUM)` over
-the graph group of a zeroed [G, 2, H, F] buffer in which each rank wrote
-its first and last H rows: O(G·H·F) moved, exact (it adds only zeros),
-one code path for `gloo` and `nccl`.
+The transport (`exchange_for`): as the reference's two `ppermute`s, one
+`batch_isend_irecv` with the two neighbours, 2·H·F elements out of a
+rank (H·F at a chain's end), under `nccl` on CUDA tensors and under
+`gloo` on CPU tensors. `gloo` serves only `all_reduce` and `broadcast` on
+CUDA tensors (parallel/mesh.py), so there one exchange is one
+`all_reduce(SUM)` over the graph group of a zeroed [G, 2, H, F] buffer in
+which each rank wrote its first and last H rows: O(G·H·F) moved, exact
+(it adds only zeros). Both give the same values; the transport is chosen
+by the backend and the tensors' device, never as a fall back.
 
 Gradients: on this layout each graph rank owns different graphs and the
 exchange's backward carries cross-shard terms, so a parameter's
@@ -40,6 +42,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from dgcnn_tpu_torch.batching.shard_pack import HaloBatch
 from dgcnn_tpu_torch.models.dgcnn import DGCNN, Params, _pooled_to_log_probs
@@ -51,7 +54,8 @@ from dgcnn_tpu_torch.parallel.mesh import ProcessGrid, sum_over
 from dgcnn_tpu_torch.parallel.train_dp import _loss_terms, dp_eval_pass, dp_train_pass, global_terms
 
 
-def _swap_edges(top: torch.Tensor, bottom: torch.Tensor, group, g: int, n: int):
+def _swap_by_all_reduce(top: torch.Tensor, bottom: torch.Tensor, group, g: int,
+                        n: int):
     """(the left neighbour's `bottom`, the right neighbour's `top`), zeros
     where a rank has no neighbour: one all_reduce(SUM) over `group` of a
     zeroed [n, 2, H, F] buffer holding each rank's (top, bottom) in its
@@ -65,18 +69,48 @@ def _swap_edges(top: torch.Tensor, bottom: torch.Tensor, group, g: int, n: int):
     return left, right
 
 
+def _swap_point_to_point(top: torch.Tensor, bottom: torch.Tensor, group, g: int,
+                         n: int):
+    """The same pair from one `batch_isend_irecv` with the two neighbours
+    (the reference's two `ppermute`s): `top` goes to the left neighbour and
+    `bottom` to the right one; the left neighbour's `bottom` and the right
+    one's `top` come back. Peers are the neighbours' global ranks, the
+    graph group's members in grid order (`mesh.device_grid`)."""
+    left, right = torch.zeros_like(top), torch.zeros_like(top)
+    ops = []
+    for nb, send, recv in ((g - 1, top, left), (g + 1, bottom, right)):
+        if 0 <= nb < n:
+            peer = dist.get_global_rank(group, nb)
+            ops += [dist.P2POp(dist.isend, send.contiguous(), peer, group),
+                    dist.P2POp(dist.irecv, recv, peer, group)]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return left, right
+
+
+def exchange_for(group, t: torch.Tensor) -> Callable:
+    """The exchange's transport for `t` over `group`: point to point, but
+    the all-reduce for CUDA tensors under `gloo` (and for no group: one
+    rank, nothing to exchange)."""
+    if group is None or (t.is_cuda and dist.get_backend(group) == "gloo"):
+        return _swap_by_all_reduce
+    return _swap_point_to_point
+
+
 class HaloExchange(torch.autograd.Function):
     """[S, F] → [H | S | H, F]: the left neighbour's LAST H rows, the rank's
     own rows, the right neighbour's FIRST H rows (zeros at the chain's
-    ends, exactly what out-of-batch halo rows must be). The backward is
-    the reverse exchange: the left halo's cotangent goes back, added, to
-    the left neighbour's last H rows, the right halo's to the right
-    neighbour's first H rows."""
+    ends, exactly what out-of-batch halo rows must be), moved by `swap`
+    (`exchange_for`). The backward is the reverse exchange by the same
+    transport: the left halo's cotangent goes back, added, to the left
+    neighbour's last H rows, the right halo's to the right neighbour's
+    first H rows."""
 
     @staticmethod
-    def forward(ctx, arr, h: int, group, g: int, n: int):
-        ctx.h, ctx.group, ctx.g, ctx.n = h, group, g, n
-        left, right = _swap_edges(arr[:h], arr[-h:], group, g, n)
+    def forward(ctx, arr, h: int, group, g: int, n: int, swap: Callable):
+        ctx.h, ctx.group, ctx.g, ctx.n, ctx.swap = h, group, g, n, swap
+        left, right = swap(arr[:h], arr[-h:], group, g, n)
         return torch.cat([left, arr, right], dim=0)
 
     @staticmethod
@@ -87,21 +121,23 @@ class HaloExchange(torch.autograd.Function):
         # right-halo cotangent to its right one; it receives the left
         # neighbour's right-halo cotangent (its own first H rows) and the
         # right neighbour's left-halo cotangent (its last H rows)
-        from_left, from_right = _swap_edges(grad[:h], grad[h + s:], ctx.group, g, n)
+        from_left, from_right = ctx.swap(grad[:h], grad[h + s:], ctx.group, g, n)
         d = grad[h : h + s].clone()
         if g > 0:
             d[:h] += from_left
         if g < n - 1:
             d[s - h :] += from_right
-        return d, None, None, None, None
+        return d, None, None, None, None, None
 
 
 def halo_exchange(arr: torch.Tensor, h: int, group, g: int, n: int) -> torch.Tensor:
-    """`HaloExchange` of `arr` (fp32 on the wire: a bf16 array goes out
-    widened and comes back rounded, which is exact)."""
+    """`HaloExchange` of `arr` by `exchange_for`'s transport (fp32 on the
+    wire: a bf16 array goes out widened and comes back rounded, which is
+    exact)."""
+    swap = exchange_for(group, arr)
     if arr.dtype == torch.float32:
-        return HaloExchange.apply(arr, h, group, g, n)
-    return HaloExchange.apply(arr.float(), h, group, g, n).to(arr.dtype)
+        return HaloExchange.apply(arr, h, group, g, n, swap)
+    return HaloExchange.apply(arr.float(), h, group, g, n, swap).to(arr.dtype)
 
 
 def apply_halo(

@@ -13,9 +13,15 @@ a grid of D × G ranks: rank r sits at (d, g) = divmod(r, G), the
 reference's row-major reshape of its device list. `ProcessGrid` hands a
 rank its `d`, `g`, its device and the two groups it sums over: the data
 group (the D ranks of its column, same g) and the graph group (the G
-ranks of its row, same d). The port's mesh path calls only `all_reduce`
-and `broadcast` (and the barrier), the two collectives the `gloo` backend
-also serves on CUDA tensors.
+ranks of its row, same d). The mesh path's collectives are `all_reduce`,
+`broadcast` (and the barrier), and the halo layout's point-to-point
+exchange (parallel/halo.py), which `gloo` serves on CPU tensors only: on
+CUDA tensors under `gloo` the exchange is an `all_reduce` instead.
+
+Under `nccl` on a CUDA device (`ProcessGrid.graphed`) the mesh engines
+capture each epoch, collectives included, in a CUDA graph, as the
+single-device engines do; a `gloo` collective cannot be captured, so
+under `gloo` every epoch runs eagerly.
 
 Deliberate divergence: the reference takes the first D·G devices of its
 one process and ignores the rest; here every rank is a device, so a world
@@ -63,13 +69,15 @@ def device_grid(shape: Tuple[int, int], world_size: Optional[int] = None) -> np.
 class ProcessGrid:
     """One rank's view of the (data, graph) grid. `data_group` and
     `graph_group` are None without an initialised process group (one
-    rank, nothing to sum)."""
+    rank, nothing to sum); `backend` is the process group's ("nccl",
+    "gloo"), None without one."""
 
     shape: Tuple[int, int]
     rank: int
     device: torch.device
     data_group: Optional[object] = None
     graph_group: Optional[object] = None
+    backend: Optional[str] = None
 
     @property
     def d(self) -> int:
@@ -88,6 +96,14 @@ class ProcessGrid:
         return self.shape[1]
 
     @property
+    def graphed(self) -> bool:
+        """Whether the mesh engines run each epoch as a CUDA-graph replay:
+        on a CUDA device whose collectives run on `nccl` (or with no
+        process group: nothing to exchange). A `gloo` collective cannot be
+        captured, so under `gloo` the epochs run eagerly."""
+        return self.device.type == "cuda" and self.backend in (None, "nccl")
+
+    @property
     def writer(self) -> bool:
         """Rank 0 alone writes the run's files."""
         return self.rank == 0
@@ -95,6 +111,20 @@ class ProcessGrid:
     def barrier(self) -> None:
         if dist.is_initialized():
             dist.barrier()
+
+    def check_replicas(self, tensors, what: str) -> None:
+        """Raise unless every rank holds `tensors` bitwise equal: one
+        all-reduce (max) over all ranks of a position-weighted sum of
+        their bytes and of its negation; a no-op without a process group."""
+        if not dist.is_initialized():
+            return
+        b = torch.cat([t.detach().reshape(-1).view(torch.uint8) for t in tensors])
+        w = torch.arange(b.numel(), device=b.device, dtype=torch.int64) % 65521 + 1
+        d = (b.to(torch.int64) * w).sum()
+        m = torch.stack([d, -d])
+        dist.all_reduce(m, op=dist.ReduceOp.MAX)
+        if m[0] != -m[1]:
+            raise RuntimeError(f"the ranks' replicas differ: {what}")
 
 
 def sum_over(t: torch.Tensor, group) -> torch.Tensor:
@@ -159,7 +189,8 @@ def make_mesh(shape: Tuple[int, int] = (1, 1), device=None) -> ProcessGrid:
     data_groups = [dist.new_group(ranks[:, g].tolist()) for g in range(shape[1])]
     graph_groups = [dist.new_group(ranks[d, :].tolist()) for d in range(shape[0])]
     d, g = divmod(rank, shape[1])
-    return ProcessGrid(shape, rank, dev, data_groups[g], graph_groups[d])
+    return ProcessGrid(shape, rank, dev, data_groups[g], graph_groups[d],
+                       str(dist.get_backend()))
 
 
 def initialize_multihost(coordinator: Optional[str] = None,

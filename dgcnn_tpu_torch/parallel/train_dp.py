@@ -28,8 +28,19 @@ group draw the same masks. Every rank starts from the same weights, sees
 the same shuffle and gets the same summed gradients, so the replicas stay
 bitwise equal.
 
-The epochs run eagerly (`DPRun`): a collective of the `gloo` backend
-cannot be captured in a CUDA graph.
+The epoch runners (`make_dense_dp_run`, `make_device_coo_dp_run`,
+`make_block_dp_run`, `make_staged_dp_run`) are each a `FusedRun`
+(train/loop.py) of `dp_epoch_body`, as the reference's
+`_make_fused_dp_run` is one jitted program. Whether it is graphed is
+chosen once, when it is built, from the grid's backend and device
+(`ProcessGrid.graphed`): under `nccl` on the card the first epoch runs
+eagerly (it also creates every communicator the body uses), the body is
+then captured, collectives included, and every later epoch is one
+CUDA-graph replay. A collective of the `gloo` backend cannot be
+captured, so under `gloo` every epoch runs the body eagerly. The body is
+the same either way: every rank runs every collective of every step, in
+one order, whether or not its sub-batch holds a real graph, and nothing
+in it reads the device from the host.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from dgcnn_tpu_torch.batching.packer import (
 )
 from dgcnn_tpu_torch.parallel.mesh import ProcessGrid, sum_over
 from dgcnn_tpu_torch.parallel.shard import local_view
+from dgcnn_tpu_torch.train.loop import FusedRun, _arrival_counters
 
 
 def _loss_terms(log_probs, y, graph_mask):
@@ -223,12 +235,12 @@ def dp_eval_pass(net, eval_loss: Callable, steps, device):
 
 def dp_epoch_body(net, optimizer, train_loss: Callable, eval_loss: Callable,
                   train_steps, test_steps, dropout_gen, grid: ProcessGrid,
-                  rows: torch.Tensor) -> None:
+                  rows: torch.Tensor, grad_groups=None) -> None:
     """One epoch of train + eval on the grid (`dp_train_pass`, then
     `dp_eval_pass`); writes (train_loss, test_loss, train_correct,
     test_correct) into `rows` [4]."""
     tr_loss, tr_correct = dp_train_pass(net, optimizer, train_loss, train_steps,
-                                        dropout_gen, grid)
+                                        dropout_gen, grid, grad_groups)
     te_loss, te_correct = dp_eval_pass(net, eval_loss, test_steps, rows.device)
     rows.copy_(torch.stack([tr_loss, te_loss, tr_correct, te_correct]))
 
@@ -266,63 +278,91 @@ def make_dp_eval_epoch(net, grid: ProcessGrid, spmm_impl: str = "xla") -> Callab
     return lambda steps: dp_eval_pass(net, loss, steps, device)
 
 
-class DPRun:
-    """k epochs of `dp_epoch_body` per host round trip, eagerly (the mesh
-    counterpart of train/loop.py `FusedRun`, and of the reference's
-    `_make_fused_dp_run`): `run_epochs` ships the chunk's k orders
-    [k, steps, n_data, slots] in one copy, runs each epoch and brings the
-    k rows back in one copy."""
+def graphed_dp_run(net, optimizer, train_loss: Callable, eval_loss: Callable,
+                   test_order3d: np.ndarray, steps: int, dropout_gen,
+                   grid: ProcessGrid, graphs: bool = True, held=()) -> FusedRun:
+    """The fused runner of `dp_epoch_body` over the gather engines' orders:
+    the body reads the static order buffer [`steps`, n_data, slots] and the
+    fold's fixed test order [t_steps, n_data, slots]. It is graphed where
+    `graphs` asks for it and the grid captures (`ProcessGrid.graphed`):
+    the first epoch warms up, the body is captured with the rank's dropout
+    generator registered, and every later epoch is one replay; otherwise
+    every epoch runs the body eagerly. The body keeps `held` (tensors the
+    graph reads by address) alive."""
+    dev = next(net.parameters()).device
+    order = torch.full((steps, *test_order3d.shape[1:]), -1, dtype=torch.int32,
+                       device=dev)
+    test = torch.from_numpy(np.ascontiguousarray(test_order3d, dtype=np.int32)).to(dev)
+    rows = torch.zeros(4, dtype=torch.float32, device=dev)
 
-    def __init__(self, net, optimizer, train_loss: Callable, eval_loss: Callable,
-                 test_steps, dropout_gen, grid: ProcessGrid):
-        self.net, self.optimizer = net, optimizer
-        self.train_loss, self.eval_loss = train_loss, eval_loss
-        self.test_steps = test_steps
-        self.dropout_gen = dropout_gen
-        self.grid = grid
-        self.device = next(net.parameters()).device
+    def body(_held=held):
+        dp_epoch_body(net, optimizer, train_loss, eval_loss, order, test, dropout_gen,
+                      grid, rows)
 
-    def run_epochs(self, orders_k: np.ndarray) -> np.ndarray:
-        orders = torch.from_numpy(np.ascontiguousarray(orders_k, dtype=np.int32)).to(
-            self.device)
-        out = torch.empty((len(orders_k), 4), dtype=torch.float32, device=self.device)
-        for j in range(len(orders_k)):
-            dp_epoch_body(self.net, self.optimizer, self.train_loss, self.eval_loss,
-                          orders[j], self.test_steps, self.dropout_gen, self.grid, out[j])
-        return out.cpu().double().numpy()
-
-
-def _test_rows(test_order3d: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(test_order3d, dtype=np.int32)).to(device)
+    return FusedRun(body, order, rows, np.ones(steps, dtype=bool), [dropout_gen],
+                    graphs and grid.graphed)
 
 
 def make_dense_dp_run(net, optimizer, data: DenseDataset, grid: ProcessGrid,
-                      test_order3d: np.ndarray, dropout_gen) -> DPRun:
+                      test_order3d: np.ndarray, dropout_gen, *, steps: int,
+                      graphs: bool = True) -> FusedRun:
     """The port of `make_dense_dp_run` (:271): epochs over the replicated
     dense dataset, orders [k, steps, n_data, slots], the fold's fixed
-    test order [t_steps, n_data, slots]."""
-    return DPRun(net, optimizer, make_dense_dp_loss(data, grid, False),
-                 make_dense_dp_loss(data, grid, True),
-                 _test_rows(test_order3d, data.adj.device), dropout_gen, grid)
+    test order [t_steps, n_data, slots]; graphed or eager as
+    `graphed_dp_run` chooses."""
+    return graphed_dp_run(net, optimizer, make_dense_dp_loss(data, grid, False),
+                          make_dense_dp_loss(data, grid, True), test_order3d, steps,
+                          dropout_gen, grid, graphs)
 
 
 def make_device_coo_dp_run(net, optimizer, dev: DeviceGraphSet, grid: ProcessGrid,
                            bucket: BucketSpec, test_order3d: np.ndarray, dropout_gen,
-                           spmm_impl: str = "xla") -> DPRun:
+                           spmm_impl: str = "xla", *, steps: int,
+                           graphs: bool = True) -> FusedRun:
     """The port of `make_device_coo_dp_run` (:345): epochs over the
     replicated device COO graphset in one bucket."""
-    return DPRun(net, optimizer,
-                 make_device_coo_dp_loss(dev, grid, bucket, spmm_impl, False),
-                 make_device_coo_dp_loss(dev, grid, bucket, spmm_impl, True),
-                 _test_rows(test_order3d, dev.x.device), dropout_gen, grid)
+    held = _arrival_counters(dev.x.device,
+                             nodes=bucket.num_nodes if spmm_impl == "onehot" else 0)
+    return graphed_dp_run(net, optimizer,
+                          make_device_coo_dp_loss(dev, grid, bucket, spmm_impl, False),
+                          make_device_coo_dp_loss(dev, grid, bucket, spmm_impl, True),
+                          test_order3d, steps, dropout_gen, grid, graphs, held)
 
 
 def make_block_dp_run(net, optimizer, dev: BlockGraphSet, grid: ProcessGrid,
                       nb_budget: int, w_budget: int, test_order3d: np.ndarray,
-                      dropout_gen, block_impl: str = "pallas") -> DPRun:
+                      dropout_gen, block_impl: str = "pallas", *, steps: int,
+                      graphs: bool = True) -> FusedRun:
     """The port of `make_block_dp_run` (:416): epochs over the replicated
     block graphset at the budgets (nb, W)."""
-    return DPRun(net, optimizer,
-                 make_block_dp_loss(dev, grid, nb_budget, w_budget, False, block_impl),
-                 make_block_dp_loss(dev, grid, nb_budget, w_budget, True, block_impl),
-                 _test_rows(test_order3d, dev.pool.device), dropout_gen, grid)
+    held = _arrival_counters(dev.pool.device,
+                             block_rows=nb_budget if block_impl == "pallas" else 0)
+    return graphed_dp_run(
+        net, optimizer,
+        make_block_dp_loss(dev, grid, nb_budget, w_budget, False, block_impl),
+        make_block_dp_loss(dev, grid, nb_budget, w_budget, True, block_impl),
+        test_order3d, steps, dropout_gen, grid, graphs, held)
+
+
+def make_staged_dp_run(net, optimizer, train_loss: Callable, eval_loss: Callable,
+                       train_steps: list, test_steps, stage: Callable[[int], None],
+                       order_shape, dropout_gen, grid: ProcessGrid, grad_groups=None,
+                       graphs: bool = True, held=()) -> FusedRun:
+    """The fused runner of the host-packed mesh engines (`MeshCooEngine`,
+    `MeshHaloEngine`), as train/loop.py `make_coo_run`: the body trains
+    over `train_steps`, views of a static device stack of one packed
+    epoch, which `stage(j)` fills with epoch j of the chunk before it
+    runs, then evaluates over the fold's device `test_steps`; gradients
+    summed over `grad_groups` (default: the data group). The order buffer
+    [`order_shape`] carries the epoch's graph ids, which the stack holds
+    packed. Graphed or eager as `graphed_dp_run` chooses."""
+    dev = next(net.parameters()).device
+    order = torch.full(tuple(order_shape), -1, dtype=torch.int32, device=dev)
+    rows = torch.zeros(4, dtype=torch.float32, device=dev)
+
+    def body(_held=held):
+        dp_epoch_body(net, optimizer, train_loss, eval_loss, train_steps, test_steps,
+                      dropout_gen, grid, rows, grad_groups)
+
+    return FusedRun(body, order, rows, np.ones(order_shape[0], dtype=bool),
+                    [dropout_gen], graphs and grid.graphed, stage=stage)

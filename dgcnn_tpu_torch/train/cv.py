@@ -47,8 +47,9 @@ in lockstep, each rank of a (D, 1) grid trains its block of the folds on
 the layout's single-device engine (fold-sharded lockstep,
 train/cv_vmap.py); otherwise the folds run one after another through the
 layout's mesh engine (`MeshDenseEngine`, `MeshBlockEngine`,
-`MeshDeviceCooEngine`, `MeshCooEngine`, `MeshHaloEngine`), eagerly.
-Rank 0 alone writes the files. Each engine stores its data at the
+`MeshDeviceCooEngine`, `MeshCooEngine`, `MeshHaloEngine`): under `nccl`
+on the card each epoch after a runner's first is a CUDA-graph replay,
+under `gloo` every epoch runs eagerly. Rank 0 alone writes the files. Each engine stores its data at the
 reference's dtypes: the dense and multi-tile datasets at
 `store_dtypes(resolved_adj_dtype, compute_dtype)`, the block pool at
 `pool_dtype(cfg)`; the COO engines in fp32.
@@ -99,6 +100,7 @@ from dgcnn_tpu_torch.batching.packer import (
     add_blockcoo,
     batch_to_device,
     compute_bucket,
+    map_batch,
     pack_epoch,
     pad_blockcoo,
     pin_batch,
@@ -110,16 +112,18 @@ from dgcnn_tpu_torch.data.folds import get_folds
 from dgcnn_tpu_torch.data.graphset import GraphSet
 from dgcnn_tpu_torch.models.dgcnn import DGCNN, DGCNNNet, init_params, num_params
 from dgcnn_tpu_torch.batching.shard_pack import halo_bucket, pack_epoch_halo
-from dgcnn_tpu_torch.parallel.halo import (
-    halo_steps, make_halo_eval_epoch, make_halo_train_epoch,
-)
+from dgcnn_tpu_torch.parallel.halo import grad_groups as halo_grad_groups
+from dgcnn_tpu_torch.parallel.halo import halo_steps, make_halo_loss
 from dgcnn_tpu_torch.parallel.mesh import make_mesh, sum_over
-from dgcnn_tpu_torch.parallel.shard import epoch_rows, pack_epoch_dp, shard_bucket
+from dgcnn_tpu_torch.parallel.shard import (
+    epoch_rows, local_view, pack_epoch_dp, shard_bucket,
+)
 from dgcnn_tpu_torch.parallel.train_dp import (
     local_steps, make_block_dp_run, make_dense_dp_run, make_device_coo_dp_run,
-    make_dp_eval_epoch, make_dp_train_epoch,
+    make_local_coo_loss, make_staged_dp_run,
 )
 from dgcnn_tpu_torch.train.loop import (
+    _arrival_counters,
     make_block_run,
     make_coo_run,
     make_dense_gather_run,
@@ -738,23 +742,33 @@ class MultiDenseEngine:
 
 
 class _MeshEngine:
-    """What the four mesh engines share (the reference's
+    """What the five mesh engines share (the reference's
     dgcnn_tpu/train/cv.py:675-1037): the rank's `grid` (parallel/mesh.py),
     its device, `slots = max(1, ⌈batch/D⌉)` graph slots a sub-batch (not
-    rounded to `graph_pad_multiple`, as in the reference), and one eager
-    runner a fold (`parallel/train_dp.py DPRun`: a collective of the gloo
-    backend cannot be captured in a CUDA graph), dropped at the fold's
-    end or when a budget grows."""
+    rounded to `graph_pad_multiple`, as in the reference), and one runner
+    a fold, dropped at the fold's end or when a budget grows: a fused
+    runner of `dp_epoch_body` (parallel/train_dp.py). Under `nccl` on the
+    card (`grid.graphed`) the fold's first epoch warms up and every later
+    one is a CUDA-graph replay; under `gloo` every epoch runs the body
+    eagerly (a gloo collective cannot be captured). `graphs=False` runs
+    every epoch eagerly under `nccl` too, for comparison only."""
 
     FLOORS = ()
 
-    def __init__(self, cfg: Config, grid):
+    def __init__(self, cfg: Config, grid, graphs: bool = True):
         self.cfg = cfg
         self.grid = grid
         self.device = grid.device
+        self.graphs = graphs
         self.slots = max(1, -(-cfg.batch_size // grid.n_data))
         self.runners = RunnerSlot()
         self._fold = 0
+
+    @property
+    def graphed(self) -> bool:
+        """Whether this engine's epochs after a runner's first are graph
+        replays."""
+        return self.graphs and self.grid.graphed
 
     @property
     def dropout_rank(self) -> int:
@@ -788,7 +802,8 @@ class _MeshGatherEngine(_MeshEngine):
         """Train + eval one epoch per permutation of the fold's training
         graphs; host rows [k, 4], the same on every rank."""
         orders = np.stack([self.epoch_order(self._train_idx[p]) for p in perms])
-        key, make = self.runner_for(orders, net, optimizer, dropout_gen)
+        key, make = self.runner_for(orders, net, optimizer, dropout_gen,
+                                    steps=orders.shape[1], graphs=self.graphs)
         return self.runners.get((self._fold, key), make).run_epochs(orders)
 
 
@@ -799,8 +814,8 @@ class MeshDenseEngine(_MeshGatherEngine):
     each data rank's sub-batch through the trunk kernel at `slots` slots;
     the graph axis replicates the computation."""
 
-    def __init__(self, cfg: Config, dataset: GraphSet, grid):
-        super().__init__(cfg, grid)
+    def __init__(self, cfg: Config, dataset: GraphSet, grid, graphs: bool = True):
+        super().__init__(cfg, grid, graphs)
         self.n_tile = dense_tile(dataset)
         self.data = build_dense_dataset(dataset, self.n_tile, self.device,
                                         cfg.resolved_adj_dtype(), cfg.compute_dtype)
@@ -808,9 +823,9 @@ class MeshDenseEngine(_MeshGatherEngine):
     def epoch_order(self, ids: np.ndarray) -> np.ndarray:
         return order_matrix_dp(ids, self.cfg.batch_size, self.grid.n_data, self.slots)
 
-    def runner_for(self, orders, net, optimizer, dropout_gen):
+    def runner_for(self, orders, net, optimizer, dropout_gen, **run_kw):
         return None, lambda: make_dense_dp_run(net, optimizer, self.data, self.grid,
-                                               self._test_np, dropout_gen)
+                                               self._test_np, dropout_gen, **run_kw)
 
 
 class MeshBlockEngine(_MeshGatherEngine):
@@ -824,8 +839,8 @@ class MeshBlockEngine(_MeshGatherEngine):
 
     FLOORS = ("floor_nb", "floor_w")
 
-    def __init__(self, cfg: Config, dataset: GraphSet, grid):
-        super().__init__(cfg, grid)
+    def __init__(self, cfg: Config, dataset: GraphSet, grid, graphs: bool = True):
+        super().__init__(cfg, grid, graphs)
         host = build_block_graphset(dataset)
         self._nb = host.nb.astype(np.int64)
         self._block_counts = host.block_count.astype(np.int64)
@@ -847,11 +862,11 @@ class MeshBlockEngine(_MeshGatherEngine):
         self.floor_w = max(self.floor_w, _geom_round(w, 64))
         return self.floor_nb, self.floor_w
 
-    def runner_for(self, orders, net, optimizer, dropout_gen):
+    def runner_for(self, orders, net, optimizer, dropout_gen, **run_kw):
         nb, w = self.budget_for(orders, self._test_np)
         return (nb, w), lambda: make_block_dp_run(
             net, optimizer, self.dev, self.grid, nb, w, self._test_np, dropout_gen,
-            self.block_impl)
+            self.block_impl, **run_kw)
 
 
 class MeshDeviceCooEngine(_MeshGatherEngine):
@@ -866,8 +881,8 @@ class MeshDeviceCooEngine(_MeshGatherEngine):
 
     FLOORS = ("floor_nodes", "floor_edges")
 
-    def __init__(self, cfg: Config, dataset: GraphSet, grid):
-        super().__init__(cfg, grid)
+    def __init__(self, cfg: Config, dataset: GraphSet, grid, graphs: bool = True):
+        super().__init__(cfg, grid, graphs)
         self._node_counts = dataset.node_counts().astype(np.int64)
         self._edge_counts = dataset.edge_counts().astype(np.int64)
         self.dev = device_graphset_to(build_device_graphset(dataset), self.device)
@@ -891,11 +906,11 @@ class MeshDeviceCooEngine(_MeshGatherEngine):
         return BucketSpec(num_nodes=self.floor_nodes, num_edges=self.floor_edges,
                           num_graphs=self.slots)
 
-    def runner_for(self, orders, net, optimizer, dropout_gen):
+    def runner_for(self, orders, net, optimizer, dropout_gen, **run_kw):
         bucket = self.bucket_for(orders, self._test_np)
         return bucket, lambda: make_device_coo_dp_run(
             net, optimizer, self.dev, self.grid, bucket, self._test_np, dropout_gen,
-            self.spmm_impl)
+            self.spmm_impl, **run_kw)
 
 
 class MeshCooEngine(_MeshEngine):
@@ -903,22 +918,49 @@ class MeshCooEngine(_MeshEngine):
     `MeshCooEngine`, :675): every epoch packed by `pack_epoch_dp` into the
     worst-case per-shard bucket (`shard_bucket`: LPT-balanced sub-batches,
     edge leaves cut over the graph axis); each rank ships only its own
-    selection (`local_steps`), one transfer per array an epoch, and trains
-    over it (`make_dp_train_epoch`); the fold's test epoch is packed and
-    shipped once. No block-COO structures are attached: the SpMM runs the
-    edge-stream kernel `spmm_impl` names (the row kernel for "pallas")."""
+    selection (`local_view`), one transfer per array an epoch; the fold's
+    test epoch is packed and shipped once. No block-COO structures are
+    attached: the SpMM runs the edge-stream kernel `spmm_impl` names (the
+    row kernel for "pallas"). The fold's fused runner
+    (`make_staged_dp_run`) stages each epoch's share from host memory
+    (page-locked on the card) into one static device epoch of the
+    bucket's shapes."""
 
-    def __init__(self, cfg: Config, dataset: GraphSet, grid):
-        super().__init__(cfg, grid)
+    def __init__(self, cfg: Config, dataset: GraphSet, grid, graphs: bool = True):
+        super().__init__(cfg, grid, graphs)
         self.dataset = dataset
         self.bucket = shard_bucket(dataset, cfg.batch_size, grid.n_data,
                                    cfg.node_pad_multiple, cfg.edge_pad_multiple,
                                    cfg.graph_pad_multiple, grid.n_graph)
         self.spmm_impl = cfg.resolved_spmm_impl()
+        self._staged = []  # the chunk's packed epochs on the host
 
     def pack(self, ds: GraphSet, order: np.ndarray):
         return pack_epoch_dp(ds, order, self.cfg.batch_size, self.bucket,
                              self.grid.n_data, self.grid.n_graph)
+
+    def host_epoch(self, perm: np.ndarray):
+        """This rank's share of the fold's training epoch `perm` on the host,
+        page-locked on the card: [steps, ...] leaves."""
+        grid = self.grid
+        local = local_view(self.pack(self._train_set, perm), grid.d, grid.g,
+                           grid.n_data, grid.n_graph, steps=True)
+        return pin_batch(local) if self.device.type == "cuda" else batch_to_device(
+            local, "cpu")
+
+    @staticmethod
+    def map_leaves(batch, fn):
+        return map_batch(batch, fn)
+
+    def losses(self):
+        """The fold's (train loss, eval loss) of one local step, and the
+        groups a gradient is summed over (None: the data group)."""
+        return (make_local_coo_loss(self.grid, self.spmm_impl, False),
+                make_local_coo_loss(self.grid, self.spmm_impl, True), None)
+
+    def onehot_nodes(self) -> int:
+        """The node rows the edge-block kernel's counters cover."""
+        return self.bucket.num_nodes
 
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_set = self.dataset.subset(train_idx)
@@ -927,22 +969,41 @@ class MeshCooEngine(_MeshEngine):
                                        self.grid, self.device)
         self._fold += 1
 
-    def epochs_for(self, net, optimizer):
-        """The fold's (train_epoch, eval_epoch)."""
-        return (make_dp_train_epoch(net, optimizer, self.grid, self.spmm_impl),
-                make_dp_eval_epoch(net, self.grid, self.spmm_impl))
-
     def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
-        """Pack, ship, train and evaluate one epoch per permutation of the
+        """Pack, stage, train and evaluate one epoch per permutation of the
         fold's training graphs; host rows [k, 4], the same on every rank."""
-        train, evaluate = self.runners.get(self._fold,
-                                           lambda: self.epochs_for(net, optimizer))
-        rows = []
-        for perm in perms:
-            tr_loss, tr_correct = train(self.pack(self._train_set, perm), dropout_gen)
-            te_loss, te_correct = evaluate(self._test_steps)
-            rows.append(torch.stack([tr_loss, te_loss, tr_correct, te_correct]))
-        return torch.stack(rows).cpu().double().numpy()
+        self._staged = [self.host_epoch(p) for p in perms]
+        bs = self.cfg.batch_size
+        orders = np.stack([order_matrix(p, bs, bs) for p in perms])
+        runner = self.runners.get(self._fold, lambda: self._staged_runner(
+            net, optimizer, dropout_gen, orders.shape[1:]))
+        return runner.run_epochs(orders)
+
+    def _staged_runner(self, net, optimizer, dropout_gen, order_shape):
+        """The fold's fused runner over a static device epoch of the first
+        staged epoch's shapes (the bucket's: every epoch of the fold has
+        them)."""
+        def leaves(batch) -> list:
+            out = []
+            self.map_leaves(batch, out.append)
+            return out
+
+        stack = self.map_leaves(self._staged[0], lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device=self.device))
+        steps = [self.map_leaves(stack, lambda a, s=s: a[s])
+                 for s in range(stack.y.shape[0])]
+        dst = leaves(stack)
+
+        def stage(j):
+            for d, src in zip(dst, leaves(self._staged[j])):
+                d.copy_(src, non_blocking=True)
+
+        train_loss, eval_loss, groups = self.losses()
+        held = _arrival_counters(self.device, nodes=self.onehot_nodes()
+                                 if self.spmm_impl == "onehot" else 0)
+        return make_staged_dp_run(net, optimizer, train_loss, eval_loss, steps,
+                                  self._test_steps, stage, order_shape, dropout_gen,
+                                  self.grid, groups, self.graphs, held)
 
 
 class MeshHaloEngine(MeshCooEngine):
@@ -952,18 +1013,18 @@ class MeshHaloEngine(MeshCooEngine):
     with the two neighbouring shards (parallel/halo.py) instead of
     replicating the node block. Every epoch is packed on the host into the
     worst-case `halo_bucket`, each rank packing only its own sub-batch and
-    keeping its own shard, and shipped once; the fold's test epoch is
-    packed and shipped once. The gradients are summed over all D·G ranks,
-    and dropout folds in the rank (d·G + g), as the reference's
-    `fold_in(rng, g + G·d)`."""
+    keeping its own shard, and staged as `MeshCooEngine`'s; the fold's test epoch is packed and shipped once.
+    The gradients are summed over all D·G ranks, and dropout folds in the
+    rank (d·G + g), as the reference's `fold_in(rng, g + G·d)`."""
 
-    def __init__(self, cfg: Config, dataset: GraphSet, grid):
-        _MeshEngine.__init__(self, cfg, grid)
+    def __init__(self, cfg: Config, dataset: GraphSet, grid, graphs: bool = True):
+        _MeshEngine.__init__(self, cfg, grid, graphs)
         self.dataset = dataset
         self.bucket = halo_bucket(dataset, cfg.batch_size, grid.n_data, grid.n_graph,
                                   cfg.node_pad_multiple, cfg.edge_pad_multiple,
                                   cfg.graph_pad_multiple)
         self.spmm_impl = cfg.resolved_spmm_impl()
+        self._staged = []
 
     @property
     def dropout_rank(self) -> int:
@@ -973,22 +1034,38 @@ class MeshHaloEngine(MeshCooEngine):
     def dropout_ranks(self) -> int:
         return self.grid.n_data * self.grid.n_graph
 
+    def pack_host(self, ds: GraphSet, order: np.ndarray):
+        """This rank's shard of the epoch `order` of `ds`, on the host."""
+        grid = self.grid
+        return pack_epoch_halo(ds, order, self.cfg.batch_size, grid.n_data, grid.n_graph,
+                               self.bucket, rank=(grid.d, grid.g))
+
     def pack(self, ds: GraphSet, order: np.ndarray):
         """This rank's steps of the epoch `order` of `ds`, on its device."""
-        grid = self.grid
-        return halo_steps(pack_epoch_halo(ds, order, self.cfg.batch_size, grid.n_data,
-                                          grid.n_graph, self.bucket, rank=(grid.d, grid.g)),
-                          self.device)
+        return halo_steps(self.pack_host(ds, order), self.device)
+
+    def host_epoch(self, perm: np.ndarray):
+        cuda = self.device.type == "cuda"
+        return self.pack_host(self._train_set, perm).map(
+            lambda a: torch.from_numpy(np.ascontiguousarray(a)).pin_memory() if cuda
+            else torch.from_numpy(a))
+
+    @staticmethod
+    def map_leaves(batch, fn):
+        return batch.map(fn)
+
+    def losses(self):
+        return (make_halo_loss(self.grid, self.spmm_impl, False),
+                make_halo_loss(self.grid, self.spmm_impl, True), halo_grad_groups(self.grid))
+
+    def onehot_nodes(self) -> int:
+        return self.bucket.shard_nodes + 2 * self.bucket.halo
 
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_set = self.dataset.subset(train_idx)
         test_set = self.dataset.subset(test_idx)
         self._test_steps = self.pack(test_set, np.arange(test_set.num_graphs))
         self._fold += 1
-
-    def epochs_for(self, net, optimizer):
-        return (make_halo_train_epoch(net, optimizer, self.grid, self.spmm_impl),
-                make_halo_eval_epoch(net, self.grid, self.spmm_impl))
 
 
 MESH_ENGINES = (MeshDenseEngine, MeshBlockEngine, MeshDeviceCooEngine, MeshCooEngine,
@@ -1024,7 +1101,7 @@ def make_engine(cfg: Config, dataset: GraphSet, device: torch.device, layout: st
                "halo": MeshHaloEngine}.get(layout)
         if cls is None:
             cls = MeshDeviceCooEngine if cfg.coo_assembly == "device" else MeshCooEngine
-        return cls(cfg, dataset, grid)
+        return cls(cfg, dataset, grid, graphs)
     if layout == "coo":
         host = cfg.resolved_spmm_impl() == "pallas" or cfg.coo_assembly == "host"
         return (CooEngine if host else DeviceCooEngine)(cfg, dataset, device, graphs)
@@ -1165,7 +1242,13 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
     On a mesh engine (`engine.grid`) every rank trains the same replica:
     the same weights and shuffle, dropout seeded by the data rank as well
     (the graph ranks of one data group draw the same masks), and rank 0
-    alone writes the files, which every rank reads on a resume."""
+    alone writes the files, which every rank reads on a resume; at the
+    fold's end the ranks' parameters must be bitwise equal
+    (`ProcessGrid.check_replicas`), or the fold raises.
+
+    Each chunk's `epoch` events carry its amortized seconds, whether it
+    built a runner (`runner_built`) and, if so, the runner's capture
+    seconds (`capture_seconds`; null when it ran eagerly)."""
     device = engine.device
     grid = getattr(engine, "grid", None)
     writer = grid is None or grid.writer
@@ -1230,6 +1313,8 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
                 edges_per_second=train_edges / dt if dt > 0 else 0.0,
                 chunk_epochs=k,
                 runner_built=built,
+                capture_seconds=getattr(engine.runners.runner, "capture_seconds", None)
+                if built else None,
             )
             if cfg.log_every and (epoch + j) % cfg.log_every == 0:
                 print(
@@ -1251,6 +1336,8 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
                 "metrics": {c: np.asarray(metrics.rows[c]) for c in FoldMetrics.COLUMNS},
                 "floors": engine_floors(engine)})
     engine.end_fold()
+    if grid is not None:
+        grid.check_replicas(net.parameters(), f"fold {fold_number}'s parameters")
 
     if writer:
         save_checkpoint(fold_bundle(cfg, fold_number),
@@ -1287,9 +1374,10 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
     graph) grid: `grid`, or `make_mesh(cfg.mesh_shape, device)` over the
     initialised process group (parallel/mesh.py; `device` None means
     `cuda:LOCAL_RANK`). Every rank runs this function; the folds run one
-    after another through the layout's mesh engine, eagerly (`run_start`
-    says `graphs: false`), and rank 0 alone writes the CSVs, the event
-    log and the `epochs/` bundles. A resume waits for every rank (a
+    after another through the layout's mesh engine, graphed under `nccl`
+    on the card and eagerly under `gloo` (`run_start`'s `graphs` says
+    which), and rank 0 alone writes the CSVs, the event log and the
+    `epochs/` bundles. A resume waits for every rank (a
     barrier), then each reads rank 0's files."""
     mesh = on_mesh(cfg)
     if not mesh:
@@ -1356,7 +1444,7 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         **({"tiles": list(engine.tiles), "slot_floors": engine.slot_floor.tolist()}
            if layout == "multi" else {}),
         **({"mesh_shape": list(grid.shape), "engine": type(engine).__name__,
-            "graphs": bool(graphs) and use_lockstep,
+            "graphs": bool(graphs) and (use_lockstep or engine.graphed),
             **({"fold_shards": grid.n_data} if use_lockstep else {})} if mesh else {}),
         num_params=num_params(init_params(torch.Generator().manual_seed(0), model)),
         device=str(device),

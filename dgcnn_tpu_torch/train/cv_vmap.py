@@ -366,6 +366,8 @@ def run_cv_folds_lockstep(cfg: Config, dataset: GraphSet, model: DGCNN,
                     chunk_epochs=k,
                     folds_in_lockstep=num_folds,
                     runner_built=built,
+                    capture_seconds=getattr(engine.runners.runner, "capture_seconds",
+                                            None) if built else None,
                 )
             if writer and cfg.log_every and (epoch + j) % cfg.log_every == 0:
                 accs = " ".join(f"{rows[j, f, 3] / n_test_f[f] * 100.0:.1f}"

@@ -427,14 +427,21 @@ class CountedGraph:
 class FusedRun:
     """k epochs of one epoch body per host round trip (see the module
     docstring). `body()` reads the static device buffer `order` [steps,
-    (F,) slots] and writes the epoch's row into `rows` [(F,) 4]; `pattern`
-    [steps(, F)] is which steps (of which folds) hold a real graph in
-    every epoch; `generators` are the dropout generators the body draws
-    from; `stage(j)`, when given, fills the body's other static inputs with
-    epoch j of the chunk before it runs (on the current stream, after the
-    order's copy). `graphs=False` runs every epoch eagerly on the card, for
-    comparison only; on the CPU every epoch is eager. A capture or replay
-    that fails raises."""
+    (F,) slots] (a mesh runner's: [steps, n_data, slots]) and writes the
+    epoch's row into `rows` [(F,) 4]; `pattern` [steps(, F)] is which
+    steps (of which folds) hold a real graph in every epoch; `generators`
+    are the dropout generators the body draws from; `stage(j)`, when
+    given, fills the body's other static inputs with epoch j of the chunk
+    before it runs (on the current stream, after the order's copy).
+    `graphs=False` runs every epoch eagerly: on the card for comparison,
+    or on a `gloo` mesh, whose collectives cannot be captured; on the CPU
+    every epoch is eager. A capture or replay that fails raises.
+
+    The capture's error mode is "thread_local": in a process of an `nccl`
+    group (the mesh engines, fold-sharded lockstep) the process group's
+    watchdog thread queries the events of collectives still in flight from
+    the warm-up or between chunks, which the "global" mode forbids any
+    thread to do while a capture runs."""
 
     def __init__(self, body: Callable[[], None], order: torch.Tensor,
                  rows: torch.Tensor, pattern: np.ndarray,
@@ -452,12 +459,13 @@ class FusedRun:
         self.capture_seconds: Optional[float] = None
 
     def _check(self, orders_k: np.ndarray) -> None:
-        """Raise unless `orders_k` [k, steps, (F,) slots] fits the order
-        buffer and every epoch's real steps are the runner's pattern."""
+        """Raise unless `orders_k` [k, steps, (F,) ...] fits the order
+        buffer and every epoch's real steps (those with a graph id left in
+        their rows) are the runner's pattern."""
         if tuple(orders_k.shape[1:]) != tuple(self.order.shape):
             raise ValueError(f"orders {tuple(orders_k.shape)} do not fit the "
                              f"order buffer {tuple(self.order.shape)}")
-        real = (orders_k >= 0).any(axis=-1)
+        real = (orders_k >= 0).reshape(len(orders_k), *self.pattern.shape, -1).any(-1)
         for j, r in enumerate(real):
             if not np.array_equal(r, self.pattern):
                 raise ValueError(
@@ -465,7 +473,7 @@ class FusedRun:
                     f"not the runner's {self.pattern.astype(int).tolist()}")
 
     def run_epochs(self, orders_k: np.ndarray) -> np.ndarray:
-        """Run the epochs of a chunk of host orders [k, steps, (F,) slots];
+        """Run the epochs of a chunk of host orders [k, *order.shape];
         returns the host rows [k, (F,) 4] in float64."""
         orders_k = np.ascontiguousarray(orders_k, dtype=np.int32)
         self._check(orders_k)
@@ -496,7 +504,8 @@ class FusedRun:
         graph = CountedGraph(torch.cuda.CUDAGraph())
         for g in self.generators:
             graph.graph.register_generator_state(g)
-        with graph.capture(), torch.cuda.graph(graph.graph, stream=self.stream):
+        with graph.capture(), torch.cuda.graph(graph.graph, stream=self.stream,
+                                               capture_error_mode="thread_local"):
             self.body()
         self.graph = graph
         self.capture_seconds = time.perf_counter() - t0

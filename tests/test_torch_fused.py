@@ -526,7 +526,7 @@ def test_the_runner_warms_up_captures_once_then_replays(monkeypatch):
     made = []
 
     class Capture:
-        def __init__(self, graph, stream=None):
+        def __init__(self, graph, stream=None, capture_error_mode=None):
             self.graph = graph
 
         def __enter__(self):

@@ -402,7 +402,7 @@ def _stand_in_card(monkeypatch):
         return made[-1]
 
     class Capture:
-        def __init__(self, graph, stream=None):
+        def __init__(self, graph, stream=None, capture_error_mode=None):
             pass
 
         def __enter__(self):

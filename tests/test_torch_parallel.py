@@ -380,7 +380,7 @@ def test_a_grid_of_another_size_than_the_world_raises(ranks):
 
 
 def test_a_one_rank_dp_run_is_the_single_device_runner_and_an_empty_test_gives_0():
-    """`DPRun` on a one-rank grid (no process group: nothing to sum) gives
+    """The DP runner on a one-rank grid (no process group: nothing to sum) gives
     the single-device fused runner's rows and parameters over the same
     orders, and 0 in both test columns for an empty test stream (the
     reference's `has_eval`)."""
@@ -396,7 +396,7 @@ def test_a_one_rank_dp_run_is_the_single_device_runner_and_an_empty_test_gives_0
     nets = [_net(DENSE, dropout=0.0) for _ in range(3)]
     gens = [torch.Generator().manual_seed(1) for _ in range(3)]
     dp = make_dense_dp_run(nets[0], make_optimizer(nets[0]), data, grid,
-                           order_matrix_dp(test, 16, 1, 16), gens[0])
+                           order_matrix_dp(test, 16, 1, 16), gens[0], steps=3)
     got = dp.run_epochs(order_matrix_dp(order, 16, 1, 16)[None])
     single = make_dense_gather_run(nets[1], make_optimizer(nets[1]), data,
                                    order_matrix(test, 16, 16), 3, gens[1])
@@ -406,6 +406,6 @@ def test_a_one_rank_dp_run_is_the_single_device_runner_and_an_empty_test_gives_0
         np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), rtol=1e-5,
                                    atol=1e-7)
     empty = make_dense_dp_run(nets[2], make_optimizer(nets[2]), data, grid,
-                              np.zeros((0, 1, 16), np.int32), gens[2])
+                              np.zeros((0, 1, 16), np.int32), gens[2], steps=3)
     rows = empty.run_epochs(order_matrix_dp(order, 16, 1, 16)[None])
     assert rows[0, 1] == 0 and rows[0, 3] == 0 and np.isfinite(rows).all()

@@ -31,6 +31,17 @@ Jobs (`kind`):
                summed over all D·G ranks (`grad_groups`) and, for contrast,
                over the data group alone
   cli          `dgcnn_tpu_torch.cli.main(argv)` on this grid's process group
+  halo_swap    `HaloExchange` of a seeded [S, F] array and the backward of a
+               seeded cotangent, by each transport (point to point, the
+               all-reduce), and the transport `exchange_for` picks here
+  graphed_cv   a `cv` job run eagerly, then on a stand-in card
+               (`stand_in_card`): the mesh runners built as on the card
+               under nccl, every epoch after a runner's first a "replay"
+               that runs the captured body; both runs' rows and
+               parameters, the replays, and the run_start's `graphs`
+  replicas     `ProcessGrid.check_replicas` of tensors equal on every rank,
+               of tensors one bit apart on rank 1, and of two elements
+               swapped on rank 1: whether each raised
 
 A `cv` job runs every layout through `run_cross_validation`, fold-sharded
 lockstep too: there `crash_at` counts the lockstep chunks
@@ -40,6 +51,7 @@ once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -276,7 +288,119 @@ def cli_job(job, rank):
     return {"test_accuracies": np.asarray(res["test_accuracies"], dtype=np.float64)}
 
 
-JOBS = {"halo_loss": halo_loss, "cli": cli_job, "coo_loss": coo_loss,
+def halo_swap(job, rank):
+    from dgcnn_tpu_torch.parallel.halo import (
+        HaloExchange, _swap_by_all_reduce, _swap_point_to_point, exchange_for)
+
+    grid = mesh.make_mesh(tuple(job["mesh"]), "cpu")
+    h, s, f = job["h"], job["s"], job["f"]
+    gen = torch.Generator().manual_seed(100 + rank)
+    arr = torch.randn((s, f), generator=gen)
+    cot = torch.randn((s + 2 * h, f), generator=gen)
+    out = {"arr": arr.numpy(), "cot": cot.numpy(),
+           "transport": np.asarray(exchange_for(grid.graph_group, arr).__name__)}
+    for name, swap in (("p2p", _swap_point_to_point), ("all_reduce", _swap_by_all_reduce)):
+        x = arr.clone().requires_grad_(True)
+        y = HaloExchange.apply(x, h, grid.graph_group, grid.g, grid.n_graph, swap)
+        y.backward(cot)
+        out[f"{name}/fwd"] = y.detach().numpy()
+        out[f"{name}/bwd"] = x.grad.numpy()
+    return out
+
+
+class ReplayGraph:
+    """Stands in for a CUDA graph on the CPU: a replay runs the body that
+    was captured, which is what the card executes on a replay."""
+
+    def __init__(self, body):
+        self.body = body
+        self.replays = 0
+        self.generators = []
+
+    def register_generator_state(self, gen):
+        self.generators.append(gen)
+
+    def replay(self):
+        self.replays += 1
+        self.body()
+
+
+@contextlib.contextmanager
+def stand_in_card():
+    """Every grid `graphed` (as under nccl on the card), every `FusedRun`
+    graphed: its first epoch the warm-up, then a `ReplayGraph` of its body
+    with its dropout generators registered (a capture executes nothing,
+    so none runs the body here). Yields the graphs made."""
+    from dgcnn_tpu_torch.train import loop
+
+    made = []
+    saved = (mesh.ProcessGrid.graphed, loop.FusedRun.__init__,
+             loop.FusedRun._warm_up_and_capture)
+
+    def init(self, *a, **k):
+        saved[1](self, *a, **k)
+        self.graphs = True
+
+    def warm_up_and_capture(self):
+        self.body()
+        graph = ReplayGraph(self.body)
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        self.graph = loop.CountedGraph(graph)
+        self.graph.per_replay = [{} for _ in self.graph.counters]
+        self.capture_seconds = 0.0
+        made.append(graph)
+
+    mesh.ProcessGrid.graphed = property(lambda self: True)
+    loop.FusedRun.__init__ = init
+    loop.FusedRun._warm_up_and_capture = warm_up_and_capture
+    try:
+        yield made
+    finally:
+        (mesh.ProcessGrid.graphed, loop.FusedRun.__init__,
+         loop.FusedRun._warm_up_and_capture) = saved
+
+
+def graphed_cv(job, rank):
+    out = {}
+    for mode in ("eager", "graphed"):
+        cfg = dict(job["cfg"], statistics_dir=f"{job['cfg']['statistics_dir']}_{mode}",
+                   epochs_dir=f"{job['cfg']['epochs_dir']}_{mode}")
+        with (stand_in_card() if mode == "graphed" else contextlib.nullcontext([])) as made:
+            res = cv_job(dict(job, cfg=cfg), rank)
+        out.update({f"{mode}/{k}": v for k, v in res.items()})
+        out[f"{mode}/replays"] = np.asarray([g.replays for g in made])
+        out[f"{mode}/dropout_gens"] = np.asarray([len(g.generators) for g in made])
+        if rank == 0:
+            with open(os.path.join(cfg["statistics_dir"],
+                                   f"{cfg['data_type']}_events.jsonl")) as f:
+                start = next(e for e in map(json.loads, f) if e["kind"] == "run_start")
+            out[f"{mode}/graphs"] = np.asarray(start["graphs"])
+            out[f"{mode}/engine"] = np.asarray(start["engine"])
+    return out
+
+
+def replicas(job, rank):
+    grid = mesh.make_mesh(tuple(job["mesh"]), "cpu")
+    x = torch.arange(1.0, 6.0)
+    one_bit = x.clone()
+    swapped = x.clone()
+    if rank == 1:
+        one_bit[3] = torch.nextafter(one_bit[3], torch.tensor(9.0))
+        swapped[[1, 2]] = swapped[[2, 1]]
+    out = {}
+    for name, ts in (("same", [x, torch.ones(2, 3)]), ("one_bit", [one_bit]),
+                     ("swapped", [swapped])):
+        try:
+            grid.check_replicas(ts, name)
+            out[name] = 0
+        except RuntimeError:
+            out[name] = 1
+    return out
+
+
+JOBS = {"halo_loss": halo_loss, "halo_swap": halo_swap, "graphed_cv": graphed_cv,
+        "replicas": replicas, "cli": cli_job, "coo_loss": coo_loss,
         "engine_loss": engine_loss, "epoch": epoch, "cv": cv_job,
         "mismatch": mismatch}
 
