@@ -5,8 +5,10 @@ process, so one a rank of a mesh run).
 
 Reads the newest trace under DIR (or the one of `--pid`), groups its
 complete events by name, the card's (kernels, copies and sets) apart
-from the host's (ATen ops), and prints the top-N of each by total
-duration with its share of that side's busy time, and the span the
+from the host's (ATen ops) and from the program's own spans (train/
+metrics.py `SPANS`: the trace's user annotations, `engine.build`,
+`fold.begin`, `runner.replay`, ...), and prints the top-N of each by
+total duration with its share of that side's busy time, and the span the
 events cover.
 
     python -m dgcnn_tpu_torch.tools.summarize_trace prof [--top 30] [--pid PID]
@@ -21,7 +23,22 @@ import json
 import os
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-HOST_CATS = ("cpu_op",)
+SIDES = ("device", "host", "spans")
+# the program's span names (train/metrics.py `SPANS`): some torch versions
+# file a host annotation as a "cpu_op", others as a "user_annotation"
+SPAN_PREFIXES = ("engine.", "fold.", "runner.", "mesh.")
+
+
+def side_of(event: dict):
+    """The side a complete event is tabled on, or None (runtime calls, the
+    card's annotation ranges, flows)."""
+    cat = event.get("cat")
+    if cat in DEVICE_CATS:
+        return "device"
+    if cat == "user_annotation" or (
+            cat == "cpu_op" and event.get("name", "").startswith(SPAN_PREFIXES)):
+        return "spans"
+    return "host" if cat == "cpu_op" else None
 
 
 def find_trace(logdir: str, pid=None) -> str:
@@ -38,16 +55,16 @@ def find_trace(logdir: str, pid=None) -> str:
 
 
 def summarize(path: str) -> dict:
-    """side ("device" / "host") → {"ops": [(name, total_us, calls)] by total
-    descending, "busy_us", "span_us"}."""
+    """side ("device" / "host" / "spans") → {"ops": [(name, total_us,
+    calls)] by total descending, "busy_us", "span_us"}."""
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
     out = {}
-    for side, cats in (("device", DEVICE_CATS), ("host", HOST_CATS)):
+    for side in SIDES:
         total, calls = collections.Counter(), collections.Counter()
         t_min, t_max = float("inf"), float("-inf")
         for e in events:
-            if e.get("ph") != "X" or e.get("cat") not in cats:
+            if e.get("ph") != "X" or side_of(e) != side:
                 continue
             dur = float(e.get("dur", 0.0))
             total[e.get("name", "?")] += dur
@@ -61,7 +78,8 @@ def summarize(path: str) -> dict:
 
 
 def table(side: str, s: dict, top: int) -> str:
-    # a host op's time holds the ops it calls, so the host's sum passes its span
+    # a host op's (or span's) time holds the ops it calls, so the host's sum
+    # passes its span
     busy = "busy" if side == "device" else "summed (nested ops in each)"
     lines = [f"# {side}: {len(s['ops'])} distinct ops, {busy} {s['busy_us'] / 1e3:.3f} ms "
              f"over a {s['span_us'] / 1e3:.3f} ms span"]
@@ -85,8 +103,8 @@ def main(argv=None) -> int:
     path = find_trace(args.logdir, args.pid)
     s = summarize(path)
     print(f"# {path}")
-    print(table("device", s["device"], args.top))
-    print(table("host", s["host"], args.top))
+    for side in SIDES:
+        print(table(side, s[side], args.top))
     return 0
 
 

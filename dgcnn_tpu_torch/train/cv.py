@@ -132,7 +132,7 @@ from dgcnn_tpu_torch.train.loop import (
     make_optimizer,
 )
 from dgcnn_tpu_torch.train.metrics import (
-    EventLog, FoldMetrics, completed_fold_accuracies, write_overall_csv,
+    SPANS, EventLog, FoldMetrics, completed_fold_accuracies, spanned, write_overall_csv,
 )
 from dgcnn_tpu_torch.utils.checkpoint import (
     adam_state, checkpoint_exists, load_checkpoint, load_into, remove_checkpoint,
@@ -350,7 +350,9 @@ class RunnerSlot:
     one runner a fold (in lockstep one a run) and one more each time a
     budget grows. `builds` counts the runners built: the drivers mark the
     `epoch` events of a chunk that built one (`runner_built`), whose
-    seconds hold the warm-up and the capture."""
+    seconds hold the warm-up and the capture. Spans (train/metrics.py
+    `SPANS`): `runner.build` around `make()`, `fold.end` around the drop
+    at a fold's end (`end_fold`)."""
 
     def __init__(self):
         self.key = self.runner = None
@@ -359,7 +361,9 @@ class RunnerSlot:
     def get(self, key, make):
         if self.runner is None or key != self.key:
             self.drop()
-            self.runner, self.key = make(), key
+            with SPANS.span("runner.build") as s:
+                s["key"] = str(key)
+                self.runner, self.key = make(), key
             self.builds += 1
         return self.runner
 
@@ -367,6 +371,14 @@ class RunnerSlot:
         """Release the runner: its graph holds the addresses of the fold's
         net and optimizer."""
         self.key = self.runner = None
+
+    def end_fold(self) -> None:
+        """An engine's fold end: the drop, and in its span the bytes the
+        card's allocator holds after it (an allocator count: no sync)."""
+        with SPANS.span("fold.end") as s:
+            self.drop()
+            if s.kept and torch.cuda.is_initialized():
+                s["allocated"] = torch.cuda.memory_allocated()
 
 
 class DenseEngine:
@@ -393,6 +405,7 @@ class DenseEngine:
         self._fold = 0
 
 
+    @spanned("fold.begin")
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_idx = np.asarray(train_idx, dtype=np.int32)
         self._test_np = order_matrix(test_idx, self.cfg.batch_size, self.slots)
@@ -401,15 +414,17 @@ class DenseEngine:
     def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
         """Train + eval one epoch per permutation of the fold's training
         graphs; host rows [k, 4]."""
-        orders = np.stack([order_matrix(self._train_idx[perm], self.cfg.batch_size,
-                                        self.slots) for perm in perms])
+        with SPANS.span("engine.orders") as s:
+            s["epochs"] = len(perms)
+            orders = np.stack([order_matrix(self._train_idx[perm], self.cfg.batch_size,
+                                            self.slots) for perm in perms])
         runner = self.runners.get(self._fold, lambda: make_dense_gather_run(
             net, optimizer, self.data, self._test_np, orders.shape[1], dropout_gen,
             self.graphs))
         return runner.run_epochs(orders)
 
     def end_fold(self) -> None:
-        self.runners.drop()
+        self.runners.end_fold()
 
 
 class BlockSparseEngine:
@@ -464,6 +479,7 @@ class BlockSparseEngine:
         self.floor_w = max(self.floor_w, _geom_round(w, 64))
         return self.floor_nb, self.floor_w
 
+    @spanned("fold.begin")
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_idx = np.asarray(train_idx, dtype=np.int32)
         self._test_np = order_matrix(test_idx, self.cfg.batch_size, self.slots)
@@ -472,16 +488,18 @@ class BlockSparseEngine:
     def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
         """Train + eval one epoch per permutation of the fold's training
         graphs at the chunk's budgets; host rows [k, 4]."""
-        orders = np.stack([order_matrix(self._train_idx[perm], self.cfg.batch_size,
-                                        self.slots) for perm in perms])
-        nb, w = self.budget_for(orders, self._test_np)
+        with SPANS.span("engine.orders") as s:
+            s["epochs"] = len(perms)
+            orders = np.stack([order_matrix(self._train_idx[perm], self.cfg.batch_size,
+                                            self.slots) for perm in perms])
+            nb, w = self.budget_for(orders, self._test_np)
         runner = self.runners.get((self._fold, nb, w), lambda: make_block_run(
             net, optimizer, self.dev, self._test_np, nb, w, orders.shape[1],
             dropout_gen, self.block_impl, self.graphs))
         return runner.run_epochs(orders)
 
     def end_fold(self) -> None:
-        self.runners.drop()
+        self.runners.end_fold()
 
 
 class DeviceCooEngine:
@@ -530,6 +548,7 @@ class DeviceCooEngine:
         return BucketSpec(num_nodes=self.floor_nodes,
                           num_edges=self.floor_edges, num_graphs=self.slots)
 
+    @spanned("fold.begin")
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_idx = np.asarray(train_idx, dtype=np.int32)
         self._test_np = order_matrix(test_idx, self.cfg.batch_size, self.slots)
@@ -538,16 +557,18 @@ class DeviceCooEngine:
     def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
         """Train + eval one epoch per permutation of the fold's training
         graphs in the chunk's bucket; host rows [k, 4]."""
-        orders = np.stack([order_matrix(self._train_idx[perm], self.cfg.batch_size,
-                                        self.slots) for perm in perms])
-        bucket = self.bucket_for(orders, self._test_np)
+        with SPANS.span("engine.orders") as s:
+            s["epochs"] = len(perms)
+            orders = np.stack([order_matrix(self._train_idx[perm], self.cfg.batch_size,
+                                            self.slots) for perm in perms])
+            bucket = self.bucket_for(orders, self._test_np)
         runner = self.runners.get((self._fold, bucket), lambda: make_device_coo_run(
             net, optimizer, self.dev, self._test_np, bucket, orders.shape[1],
             dropout_gen, self.spmm_impl, self.graphs))
         return runner.run_epochs(orders)
 
     def end_fold(self) -> None:
-        self.runners.drop()
+        self.runners.end_fold()
 
 
 class CooEngine:
@@ -599,17 +620,20 @@ class CooEngine:
         the C++ packer when it builds (`resolve_backend("auto")`), else by
         NumPy, structures padded to the epoch's largest batch. Counts the
         epochs each backend packed (`packed`) and the host seconds of the
-        packing and of `add_blockcoo` (`pack_seconds`)."""
+        packing and of `add_blockcoo` (`pack_seconds`), each an
+        `engine.orders` span of `stage` "pack" or "blockcoo"."""
         backend = resolve_backend("auto")
-        t0 = time.perf_counter()
-        epoch = pack_epoch(ds, order, self.cfg.batch_size, self.bucket, backend)
-        t1 = time.perf_counter()
+        with SPANS.span("engine.orders", timed=True) as s:
+            s["stage"] = "pack"
+            epoch = pack_epoch(ds, order, self.cfg.batch_size, self.bucket, backend)
         self.packed[backend] += 1
-        self.pack_seconds["pack"] += t1 - t0
+        self.pack_seconds["pack"] += s.seconds
         if self.spmm_impl != "pallas":
             return epoch
-        epoch = add_blockcoo(epoch)
-        self.pack_seconds["blockcoo"] += time.perf_counter() - t1
+        with SPANS.span("engine.orders", timed=True) as s:
+            s["stage"] = "blockcoo"
+            epoch = add_blockcoo(epoch)
+        self.pack_seconds["blockcoo"] += s.seconds
         return epoch
 
     def epoch_bytes(self, n_train: int) -> int:
@@ -628,6 +652,7 @@ class CooEngine:
         self.floor_w = max(self.floor_w, _geom_round(w, 64))
         return self.floor_w
 
+    @spanned("fold.begin")
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_set = self.dataset.subset(train_idx)
         test_set = self.dataset.subset(test_idx)
@@ -644,15 +669,18 @@ class CooEngine:
         for i in range(0, len(perms), self.fuse_epochs):
             sub = perms[i:i + self.fuse_epochs]
             epochs = [self.pack_host(self._train_set, p) for p in sub]
-            w = 0
-            if self.spmm_impl == "pallas":
-                w = self.items_for(epochs)
-                epochs = [pad_blockcoo(e, w) for e in epochs]
-            to_host = pin_batch if self.device.type == "cuda" else (
-                lambda e: batch_to_device(e, "cpu"))
-            self._staged = [to_host(e) for e in epochs]
-            orders = np.stack([order_matrix(p, self.cfg.batch_size, self.slots)
-                               for p in sub])
+            with SPANS.span("engine.orders") as s:
+                s["stage"] = "pin"
+                s["epochs"] = len(sub)
+                w = 0
+                if self.spmm_impl == "pallas":
+                    w = self.items_for(epochs)
+                    epochs = [pad_blockcoo(e, w) for e in epochs]
+                to_host = pin_batch if self.device.type == "cuda" else (
+                    lambda e: batch_to_device(e, "cpu"))
+                self._staged = [to_host(e) for e in epochs]
+                orders = np.stack([order_matrix(p, self.cfg.batch_size, self.slots)
+                                   for p in sub])
             runner = self.runners.get((self._fold, w), lambda: make_coo_run(
                 net, optimizer, lambda j: self._staged[j], self._test, self.slots,
                 dropout_gen, self.spmm_impl, self.graphs))
@@ -660,7 +688,7 @@ class CooEngine:
         return np.concatenate(rows)
 
     def end_fold(self) -> None:
-        self.runners.drop()
+        self.runners.end_fold()
 
 
 class MultiDenseEngine:
@@ -721,6 +749,7 @@ class MultiDenseEngine:
                                                          slots))
                          for i in range(0, len(ids), bs)]).astype(np.int32)
 
+    @spanned("fold.begin")
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_idx = np.asarray(train_idx, dtype=np.int64)
         self._test_idx = np.asarray(test_idx, dtype=np.int64)
@@ -729,16 +758,18 @@ class MultiDenseEngine:
     def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
         """Train + eval one epoch per permutation of the fold's training
         graphs at the chunk's slot tuple; host rows [k, 4]."""
-        epoch_ids = [self._train_idx[p] for p in perms]
-        slots = self.slots_for(*epoch_ids, self._test_idx)
-        orders = np.stack([self.epoch_order(ids, slots) for ids in epoch_ids])
+        with SPANS.span("engine.orders") as s:
+            s["epochs"] = len(perms)
+            epoch_ids = [self._train_idx[p] for p in perms]
+            slots = self.slots_for(*epoch_ids, self._test_idx)
+            orders = np.stack([self.epoch_order(ids, slots) for ids in epoch_ids])
         runner = self.runners.get((self._fold, slots), lambda: make_multi_dense_run(
             net, optimizer, self.classes, slots, self.epoch_order(self._test_idx, slots),
             orders.shape[1], dropout_gen, self.graphs))
         return runner.run_epochs(orders)
 
     def end_fold(self) -> None:
-        self.runners.drop()
+        self.runners.end_fold()
 
 
 class _MeshEngine:
@@ -782,7 +813,7 @@ class _MeshEngine:
         return self.grid.n_data
 
     def end_fold(self) -> None:
-        self.runners.drop()
+        self.runners.end_fold()
 
 
 class _MeshGatherEngine(_MeshEngine):
@@ -793,6 +824,7 @@ class _MeshGatherEngine(_MeshEngine):
     def epoch_order(self, ids: np.ndarray) -> np.ndarray:
         raise NotImplementedError
 
+    @spanned("fold.begin")
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_idx = np.asarray(train_idx, dtype=np.int64)
         self._test_np = self.epoch_order(np.asarray(test_idx, dtype=np.int64))
@@ -801,9 +833,11 @@ class _MeshGatherEngine(_MeshEngine):
     def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
         """Train + eval one epoch per permutation of the fold's training
         graphs; host rows [k, 4], the same on every rank."""
-        orders = np.stack([self.epoch_order(self._train_idx[p]) for p in perms])
-        key, make = self.runner_for(orders, net, optimizer, dropout_gen,
-                                    steps=orders.shape[1], graphs=self.graphs)
+        with SPANS.span("engine.orders") as s:
+            s["epochs"] = len(perms)
+            orders = np.stack([self.epoch_order(self._train_idx[p]) for p in perms])
+            key, make = self.runner_for(orders, net, optimizer, dropout_gen,
+                                        steps=orders.shape[1], graphs=self.graphs)
         return self.runners.get((self._fold, key), make).run_epochs(orders)
 
 
@@ -962,6 +996,7 @@ class MeshCooEngine(_MeshEngine):
         """The node rows the edge-block kernel's counters cover."""
         return self.bucket.num_nodes
 
+    @spanned("fold.begin")
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_set = self.dataset.subset(train_idx)
         test_set = self.dataset.subset(test_idx)
@@ -972,9 +1007,11 @@ class MeshCooEngine(_MeshEngine):
     def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
         """Pack, stage, train and evaluate one epoch per permutation of the
         fold's training graphs; host rows [k, 4], the same on every rank."""
-        self._staged = [self.host_epoch(p) for p in perms]
-        bs = self.cfg.batch_size
-        orders = np.stack([order_matrix(p, bs, bs) for p in perms])
+        with SPANS.span("engine.orders") as s:
+            s["epochs"] = len(perms)
+            self._staged = [self.host_epoch(p) for p in perms]
+            bs = self.cfg.batch_size
+            orders = np.stack([order_matrix(p, bs, bs) for p in perms])
         runner = self.runners.get(self._fold, lambda: self._staged_runner(
             net, optimizer, dropout_gen, orders.shape[1:]))
         return runner.run_epochs(orders)
@@ -1061,6 +1098,7 @@ class MeshHaloEngine(MeshCooEngine):
     def onehot_nodes(self) -> int:
         return self.bucket.shard_nodes + 2 * self.bucket.halo
 
+    @spanned("fold.begin")
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_set = self.dataset.subset(train_idx)
         test_set = self.dataset.subset(test_idx)
@@ -1082,7 +1120,9 @@ def make_engine(cfg: Config, dataset: GraphSet, device: torch.device, layout: st
     when None), the COO one by `coo_assembly` alone; the multi-tile layout
     is single-device only (ValueError), and the halo layout needs a mesh
     (ValueError). Under fold-sharded `lockstep` each rank of a (D, 1) grid
-    runs its folds on the layout's single-device engine, on its device."""
+    runs its folds on the layout's single-device engine, on its device.
+    The engine's construction (its data on the device, routing, floors) is
+    the span `engine.build`."""
     if layout == "halo" and not on_mesh(cfg):
         raise ValueError(
             "layout='halo' shards the node axis over the mesh 'graph' "
@@ -1101,15 +1141,17 @@ def make_engine(cfg: Config, dataset: GraphSet, device: torch.device, layout: st
                "halo": MeshHaloEngine}.get(layout)
         if cls is None:
             cls = MeshDeviceCooEngine if cfg.coo_assembly == "device" else MeshCooEngine
-        return cls(cfg, dataset, grid, graphs)
+        with SPANS.span("engine.build") as s:
+            s["layout"] = layout
+            return cls(cfg, dataset, grid, graphs)
     if layout == "coo":
         host = cfg.resolved_spmm_impl() == "pallas" or cfg.coo_assembly == "host"
-        return (CooEngine if host else DeviceCooEngine)(cfg, dataset, device, graphs)
-    if layout == "block":
-        return BlockSparseEngine(cfg, dataset, device, graphs)
-    if layout == "multi":
-        return MultiDenseEngine(cfg, dataset, device, graphs)
-    return DenseEngine(cfg, dataset, device, graphs)
+        cls = CooEngine if host else DeviceCooEngine
+    else:
+        cls = {"block": BlockSparseEngine, "multi": MultiDenseEngine}.get(layout, DenseEngine)
+    with SPANS.span("engine.build") as s:
+        s["layout"] = layout
+        return cls(cfg, dataset, device, graphs)
 
 
 def _stream_seed(seed: int, fold: int, stream: int, *more: int) -> int:
@@ -1219,6 +1261,14 @@ def dropout_states(dropout_gen: torch.Generator, engine=None) -> torch.Tensor:
     return rows.cpu().to(torch.uint8)
 
 
+def runner_seconds(runner, built: bool) -> dict:
+    """An `epoch` event's `warmup_seconds` and `capture_seconds`: those of
+    the runner a chunk built (null for a chunk that built none, and for a
+    runner that ran eagerly)."""
+    return {key: getattr(runner, key, None) if built else None
+            for key in ("warmup_seconds", "capture_seconds")}
+
+
 def fold_csv(cfg: Config, fold_number: int) -> str:
     return os.path.join(cfg.statistics_dir, f"{cfg.data_type}_results_{fold_number}.csv")
 
@@ -1247,8 +1297,10 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
     (`ProcessGrid.check_replicas`), or the fold raises.
 
     Each chunk's `epoch` events carry its amortized seconds, whether it
-    built a runner (`runner_built`) and, if so, the runner's capture
-    seconds (`capture_seconds`; null when it ran eagerly)."""
+    built a runner (`runner_built`) and, if so, the runner's warm-up and
+    capture seconds (`warmup_seconds`, `capture_seconds`: its
+    `runner.warmup` and `runner.capture` spans; null when it ran
+    eagerly)."""
     device = engine.device
     grid = getattr(engine, "grid", None)
     writer = grid is None or grid.writer
@@ -1313,8 +1365,7 @@ def run_fold(cfg: Config, dataset: GraphSet, model: DGCNN, fold_number: int,
                 edges_per_second=train_edges / dt if dt > 0 else 0.0,
                 chunk_epochs=k,
                 runner_built=built,
-                capture_seconds=getattr(engine.runners.runner, "capture_seconds", None)
-                if built else None,
+                **runner_seconds(engine.runners.runner, built),
             )
             if cfg.log_every and (epoch + j) % cfg.log_every == 0:
                 print(

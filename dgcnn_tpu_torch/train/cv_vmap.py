@@ -78,13 +78,13 @@ from dgcnn_tpu_torch.parity.convert import fold_state
 from dgcnn_tpu_torch.train.cv import (
     BlockSparseEngine, MultiDenseEngine, _stream_seed, checkpoint_due,
     chunk_epochs, engine_floors, fold_bundle, fold_csv, fp32_only, restore_floors,
-    resumed_epoch,
+    resumed_epoch, runner_seconds,
 )
 from dgcnn_tpu_torch.train.loop import (
     FoldAdam, FusedRun, fold_adam_state, make_block_lockstep_run, make_dense_lockstep_run,
     make_multi_lockstep_run,
 )
-from dgcnn_tpu_torch.train.metrics import EventLog, FoldMetrics
+from dgcnn_tpu_torch.train.metrics import SPANS, EventLog, FoldMetrics
 from dgcnn_tpu_torch.utils.checkpoint import (
     checkpoint_exists, load_checkpoint, load_into, remove_checkpoint, save_checkpoint,
 )
@@ -130,21 +130,26 @@ def lockstep_chunk(engine, net_f: DGCNNFoldsNet, adam_f: FoldAdam, dropout_gens,
     pattern = fold_pattern([len(ids) for ids in ids_k[0]], bs, steps)
     args = (net_f, adam_f)
     if isinstance(engine, MultiDenseEngine):
-        slots = engine.slots_for(*(ids for ids_f in ids_k for ids in ids_f), *test_ids)
-
         def stacked(ids_f, n):
             return stack_folds([engine.epoch_order(ids, slots) for ids in ids_f], n)
 
-        orders = np.stack([stacked(ids_f, steps) for ids_f in ids_k])
+        with SPANS.span("engine.orders") as s:
+            s["epochs"] = len(ids_k)
+            slots = engine.slots_for(*(ids for ids_f in ids_k for ids in ids_f), *test_ids)
+            orders = np.stack([stacked(ids_f, steps) for ids_f in ids_k])
         return engine.runners.get(slots, lambda: make_multi_lockstep_run(
             *args, engine.classes, slots, stacked(test_ids, t_steps), pattern,
             dropout_gens, engine.graphs)), orders
-    orders = np.stack([stacked_orders(ids_f, bs, engine.slots, steps) for ids_f in ids_k])
-    test = stacked_orders(test_ids, bs, engine.slots, t_steps)
-    if isinstance(engine, BlockSparseEngine):
-        nb, w = engine.budget_for(orders, test, folds=True)
-        return engine.runners.get((nb, w), lambda: make_block_lockstep_run(
-            *args, engine.dev, test, nb, w, pattern, dropout_gens, engine.block_impl,
+    with SPANS.span("engine.orders") as s:
+        s["epochs"] = len(ids_k)
+        orders = np.stack([stacked_orders(ids_f, bs, engine.slots, steps)
+                           for ids_f in ids_k])
+        test = stacked_orders(test_ids, bs, engine.slots, t_steps)
+        budget = (engine.budget_for(orders, test, folds=True)
+                  if isinstance(engine, BlockSparseEngine) else None)
+    if budget is not None:
+        return engine.runners.get(budget, lambda: make_block_lockstep_run(
+            *args, engine.dev, test, *budget, pattern, dropout_gens, engine.block_impl,
             engine.graphs)), orders
     return engine.runners.get("dense", lambda: make_dense_lockstep_run(
         *args, engine.data, test, pattern, dropout_gens, engine.graphs)), orders
@@ -167,16 +172,20 @@ def gather_folds(local, like: torch.Tensor, num_folds: int, grid) -> torch.Tenso
     folds, ...] (None on a rank with none), shaped per fold as `like`
     [1, ...], reaches every rank by a broadcast over the data group from
     its owner, one owner after another (the data rank d is the global
-    rank d on a (D, 1) grid)."""
-    per = -(-num_folds // grid.n_data)
-    out = []
-    for r in range(grid.n_data):
-        buf = torch.zeros((per,) + tuple(like.shape[1:]), dtype=like.dtype,
-                          device=grid.device)
-        if r == grid.d and local is not None:
-            buf[: len(local)] = local
-        out.append(broadcast_from(buf, r, grid.data_group))
-    return torch.cat(out)[:num_folds]
+    rank d on a (D, 1) grid). The span `mesh.gather` opens at the rank's
+    arrival (its own rows on the host, or on its device by a blocking
+    copy) and takes the chunk it gathers; the broadcasts are queued on the
+    device, so the rank that arrives last sets when the others go on."""
+    with SPANS.span("mesh.gather", tail=True):
+        per = -(-num_folds // grid.n_data)
+        out = []
+        for r in range(grid.n_data):
+            buf = torch.zeros((per,) + tuple(like.shape[1:]), dtype=like.dtype,
+                              device=grid.device)
+            if r == grid.d and local is not None:
+                buf[: len(local)] = local
+            out.append(broadcast_from(buf, r, grid.data_group))
+        return torch.cat(out)[:num_folds]
 
 
 def _tree_map(fn, tree, *rest):
@@ -366,8 +375,7 @@ def run_cv_folds_lockstep(cfg: Config, dataset: GraphSet, model: DGCNN,
                     chunk_epochs=k,
                     folds_in_lockstep=num_folds,
                     runner_built=built,
-                    capture_seconds=getattr(engine.runners.runner, "capture_seconds",
-                                            None) if built else None,
+                    **runner_seconds(engine.runners.runner, built),
                 )
             if writer and cfg.log_every and (epoch + j) % cfg.log_every == 0:
                 accs = " ".join(f"{rows[j, f, 3] / n_test_f[f] * 100.0:.1f}"

@@ -64,7 +64,6 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import time
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -82,6 +81,7 @@ from dgcnn_tpu_torch.batching.packer import (
 from dgcnn_tpu_torch.kernels import block_csr, block_resident, dense_trunk
 from dgcnn_tpu_torch.kernels import spmm_block_coo, spmm_pallas
 from dgcnn_tpu_torch.models.dgcnn import DGCNNFoldsNet, DGCNNNet
+from dgcnn_tpu_torch.train.metrics import SPANS
 
 
 def nll_loss_and_correct(
@@ -456,6 +456,7 @@ class FusedRun:
         self.graphs = graphs and order.is_cuda
         self.stream = torch.cuda.Stream(order.device) if self.graphs else None
         self.graph: Optional[CountedGraph] = None
+        self.warmup_seconds: Optional[float] = None
         self.capture_seconds: Optional[float] = None
 
     def _check(self, orders_k: np.ndarray) -> None:
@@ -474,13 +475,16 @@ class FusedRun:
 
     def run_epochs(self, orders_k: np.ndarray) -> np.ndarray:
         """Run the epochs of a chunk of host orders [k, *order.shape];
-        returns the host rows [k, (F,) 4] in float64."""
-        orders_k = np.ascontiguousarray(orders_k, dtype=np.int32)
-        self._check(orders_k)
+        returns the host rows [k, (F,) 4] in float64. Spans
+        (train/metrics.py `SPANS`): `runner.stage` (the check and the
+        orders' copy), `runner.replay` a replay, with its device time."""
         dev = self.order.device
-        orders = torch.from_numpy(orders_k).to(dev)  # the chunk's one host-to-device copy
-        out = torch.empty((len(orders_k), *self.rows.shape), dtype=self.rows.dtype,
-                          device=dev)
+        with SPANS.span("runner.stage"):
+            orders_k = np.ascontiguousarray(orders_k, dtype=np.int32)
+            self._check(orders_k)
+            orders = torch.from_numpy(orders_k).to(dev)  # the chunk's one host-to-device copy
+            out = torch.empty((len(orders_k), *self.rows.shape), dtype=self.rows.dtype,
+                              device=dev)
         for j in range(len(orders_k)):
             self.order.copy_(orders[j])
             if self.stage is not None:
@@ -490,25 +494,33 @@ class FusedRun:
             elif self.graph is None:
                 self._warm_up_and_capture()
             else:
-                self.graph.replay()
+                with SPANS.span("runner.replay", device=dev):
+                    self.graph.replay()
             out[j].copy_(self.rows)
-        return out.cpu().double().numpy()  # the chunk's one device-to-host copy
+        rows = out.cpu().double().numpy()  # the chunk's one device-to-host copy
+        SPANS.chunk_done()
+        return rows
 
     def _warm_up_and_capture(self) -> None:
+        """The eager warm-up epoch on the runner's stream (span
+        `runner.warmup`, with its device time: `warmup_seconds`), then the
+        capture (span `runner.capture`: `capture_seconds`)."""
         main = torch.cuda.current_stream(self.order.device)
         self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
+        with torch.cuda.stream(self.stream), SPANS.span(
+                "runner.warmup", device=self.order.device, timed=True) as warm:
             self.body()
+        self.warmup_seconds = warm.seconds
         main.wait_stream(self.stream)
-        t0 = time.perf_counter()
-        graph = CountedGraph(torch.cuda.CUDAGraph())
-        for g in self.generators:
-            graph.graph.register_generator_state(g)
-        with graph.capture(), torch.cuda.graph(graph.graph, stream=self.stream,
-                                               capture_error_mode="thread_local"):
-            self.body()
+        with SPANS.span("runner.capture", timed=True) as cap:
+            graph = CountedGraph(torch.cuda.CUDAGraph())
+            for g in self.generators:
+                graph.graph.register_generator_state(g)
+            with graph.capture(), torch.cuda.graph(graph.graph, stream=self.stream,
+                                                   capture_error_mode="thread_local"):
+                self.body()
         self.graph = graph
-        self.capture_seconds = time.perf_counter() - t0
+        self.capture_seconds = cap.seconds
 
 
 def _gather_run(net: DGCNNNet, optimizer, batch_fn: BatchFn, test_order2d: np.ndarray,

@@ -46,7 +46,8 @@ def trace(logdir: str):
     DIR`; the port of dgcnn_tpu/utils/profiling.py:51 `trace`): the host's
     ops, and the card's kernels where CUDA is present, written at the end
     as a Chrome trace `DIR/trace_<pid>.json` (one file a process, so the
-    ranks of a mesh run do not overwrite each other's)."""
+    ranks of a mesh run do not overwrite each other's). The program's spans
+    (train/metrics.py `SPANS`) are ranges of their names in it."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

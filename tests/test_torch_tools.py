@@ -236,7 +236,8 @@ def test_release_validation_raises_without_a_card(tmp_path):
 
 def test_summarize_trace_over_the_clis_profile_trace(tmp_path, capsys):
     """The trace `--profile` writes on the CPU (tests/test_torch_train.py's
-    run): no device events, the host's ATen ops by total."""
+    run): no device events, the host's ATen ops by total, the program's
+    spans by name."""
     cli.main(["--data_type", "MUTAG", "--synthetic", "--platform", "cpu",
               "--num_folds", "2", "--num_epochs", "1", "--layout", "dense",
               "--data_root", str(tmp_path / "data"), "--out_root", str(tmp_path),
@@ -248,21 +249,28 @@ def test_summarize_trace_over_the_clis_profile_trace(tmp_path, capsys):
     assert any(n.startswith("aten::") for n in names) and "GcnTrunkFn" in names
     totals = [d for _, d, _ in s["host"]["ops"]]
     assert totals == sorted(totals, reverse=True) and s["host"]["span_us"] > 0
+    # the two folds in lockstep: one chunk through one runner
+    spans = {n: calls for n, _, calls in s["spans"]["ops"]}
+    assert spans == {"engine.build": 1, "engine.orders": 1, "runner.build": 1,
+                     "runner.stage": 1, "fold.end": 1}
     capsys.readouterr()
     pid = int(trace.stem.split("_")[1])
     prof = str(tmp_path / "prof")
     assert summarize_trace.main([prof, "--top", "5", "--pid", str(pid)]) == 0
     out = capsys.readouterr().out.splitlines()
     assert out[0] == f"# {trace}" and "(no events)" in out[1]
-    assert out[2].startswith("# host:") and len(out) == 3 + 1 + 5
+    assert out[2].startswith("# host:") and out[9].startswith("# spans:")
+    assert len(out) == 3 + 1 + 5 + 2 + 5
     with pytest.raises(SystemExit):
         summarize_trace.main([prof, "--pid", str(pid + 1)])
 
 
 def test_summarize_trace_splits_the_cards_kernels_from_the_hosts_ops(tmp_path):
     """A torch.profiler Chrome trace as the card's run writes it: kernels,
-    copies and sets on the device side, ATen ops on the host side; runtime
-    calls and flow events in neither."""
+    copies and sets on the device side, ATen ops on the host side, the
+    program's spans (host user annotations, or host ops by their names, as
+    some torch versions file them) on their own; runtime calls, the card's
+    annotation ranges and flow events in none."""
     events = [
         {"ph": "X", "cat": "kernel", "name": "trunk_resident_fwd(TrunkArgs)",
          "ts": 100, "dur": 30},
@@ -271,6 +279,11 @@ def test_summarize_trace_splits_the_cards_kernels_from_the_hosts_ops(tmp_path):
         {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 90, "dur": 5},
         {"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": 80, "dur": 9},
         {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 10, "dur": 4},
+        {"ph": "X", "cat": "user_annotation", "name": "runner.replay", "ts": 78,
+         "dur": 12},
+        {"ph": "X", "cat": "cpu_op", "name": "fold.begin", "ts": 2, "dur": 3},
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "runner.replay", "ts": 100,
+         "dur": 150},
         {"ph": "s", "cat": "ac2g", "name": "flow", "ts": 80},
     ]
     path = tmp_path / "trace_7.json"
@@ -283,4 +296,5 @@ def test_summarize_trace_splits_the_cards_kernels_from_the_hosts_ops(tmp_path):
                                   ("Memcpy HtoD", 5.0, 1)]
     assert s["device"]["busy_us"] == 85.0 and s["device"]["span_us"] == 160.0
     assert s["host"]["ops"] == [("aten::mm", 4.0, 1)]
+    assert s["spans"]["ops"] == [("runner.replay", 12.0, 1), ("fold.begin", 3.0, 1)]
     assert "trunk_resident_fwd" in summarize_trace.table("device", s["device"], 30)

@@ -42,6 +42,10 @@ Jobs (`kind`):
   replicas     `ProcessGrid.check_replicas` of tensors equal on every rank,
                of tensors one bit apart on rank 1, and of two elements
                swapped on rank 1: whether each raised
+  spans_gather `train/cv_vmap.py gather_folds` of each rank's rows over a
+               (world, 1) grid, twice, with the span recorder on (rank 1
+               arriving `delay` seconds late): the gathered rows and each
+               `mesh.gather` record's seq, chunk, rank and stamps
 
 A `cv` job runs every layout through `run_cross_validation`, fold-sharded
 lockstep too: there `crash_at` counts the lockstep chunks
@@ -399,10 +403,35 @@ def replicas(job, rank):
     return out
 
 
+def spans_gather(job, rank):
+    import time
+
+    from dgcnn_tpu_torch.train.cv_vmap import gather_folds
+    from dgcnn_tpu_torch.train.metrics import SPANS
+
+    grid = mesh.make_mesh((dist.get_world_size(), 1), "cpu")
+    local = torch.full((1, 2), float(rank))
+    SPANS.start()
+    try:
+        got = []
+        for _ in range(2):
+            if rank == 1:
+                time.sleep(job["delay"])
+            SPANS.chunk_done()  # as `FusedRun.run_epochs` ends a chunk
+            got.append(gather_folds(local, torch.zeros((1, 2)), grid.n_data, grid).numpy())
+    finally:
+        records = SPANS.stop()
+    gathers = [r for r in records if r["name"] == "mesh.gather"]
+    return {"rows": np.stack(got), "seq": [r["seq"] for r in gathers],
+            "chunk": [r["chunk"] for r in gathers], "rank": [r["rank"] for r in gathers],
+            "start_ns": [r["start_ns"] for r in gathers],
+            "end_ns": [r["end_ns"] for r in gathers]}
+
+
 JOBS = {"halo_loss": halo_loss, "halo_swap": halo_swap, "graphed_cv": graphed_cv,
         "replicas": replicas, "cli": cli_job, "coo_loss": coo_loss,
         "engine_loss": engine_loss, "epoch": epoch, "cv": cv_job,
-        "mismatch": mismatch}
+        "mismatch": mismatch, "spans_gather": spans_gather}
 
 
 def spawn(tmp, world: int, jobs: list, timeout: float = 120.0) -> list:
