@@ -2688,7 +2688,8 @@ def forced_growth(label, engine, gs, floors, sizes, model, device, counters,
                 keys.append(slot.key)
                 if graphs and slot.runner.graph is None:
                     raise AssertionError(f"{label}: chunk {len(keys)}: no graph captured")
-            engine.end_fold()
+            engine.end_fold()  # keeps the runner for a next fold
+            slot.drop()  # the run's end
         finally:
             del slot.get, slot.drop
         counts = {k: dict(vars(c)) for k, c in counters.items()}

@@ -12,8 +12,8 @@ as the summaries recorded them.
 
 The epoch column is a median over steady-state rows only, where the
 reference takes every row: the rows of a chunk that built a runner
-(`runner_built`: a run's first chunk in lockstep, a fold's first chunk
-in sequence, and a chunk after a budget grew) hold an eager warm-up
+(`runner_built`: a run's first chunk, and a chunk after a budget or, in
+sequence, a fold's step counts changed) hold an eager warm-up
 epoch and a CUDA-graph capture; the rows left out are counted beside
 the median.
 """

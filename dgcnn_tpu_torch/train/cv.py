@@ -98,6 +98,7 @@ from dgcnn_tpu_torch.batching.multi_dense import (
 from dgcnn_tpu_torch.batching.packer import (
     BucketSpec,
     add_blockcoo,
+    batch_arrays,
     batch_to_device,
     compute_bucket,
     map_batch,
@@ -124,6 +125,7 @@ from dgcnn_tpu_torch.parallel.train_dp import (
 )
 from dgcnn_tpu_torch.train.loop import (
     _arrival_counters,
+    copy_fold_state,
     make_block_run,
     make_coo_run,
     make_dense_gather_run,
@@ -342,21 +344,32 @@ def _geom_round(x: int, multiple: int, ratio: float = 1.3) -> int:
 
 class RunnerSlot:
     """An engine's one fused runner (train/loop.py `FusedRun`), keyed by
-    what it was built for: the fold and the budget (in lockstep the
-    budget alone). `get(key, make)` returns the runner for `key`; under
-    another key it first drops the old runner, and with it its CUDA graph
-    and that graph's memory pool, then builds the new one, which warms up
-    and captures on its first chunk. Budgets grow only, so a run builds
-    one runner a fold (in lockstep one a run) and one more each time a
-    budget grows. `builds` counts the runners built: the drivers mark the
-    `epoch` events of a chunk that built one (`runner_built`), whose
-    seconds hold the warm-up and the capture. Spans (train/metrics.py
-    `SPANS`): `runner.build` around `make()`, `fold.end` around the drop
-    at a fold's end (`end_fold`)."""
+    the shapes its graph bakes in: the budget, and for a sequential
+    engine the train and test steps of its order buffers (a mesh engine's
+    key also names the fold). `get(key, make)` returns the runner for
+    `key`; under another key it first drops the old runner, and with it
+    its CUDA graph and that graph's memory pool, then builds the new one,
+    which warms up and captures on its first chunk. Budgets grow only.
+    `builds` counts the runners built: the drivers mark the `epoch`
+    events of a chunk that built one (`runner_built`), whose seconds hold
+    the warm-up and the capture.
+
+    A sequential engine runs its chunks through `run`, which keeps the
+    runner across folds: a fold whose key it was built for loads its
+    state into it (`FusedRun.adopt`) and replays at once, with no warm-up
+    and no capture; `reuses` counts those folds, so `reuses` over the
+    fold switches is the share of switches that kept the runner. `state`
+    is the (net, optimizer, dropout generator) whose fold the runner
+    trains, None between folds and for a runner that takes no hand-over
+    (lockstep, the mesh): `end_fold` keeps a runner that served a fold
+    and drops any other, as before. Spans (train/metrics.py `SPANS`):
+    `runner.build` around `make()`, `runner.adopt` at a new fold on a
+    runner (`kept`: whether its key held and the state was loaded, else
+    a `runner.build` follows), `fold.end` at a fold's end."""
 
     def __init__(self):
-        self.key = self.runner = None
-        self.builds = 0
+        self.key = self.runner = self.state = None
+        self.builds = self.reuses = 0
 
     def get(self, key, make):
         if self.runner is None or key != self.key:
@@ -367,30 +380,59 @@ class RunnerSlot:
             self.builds += 1
         return self.runner
 
+    def run(self, key, make, state: tuple, test, orders: np.ndarray) -> np.ndarray:
+        """One chunk of a sequential fold: the runner for `key`, built on
+        `state` (net, optimizer, dropout generator) by `make`, or kept and
+        loaded with `state` and the fold's test data `test` (the runner's
+        `test` tensors' order and shapes) where `state` is another fold's;
+        then its epochs of `orders`, and the trained state copied back
+        into `state` unless the runner trains `state`'s own tensors.
+        Returns the host rows [k, 4]."""
+        if self.runner is not None and not _same(state, self.state):
+            with SPANS.span("runner.adopt") as s:
+                s["kept"] = kept = key == self.key
+                if kept:
+                    self.runner.adopt(state, test)
+                    self.reuses += 1
+        rows = self.get(key, make).run_epochs(orders)
+        self.state = state
+        if not _same(state, self.runner.state):
+            copy_fold_state(state, self.runner.state)
+        return rows
+
     def drop(self) -> None:
-        """Release the runner: its graph holds the addresses of the fold's
-        net and optimizer."""
-        self.key = self.runner = None
+        """Release the runner: its graph holds the addresses of the net and
+        optimizer it was built on."""
+        self.key = self.runner = self.state = None
 
     def end_fold(self) -> None:
-        """An engine's fold end: the drop, and in its span the bytes the
-        card's allocator holds after it (an allocator count: no sync)."""
+        """An engine's fold end: a runner that served the fold is kept for
+        the next, any other dropped; in its span the bytes the card's
+        allocator holds after it (an allocator count: no sync)."""
         with SPANS.span("fold.end") as s:
-            self.drop()
+            if self.state is None:
+                self.drop()
+            self.state = None
             if s.kept and torch.cuda.is_initialized():
                 s["allocated"] = torch.cuda.memory_allocated()
+
+
+def _same(a: Optional[tuple], b: Optional[tuple]) -> bool:
+    """Whether two (net, optimizer, generator) are the same objects."""
+    return a is not None and b is not None and all(x is y for x, y in zip(a, b))
 
 
 class DenseEngine:
     """The dense layout's epoch engine: the whole dataset lives on the
     device in dense form; a chunk of epochs ships one [k, steps, slots]
-    index matrix and batches are gathered on the device. A fold's epochs
-    run through one fused runner (train/loop.py `make_dense_gather_run`:
-    on the card the fold's first epoch warms up, the rest are CUDA-graph
-    replays), dropped at the fold's end with its graph. `graphs=False`
-    runs every epoch eagerly on the card, for comparison only."""
+    index matrix and batches are gathered on the device. The epochs run
+    through one fused runner a pair of train and test step counts
+    (train/loop.py `make_dense_gather_run`: on the card its first epoch
+    warms up, the rest are CUDA-graph replays), kept across the folds of
+    those counts (`RunnerSlot.run`). `graphs=False` runs every epoch
+    eagerly on the card, for comparison only."""
 
-    FLOORS = ()  # no grow-only budget: one runner a fold
+    FLOORS = ()  # no grow-only budget: one runner a pair of step counts
 
     def __init__(self, cfg: Config, dataset: GraphSet, device: torch.device,
                  graphs: bool = True):
@@ -402,14 +444,11 @@ class DenseEngine:
         self.data = build_dense_dataset(dataset, self.n_tile, device,
                                         cfg.resolved_adj_dtype(), cfg.compute_dtype)
         self.runners = RunnerSlot()
-        self._fold = 0
-
 
     @spanned("fold.begin")
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_idx = np.asarray(train_idx, dtype=np.int32)
         self._test_np = order_matrix(test_idx, self.cfg.batch_size, self.slots)
-        self._fold += 1
 
     def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
         """Train + eval one epoch per permutation of the fold's training
@@ -418,10 +457,10 @@ class DenseEngine:
             s["epochs"] = len(perms)
             orders = np.stack([order_matrix(self._train_idx[perm], self.cfg.batch_size,
                                             self.slots) for perm in perms])
-        runner = self.runners.get(self._fold, lambda: make_dense_gather_run(
-            net, optimizer, self.data, self._test_np, orders.shape[1], dropout_gen,
-            self.graphs))
-        return runner.run_epochs(orders)
+        steps = (orders.shape[1], len(self._test_np))
+        return self.runners.run((steps,), lambda: make_dense_gather_run(
+            net, optimizer, self.data, self._test_np, steps[0], dropout_gen,
+            self.graphs), (net, optimizer, dropout_gen), [self._test_np], orders)
 
     def end_fold(self) -> None:
         self.runners.end_fold()
@@ -441,7 +480,8 @@ class BlockSparseEngine:
     `block_batch_extents` over the chunk's orders and the fold's test
     order, as the reference's `_budget_for` (dgcnn_tpu/train/cv.py:477),
     and grow only, on a geometric grid (floors 8 and 64), across chunks
-    and folds; a grown budget gets a new runner (`RunnerSlot`).
+    and folds; a grown budget gets a new runner (`RunnerSlot`), and a
+    runner is kept across the folds of its budgets and step counts.
     `graphs=False` runs every epoch eagerly on the card, for comparison
     only."""
 
@@ -461,8 +501,6 @@ class BlockSparseEngine:
         self.floor_nb = 8
         self.floor_w = 64
         self.runners = RunnerSlot()
-        self._fold = 0
-
 
     def budget_for(self, *order_mats: np.ndarray, folds: bool = False):
         """Grow-only (nb, W) budgets covering every batch row given; with
@@ -483,7 +521,6 @@ class BlockSparseEngine:
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_idx = np.asarray(train_idx, dtype=np.int32)
         self._test_np = order_matrix(test_idx, self.cfg.batch_size, self.slots)
-        self._fold += 1
 
     def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
         """Train + eval one epoch per permutation of the fold's training
@@ -493,10 +530,11 @@ class BlockSparseEngine:
             orders = np.stack([order_matrix(self._train_idx[perm], self.cfg.batch_size,
                                             self.slots) for perm in perms])
             nb, w = self.budget_for(orders, self._test_np)
-        runner = self.runners.get((self._fold, nb, w), lambda: make_block_run(
-            net, optimizer, self.dev, self._test_np, nb, w, orders.shape[1],
-            dropout_gen, self.block_impl, self.graphs))
-        return runner.run_epochs(orders)
+        steps = (orders.shape[1], len(self._test_np))
+        return self.runners.run((steps, nb, w), lambda: make_block_run(
+            net, optimizer, self.dev, self._test_np, nb, w, steps[0],
+            dropout_gen, self.block_impl, self.graphs), (net, optimizer, dropout_gen),
+            [self._test_np], orders)
 
     def end_fold(self) -> None:
         self.runners.end_fold()
@@ -513,7 +551,8 @@ class DeviceCooEngine:
     order, as the reference's `_bucket_for` (dgcnn_tpu/train/cv.py:382),
     and grows only, on its geometric grid (`_geom_round`, multiples of the
     node and edge pad), across chunks and folds; a grown bucket gets a new
-    runner (`RunnerSlot`). Each GCN aggregation runs the SpMM kernel
+    runner (`RunnerSlot`), and a runner is kept across the folds of its
+    bucket and step counts. Each GCN aggregation runs the SpMM kernel
     `cfg.resolved_spmm_impl()` names. `graphs=False` runs every epoch
     eagerly on the card, for comparison only."""
 
@@ -532,8 +571,6 @@ class DeviceCooEngine:
         self.floor_nodes = cfg.node_pad_multiple
         self.floor_edges = cfg.edge_pad_multiple
         self.runners = RunnerSlot()
-        self._fold = 0
-
 
     def bucket_for(self, *order_mats: np.ndarray) -> BucketSpec:
         """Grow-only bucket covering every batch row given."""
@@ -552,7 +589,6 @@ class DeviceCooEngine:
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_idx = np.asarray(train_idx, dtype=np.int32)
         self._test_np = order_matrix(test_idx, self.cfg.batch_size, self.slots)
-        self._fold += 1
 
     def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
         """Train + eval one epoch per permutation of the fold's training
@@ -562,10 +598,11 @@ class DeviceCooEngine:
             orders = np.stack([order_matrix(self._train_idx[perm], self.cfg.batch_size,
                                             self.slots) for perm in perms])
             bucket = self.bucket_for(orders, self._test_np)
-        runner = self.runners.get((self._fold, bucket), lambda: make_device_coo_run(
-            net, optimizer, self.dev, self._test_np, bucket, orders.shape[1],
-            dropout_gen, self.spmm_impl, self.graphs))
-        return runner.run_epochs(orders)
+        steps = (orders.shape[1], len(self._test_np))
+        return self.runners.run((steps, bucket), lambda: make_device_coo_run(
+            net, optimizer, self.dev, self._test_np, bucket, steps[0],
+            dropout_gen, self.spmm_impl, self.graphs), (net, optimizer, dropout_gen),
+            [self._test_np], orders)
 
     def end_fold(self) -> None:
         self.runners.end_fold()
@@ -590,8 +627,9 @@ class CooEngine:
     over the sub-chunk's largest batch, so that W, and with it the
     runner, changes only between sub-chunks. (The reference pads to
     `blockcoo_item_bound`, one XLA shape a run; the padding appends only
-    sentinel items and null slots.) `graphs=False` runs every epoch
-    eagerly on the card, for comparison only."""
+    sentinel items and null slots.) A runner is kept across the folds of
+    its W, train step count and packed test shapes. `graphs=False` runs
+    every epoch eagerly on the card, for comparison only."""
 
     FLOORS = ("floor_w",)
 
@@ -609,7 +647,6 @@ class CooEngine:
         self.spmm_impl = cfg.resolved_spmm_impl()
         self.floor_w = 64
         self.runners = RunnerSlot()
-        self._fold = 0
         self._staged = []  # the last sub-chunk's packed epochs, on the host
         self.packed = {"native": 0, "numpy": 0}
         self.pack_seconds = {"pack": 0.0, "blockcoo": 0.0}
@@ -660,12 +697,14 @@ class CooEngine:
             self.pack_host(test_set, np.arange(test_set.num_graphs)), self.device)
         self.fuse_epochs = int(np.clip(
             self.cfg.coo_fuse_bytes // max(self.epoch_bytes(len(train_idx)), 1), 1, 64))
-        self._fold += 1
 
     def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
         """Train + eval one epoch per permutation of the fold's training
         graphs, `fuse_epochs` of them a host round trip; host rows [k, 4]."""
         rows = []
+        test = batch_arrays(self._test)
+        shapes = (-(-len(perms[0]) // self.cfg.batch_size),
+                  tuple(tuple(t.shape) for t in test))
         for i in range(0, len(perms), self.fuse_epochs):
             sub = perms[i:i + self.fuse_epochs]
             epochs = [self.pack_host(self._train_set, p) for p in sub]
@@ -681,10 +720,10 @@ class CooEngine:
                 self._staged = [to_host(e) for e in epochs]
                 orders = np.stack([order_matrix(p, self.cfg.batch_size, self.slots)
                                    for p in sub])
-            runner = self.runners.get((self._fold, w), lambda: make_coo_run(
+            rows.append(self.runners.run((shapes, w), lambda: make_coo_run(
                 net, optimizer, lambda j: self._staged[j], self._test, self.slots,
-                dropout_gen, self.spmm_impl, self.graphs))
-            rows.append(runner.run_epochs(orders))
+                dropout_gen, self.spmm_impl, self.graphs), (net, optimizer, dropout_gen),
+                test, orders))
         return np.concatenate(rows)
 
     def end_fold(self) -> None:
@@ -710,8 +749,9 @@ class MultiDenseEngine:
     up to 4; then, once a chunk, grown only, to the largest class count of
     the chunk's batches and the fold's test batches, rounded up to 4
     (`slots_for`). A grown slot tuple gets a new runner (`RunnerSlot`,
-    keyed by fold and slots). `graphs=False` runs every epoch eagerly on
-    the card, for comparison only."""
+    keyed by the train and test step counts and the slots), which is kept
+    across the folds of its key. `graphs=False` runs every epoch eagerly
+    on the card, for comparison only."""
 
     FLOORS = ("slot_floor",)
 
@@ -728,8 +768,6 @@ class MultiDenseEngine:
         self.slots_for(*(warm_rng.permutation(dataset.num_graphs) for _ in range(40)))
         self.slot_floor = np.minimum(self.slot_floor, _round_up(cfg.batch_size, 4))
         self.runners = RunnerSlot()
-        self._fold = 0
-
 
     def slots_for(self, *order_seqs: np.ndarray) -> tuple:
         """Grow-only per-class slot counts covering every batch of the
@@ -753,7 +791,6 @@ class MultiDenseEngine:
     def begin_fold(self, train_idx: np.ndarray, test_idx: np.ndarray) -> None:
         self._train_idx = np.asarray(train_idx, dtype=np.int64)
         self._test_idx = np.asarray(test_idx, dtype=np.int64)
-        self._fold += 1
 
     def run_epochs(self, net, optimizer, dropout_gen, perms) -> np.ndarray:
         """Train + eval one epoch per permutation of the fold's training
@@ -763,10 +800,11 @@ class MultiDenseEngine:
             epoch_ids = [self._train_idx[p] for p in perms]
             slots = self.slots_for(*epoch_ids, self._test_idx)
             orders = np.stack([self.epoch_order(ids, slots) for ids in epoch_ids])
-        runner = self.runners.get((self._fold, slots), lambda: make_multi_dense_run(
-            net, optimizer, self.classes, slots, self.epoch_order(self._test_idx, slots),
-            orders.shape[1], dropout_gen, self.graphs))
-        return runner.run_epochs(orders)
+            test = self.epoch_order(self._test_idx, slots)
+        steps = (orders.shape[1], len(test))
+        return self.runners.run((steps, slots), lambda: make_multi_dense_run(
+            net, optimizer, self.classes, slots, test, steps[0], dropout_gen,
+            self.graphs), (net, optimizer, dropout_gen), [test], orders)
 
     def end_fold(self) -> None:
         self.runners.end_fold()
@@ -1545,6 +1583,7 @@ def run_cross_validation(cfg: Config, dataset: Optional[GraphSet] = None,
         )
         if hasattr(bar, "set_postfix"):
             bar.set_postfix(test_acc=f"{test_accs[-1]:.2f}%")
+    engine.runners.drop()  # the run's last runner, kept past its last fold
     if writer:
         remove_checkpoint(floors)
     return _finalize_cv(cfg, events, train_accs, test_accs, writer)

@@ -47,7 +47,13 @@ at one slot tuple), `make_block_run` and `make_block_lockstep_run`
 `make_coo_run` (COO packed on the host: the body reads a static device
 stack of one epoch, which the runner's `stage(j)` fills with epoch j
 before it runs). A runner serves one budget: an engine whose budget
-grows drops it, with its graph, and builds another (train/cv.py).
+grows drops it, with its graph, and builds another (train/cv.py). A
+one-fold runner (`_gather_run`, `make_coo_run`) is kept across the folds
+of its shapes: `adopt` loads another fold's net, optimizer, dropout
+generator and test data into the tensors and generator its graph was
+captured on (`copy_fold_state`), and the engine copies the trained state
+back into the fold's own objects after every chunk (train/cv.py
+`RunnerSlot.run`).
 
 Fold-lockstep: F folds train as one model of fold-stacked parameters
 (`DGCNNFoldsNet`). A step backpropagates the sum of the F per-fold mean
@@ -82,6 +88,7 @@ from dgcnn_tpu_torch.kernels import block_csr, block_resident, dense_trunk
 from dgcnn_tpu_torch.kernels import spmm_block_coo, spmm_pallas
 from dgcnn_tpu_torch.models.dgcnn import DGCNNFoldsNet, DGCNNNet
 from dgcnn_tpu_torch.train.metrics import SPANS
+from dgcnn_tpu_torch.utils.checkpoint import adam_tensors, init_adam_state
 
 
 def nll_loss_and_correct(
@@ -152,6 +159,30 @@ class FlatAdam(torch.optim.Adam):
         flat = self.param_groups[0]["params"][0]
         flat.grad = torch.cat([p.grad.reshape(-1) for p in self.leaves])
         return super().step(closure)
+
+
+def copy_fold_state(dst, src) -> None:
+    """Copy one fold's training state from `src` into `dst`, each a (net,
+    optimizer, dropout generator) of one model, in place and on the
+    device: the parameters, Adam's step counts and moments (created where
+    missing, as zeros: the state of an Adam that has taken no step) and
+    the generator's seed and offset (`set_state`, which a generator
+    registered with a CUDA graph reads at its next replay). Raises
+    ValueError if the optimizers' settings differ."""
+    (dnet, dopt, dgen), (snet, sopt, sgen) = dst, src
+    settings = [[{k: v for k, v in g.items() if k != "params"} for g in o.param_groups]
+                for o in (dopt, sopt)]
+    if settings[0] != settings[1]:
+        raise ValueError(f"optimizer settings differ: {settings[1]} into {settings[0]}")
+    init_adam_state(dopt)
+    init_adam_state(sopt)
+    pairs = list(zip(dnet.parameters(), snet.parameters(), strict=True))
+    for key, ts in adam_tensors(dopt).items():
+        pairs += zip(ts, adam_tensors(sopt)[key], strict=True)
+    with torch.no_grad():
+        for d, s in pairs:
+            d.copy_(s)
+    dgen.set_state(sgen.get_state())
 
 
 def train_step(
@@ -435,7 +466,10 @@ class FusedRun:
     before it runs (on the current stream, after the order's copy).
     `graphs=False` runs every epoch eagerly: on the card for comparison,
     or on a `gloo` mesh, whose collectives cannot be captured; on the CPU
-    every epoch is eager. A capture or replay that fails raises.
+    every epoch is eager. A capture or replay that fails raises. A
+    one-fold runner also names the (net, optimizer, dropout generator)
+    its body trains (`state`) and the static tensors that hold the fold's
+    test data (`test`), which `adopt` loads with another fold's.
 
     The capture's error mode is "thread_local": in a process of an `nccl`
     group (the mesh engines, fold-sharded lockstep) the process group's
@@ -446,9 +480,12 @@ class FusedRun:
     def __init__(self, body: Callable[[], None], order: torch.Tensor,
                  rows: torch.Tensor, pattern: np.ndarray,
                  generators: Sequence[torch.Generator], graphs: bool = True,
-                 stage: Optional[Callable[[int], None]] = None):
+                 stage: Optional[Callable[[int], None]] = None,
+                 state: Optional[tuple] = None, test: Sequence[torch.Tensor] = ()):
         self.body = body
         self.stage = stage
+        self.state = state
+        self.test = list(test)
         self.order = order
         self.rows = rows
         self.pattern = np.asarray(pattern, dtype=bool)
@@ -501,6 +538,16 @@ class FusedRun:
         SPANS.chunk_done()
         return rows
 
+    def adopt(self, state: tuple, test: Sequence) -> None:
+        """Take another fold on this runner's shapes: `state`'s (net,
+        optimizer, dropout generator) into `self.state`, and the fold's
+        test data `test` (tensors or arrays, in `self.test`'s order and
+        shapes) into `self.test`, in place: the graph replays the new fold
+        from the addresses it was captured on."""
+        copy_fold_state(self.state, state)
+        for dst, src in zip(self.test, test, strict=True):
+            dst.copy_(torch.as_tensor(src), non_blocking=True)
+
     def _warm_up_and_capture(self) -> None:
         """The eager warm-up epoch on the runner's stream (span
         `runner.warmup`, with its device time: `warmup_seconds`), then the
@@ -540,7 +587,7 @@ def _gather_run(net: DGCNNNet, optimizer, batch_fn: BatchFn, test_order2d: np.nd
         epoch_body(net, optimizer, batch_fn, order, test, dropout_gen, rows, **fwd_kw)
 
     return FusedRun(body, order, rows, np.ones(steps, dtype=bool), [dropout_gen],
-                    graphs)
+                    graphs, state=(net, optimizer, dropout_gen), test=[test])
 
 
 def make_dense_gather_run(net: DGCNNNet, optimizer, data: DenseDataset,
@@ -746,4 +793,5 @@ def make_coo_run(net: DGCNNNet, optimizer, source: Callable[[int], GraphBatch],
             dst.copy_(src, non_blocking=True)
 
     return FusedRun(body, order, rows, np.ones(steps, dtype=bool), [dropout_gen],
-                    graphs, stage=stage)
+                    graphs, stage=stage, state=(net, optimizer, dropout_gen),
+                    test=batch_arrays(test))

@@ -129,7 +129,9 @@ def init_adam_state(optimizer: torch.optim.Adam) -> None:
             st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
 
-def _adam_tensors(optimizer: torch.optim.Adam) -> Dict[str, list]:
+def adam_tensors(optimizer: torch.optim.Adam) -> Dict[str, list]:
+    """Adam's live step counts and moments, a list per key in the
+    optimizer's parameter order (the state must exist: `init_adam_state`)."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
     return {key: [optimizer.state[p][key] for p in params]
             for key in ("step", "exp_avg", "exp_avg_sq")}
@@ -141,7 +143,7 @@ def adam_state(optimizer: torch.optim.Adam) -> Dict[str, list]:
     `capturable` Adam keeps its step counts on the card."""
     init_adam_state(optimizer)
     return {key: [t.detach().cpu() for t in ts]
-            for key, ts in _adam_tensors(optimizer).items()}
+            for key, ts in adam_tensors(optimizer).items()}
 
 
 def load_into(obj: Any, saved: Any) -> None:
@@ -159,6 +161,6 @@ def load_into(obj: Any, saved: Any) -> None:
         _restore_tensors(obj.state_dict(), saved, "params")
     elif isinstance(obj, torch.optim.Adam):
         init_adam_state(obj)
-        _restore_tensors(_adam_tensors(obj), saved, "opt_state")
+        _restore_tensors(adam_tensors(obj), saved, "opt_state")
     else:
         _restore_tensors(obj.state_tensors(), saved, type(obj).__name__)

@@ -432,8 +432,8 @@ def _stand_in_card(monkeypatch):
 def test_one_runner_per_budget_captured_once(monkeypatch, which):
     """On a stand-in card: a chunk at an unchanged budget replays the
     runner's graph; a chunk that grows the budget drops the old runner and
-    its graph, then warms up and captures once; `end_fold` drops the
-    runner."""
+    its graph, then warms up and captures once; `end_fold` keeps the
+    runner for the next fold, and `drop` releases it."""
     made = _stand_in_card(monkeypatch)
     gs, engine = _engine(which)
     train, test = _small_test_fold(engine)
@@ -452,8 +452,11 @@ def test_one_runner_per_budget_captured_once(monkeypatch, which):
     del first
     made.pop(0)
     assert gone() is None  # nothing but this test held the old graph
-    assert engine.runners.runner.capture_seconds is not None
+    grown, key = engine.runners.runner, engine.runners.key
+    assert grown.capture_seconds is not None
     engine.end_fold()
+    assert engine.runners.runner is grown and engine.runners.key == key
+    engine.runners.drop()
     assert engine.runners.runner is None and engine.runners.key is None
 
 

@@ -210,8 +210,9 @@ def test_a_grown_slot_tuple_gets_a_new_runner(monkeypatch):
     """On a stand-in card, from floors of 4: two chunks whose batches hold
     at most 4 graphs of a class c share a runner (one capture, then
     replays); a chunk whose first batch holds 8 of class c grows its slots
-    to 8, drops the old runner and captures once more; `end_fold` drops
-    the runner."""
+    to 8, drops the old runner and captures once more; `end_fold` keeps
+    the grown runner, and the next fold at its key replays it from its
+    first epoch, with no capture."""
     from dgcnn_tpu_torch.batching.multi_dense import class_batch_counts
 
     made = _stand_in_card(monkeypatch)
@@ -244,9 +245,14 @@ def test_a_grown_slot_tuple_gets_a_new_runner(monkeypatch):
     assert engine.runners.key != key and engine.runners.runner is not first
     assert engine.runners.key[1][c] == 8
     assert len(made) == 2 and made[1].replays == 0
-    assert engine.runners.runner.capture_seconds is not None
+    grown, key = engine.runners.runner, engine.runners.key
+    assert grown.capture_seconds is not None
     engine.end_fold()
-    assert engine.runners.runner is None and engine.runners.key is None
+    assert engine.runners.runner is grown and engine.runners.key == key
+    engine.begin_fold(train, test)
+    engine.run_epochs(*_state(gs), np.stack([crowded]))
+    assert engine.runners.runner is grown and len(made) == 2 and made[1].replays == 1
+    assert (engine.runners.builds, engine.runners.reuses) == (2, 1)
 
 
 def test_multi_epoch_body_makes_no_host_sync():

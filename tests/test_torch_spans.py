@@ -23,7 +23,7 @@ import torch_mesh_worker
 import torch_threads  # noqa: F401  (torch on one CPU thread)
 
 SMALL = dict(hidden_dims=(8, 8, 1), conv1d_channels=(4, 8), dense_dim=16)
-SWITCH = ["fold.end", "fold.begin", "engine.orders", "runner.build", "runner.stage"]
+SWITCH = ["fold.end", "fold.begin", "engine.orders", "runner.adopt", "runner.stage"]
 
 
 def _cfg(**kw):
@@ -105,9 +105,10 @@ def test_off_the_recorder_records_nothing_and_opens_no_range(gs, monkeypatch):
 
 def test_a_fold_switch_records_its_spans_in_order(gs):
     """On, the dense sequential engine's switch records fold.end →
-    fold.begin → engine.orders → runner.build → runner.stage, all at the
+    fold.begin → engine.orders → runner.adopt → runner.stage, all at the
     top level and of the chunk that follows fold 0's, each span's seq its
-    count among its name's, and the chunks' orders with their epochs."""
+    count among its name's, and the chunks' orders with their epochs: the
+    second fold keeps the first fold's runner, built once."""
     cfg = _cfg()
     SPANS.start()
     engine = cv.make_engine(cfg, gs, torch.device("cpu"), "dense")
@@ -119,13 +120,14 @@ def test_a_fold_switch_records_its_spans_in_order(gs):
     assert all(r["parent"] is None and r["rank"] == 0 for r in records)
     switch = records[5:]
     assert {r["chunk"] for r in records[:5]} == {0} and {r["chunk"] for r in switch} == {1}
-    assert [r["seq"] for r in switch] == [0, 1, 1, 1, 1]
+    assert [r["seq"] for r in switch] == [0, 1, 1, 0, 1]
     starts = [r["start_ns"] for r in records]
     assert starts == sorted(starts) and all(r["end_ns"] >= r["start_ns"] for r in records)
     assert records[0]["attrs"] == {"layout": "dense"}
     assert [r["attrs"] for r in records if r["name"] == "engine.orders"] == [
         {"epochs": 2}, {"epochs": 2}]
-    assert records[8]["attrs"]["key"] == "2"  # the second fold's runner
+    assert records[3]["attrs"]["key"] == "((3, 2),)"  # train and test steps
+    assert records[8]["attrs"] == {"kept": True}  # the first fold's runner, kept
     assert "allocated" not in records[5]["attrs"]  # no card: no allocator count
 
 
@@ -240,10 +242,10 @@ def test_the_run_loops_epoch_events_carry_warm_up_and_capture_seconds(gs, monkey
                epochs_dir=str(tmp_path / "epochs"))
     with _stand_in_card(monkeypatch) as made:
         cv.run_cross_validation(cfg, dataset=gs, device="cpu")
-    assert len(made) == 2  # a runner a fold
+    assert len(made) == 1  # one runner a run: the second fold keeps it
     with open(tmp_path / "statistics" / "MUTAG_events.jsonl") as f:
         epochs = [e for e in map(json.loads, f) if e["kind"] == "epoch"]
-    assert [e["runner_built"] for e in epochs] == [True, True, False] * 2
+    assert [e["runner_built"] for e in epochs] == [True, True, False] + [False] * 3
     for e in epochs:
         for key in ("warmup_seconds", "capture_seconds"):
             assert (e[key] is not None) == e["runner_built"], (key, e)
@@ -284,7 +286,8 @@ def test_a_profiler_alone_names_the_spans_without_recording(gs):
     assert SPANS.records == [] and SPANS.span("runner.replay") is NULL_SPAN
     names = [n for n, _ in _annotations(prof)]
     assert names.count("fold.begin") == 2 and names.count("runner.stage") == 2
-    assert names.count("fold.end") == 1 and names.count("runner.build") == 2
+    assert names.count("fold.end") == 1 and names.count("runner.build") == 1
+    assert names.count("runner.adopt") == 1
 
 
 def test_a_span_that_raises_closes_and_tail_spans_take_the_last_chunk():
