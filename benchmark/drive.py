@@ -1,6 +1,8 @@
 """The program side of a run: the calls `run_cross_validation` makes,
 driven chunk by chunk from the benchmark's own inputs, with host-clock
-spans around them. The only module here that imports the program.
+spans around them. The family's program side
+(benchmark/program/<family>.py, through `family.of`) gives the Config's
+model fields, the model and the nets.
 
 Lockstep (`Lockstep`): `train/cv_vmap.py lockstep_chunk` on the layout's
 engine, then the runner's epochs; on a (D, 1) grid each rank runs its
@@ -27,24 +29,25 @@ import torch
 
 from dgcnn_tpu_torch.config import Config
 from dgcnn_tpu_torch.data.graphset import GraphSet
-from dgcnn_tpu_torch.models.dgcnn import DGCNNFoldsNet, DGCNNNet, stack_params
 from dgcnn_tpu_torch.train import cv
 from dgcnn_tpu_torch.train.cv_vmap import fold_block, gather_folds, lockstep_chunk
 from dgcnn_tpu_torch.train.loop import FoldAdam, make_optimizer
 
-from benchmark.inputs import Inputs, nest
+from benchmark import family
+from benchmark.inputs import Inputs
 
 MOMENTS = {"m": "exp_avg", "v": "exp_avg_sq"}  # Adam's names of its moments
 
 
 def program_config(cfg: dict, traffic: dict, seed: int) -> Config:
-    m, t = cfg["model"], cfg["train"]
+    """The program's Config: the model group through its family
+    (`config_fields`), the train and data groups, and the traffic's fold
+    schedule, layout and mesh."""
+    t = cfg["train"]
     return Config(
+        **family.of(cfg).program.config_fields(cfg["model"]),
         data_type=cfg["data"]["profile"], batch_size=t["batch_size"],
         num_epochs=t["num_epochs"], seed=int(seed), num_folds=t["num_folds"],
-        hidden_dims=tuple(m["hidden_dims"]), sort_pool_k=m["sort_pool_k"],
-        conv1d_channels=tuple(m["conv1d_channels"]), conv1d_kernel=m["conv1d_kernel"],
-        dense_dim=m["dense_dim"], dropout_rate=m["dropout_rate"],
         learning_rate=t["learning_rate"], adam_b1=t["adam_b1"], adam_b2=t["adam_b2"],
         adam_eps=t["adam_eps"], compute_dtype=t["dtype"],
         max_fused_epochs=t["max_fused_epochs"], cv_parallel=traffic["cv_parallel"],
@@ -71,10 +74,11 @@ class Program:
     def __init__(self, inp: Inputs, traffic: dict, device, grid=None):
         self.inp, self.device, self.grid = inp, torch.device(device), grid
         self.pcfg = program_config(inp.cfg, traffic, inp.seed)
+        self.family = family.of(inp.cfg).program
         cv.fp32_only()
         self.ds = graph_set(inp)
-        self.model = cv._model_from_config(self.pcfg, self.ds.num_features,
-                                           self.ds.num_classes)
+        self.model = self.family.model(self.pcfg, self.ds.num_features,
+                                       self.ds.num_classes)
         self.layout = cv.choose_layout(self.pcfg, self.ds)
         self.lockstep = cv.lockstep_engages(self.pcfg, self.ds, self.layout)
         self.engine = cv.make_engine(self.pcfg, self.ds, self.device, self.layout, True,
@@ -125,8 +129,8 @@ class Lockstep(_Driver):
         inp, pcfg, dev = self.inp, self.pcfg, prog.device
         self.num_folds = pcfg.num_folds
         self.own = fold_block(self.num_folds, prog.grid)
-        self.net_f = DGCNNFoldsNet(prog.model, stack_params(
-            [nest(inp.params[f]) for f in self.own])) if self.own else None
+        self.net_f = prog.family.folds_net(
+            prog.model, [inp.params[f] for f in self.own]) if self.own else None
         self.adam_f = FoldAdam(self.net_f, pcfg.learning_rate, pcfg.adam_b1,
                                pcfg.adam_b2, pcfg.adam_eps) if self.own else None
         self.gens = [torch.Generator(device=dev).manual_seed(inp.dropout_seeds[f])
@@ -195,8 +199,8 @@ class Sequential(_Driver):
         self.fold = f
         self.log.append((f, 0))
         self.engine.begin_fold(*inp.folds[f])
-        self.net = DGCNNNet(self.prog.model, nest({n: t.clone()
-                                                   for n, t in inp.params[f].items()}))
+        self.net = self.prog.family.net(self.prog.model,
+                                        {n: t.clone() for n, t in inp.params[f].items()})
         self.opt = make_optimizer(self.net, pcfg.learning_rate, pcfg.adam_b1,
                                   pcfg.adam_b2, pcfg.adam_eps)
         self.gen = torch.Generator(device=dev).manual_seed(inp.dropout_seeds[f])

@@ -1,9 +1,13 @@
 """One run of one cell on one rank: inputs from the seed, the program's
 set-up, the measured window, the traced stretch (`--trace 1`), then the
 reference and the comparison. Everything about a cell is found by name:
-the workload in BENCHMARK.json, `configs/<config>.json`,
+the workload in BENCHMARK.json, `configs/<config>.json` and its model
+family's reference and work modules (benchmark/family.py),
 `traffic/<traffic>.json`, `limits/<cell>.json` and, for `--trace 1`,
-`metrics/<metric>.py` for each per-layer metric the cell reports.
+`metrics/<metric>.py` for each per-layer metric the cell reports. The
+reference's dropout rows come from the map of the layout and fold
+schedule (sequential or lockstep) the program chose (`ROW_MAPS`: one for
+every engine `make_engine` builds on one card).
 
 A sequential cell checks `CHECK_FOLDS` further folds after the window
 (`drive.check_folds`) besides fold 1's set-up epochs."""
@@ -21,9 +25,8 @@ import numpy as np
 import torch
 import torch.distributed
 
-from benchmark import check, trace, work
-from benchmark.inputs import HERE, load_json, make_inputs
-from benchmark.reference.dgcnn import Graphs, evaluate, follow
+from benchmark import check, family, trace
+from benchmark.inputs import HERE, load_config, load_json, make_inputs
 from benchmark.reference.layout import DenseRows, MultiRows
 
 ROOT = os.path.dirname(HERE)
@@ -40,6 +43,12 @@ def workload(name: str) -> dict:
         if w["name"] == name:
             return w
     raise KeyError(f"no workload {name!r} in BENCHMARK.json")
+
+
+def cell_files(cell: str) -> tuple:
+    """(configuration, traffic) of a cell, by the names in its workload."""
+    w = workload(cell)
+    return load_config(w["config"]), load_json("traffic", w["traffic"] + ".json")
 
 
 def end_to_end_metrics(cell: str) -> list:
@@ -85,28 +94,51 @@ def _stop_on_rank0(device):
     return stop
 
 
-def _rows_for(prog, inp, fold: int, before=()):
-    """The reference's dropout-row map of fold `fold`'s set-up epochs, the
-    program having run the chunks `before` (`drive.Sequential.log`) ahead
-    of them: the multi-tile slot floors only grow over a run."""
-    pcfg, bs = prog.pcfg, prog.pcfg.batch_size
-    if prog.layout == "dense":
-        return DenseRows(bs, pcfg.graph_pad_multiple)
-    if prog.layout == "multi" and not prog.lockstep:
-        rows = MultiRows(np.diff(inp.graphs["node_ptr"]), bs, pcfg.multi_dense_min_tile,
-                         pcfg.seed)
-        rng = None
-        for f, k in before:
-            train, test = inp.folds[f]
-            if k == 0:
-                rng = inp.shuffle(f)
-                continue
-            rows.grow(*(train[rng.permutation(len(train))] for _ in range(k)), test)
-        for ids in inp.epoch_ids(fold, 3):
-            rows.start_chunk(ids, inp.folds[fold][1])
-        return rows
-    raise ValueError(f"no dropout-row map for layout {prog.layout!r} "
-                     f"({'lockstep' if prog.lockstep else 'sequential'})")
+def _slot_rows(pcfg, inp, su: dict, fold: int):
+    return DenseRows(pcfg.batch_size, pcfg.graph_pad_multiple)
+
+
+def _multi_rows(pcfg, inp, su: dict, fold: int):
+    """Folds one after another: the slot floors only grow over a run, so
+    the chunks `su["before"]` (`drive.Sequential.log`) ahead of the
+    fold's set-up epochs grow them first."""
+    rows = MultiRows(np.diff(inp.graphs["node_ptr"]), pcfg.batch_size,
+                     pcfg.multi_dense_min_tile, pcfg.seed)
+    rng = None
+    for f, k in su["before"]:
+        train, test = inp.folds[f]
+        if k == 0:
+            rng = inp.shuffle(f)
+            continue
+        rows.grow(*(train[rng.permutation(len(train))] for _ in range(k)), test)
+    for ids in inp.epoch_ids(fold, 3):
+        rows.start_chunk(ids, inp.folds[fold][1])
+    return rows
+
+
+def _multi_lockstep_rows(pcfg, inp, su: dict, fold: int):
+    """In lockstep each set-up chunk grows the floors over every fold's."""
+    rows = MultiRows(np.diff(inp.graphs["node_ptr"]), pcfg.batch_size,
+                     pcfg.multi_dense_min_tile, pcfg.seed)
+    epochs = [inp.epoch_ids(f, 3) for f in su["folds"]]
+    tests = [inp.folds[f][1] for f in su["folds"]]
+    for e in range(3):
+        rows.start_chunk(*(ids[e] for ids in epochs), *tests)
+    return rows
+
+
+# (layout, lockstep) → the dropout-row map of every engine make_engine
+# builds on one card (reference/layout.py); COO never runs in lockstep
+ROW_MAPS = {("dense", False): _slot_rows, ("dense", True): _slot_rows,
+            ("block", False): _slot_rows, ("block", True): _slot_rows,
+            ("coo", False): _slot_rows,
+            ("multi", False): _multi_rows, ("multi", True): _multi_lockstep_rows}
+
+
+def _rows_for(prog, inp, su: dict, fold: int):
+    """The reference's dropout-row map of fold `fold`'s set-up epochs in
+    `su` (`drive.set_up`'s or `drive.check_folds`')."""
+    return ROW_MAPS[prog.layout, prog.lockstep](prog.pcfg, inp, su, fold)
 
 
 def checked(sus: list):
@@ -117,7 +149,7 @@ def checked(sus: list):
 
 def rows_maps(prog, inp, sus: list) -> dict:
     """The dropout-row map of every checked fold, by (i, fold)."""
-    return {(i, f): _rows_for(prog, inp, f, sus[i]["before"]) for i, f in checked(sus)}
+    return {(i, f): _rows_for(prog, inp, sus[i], f) for i, f in checked(sus)}
 
 
 def reference_readings(inp, sus: list, rows_for: dict, device, **kw) -> dict:
@@ -125,16 +157,17 @@ def reference_readings(inp, sus: list, rows_for: dict, device, **kw) -> dict:
     fault), by "i:fold": its epoch-1 losses trained from the seed's
     weights, its evaluations of the program's weights after each set-up
     epoch, and the program's state against it (`check.state_gaps`)."""
-    g = Graphs(inp.graphs, device)
+    ref = family.of(inp.cfg).reference
+    g = ref.Graphs(inp.graphs, device)
     model, train = inp.cfg["model"], inp.cfg["train"]
     out = {}
     for i, f in checked(sus):
         su, test = sus[i], inp.folds[f][1]
-        traj = follow(g, model, train, inp.params[f], inp.epoch_ids(f, 1), test,
-                      inp.dropout_seeds[f], rows_for[i, f], **kw)
+        traj = ref.follow(g, model, train, inp.params[f], inp.epoch_ids(f, 1), test,
+                          inp.dropout_seeds[f], rows_for[i, f], **kw)
         out[f"{i}:{f}"] = {
             "train_loss": traj["train_loss"][0], "test_loss": traj["test_loss"][0],
-            "evals": [evaluate(g, model, p[f], test, train["batch_size"], **kw)
+            "evals": [ref.evaluate(g, model, p[f], test, train["batch_size"], **kw)
                       for p in su["p"]],
             **check.state_gaps(su["p0"][f], su["m1"][f], su["v1"][f], su["p"][0][f], traj)}
     return out
@@ -163,9 +196,7 @@ def run_rank(cell: str, seed: int, seconds: float, traced: bool, device, t_start
     from benchmark import drive
 
     device = torch.device(device)
-    w = workload(cell)
-    cfg = load_json("configs", w["config"] + ".json")
-    traffic = load_json("traffic", w["traffic"] + ".json")
+    cfg, traffic = cell_files(cell)
     limits = load_json("limits", cell + ".json")
     store = grid = None
     if world > 1:
@@ -193,7 +224,7 @@ def run_rank(cell: str, seed: int, seconds: float, traced: bool, device, t_start
         stretch, events, wall = trace.profiled(lambda: drive.stretch(prog), device)
         done = {}
         for f, k in stretch:
-            fe = work.fold_epoch(inp.graphs, cfg["model"], *inp.folds[f])
+            fe = family.of(cfg).work.fold_epoch(inp.graphs, cfg["model"], *inp.folds[f])
             for key, v in fe.items():
                 done[key] = done.get(key, 0.0) + k * v
         mine["trace"] = {**trace.summarize(events, wall), "work": done,
@@ -217,6 +248,7 @@ def run_rank(cell: str, seed: int, seconds: float, traced: bool, device, t_start
     left_out = sum(r["left_out"] for r in mine["ref"].values())
     print(f"rank {rank} ({layout}, {'lockstep' if lockstep else 'sequential'}"
           f"): " + " ".join(f"{k} {v:.2f}" for k, v in phases.items())
+          + f"; runners built in the window {sum(s['built'] for s in win['spans'])}"
           + f"; leaves left out {left_out}", file=sys.stderr, flush=True)
     if rank != 0:
         store.set(f"rank{rank}", json.dumps(mine))

@@ -7,13 +7,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 import os
 
 import numpy as np
 import torch
 
-from benchmark import synthetic
+from benchmark import family, synthetic
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -23,38 +22,12 @@ def load_json(*parts) -> dict:
         return json.load(f)
 
 
-def leaf_shapes(model: dict, num_features: int, num_classes: int) -> list:
-    """(name, shape, init bound) of every weight in the published layout:
-    GCN weights [in, out] (Glorot bound, zero biases), conv5 one matmul a
-    sort-pooled row [Σdims, c5], conv6 [width, c5, c6], the readout
-    flattened time-major into lin1 [T·c6, dense], lin2 [dense, C]; the
-    others torch's default U(±1/√fan_in). A bound of 0 is a zero leaf."""
-    out, d_in = [], num_features
-    for i, d in enumerate(model["hidden_dims"]):
-        out += [(f"gcn.{i}.w", (d_in, d), math.sqrt(6.0 / (d_in + d))),
-                (f"gcn.{i}.b", (d,), 0.0)]
-        d_in = d
-    cat = sum(model["hidden_dims"])
-    c5, c6 = model["conv1d_channels"]
-    w = model["conv1d_kernel"]
-    flat = (model["sort_pool_k"] // 2 - w + 1) * c6
-    dense = model["dense_dim"]
-    for name, shape, fan in (("conv5.w", (cat, c5), cat), ("conv5.b", (c5,), cat),
-                             ("conv6.w", (w, c5, c6), c5 * w), ("conv6.b", (c6,), c5 * w),
-                             ("lin1.w", (flat, dense), flat), ("lin1.b", (dense,), flat),
-                             ("lin2.w", (dense, num_classes), dense),
-                             ("lin2.b", (num_classes,), dense)):
-        out.append((name, shape, 1.0 / math.sqrt(fan)))
-    return out
-
-
-def nest(flat: dict) -> dict:
-    """{"gcn.0.w": t, ...} → the nested {"gcn": [{"w", "b"}], "conv5": {...}}."""
-    gcn = sorted({int(k.split(".")[1]) for k in flat if k.startswith("gcn.")})
-    out = {"gcn": [{"w": flat[f"gcn.{i}.w"], "b": flat[f"gcn.{i}.b"]} for i in gcn]}
-    for name in ("conv5", "conv6", "lin1", "lin2"):
-        out[name] = {"w": flat[f"{name}.w"], "b": flat[f"{name}.b"]}
-    return out
+def load_config(name: str) -> dict:
+    """`configs/<name>.json`, its model family's modules found
+    (`family.of`: a ValueError names a missing one)."""
+    cfg = load_json("configs", name + ".json")
+    family.of(cfg)
+    return cfg
 
 
 def stratified_folds(y: np.ndarray, k: int, seed: int) -> list:
@@ -102,7 +75,8 @@ def make_inputs(cfg: dict, seed: int, device, num_graphs: int = 0) -> Inputs:
     graphs = synthetic.generate(data, seed, data["profile_id"])
     tr = cfg["train"]
     folds = stratified_folds(graphs["y"], tr["num_folds"], seed)
-    shapes = leaf_shapes(cfg["model"], graphs["x"].shape[1], graphs["num_classes"])
+    shapes = family.of(cfg).reference.leaf_shapes(cfg["model"], graphs["x"].shape[1],
+                                                  graphs["num_classes"])
     sizes = [int(np.prod(s)) for _, s, _ in shapes]
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(stream_seed(seed, 5))

@@ -22,14 +22,44 @@ the batch's own largest graph. Dropout draws one U[0, 1) row of 128 a
 graph slot from a generator seeded as the program's, `rows_for` saying
 which row belongs to which graph and how many rows a step draws (the
 program draws one a slot of its padded layout: reference/layout.py).
+
+This module is the `dgcnn` family's reference (benchmark/family.py): it
+also gives the published weight layout (`leaf_shapes`), from which
+benchmark/inputs.py draws every fold's weights.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 
 import numpy as np
 import torch
+
+
+def leaf_shapes(model: dict, num_features: int, num_classes: int) -> list:
+    """(name, shape, init bound) of every weight in the published layout:
+    GCN weights [in, out] (Glorot bound, zero biases), conv5 one matmul a
+    sort-pooled row [Σdims, c5], conv6 [width, c5, c6], the readout
+    flattened time-major into lin1 [T·c6, dense], lin2 [dense, C]; the
+    others torch's default U(±1/√fan_in). A bound of 0 is a zero leaf."""
+    out, d_in = [], num_features
+    for i, d in enumerate(model["hidden_dims"]):
+        out += [(f"gcn.{i}.w", (d_in, d), math.sqrt(6.0 / (d_in + d))),
+                (f"gcn.{i}.b", (d,), 0.0)]
+        d_in = d
+    cat = sum(model["hidden_dims"])
+    c5, c6 = model["conv1d_channels"]
+    w = model["conv1d_kernel"]
+    flat = (model["sort_pool_k"] // 2 - w + 1) * c6
+    dense = model["dense_dim"]
+    for name, shape, fan in (("conv5.w", (cat, c5), cat), ("conv5.b", (c5,), cat),
+                             ("conv6.w", (w, c5, c6), c5 * w), ("conv6.b", (c6,), c5 * w),
+                             ("lin1.w", (flat, dense), flat), ("lin1.b", (dense,), flat),
+                             ("lin2.w", (dense, num_classes), dense),
+                             ("lin2.b", (num_classes,), dense)):
+        out.append((name, shape, 1.0 / math.sqrt(fan)))
+    return out
 
 
 class Graphs:

@@ -3,19 +3,28 @@ batch, worked out again from the graphs and the program's published
 layout rules, never read from the program.
 
 The program draws one row of `dense_dim` uniforms for every graph slot
-of a step, padded slots included, and a graph keeps the row of its slot:
+of a step, padded slots included, and a graph keeps the row of its slot.
+In fold-lockstep each fold draws its own step's rows from its own
+generator, and draws nothing on a step where it has no graph, so that
+its rows are those it would draw alone. The slots of a step, by the
+engine `make_engine` builds on one card:
 
-  * dense layout: `round_up(batch, graph_pad_multiple)` slots, the batch's
+  * dense, block-sparse and COO layouts (`DenseRows`), sequential or in
+    lockstep, the COO layout's device-assembled and host-packed engines
+    alike: `round_up(batch, graph_pad_multiple)` slots, the batch's
     graphs in order, then padding;
-  * multi-tile dense layout: the graphs split by tile class (the smallest
-    tile of the ×2 ladder from `min_tile` that holds the graph; the top
-    tile is the largest graph rounded up to 8), class c's graphs in batch
-    order in its S_c slots, the classes side by side. The slot counts
-    start at 4 a class, grow over 40 permutations of all graphs (batches
-    of `batch`) from `default_rng(SeedSequence([seed, 0]))`, round up to 4
-    and are capped at `round_up(batch, 4)`; then each chunk grows them to
-    its batches' and the fold's test batches' largest class counts,
-    rounded up to 4, and never shrinks them.
+  * multi-tile dense layout (`MultiRows`): the graphs split by tile class
+    (the smallest tile of the ×2 ladder from `min_tile` that holds the
+    graph; the top tile is the largest graph rounded up to 8), class c's
+    graphs in batch order in its S_c slots, the classes side by side.
+    The slot counts start at 4 a class, grow over 40 permutations of all
+    graphs (batches of `batch`) from `default_rng(SeedSequence([seed,
+    0]))`, round up to 4 and are capped at `round_up(batch, 4)`; then
+    each chunk grows them to its batches' and the test batches' largest
+    class counts, rounded up to 4, and never shrinks them. Folds one
+    after another: the chunk's own fold's batches and test graphs, over
+    every chunk run before in the process; in lockstep: every fold's
+    batches of the chunk and every fold's test graphs.
 """
 
 from __future__ import annotations

@@ -61,7 +61,8 @@ def planted(fault: str):
 
         patch(drive, "gather_folds", left_out)
     elif fault == "stale_test":
-        for engine in (cv.DenseEngine, cv.MultiDenseEngine):
+        for engine in (cv.DenseEngine, cv.MultiDenseEngine, cv.BlockSparseEngine,
+                       cv.DeviceCooEngine, cv.CooEngine):
             def begin(self, train_idx, test_idx, _begin=engine.begin_fold):
                 self.__dict__.setdefault("first_test", test_idx)
                 _begin(self, train_idx, self.first_test)
@@ -81,33 +82,52 @@ def planted(fault: str):
 # on the multi-tile layout
 TRAFFIC = {"collab-folds": {"cv_parallel": "sequential", "layout": "multi",
                             "mesh": [1, 1]}}
+# D&D's graphs on the CPU: a shorter protocol, so that the window's chunks
+# and a sequential fold's epochs stay few (the set-up epochs checked are
+# the same three one-epoch chunks)
+TRAIN = {"dgcnn-dd": {"num_epochs": 6, "max_fused_epochs": 2}}
+# and fewer of them: the reference pads a batch to its largest graph, and
+# D&D's largest at N_GRAPHS (2,685 nodes) takes GBs of the CPU's memory
+GRAPHS = {"dgcnn-dd": 120}
 
 
 @contextlib.contextmanager
-def traffic_of(cell: str):
+def traffic_of(cell: str, traffic=None):
+    """The cell's files as the harness loads them, with `traffic` (else
+    `TRAFFIC[cell]`, where there is one) in place of the cell's traffic
+    and its configuration's protocol cut by `TRAIN`."""
     from benchmark import harness
 
-    load = harness.load_json
+    load, load_config = harness.load_json, harness.load_config
     w = harness.workload(cell)
+    traffic = traffic or TRAFFIC.get(cell)
 
     def load_json(*parts):
-        if cell in TRAFFIC and parts == ("traffic", w["traffic"] + ".json"):
-            return dict(TRAFFIC[cell])
+        if traffic and parts == ("traffic", w["traffic"] + ".json"):
+            return dict(traffic)
         return load(*parts)
 
-    harness.load_json = load_json
+    def cut(name):
+        cfg = load_config(name)
+        return {**cfg, "train": {**cfg["train"], **TRAIN.get(name, {})}}
+
+    harness.load_json, harness.load_config = load_json, cut
     try:
         yield
     finally:
-        harness.load_json = load
+        harness.load_json, harness.load_config = load, load_config
 
 
 def run(cell: str, fault: str, seed: int = 31, rank: int = 0, world: int = 1,
-        store: str = "", num_graphs: int = N_GRAPHS) -> dict:
-    """One run at `num_graphs` graphs (0: the cell's own dataset)."""
+        store: str = "", num_graphs=None, traffic=None) -> dict:
+    """One run at `num_graphs` graphs (0: the cell's own dataset; None:
+    `GRAPHS` of its configuration, else N_GRAPHS), on `traffic` where
+    given (`traffic_of`)."""
     from benchmark import harness
 
-    with planted(fault), traffic_of(cell):
+    if num_graphs is None:
+        num_graphs = GRAPHS.get(harness.workload(cell)["config"], N_GRAPHS)
+    with planted(fault), traffic_of(cell, traffic):
         return harness.run_rank(cell, seed, 0.2, False, "cpu", time.time(), rank, world,
                                 store, num_graphs=num_graphs)
 

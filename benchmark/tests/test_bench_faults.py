@@ -15,6 +15,8 @@ ONE_CARD = [("nci1-lockstep", f) for f in ("none", "unchanged", "half", "train_h
 ONE_CARD += [(c, f) for c in ("nci1-folds", "collab-folds")
              for f in ("none", "unchanged", "half", "answer", "stale_test")]
 ONE_CARD += [("collab-folds", "train_half")]
+ONE_CARD += [("dd-coo", f) for f in ("none", "unchanged", "half", "train_half", "answer",
+                                     "stale_test")]
 
 
 @pytest.mark.parametrize("cell,fault", ONE_CARD)

@@ -93,6 +93,58 @@ def test_metrics_find_their_readers(bench):
         assert set(m.get("workloads", cells)) <= cells
 
 
+def test_every_per_layer_metric_lists_its_cells(bench):
+    """A metric without a list would have to be reported by every cell,
+    those later PRs add too."""
+    for m in bench["per_layer"]:
+        assert m.get("workloads"), m["name"]
+
+
+def test_every_config_finds_its_family(bench):
+    from benchmark import family
+    from benchmark.inputs import load_config
+
+    for c in bench["configs"]:
+        fam = family.of(load_config(c["name"]))
+        for name in ("Graphs", "follow", "evaluate", "FAULTS", "leaf_shapes"):
+            assert hasattr(fam.reference, name), (c["name"], name)
+        assert hasattr(fam.work, "fold_epoch"), c["name"]
+        for name in ("config_fields", "model", "net", "folds_net"):
+            assert hasattr(fam.program, name), (c["name"], name)
+
+
+# a cell's `why` names its layout and fold schedule in these words, where
+# it does
+LAYOUT_WORDS = {"multi-tile": "multi", "block": "block", "coo": "coo", "dense": "dense"}
+
+
+def _named(why: str):
+    """(layout, lockstep) as the words of `why` name them, None where not."""
+    text = why.lower()
+    layout = next((v for k, v in LAYOUT_WORDS.items() if k in text), None)
+    lockstep = (False if "one after another" in text
+                else True if "lockstep" in text else None)
+    return layout, lockstep
+
+
+def test_every_cell_runs_the_layout_its_why_names(bench):
+    """At the cell's own size the traffic resolves, as the program decides
+    it, to the layout and fold schedule the cell's `why` names."""
+    from dgcnn_tpu_torch.train import cv
+
+    from benchmark import drive, harness
+    from benchmark.inputs import make_inputs
+
+    for w in bench["workloads"]:
+        cfg, traffic = harness.cell_files(w["name"])
+        inp = make_inputs(cfg, 2147483659, "cpu")
+        pcfg, ds = drive.program_config(cfg, traffic, inp.seed), drive.graph_set(inp)
+        layout = cv.choose_layout(pcfg, ds)
+        got = (layout, cv.lockstep_engages(pcfg, ds, layout))
+        for want, have in zip(_named(w["why"]), got):
+            assert want is None or want == have, (w["name"], got)
+
+
 def test_limits_name_known_numbers(bench):
     from benchmark.check import NAMES
 

@@ -32,12 +32,13 @@ def test_unknown_cell_refused():
 
 
 @pytest.mark.card
-def test_card_small_run_correct(card):
+@pytest.mark.parametrize("cell,num_graphs", [("nci1-lockstep", 400), ("dd-coo", 300)])
+def test_card_small_run_correct(card, cell, num_graphs):
     from benchmark import control, harness
 
-    r = control.readings("nci1-lockstep", 12345, True, card, num_graphs=400)
-    limits = json.load(open(os.path.join(ROOT, "benchmark", "limits", "nci1-lockstep.json")))
+    r = control.readings(cell, 12345, True, card, num_graphs=num_graphs)
+    limits = json.load(open(os.path.join(ROOT, "benchmark", "limits", cell + ".json")))
     assert all(r["program"][k] <= v for k, v in limits.items()), r["program"]
     # the control, the reference with TF32 on in the program's place, fails
     assert any(r["tf32"][k] > v for k, v in limits.items()), r["tf32"]
-    assert harness.workload("nci1-lockstep")["chips"] == 1
+    assert harness.workload(cell)["chips"] == 1

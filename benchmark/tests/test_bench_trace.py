@@ -61,3 +61,17 @@ def test_roofline_reader_returns_nothing_without_its_kernels():
               "work": {"trunk_ops": 1e6, "trunk_bytes": 1e6, "model_flops": 1e6}}]
     got = read_metric("kernels.trunk_roofline", {"ranks": ranks})
     assert got == pytest.approx(100 * max(1e6 / 67e12, 1e6 / 3.35e12) / 20e-6)
+
+
+@pytest.mark.parametrize("metric,kernel", [
+    ("kernels.spmm_roofline", "void (anonymous namespace)::rows_group<8>(int const*)")])
+def test_propagation_rooflines_read_their_kernels(metric, kernel):
+    from benchmark.harness import read_metric
+
+    work = {"prop_ops": 1e6, "prop_bytes": 1e6}
+    ranks = [{**trace.summarize(EVENTS, 1e-4), "work": work}]
+    assert read_metric(metric, {"ranks": ranks}) is None  # the trunk's kernels only
+    events = EVENTS + [(kernel, "kernel", 60.0, 70.0)]
+    ranks = [{**trace.summarize(events, 1e-4), "work": work}]
+    got = read_metric(metric, {"ranks": ranks})
+    assert got == pytest.approx(100 * max(1e6 / 67e12, 1e6 / 3.35e12) / 10e-6)

@@ -1,4 +1,4 @@
-"""The work counts of benchmark/work.py on hand-counted graphs, and their
+"""The work counts of benchmark/work on hand-counted graphs, and their
 independence from the layout: graph order, batch split and the tile the
 largest graph would set move nothing."""
 
@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 from benchmark import work
+from benchmark.work import dgcnn as dgcnn_work
 
 
 def graphs(sizes_edges, f_in=2, classes=2):
@@ -38,6 +39,14 @@ def test_triangle_by_hand():
     assert ops_b[0] == 324 and bytes_b[0] == 88 + 24 + 120
 
 
+def test_propagation_by_hand():
+    # layer 1: 2·(6+3)·4 = 72; layer 2: 2·9·1 = 18
+    ops, nbytes = work.propagation(np.array([3.0]), np.array([6.0]), (4, 1))
+    assert ops[0] == 90
+    # per layer CSR (9·8 + 4·4) and features in and out (2·4·3·F)
+    assert nbytes[0] == (88 + 96) + (88 + 24)
+
+
 def test_pair_by_hand():
     ops, nbytes = work.trunk_forward(np.array([2.0]), np.array([2.0]), 1, (1,))
     assert ops[0] == 2 * 4 * 1 + 2 * 2 * 1 * 1
@@ -47,7 +56,7 @@ def test_pair_by_hand():
 def test_readout_by_hand():
     model = {"sort_pool_k": 30, "hidden_dims": [32, 32, 32, 1], "conv1d_channels": [16, 32],
              "conv1d_kernel": 5, "dense_dim": 128}
-    assert work.readout_flops(model, 2) == (2 * 30 * 97 * 16 + 2 * 11 * 5 * 16 * 32
+    assert dgcnn_work.readout_flops(model, 2) == (2 * 30 * 97 * 16 + 2 * 11 * 5 * 16 * 32
                                             + 2 * 11 * 32 * 128 + 2 * 128 * 2)
 
 
@@ -57,12 +66,14 @@ MODEL = {"sort_pool_k": 4, "hidden_dims": [4, 1], "conv1d_channels": [2, 2],
 
 def test_fold_epoch_counts_passes():
     g = graphs([TRIANGLE, PAIR_WITH_LOOP])
-    w = work.fold_epoch(g, MODEL, [0], [1])
+    w = dgcnn_work.fold_epoch(g, MODEL, [0], [1])
     fo, _ = work.trunk_forward(*work.graph_sizes(g), 2, (4, 1))
     bo, _ = work.trunk_backward(*work.graph_sizes(g), 2, (4, 1))
-    ro = work.readout_flops(MODEL, 2)
+    ro = dgcnn_work.readout_flops(MODEL, 2)
     assert w["trunk_ops"] == fo[0] + bo[0] + fo[1]
     assert w["model_flops"] == 3 * (fo[0] + ro) + fo[1] + ro
+    po, pb = work.propagation(*work.graph_sizes(g), (4, 1))
+    assert w["prop_ops"] == 2 * po[0] + po[1] and w["prop_bytes"] == 2 * pb[0] + pb[1]
 
 
 @pytest.mark.parametrize("order", ["shuffled", "padded_by_a_large_graph"])
@@ -71,10 +82,10 @@ def test_layout_does_not_move_the_count(order):
     base = [TRIANGLE, PAIR_WITH_LOOP] * 5
     g = graphs(base)
     train, test = np.arange(0, 8), np.arange(8, 10)
-    want = work.fold_epoch(g, MODEL, train, test)
+    want = dgcnn_work.fold_epoch(g, MODEL, train, test)
     if order == "shuffled":  # another epoch order and batch split
-        got = work.fold_epoch(g, MODEL, rng.permutation(train), test[::-1])
+        got = dgcnn_work.fold_epoch(g, MODEL, rng.permutation(train), test[::-1])
     else:  # a larger graph in the dataset sets a larger tile for every batch
         big = (40, [(i, i + 1) for i in range(39)] + [(i + 1, i) for i in range(39)])
-        got = work.fold_epoch(graphs(base + [big]), MODEL, train, test)
+        got = dgcnn_work.fold_epoch(graphs(base + [big]), MODEL, train, test)
     assert got == want

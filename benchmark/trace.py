@@ -102,3 +102,24 @@ def summarize(events, wall_s: float, top: int = 10) -> dict:
 def attributed(kernels: dict, names) -> float:
     """Seconds of the kernels whose name holds one of `names`."""
     return sum(v[1] for n, v in kernels.items() if any(k in n for k in names))
+
+
+def names_beside(path: str) -> list:
+    """The kernel names a roofline reader attributes to its kernels: one a
+    line of the `.names` file at `path`, `#` lines left out."""
+    with open(path) as f:
+        return [ln.strip() for ln in f if ln.strip() and not ln.startswith("#")]
+
+
+def roofline_pct(ranks: list, names, ops_key: str, bytes_key: str):
+    """The least time of the work `ranks[i]["work"][ops_key, bytes_key]`
+    (benchmark/work) over the device time of the kernels named `names`,
+    in %, over the ranks; None where no such kernel ran."""
+    from benchmark.work import least_seconds
+
+    ranks = [r for r in ranks if r]
+    seconds = sum(attributed(r["kernels"], names) for r in ranks)
+    if not seconds:
+        return None
+    least = sum(least_seconds(r["work"][ops_key], r["work"][bytes_key]) for r in ranks)
+    return 100.0 * least / seconds

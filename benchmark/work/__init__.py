@@ -1,6 +1,9 @@
 """The work a run's graphs need, counted from the graphs and the published
 model alone, the same whatever kernel or layout computes it: padding,
-recomputation and the layout's own tables are never counted.
+recomputation and the layout's own tables are never counted. This module
+holds the peaks and the GCN counts every family shares; a family's whole
+count is `benchmark/work/<family>.py` (`fold_epoch`), found through
+`benchmark/family.py`.
 
 Peaks: one NVIDIA H100 SXM (NVIDIA's data sheet, dense rates): 67 TFLOP/s
 in float32 outside the tensor cores and 3.35 TB/s of HBM. Both assume
@@ -22,10 +25,16 @@ The weights (about 17 KB a call) are left out of the bytes. The trunk's
 least time is the larger of its operations at the fp32 peak and its
 bytes at the HBM rate, over all the passes counted together.
 
-Model FLOPs, per graph forward: the trunk's operations, conv5 (one 97 →
-16 product a sort-pooled row, k rows), conv6 (width 5, 16 → 32, k/2 − 4
-positions), lin1 and lin2. A training pass counts three times its
-forward, an evaluation pass once."""
+GCN propagation alone (Â · HW, what the block and SpMM kernels compute),
+per graph and per layer of output width F, in each direction (the
+backward pass propagates the gradient of HW once, through Âᵀ):
+
+    operations          2·(E + N)·F
+    bytes               the adjacency as CSR ((E + N)·8 + (N + 1)·4),
+                        features in (4·N·F) and out (4·N·F)
+
+summed over the layers. No 128×128 block fill and no padded slot is
+counted."""
 
 from __future__ import annotations
 
@@ -61,28 +70,14 @@ def trunk_backward(n, e, f_in: int, dims) -> tuple:
     return 2.0 * ops, adj + 4.0 * n * f_in + 2 * 4.0 * n * sum(dims)
 
 
-def readout_flops(model: dict, num_classes: int) -> float:
-    k, dims = model["sort_pool_k"], model["hidden_dims"]
-    c5, c6 = model["conv1d_channels"]
-    w, dense = model["conv1d_kernel"], model["dense_dim"]
-    t6 = k // 2 - w + 1
-    return (2.0 * k * sum(dims) * c5 + 2.0 * t6 * w * c5 * c6
-            + 2.0 * t6 * c6 * dense + 2.0 * dense * num_classes)
-
-
-def fold_epoch(graphs: dict, model: dict, train_ids, test_ids) -> dict:
-    """One fold-epoch's work: every training graph once forward and
-    backward, every test graph once forward."""
-    n, e = graph_sizes(graphs)
-    f_in, dims = graphs["x"].shape[1], model["hidden_dims"]
-    tr, te = np.asarray(train_ids), np.asarray(test_ids)
-    fo, fb = trunk_forward(n, e, f_in, dims)
-    bo, bb = trunk_backward(n, e, f_in, dims)
-    ro = readout_flops(model, int(graphs["num_classes"]))
-    return {"trunk_ops": float(fo[tr].sum() + bo[tr].sum() + fo[te].sum()),
-            "trunk_bytes": float(fb[tr].sum() + bb[tr].sum() + fb[te].sum()),
-            "model_flops": float(3.0 * (fo[tr].sum() + len(tr) * ro)
-                                 + fo[te].sum() + len(te) * ro)}
+def propagation(n, e, dims) -> tuple:
+    """(operations, bytes) of one direction's propagations over the layers
+    of output widths `dims`, per graph."""
+    ops = nbytes = 0.0
+    for d in dims:
+        ops = ops + 2.0 * (e + n) * d
+        nbytes = nbytes + (e + n) * 8.0 + (n + 1) * 4.0 + 2 * 4.0 * n * d
+    return ops, nbytes
 
 
 def least_seconds(ops: float, nbytes: float) -> float:
